@@ -1,0 +1,95 @@
+"""Build and load the hand-written CUDA kernels of ``getdist_tpu_torch/csrc``.
+
+The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, cached under
+``getdist_tpu_torch/_build`` by a hash of the sources, and loaded with
+``ctypes``.  Nothing here runs at import time: machines without ``nvcc``
+(and the CPU tests) import the package and never build.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "pair_hist_launch": (_I, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P, _P),
+    "dft_spectrum_launch": (_I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P),
+    "dft_conv_launch": (_I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+}
+
+
+@dataclass(frozen=True)
+class KernelLibrary:
+    lib: ctypes.CDLL
+    path: Path
+    build_seconds: float  # 0.0 when the library was already built
+
+
+def _nvcc():
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built from source at first use")
+    return found
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> KernelLibrary:
+    """The kernels' shared library, built on first call."""
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in sources) + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    path = BUILD_DIR / f"libgetdist_kernels_{digest[:16]}.so"
+    seconds = 0.0
+    if not path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, path)
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return KernelLibrary(lib, path, seconds)
+
+
+def call(name, device: torch.device, *args):
+    """Launch entry point ``name`` on ``device``'s current stream; raise on a
+    non-zero ``cudaError_t``."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    stream = torch.cuda.current_stream(index).cuda_stream
+    err = getattr(library().lib, name)(index, *args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} failed with cudaError_t {err}")
+
+
+def require_cuda(*tensors, dtype):
+    """Check that every tensor is a contiguous CUDA tensor of ``dtype``."""
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"expected a CUDA tensor, got one on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError("expected a contiguous tensor")
+        if t.dtype != dtype:
+            raise TypeError(f"expected {dtype}, got {t.dtype}")

@@ -1,0 +1,1072 @@
+"""Fused all-params / all-pairs KDE pipeline on a torch device.
+
+Counterpart of ``getdist_tpu/ops/batched.py``: all 1D and all-pairs 2D
+marginalized densities of a weighted chain, with the same stages, the same
+f32 arithmetic and the same output dicts. Plain tensor code is PyTorch
+(eager, batched over parameters and pairs where JAX used ``vmap``); the
+two Pallas kernels on this path are CUDA kernels:
+
+* pair histograms -> :func:`getdist_tpu_torch.ops.pair_hist.pair_histograms`
+* 2D convolutions -> :mod:`getdist_tpu_torch.ops.dft_conv`
+
+Only the main-path branches are ported: no hard limits, no periodic axes,
+no ``like_weights``, no ``exact_mult_bias``, no sharding. Those raise
+``NotImplementedError`` naming their ROADMAP item. The TPU workarounds are
+not carried over: there is no bf16 weight split (the histogram kernel
+accumulates int32 or f32 weights directly), no chunked inverse FFT, no
+x64 toggling and no VMEM/HBM sizing of histogram tiles.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from getdist_tpu_torch.ops.dft_conv import DEFAULT_PAD, dft_conv2d, dft_conv_spectrum
+from getdist_tpu_torch.ops.fft import dct
+from getdist_tpu_torch.ops.pair_hist import pair_histograms
+
+__all__ = [
+    "prepare_chain",
+    "all_1d_densities",
+    "all_2d_densities",
+    "triangle_densities",
+]
+
+_ROOT_PI = math.sqrt(math.pi)
+_PI_SQ = math.pi**2
+_ISJ_LMAX = 7
+# stage constants for the 1D ISJ recursion, j = lmax-1 .. 2
+_ISJ_CONSTS = tuple(
+    float((1 + 0.5 ** (j + 0.5)) / 3 * np.prod(np.arange(1, 2 * j, 2)) / (_ROOT_PI / np.sqrt(2.0)))
+    for j in range(_ISJ_LMAX - 1, 1, -1)
+)
+# 2D even-order kernel constants K[j] = phi^(2j)(0)
+_K_EVEN = tuple(
+    [1 / math.sqrt(2 * math.pi)]
+    + [float((-1) ** j * np.prod(np.arange(1, 2 * j, 2)) / np.sqrt(2 * np.pi)) for j in range(1, 5)]
+)
+# odd-order kernel constants phi-odd[j]
+_K_ODD = tuple([1.0] + [float(np.prod(np.arange(1, 2 * j, 2)) / 2.0 ** (j + 1) / _ROOT_PI) for j in range(1, 9)])
+_EVEN_LEVELS = {lv: [(i, lv - i) for i in range(lv + 1)] for lv in range(6)}
+_ODD_LEVELS = {
+    10: ((7, 3), (5, 5), (3, 7), (1, 9), (9, 1)),
+    8: ((5, 3), (3, 5), (1, 7), (7, 1)),
+    6: ((3, 3), (1, 5), (5, 1)),
+    4: ((1, 3), (3, 1)),
+}
+_QBINS = 1024  # histogram resolution for quantile estimation
+_W_LO, _W_HI = 1e-3, 0.3
+# a bisection whose bracket stops shrinking (NaN-free f32 can stall one ulp
+# above its tolerance) ends here instead of spinning; JAX would loop forever
+_MAX_BISECT = 200
+
+
+def _not_ported(what, item):
+    return NotImplementedError(f"{what} is not ported to getdist_tpu_torch yet (ROADMAP {item})")
+
+
+def _tensor(x, device, dtype=torch.float32):
+    """A numpy array, list or tensor as a contiguous tensor on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype).contiguous()
+    arr = np.ascontiguousarray(np.asarray(x), dtype=_NP_DTYPES[dtype])
+    if not arr.flags.writeable:  # torch.from_numpy shares memory and needs a writable buffer
+        arr = arr.copy()
+    return torch.from_numpy(arr).to(device)
+
+
+_NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64, torch.int64: np.int64, torch.int32: np.int32}
+
+
+def prepare_chain(samples, weights, device="cpu", dtype=torch.float32):
+    """Move a chain to ``device``: samples (N, P), weights (N,), as ``dtype``
+    (numpy chains are rounded to f32 on the host, as the JAX package does)."""
+    device = torch.device(device)
+    return _tensor(samples, device, dtype), _tensor(weights, device, dtype)
+
+
+# ---------------------------------------------------------------------------
+# histograms, ranges, N_eff
+# ---------------------------------------------------------------------------
+
+
+def _hist_rows(ix_rows, weights, nbins):
+    """(P, nbins) f32 weighted histograms of (P, N) integer index rows,
+    summed in f64 (exact for integer weights, order independent) and then
+    cast; the role of the JAX package's one-hot ``_onehot_hist_rows``."""
+    p = ix_rows.shape[0]
+    out = torch.zeros((p, nbins), dtype=torch.float64, device=ix_rows.device)
+    out.scatter_add_(1, ix_rows.to(torch.int64), weights.to(torch.float64).expand(p, -1))
+    return out.to(weights.dtype)
+
+
+def _quantiles_from_hist(hist, edges_lo, width, probs):
+    """Approximate weighted quantiles from fine histograms (P, Q): linear
+    interpolation on the cumulative mass. probs: (nq,). Returns (P, nq)."""
+    cum = torch.cumsum(hist, dim=1)
+    targets = probs[None, :] * cum[:, -1:]
+    ix = torch.clamp(torch.searchsorted(cum, targets), 0, _QBINS - 1)
+    prev = torch.where(ix > 0, cum.gather(1, torch.clamp(ix - 1, min=0)), 0.0)
+    h_ix = hist.gather(1, ix)
+    frac = torch.where(h_ix > 0, (targets - prev) / torch.clamp(h_ix, min=1e-30), 0.0)
+    return edges_lo[:, None] + (ix + frac) * width[:, None]
+
+
+def _lag_grid(n, max_lag=None, num=40):
+    """Static log-spaced lag grid for the N_eff estimator, lags 1 .. n//10."""
+    top = max(n // 10, 2)
+    if max_lag is not None:
+        top = min(max_lag, top)
+    ks = np.unique(np.geomspace(1, top, num).astype(np.int64))
+    return tuple(int(k) for k in ks)
+
+
+def _neff_kde_batch(values, weights, sigmas, lags):
+    """Gaussian-KDE effective sample numbers for all parameters (the
+    single-device branch of the JAX estimator): corr_k pair sums on the
+    lag grid with an uncorrelated far-lag baseline, trapezoid-integrated
+    until the first drop below 0.05 corr0. values: (P, N). Returns (P,)."""
+    n = values.shape[1]
+    min_corr = 0.05
+    kernel_std = sigmas * 0.2
+    inv2 = 1.0 / (4.0 * kernel_std**2)
+
+    def pair_sum(k):
+        # pairs (i, i + k) for i < n - k
+        diff2 = (values[:, : n - k] - values[:, k:]) ** 2 * inv2[:, None]
+        return torch.sum(torch.exp(-diff2) * weights[None, : n - k] * weights[None, k:], dim=1)
+
+    n_base = 5
+    uncorr_len = n // 2
+    uncorr = sum(pair_sum(uncorr_len + j) for j in range(n_base))
+    nav = sum(n - (uncorr_len + j) for j in range(n_base))
+    uncorr_term = uncorr / nav
+
+    corr0 = torch.sum(weights * weights)
+    corr_k = torch.stack([pair_sum(k) for k in lags])  # (L, P)
+    n_pairs_k = torch.tensor([n - k for k in lags], dtype=values.dtype, device=values.device)[:, None]
+    corr_k = corr_k - n_pairs_k * uncorr_term[None, :]
+    alive = torch.cumprod((corr_k >= min_corr * corr0).to(corr_k.dtype), dim=0)  # stop at first drop
+    contrib = corr_k * alive
+    steps = np.diff(np.concatenate([[0], np.asarray(lags)])).astype(np.float64)
+    weights_lag = torch.tensor(
+        (steps + np.append(np.diff(np.asarray(lags)), 0)) / 2.0, dtype=values.dtype, device=values.device
+    )
+    total = corr0 + 2.0 * torch.sum(contrib * weights_lag[:, None], dim=0)
+    return torch.sum(weights) ** 2 / total
+
+
+# ---------------------------------------------------------------------------
+# 1D ISJ bandwidth
+# ---------------------------------------------------------------------------
+
+
+def _bisect(fn, lo, hi, tol):
+    """Per-row bisection for the root of ``fn`` (negative below it), with the
+    semantics of a vmapped ``lax.while_loop``: a row freezes once its own
+    bracket is narrower than ``tol``, and the loop runs until every row is
+    done. Returns the final (lo, hi)."""
+    active = (hi - lo) > tol
+    for _ in range(_MAX_BISECT):
+        if not bool(active.any()):
+            break
+        mid = 0.5 * (lo + hi)
+        below = fn(mid) < 0
+        lo = torch.where(active & below, mid, lo)
+        hi = torch.where(active & ~below, mid, hi)
+        active = (hi - lo) > tol
+    return lo, hi
+
+
+def _isj_log_gamma(h2_pi2, big_i, log_i, log_a2, neff):
+    """log of the gamma functional chain of the 1D ISJ fixed point, in
+    log space (log-sum-exp over the DCT modes). h2_pi2: (R, S) = pi^2 h^2
+    for S trial widths per row; log_a2: (R, F); neff: (R,). Returns (R, S)."""
+
+    def log_f(j, t):
+        e = j * log_i - big_i * t[..., None] + log_a2[:, None, :]
+        m = torch.amax(e, dim=-1)
+        return torch.log(torch.sum(torch.exp(e - m[..., None]), dim=-1)) + m + math.log(2.0) + 2 * j * math.log(math.pi)
+
+    lf = log_f(float(_ISJ_LMAX), h2_pi2)
+    log_neff = torch.log(neff)[:, None]
+    for j, const in zip(range(_ISJ_LMAX - 1, 1, -1), _ISJ_CONSTS):
+        log_t = (2.0 / (3.0 + 2 * j)) * (math.log(const) - log_neff - lf)
+        lf = log_f(float(j), _PI_SQ * torch.exp(log_t))
+    return lf
+
+
+def _isj_bandwidth_1d(bins, neff):
+    """ISJ bandwidths (fractions of the bin range) of (R, nb) histograms by
+    bisection on f(h) = h - (2 N sqrt(pi) gamma(h))^{-1/5}, bracketed by a
+    16-seed log grid. Returns (h, ok), each (R,)."""
+    nb = bins.shape[1]
+    dtype, device = bins.dtype, bins.device
+    big_i = torch.arange(1, nb, dtype=dtype, device=device) ** 2
+    log_i = torch.log(big_i)
+    a = dct(bins / torch.sum(bins, dim=1, keepdim=True), dim=1)
+    log_a2 = torch.log((a[:, 1:] / 2) ** 2)  # -inf (zero coefficients) drop out of the LSE
+    log_norm = torch.log(2 * neff * _ROOT_PI)[:, None]
+
+    def residual(h):  # h: (R, S)
+        lf = _isj_log_gamma(_PI_SQ * h**2, big_i, log_i, log_a2, neff)
+        return h - torch.exp(-0.2 * (log_norm + lf))
+
+    n_scale = neff ** (-1.0 / 5)
+    lo0 = 0.019 * n_scale
+    hi0 = 0.6
+    seeds = lo0[:, None] * (hi0 / lo0[:, None]) ** torch.linspace(0.0, 1.0, 16, dtype=dtype, device=device)[None, :]
+    rs = residual(seeds)
+    cross = (rs[:, :-1] < 0) & (rs[:, 1:] >= 0)
+    ok = torch.any(cross, dim=1)
+    first = torch.argmax(cross.to(torch.int32), dim=1, keepdim=True)
+    lo = seeds.gather(1, first)[:, 0]
+    hi = seeds.gather(1, first + 1)[:, 0]
+    lo, hi = _bisect(lambda h: residual(h[:, None])[:, 0], lo, hi, 1e-7 * n_scale)
+    return 0.5 * (lo + hi), ok
+
+
+# ---------------------------------------------------------------------------
+# 2D kernel optimizer (batched over pairs)
+# ---------------------------------------------------------------------------
+
+
+def _even_table_2d(psi_multi, neff, t_star, min_level=0):
+    """Level-by-level plug-in table of the even psi functionals; each level's
+    functionals are evaluated in one ``psi_multi(keys, ts)`` pass."""
+    keys = _EVEN_LEVELS[5]
+    table = dict(zip(keys, psi_multi(keys, [t_star] * len(keys)).unbind(-1)))
+    for level in range(4, min_level - 1, -1):
+        const = (1 + 0.5 ** (level + 1)) / 3
+        keys = _EVEN_LEVELS[level]
+        ts = []
+        for sx, sy in keys:
+            children = table[(sx + 1, sy)] + table[(sx, sy + 1)]
+            ts.append((-2 * const * _K_EVEN[sx] * _K_EVEN[sy] / neff / children) ** (1.0 / (2 + level)))
+        table.update(zip(keys, psi_multi(keys, ts).unbind(-1)))
+    return table
+
+
+def _psi_multi_dct(a2, big_i, log_i, orders, ts):
+    """Even psi functionals on squared-DCT spectra a2 (K, F, F) for the
+    ``orders`` at widths ``ts`` (each (K,)): one pass over a2. Returns (K, k)."""
+    t_vec = torch.stack(ts, dim=-1)  # (K, k)
+    damp = -big_i * (_PI_SQ * t_vec[..., None])  # (K, k, F)
+    sx = torch.tensor([s[0] for s in orders], dtype=a2.dtype, device=a2.device)[:, None]
+    sy = torch.tensor([s[1] for s in orders], dtype=a2.dtype, device=a2.device)[:, None]
+    wx = torch.exp(damp + log_i * sx)
+    wy = torch.exp(damp + log_i * sy)
+    g = torch.matmul(a2, wx.transpose(-1, -2))  # (K, F, k)
+    vals = torch.sum(wy.transpose(-1, -2) * g, dim=-2)
+    scale = [(-1) ** (s[0] + s[1]) * np.pi ** (2 * (s[0] + s[1])) / 4 for s in orders]
+    return vals * torch.tensor(scale, dtype=a2.dtype, device=a2.device)
+
+
+def _psi_multi_pow(power, freqs, exponents, ts, signs):
+    """psi functionals on FFT power spectra (K, F_y, F_x): weights
+    damp * f^exponent per axis, one pass over the power. Returns (K, k)."""
+    t_vec = torch.stack(ts, dim=-1)  # (K, k)
+    damp = torch.exp(-(freqs**2) * (4 * _PI_SQ) * t_vec[..., None])  # (K, k, F)
+    wx = damp * torch.stack([freqs ** s[0] for s in exponents])
+    wy = damp * torch.stack([freqs ** s[1] for s in exponents])
+    g = torch.matmul(power, wx.transpose(-1, -2))  # (K, F, k)
+    vals = torch.sum(wy.transpose(-1, -2) * g, dim=-2)
+    scale = [sg * (2 * np.pi) ** (s[0] + s[1]) for s, sg in zip(exponents, signs)]
+    return vals * torch.tensor(scale, dtype=power.dtype, device=power.device)
+
+
+def _odd_table_2d(power, freqs, neff, p00, t_star):
+    """Plug-in table of the odd functionals psi_13 / psi_31, level-batched.
+    The power is antisymmetrized pairwise in each frequency sign first, so
+    the near-total +-f cancellation happens elementwise, not across the f32
+    accumulation."""
+
+    def negate_axis(m, dim):
+        return torch.roll(torch.flip(m, dims=(dim,)), 1, dims=dim)
+
+    power = 0.5 * (power - negate_axis(power, 1))
+    power = 0.5 * (power - negate_axis(power, 2))
+    keys = _ODD_LEVELS[10]
+    ones = [1.0] * len(keys)
+    table = dict(zip(keys, _psi_multi_pow(power, freqs, keys, [t_star] * len(keys), ones).unbind(-1)))
+    for level in (8, 6, 4):
+        const = 8 * (1 - 2.0 ** (-level - 1)) / 3.0
+        keys = _ODD_LEVELS[level]
+        ts = []
+        for sx, sy in keys:
+            children = table[(sx + 2, sy)] + table[(sx, sy + 2)]
+            ts.append((const * p00 * _K_ODD[sx] * _K_ODD[sy] / neff**2 / children**2) ** (1.0 / (3 + level)))
+        table.update(zip(keys, _psi_multi_pow(power, freqs, keys, ts, [1.0] * len(keys)).unbind(-1)))
+    return table
+
+
+def _amise_2d(wx, wy, rho, p, neff):
+    """Asymptotic MISE of a correlated Gaussian kernel and its bias part;
+    p = (p40, p04, p22, p31, p13)."""
+    p40, p04, p22, p31, p13 = p
+    variance = 1.0 / (4 * np.pi * wx * wy * torch.sqrt(1 - rho**2) * neff)
+    quartic = (
+        wx**4 * p40
+        + wy**4 * p04
+        + 2 * wx**2 * wy**2 * p22 * (2 * rho**2 + 1)
+        + 4 * rho * wx * wy * (wx**2 * p31 + wy**2 * p13)
+    )
+    return variance + 0.25 * quartic, 0.25 * quartic
+
+
+def _amise_grad(wx, wy, rho, p, neff):
+    """Analytic d(AMISE)/d(wx, wy, rho) (rows are independent, so this is
+    the per-row gradient ``jax.grad`` gives the JAX package)."""
+    p40, p04, p22, p31, p13 = p
+    variance = 1.0 / (4 * np.pi * wx * wy * torch.sqrt(1 - rho**2) * neff)
+    c22 = p22 * (2 * rho**2 + 1)
+    d_wx = -variance / wx + 0.25 * (
+        4 * wx**3 * p40 + 4 * wx * wy**2 * c22 + 4 * rho * wy * (3 * wx**2 * p31 + wy**2 * p13)
+    )
+    d_wy = -variance / wy + 0.25 * (
+        4 * wy**3 * p04 + 4 * wx**2 * wy * c22 + 4 * rho * wx * (wx**2 * p31 + 3 * wy**2 * p13)
+    )
+    d_rho = variance * rho / (1 - rho**2) + 0.25 * (
+        8 * wx**2 * wy**2 * p22 * rho + 4 * wx * wy * (wx**2 * p31 + wy**2 * p13)
+    )
+    return d_wx, d_wy, d_rho
+
+
+def _amise_minimize(p, neff, wx0, wy0, rho0, free_rho, iters=60):
+    """Fixed-iteration bounded AMISE minimization, batched over pairs and
+    over five correlation seeds: widths through a logistic transform,
+    correlation through 0.99 tanh (only when ``free_rho``), backtracking
+    gradient descent. Returns (wx, wy, rho, val, ok), each (K,)."""
+    span = _W_HI - _W_LO
+    rho_cap = 0.99
+
+    def to_u(w):
+        frac = torch.clamp((w - _W_LO) / span, 1e-6, 1 - 1e-6)
+        return torch.log(frac / (1 - frac))
+
+    pk = tuple(q[:, None] for q in p)
+    nk = neff[:, None]
+    r0 = rho0[:, None]
+
+    def unpack(z):
+        wx = _W_LO + span * torch.sigmoid(z[0])
+        wy = _W_LO + span * torch.sigmoid(z[1])
+        rho = rho_cap * torch.tanh(z[2]) if free_rho else r0.expand_as(wx)
+        return wx, wy, rho
+
+    def objective(z):
+        return _amise_2d(*unpack(z), pk, nk)[0]
+
+    def gradient(z):
+        wx, wy, rho = unpack(z)
+        d_wx, d_wy, d_rho = _amise_grad(wx, wy, rho, pk, nk)
+        sx = torch.sigmoid(z[0])
+        sy = torch.sigmoid(z[1])
+        g_rho = d_rho * rho_cap * (1 - torch.tanh(z[2]) ** 2) if free_rho else torch.zeros_like(z[2])
+        return d_wx * span * sx * (1 - sx), d_wy * span * sy * (1 - sy), g_rho
+
+    u0 = torch.atanh(torch.clamp(rho0 / rho_cap, -0.999, 0.999))
+    seeds = [u0] + [torch.full_like(u0, math.atanh(r / rho_cap)) for r in (-0.75, -0.35, 0.35, 0.75)]
+    z2 = torch.stack(seeds, dim=1)  # (K, 5)
+    z = (to_u(wx0)[:, None].expand_as(z2), to_u(wy0)[:, None].expand_as(z2), z2)
+    step = torch.full_like(z2, 0.25)
+    for _ in range(iters):
+        g = gradient(z)
+        cand = tuple(zi - step * gi for zi, gi in zip(z, g))
+        better = objective(cand) < objective(z)
+        z = tuple(torch.where(better, ci, zi) for ci, zi in zip(cand, z))
+        step = torch.where(better, step * 1.2, step * 0.5)
+    best = torch.argmin(objective(z), dim=1, keepdim=True)
+    z = tuple(zi.gather(1, best)[:, 0] for zi in z)
+    wx = _W_LO + span * torch.sigmoid(z[0])
+    wy = _W_LO + span * torch.sigmoid(z[1])
+    rho = rho_cap * torch.tanh(z[2]) if free_rho else rho0
+    val, bias = _amise_2d(wx, wy, rho, p, neff)
+    ok = torch.isfinite(val) & (bias > 0)
+    return wx, wy, rho, val, ok
+
+
+def _kernel_bandwidth_2d(hist, neff, sample_corr, do_correlation, fallback_t, power_override=None, use_override=None):
+    """(wx, wy, rho, ok, fragile) per pair: the full 2D bandwidth-matrix
+    optimization, batched over the (K, F, F) histograms.
+
+    t* by bisection on the 2D fixed point (``fallback_t`` replacing a failed
+    or badly overshooting one), closed-form diagonal widths, then, where
+    ``do_correlation``, AMISE searches at the sample correlation and with
+    free correlation (the latter accepted only on a >10% win). Rows with
+    ``use_override`` evaluate the functionals on ``power_override`` (their
+    sheared FFT power spectrum) instead of the histogram's own spectra."""
+    k, size, _ = hist.shape
+    dtype, device = hist.dtype, hist.device
+    normed = hist / torch.sum(hist, dim=(1, 2), keepdim=True)
+    big_i = torch.arange(1, size, dtype=dtype, device=device) ** 2
+    log_i = torch.log(big_i)
+    a2 = dct(dct(normed, dim=1), dim=2)[:, 1:, 1:] ** 2
+    freqs = torch.fft.fftfreq(size, d=1.0 / size, device=device).to(dtype)
+    spec = torch.fft.fft2(normed)
+    power = torch.real(spec * torch.conj(spec)).contiguous()
+    power[:, 0, :] = 0.0
+    power[:, :, 0] = 0.0
+    if power_override is not None:
+        power = torch.where(use_override[:, None, None], power_override, power)
+
+    def psi_even_multi(keys, ts):
+        ts = [torch.as_tensor(t, dtype=dtype, device=device).expand(k) for t in ts]
+        from_dct = _psi_multi_dct(a2, big_i, log_i, keys, ts)
+        if power_override is None:
+            return from_dct
+        doubled = [(2 * s[0], 2 * s[1]) for s in keys]
+        signs = [(-1.0) ** (s[0] + s[1]) for s in keys]
+        from_pow = _psi_multi_pow(power, freqs, doubled, ts, signs)
+        return torch.where(use_override[:, None], from_pow, from_dct)
+
+    def fixed_point(t):
+        table = _even_table_2d(psi_even_multi, neff, t, min_level=2)
+        curvature = table[(0, 2)] + table[(2, 0)] + 2 * table[(1, 1)]
+        implied = (2 * np.pi * neff * curvature) ** (-1.0 / 3)
+        return (t - implied) / implied
+
+    lo = torch.full((k,), 1e-8, dtype=dtype, device=device)
+    hi = torch.full((k,), 0.1, dtype=dtype, device=device)
+    ok = (fixed_point(lo) < 0) & (fixed_point(hi) > 0)
+    lo, hi = _bisect(fixed_point, lo, hi, 1e-6)
+    t_star = 0.5 * (lo + hi)
+    # replace a failed bracket or a badly overshooting fixed point with the
+    # plug-in width
+    overshoot = (t_star > 0.01) & (t_star > 2 * fallback_t)
+    t_star = torch.where(ok & ~overshoot, t_star, fallback_t)
+
+    table = _even_table_2d(psi_even_multi, neff, t_star)
+    pyy, pxx, pxy = table[(0, 2)], table[(2, 0)], table[(1, 1)]
+    cross = pxy + torch.sqrt(pxx * pyy)
+    denom = 4 * np.pi * neff * cross
+    wx = (pyy ** (3.0 / 4) / (denom * pxx ** (3.0 / 4))) ** (1.0 / 6)
+    wy = (pxx ** (3.0 / 4) / (denom * pyy ** (3.0 / 4))) ** (1.0 / 6)
+    ok = torch.isfinite(wx) & torch.isfinite(wy) & (wx > 0) & (wy > 0)
+    wx = torch.where(ok, wx, 0.05)
+    wy = torch.where(ok, wy, 0.05)
+
+    # odd functionals from the (possibly sheared) FFT power, clamped to the
+    # Cauchy-Schwarz bound |psi_31| <= sqrt(psi_40 psi_22); a binding clamp
+    # means the correlation search below runs blind in f32
+    odd = _odd_table_2d(power, freqs, neff, table[(0, 0)], t_star)
+    bound_31 = torch.sqrt(pxx * pxy)
+    bound_13 = torch.sqrt(pyy * pxy)
+    clamp_bind = (torch.abs(odd[(3, 1)]) > bound_31) | (torch.abs(odd[(1, 3)]) > bound_13)
+    p = (
+        pxx,
+        pyy,
+        pxy,
+        torch.minimum(torch.maximum(odd[(3, 1)], -bound_31), bound_31),
+        torch.minimum(torch.maximum(odd[(1, 3)], -bound_13), bound_13),
+    )
+
+    best, _ = _amise_2d(wx, wy, torch.zeros_like(wx), p, neff)
+    rho = torch.zeros_like(wx)
+    # search 1: kernel correlation fixed at the sample correlation
+    has_corr = torch.abs(sample_corr) > 1e-12
+    shrink = torch.sqrt(1 - torch.abs(sample_corr))
+    wx1, wy1, rho1, val1, ok1 = _amise_minimize(p, neff, wx / shrink, wy / shrink, sample_corr, False)
+    take1 = do_correlation & has_corr & ok1 & (val1 < best)
+    wxc = torch.where(take1, wx1, wx)
+    wyc = torch.where(take1, wy1, wy)
+    rho = torch.where(take1, rho1, rho)
+    best = torch.where(take1, val1, best)
+    # search 2: free correlation, accepted only on a clear (10%) win
+    wx2, wy2, rho2, val2, ok2 = _amise_minimize(p, neff, wxc, wyc, sample_corr, True)
+    take2 = do_correlation & ok2 & (val2 < best * 0.9)
+    # FRAGILE: the search ran blind (clamp bound) and the free search failed,
+    # made no progress, or sat in the band around the 10%-win threshold
+    edge_band = (val2 > best * 0.88) & (val2 < best * 0.92)
+    good2 = ok2 & (val2 > 0) & (val2 <= best * 0.98) & ~edge_band
+    fragile = do_correlation & clamp_bind & ~good2
+    wxc = torch.where(take2, wx2, wxc)
+    wyc = torch.where(take2, wy2, wyc)
+    rho = torch.where(take2, rho2, rho)
+    return wxc, wyc, rho, ok, fragile
+
+
+# ---------------------------------------------------------------------------
+# shearing of correlated pairs
+# ---------------------------------------------------------------------------
+
+
+def _shear_plan_2d(cov_aa, cov_ab, cov_bb, swap):
+    """Per-pair shear decomposition: (r0, r1, S) with sheared second
+    coordinate p2 = r0 p_i + r1 p_j and S (K, 2, 2) the scaled Cholesky root
+    mapping kernel covariances back; ``swap`` exchanges (a, b) first."""
+    caa = torch.where(swap, cov_bb, cov_aa)
+    cbb = torch.where(swap, cov_aa, cov_bb)
+    s00 = torch.sqrt(caa)
+    s10 = cov_ab / s00
+    s11 = torch.sqrt(cbb - s10**2)
+    i00 = 1.0 / s00
+    r0 = (-s10 / (s00 * s11)) / i00
+    r1 = (1.0 / s11) / i00
+    s_mat = torch.stack([torch.stack([s00, torch.zeros_like(s00)], -1), torch.stack([s10, s11], -1)], -2)
+    return r0, r1, s_mat * i00[:, None, None]
+
+
+def _shear_kernel_back(hx, hy, c, s_mat, swap):
+    """Map sheared-space kernels (hx, hy, c) back through S (data units)."""
+    k00 = hx**2
+    k01 = hx * hy * c
+    k11 = hy**2
+    kmat = torch.stack([torch.stack([k00, k01], -1), torch.stack([k01, k11], -1)], -2)
+    kc = torch.matmul(torch.matmul(s_mat, kmat), s_mat.transpose(-1, -2))
+    out_hx = torch.sqrt(kc[:, 0, 0])
+    out_hy = torch.sqrt(kc[:, 1, 1])
+    out_c = kc[:, 0, 1] / (out_hx * out_hy)
+    return torch.where(swap, out_hy, out_hx), torch.where(swap, out_hx, out_hy), out_c
+
+
+def _sheared_power(hist, xc_a, xc_b, r0, r1, swap):
+    """Power spectra of the sheared pair densities (S, F, F), computed
+    exactly in frequency space: shearing is a linear change of frequency,
+    so the sheared spectrum is the histogram's non-uniform DFT, two complex
+    matrix products per pair. Returns (power [f_p2, f_p1] with the DC lines
+    zeroed, range1, range2)."""
+    size = hist.shape[-1]
+    dtype, device = hist.dtype, hist.device
+    h = torch.where(swap[:, None, None], hist.transpose(1, 2), hist)
+    first = torch.where(swap[:, None], xc_b, xc_a)  # centers of p1 (columns)
+    second = torch.where(swap[:, None], xc_a, xc_b)  # centers of the other coord (rows)
+    p2 = r0[:, None, None] * first[:, None, :] + r1[:, None, None] * second[:, :, None]
+    step1 = first[:, 1] - first[:, 0]
+    step2 = second[:, 1] - second[:, 0]
+    # both ranges: occupied extent padded 10% per side (the NUDFT is
+    # periodic with period range, so a tight range would alias mass)
+    occupied = h > 0
+    p2_lo = torch.amin(torch.where(occupied, p2, math.inf), dim=(1, 2))
+    p2_hi = torch.amax(torch.where(occupied, p2, -math.inf), dim=(1, 2))
+    second_range = 1.2 * (p2_hi - p2_lo)
+    first_range = first[:, -1] - first[:, 0] + step1
+    tot = torch.sum(h, dim=(1, 2))
+
+    f = torch.fft.fftfreq(size, d=1.0 / size, device=device).to(dtype)[None, :, None]
+    x = torch.arange(size, dtype=dtype, device=device)[None, None, :]
+    two_pi = 2 * np.pi
+
+    def phase_matrix(coef):  # (S,) -> (S, F, x) complex64
+        return torch.exp(-1j * (two_pi * coef)[:, None, None] * f * x)
+
+    cmat = phase_matrix(r1 * step2 / second_range)  # (F2, y)
+    g = torch.matmul(cmat, h.to(cmat.dtype))  # (F2, x)
+    bmat = phase_matrix(r0 * step1 / second_range)  # (F2, x)
+    amat = phase_matrix(step1 / first_range)  # (F1, x)
+    s_hat = torch.matmul(amat, (bmat * g).transpose(-1, -2))  # (F1, F2)
+    power = torch.real(s_hat * torch.conj(s_hat)) / tot[:, None, None] ** 2
+    power = power.transpose(-1, -2).contiguous()
+    power[:, 0, :] = 0.0
+    power[:, :, 0] = 0.0
+    return power, first_range, second_range
+
+
+# ---------------------------------------------------------------------------
+# kernels, convolution, contours
+# ---------------------------------------------------------------------------
+
+
+def _gauss_kernel_2d(rx, ry, corr, winw, support=None):
+    """(K, 2 winw + 1, 2 winw + 1) anisotropic correlated Gaussian windows,
+    zeroed outside the per-pair support (2.5 max(rx, ry) by default) and
+    normalized to unit sum."""
+    idx = torch.arange(-winw, winw + 1, dtype=rx.dtype, device=rx.device)
+    iy = idx[None, :, None]
+    ix = idx[None, None, :]
+    rx, ry, corr = rx[:, None, None], ry[:, None, None], corr[:, None, None]
+    det = (rx * ry) ** 2 * (1 - corr**2)
+    c00 = rx**2 / det
+    c11 = ry**2 / det
+    c01 = -rx * ry * corr / det
+    q = iy**2 * c00 + ix**2 * c11 + 2 * c01 * iy * ix
+    support = torch.maximum(rx, ry) * 2.5 if support is None else support[:, None, None]
+    win = torch.exp(-q / 2) * ((torch.abs(iy) <= support) & (torch.abs(ix) <= support))
+    return win / torch.sum(win, dim=(1, 2), keepdim=True)
+
+
+def _contour_levels_batch(grids, contours, iters=40):
+    """Water-level contour levels by bisection: t per (grid, contour) with
+    sum(P[P > t]) = contour * total, edges half-weighted. Returns (K, C)."""
+    edge_weight = torch.ones(grids.shape[-2:], dtype=grids.dtype, device=grids.device)
+    edge_weight[0, :] *= 0.5
+    edge_weight[-1, :] *= 0.5
+    edge_weight[:, 0] *= 0.5
+    edge_weight[:, -1] *= 0.5
+    weighted = grids * edge_weight
+    targets = contours[None, :] * torch.sum(weighted, dim=(1, 2))[:, None]  # (K, C)
+    lo = torch.zeros_like(targets)
+    hi = torch.amax(grids, dim=(1, 2))[:, None] * torch.ones_like(targets)
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        mass = torch.sum(torch.where(grids[:, None] > mid[:, :, None, None], weighted[:, None], 0.0), dim=(2, 3))
+        too_much = mass > targets
+        lo = torch.where(too_much, mid, lo)
+        hi = torch.where(too_much, hi, mid)
+    return 0.5 * (lo + hi)
+
+
+# ---------------------------------------------------------------------------
+# the two stages
+# ---------------------------------------------------------------------------
+
+
+def _fine_indices(cols, lo, width, nbins):
+    """(P, N) int32 bin indices clip((x - lo) / width + 0.5, 0, nbins - 1)."""
+    return torch.clamp((((cols - lo[:, None]) / width[:, None]) + 0.5).to(torch.int32), 0, nbins - 1)
+
+
+def all_1d_densities(
+    samples,
+    weights,
+    fine_bins=1024,
+    mult_bias_order=1,
+    limits_lo=None,
+    limits_hi=None,
+    periodic=None,
+    axis_name=None,
+    neff_override=None,
+    range_override=None,
+    bandwidth_override=None,
+    like_weights=None,
+    bandwidth_scale=None,
+):
+    """All marginalized 1D densities of a (N, P) chain on its device.
+
+    Returns a dict with 'x' (P, fine_bins) grids, 'P' peak-normalized
+    densities, 'neff', 'bandwidth' (parameter units), 'sigma',
+    'sigma_range', 'mean', 'range' (binmin, binmax) and 'host_pack'.
+    Pipeline per parameter: histogram-quantile ranges -> binning -> KDE
+    N_eff -> ISJ bandwidth with rule-of-thumb fallback -> rFFT Gaussian
+    smoothing -> multiplicative bias correction -> peak normalization.
+
+    Hooks for stage isolation: ``neff_override`` (P,), ``range_override``
+    (binmin, binmax) and ``bandwidth_override`` (P,) fractions of the range.
+    """
+    if limits_lo is not None or limits_hi is not None or periodic is not None:
+        raise _not_ported("1D hard limits and periodic parameters", "A2")
+    if like_weights is not None:
+        raise _not_ported("1D like_weights", "A2")
+    if axis_name is not None:
+        raise _not_ported("sharded 1D densities", "A9")
+    n, p = samples.shape
+    dtype, device = samples.dtype, samples.device
+
+    cols = samples.T.contiguous()  # (P, N)
+    norm = torch.sum(weights)
+    means = torch.matmul(cols, weights) / norm
+    variances = torch.matmul((cols - means[:, None]) ** 2, weights) / norm
+    sigmas = torch.sqrt(variances)
+
+    # ranges from histogram quantiles
+    mins = torch.amin(cols, dim=1)
+    maxs = torch.amax(cols, dim=1)
+    qwidth = (maxs - mins) / _QBINS
+    qix = torch.clamp(((cols - mins[:, None]) / qwidth[:, None]).to(torch.int32), 0, _QBINS - 1)
+    qhists = _hist_rows(qix, weights, _QBINS)
+    range_conf = 0.001
+    probs = torch.cat(
+        [
+            torch.tensor([range_conf, 1 - range_conf], dtype=dtype, device=device),
+            torch.linspace(0.1, 0.9, 9, dtype=dtype, device=device),
+        ]
+    )
+    quants = _quantiles_from_hist(qhists, mins, qwidth, probs)
+    # sigma_range: quantile-based structure scale (min over 4-apart gaps of
+    # [param_min, q(0.1..0.9), param_max])
+    ladder = torch.cat([mins[:, None], quants[:, 2:], maxs[:, None]], dim=1)  # (P, 11)
+    gaps = ladder[:, 4:] - ladder[:, :-4]
+    scale = torch.amin(gaps, dim=1) / 1.049
+    very_flat = torch.all(gaps > sigmas[:, None] * 1.049, dim=1) & torch.all(gaps < scale[:, None] * 1.5, dim=1)
+    sigma_range = torch.where(very_flat, scale, torch.minimum(sigmas, scale))
+    smooth_est = sigma_range * 0.4
+    range_min = quants[:, 0] - smooth_est * 2
+    range_max = quants[:, 1] + smooth_est * 2
+    binmin = torch.minimum(mins, range_min) - (range_max - range_min) * 0.1
+    binmax = torch.maximum(maxs, range_max) + (range_max - range_min) * 0.1
+    if range_override is not None:
+        binmin, binmax = (_tensor(r, device, dtype) for r in range_override)
+    fine_width = (binmax - binmin) / (fine_bins - 1)
+
+    bins = _hist_rows(_fine_indices(cols, binmin, fine_width, fine_bins), weights, fine_bins)  # (P, fine_bins)
+
+    if neff_override is not None:
+        neff = _tensor(neff_override, device, dtype)
+    else:
+        neff = _neff_kde_batch(cols, weights, sigma_range, _lag_grid(n))
+    if bandwidth_override is not None:
+        h_frac = _tensor(bandwidth_override, device, dtype)
+    else:
+        h_frac, ok = _isj_bandwidth_1d(bins, neff)
+        fallback = 1.06 * sigma_range * neff ** (-1.0 / 5) / (binmax - binmin)
+        h_frac = torch.where(ok & (h_frac > 0.01 * neff ** (-0.2) * 0.5), h_frac, fallback)
+    if mult_bias_order:
+        h_frac = h_frac * neff ** (1.0 / 5 - 1.0 / (4 * mult_bias_order + 5))
+    if bandwidth_override is None:
+        # the reference caps the auto bandwidth at a quarter of the range
+        h_frac = torch.minimum(h_frac, torch.tensor(0.25, dtype=dtype, device=device))
+    if bandwidth_scale is not None:
+        h_frac = h_frac * bandwidth_scale
+    smooth_bins = torch.clamp(h_frac * fine_bins, 1.0, fine_bins // 2)  # kernel sigma in bins
+
+    # Gaussian smoothing by a frequency-domain multiplier (the 10% empty
+    # borders make the periodic pad safe)
+    pad = int(2 ** np.ceil(np.log2(fine_bins * 1.25)))
+    k = torch.arange(pad // 2 + 1, dtype=dtype, device=device)
+    mult = torch.exp(-2.0 * (np.pi * smooth_bins[:, None] / pad) ** 2 * k[None, :] ** 2)
+
+    def smooth(b):
+        return torch.fft.irfft(torch.fft.rfft(b, n=pad, dim=1) * mult, n=pad, dim=1)[:, :fine_bins]
+
+    conv = smooth(bins)
+    for _ in range(mult_bias_order):
+        prob1 = torch.where(conv <= 0, 1.0, conv)
+        conv = conv * smooth(bins / prob1)
+
+    density = conv / torch.amax(conv, dim=1, keepdim=True)
+    x = binmin[:, None] + fine_width[:, None] * torch.arange(fine_bins, dtype=dtype, device=device)[None, :]
+    bandwidth = h_frac * (binmax - binmin)
+    no_limit = torch.zeros(p, dtype=torch.bool, device=device)
+    return {
+        "x": x,
+        "P": density,
+        "neff": neff,
+        "bandwidth": bandwidth,
+        "sigma": sigmas,
+        "sigma_range": sigma_range,
+        "mean": means,
+        "range": (binmin, binmax),
+        "active_lo": no_limit,
+        "active_hi": no_limit,
+        "periodic": no_limit,
+        "likes": None,
+        "host_pack": torch.cat([neff, sigma_range, binmin, binmax, bandwidth]),
+    }
+
+
+def _shear_subset(enable_shear, k):
+    """(shearing on?, None or the pair positions that may shear)."""
+    if isinstance(enable_shear, (tuple, list)):
+        subset = [int(i) for i in enable_shear]
+        if not subset:
+            return False, None
+        return True, (None if len(subset) == k else subset)
+    return bool(enable_shear), None
+
+
+def all_2d_densities(
+    samples,
+    weights,
+    pair_a,
+    pair_b,
+    neff,
+    binmin,
+    binmax,
+    contours,
+    fine_bins=256,
+    mult_bias_order=1,
+    winw=30,
+    active_lo=None,
+    active_hi=None,
+    periodic=None,
+    axis_name=None,
+    int8_weights=False,
+    bandwidth_scale=None,
+    sigma_range=None,
+    max_corr=0.95,
+    enable_shear=True,
+    bandwidth_override=None,
+    kernel_support=None,
+    prior_mask=None,
+    like_weights=None,
+    exact_mult_bias=False,
+    hists_in=None,
+    export_hists=False,
+):
+    """All-pairs marginalized 2D densities on the chain's device.
+
+    pair_a / pair_b: (K,) parameter indices; neff, binmin, binmax: (P,)
+    from :func:`all_1d_densities`. Returns a dict with 'P' (K, 256, 256)
+    peak-normalized densities (rows = y = b), 'contours' (K, C), the kernel
+    parameters 'rx', 'ry', 'corr', 'neff', 'fragile' and the packed 'diag'.
+    Pipeline: pair histograms (CUDA kernel K1) -> bandwidth optimizer
+    (sheared spectra for correlated pairs) -> correlated Gaussian kernels ->
+    DFT-matmul convolutions (K2, K3) -> multiplicative bias round ->
+    contour levels.
+
+    ``int8_weights``: every weight is an integer (the histogram kernel then
+    accumulates exactly in int32). ``enable_shear``: bool, or the pair
+    positions that may shear (host pre-sniffed, :func:`_sniff_shear`).
+    Hooks for stage isolation: ``hists_in`` (K, 256, 256) replaces the
+    binning, ``bandwidth_override`` (hx, hy, c) in data units replaces the
+    optimizer, ``kernel_support`` (K,) sets the window half-widths;
+    ``export_hists`` adds the histograms to the output.
+    """
+    if active_lo is not None or active_hi is not None or prior_mask is not None:
+        raise _not_ported("2D hard limits and prior masks", "A3")
+    if periodic is not None:
+        raise _not_ported("2D periodic parameters", "A3")
+    if like_weights is not None:
+        raise _not_ported("2D like_weights", "A3")
+    if exact_mult_bias:
+        raise _not_ported("exact_mult_bias (parity mode)", "A8")
+    if axis_name is not None:
+        raise _not_ported("sharded 2D densities", "A9")
+    pad = DEFAULT_PAD
+    if fine_bins + 4 * winw + 1 > pad:
+        raise _not_ported(f"2D frames past {pad} (fine_bins={fine_bins}, winw={winw})", "A3")
+    # the plain matrix products below (psi functionals) need full FP32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, p = samples.shape
+    dtype, device = samples.dtype, samples.device
+    pa = _tensor(pair_a, device, torch.int64)
+    pb = _tensor(pair_b, device, torch.int64)
+    k_all = pa.shape[0]
+    neff, binmin, binmax = (_tensor(v, device, dtype) for v in (neff, binmin, binmax))
+    contours = _tensor(contours, device, dtype)
+
+    cols = samples.T.contiguous()
+    norm = torch.sum(weights)
+    means = torch.matmul(cols, weights) / norm
+    diffs = cols - means[:, None]
+    cov = torch.matmul(diffs * weights[None, :], diffs.T) / norm
+    sd = torch.sqrt(torch.diagonal(cov))
+    corr_mat = cov / torch.outer(sd, sd)
+    fine_width = (binmax - binmin) / (fine_bins - 1)
+
+    if hists_in is not None:
+        hists = _tensor(hists_in, device, dtype)
+    elif fine_bins != 256:
+        raise _not_ported(f"pair histograms at {fine_bins} bins (the kernel bins 256)", "A3")
+    else:
+        ix_all = _fine_indices(cols, binmin, fine_width, fine_bins).to(torch.uint8)
+        hists = pair_histograms(ix_all, weights, pa.to(torch.int32), pb.to(torch.int32), integer_weights=int8_weights)
+
+    pair_neff = torch.minimum(neff[pa], neff[pb])
+    range_a = (binmax - binmin)[pa]
+    range_b = (binmax - binmin)[pb]
+    sr = sd if sigma_range is None else _tensor(sigma_range, device, dtype)
+    sr_a, sr_b = sr[pa], sr[pb]
+
+    if bandwidth_override is not None:
+        hx, hy, c = (_tensor(v, device, dtype) for v in bandwidth_override)
+        fragile = torch.zeros(k_all, dtype=torch.bool, device=device)
+    else:
+        # shear correlated pairs for bandwidth estimation; pure rule of
+        # thumb at extreme correlation; plain optimizer otherwise
+        c_s = corr_mat[pa, pb]
+        c_cap = torch.clamp(c_s, -max_corr, max_corr)
+        c_eff = torch.where(torch.abs(c_cap) < 0.1, 0.0, c_cap)
+        shear_sel = (torch.abs(c_eff) > 0.2) & (torch.abs(c_eff) <= max_corr)
+        rule_sel = torch.abs(c_s) > max_corr
+        do_corr = torch.ones(k_all, dtype=torch.bool, device=device)
+        fb_t = (torch.minimum(sr_a / range_a, sr_b / range_b) / pair_neff ** (1.0 / 6)) ** 2
+        shear_on, subset = _shear_subset(enable_shear, k_all)
+        if shear_on:
+            # the sheared spectrum feeds the optimizer only; the density
+            # convolution runs on the original grid
+            xc = binmin[:, None] + fine_width[:, None] * torch.arange(fine_bins, dtype=dtype, device=device)[None, :]
+            swap = torch.zeros(k_all, dtype=torch.bool, device=device)  # no limited parameter to put first
+            r0, r1, s_mats = _shear_plan_2d(cov[pa, pa], cov[pa, pb], cov[pb, pb], swap)
+            sub = torch.arange(k_all, device=device) if subset is None else torch.tensor(subset, device=device)
+            sh_p, sh_r1, sh_r2 = _sheared_power(hists[sub], xc[pa[sub]], xc[pb[sub]], r0[sub], r1[sub], swap[sub])
+            sh_power = torch.zeros_like(hists)
+            sh_power[sub] = sh_p
+            sh_range1 = range_a.clone()
+            sh_range1[sub] = sh_r1
+            sh_range2 = range_b.clone()
+            sh_range2[sub] = sh_r2
+            in_sub = torch.zeros(k_all, dtype=torch.bool, device=device)
+            in_sub[sub] = True
+            shear_sel = shear_sel & in_sub
+            opt_range1 = torch.where(shear_sel, sh_range1, range_a)
+            opt_range2 = torch.where(shear_sel, sh_range2, range_b)
+            opt_corr = torch.where(shear_sel, 0.0, c_eff)
+            wx, wy, c_k, ok, fragile = _kernel_bandwidth_2d(
+                hists, pair_neff, opt_corr, do_corr, fb_t, sh_power, shear_sel
+            )
+        else:
+            opt_range1, opt_range2 = range_a, range_b
+            wx, wy, c_k, ok, fragile = _kernel_bandwidth_2d(hists, pair_neff, c_eff, do_corr, fb_t)
+        hx = wx * opt_range1
+        hy = wy * opt_range2
+        c = c_k
+        if shear_on:
+            # sheared-space kernels back through the scaled Cholesky root
+            hx_sh, hy_sh, c_sh = _shear_kernel_back(hx, hy, c_k, s_mats, swap)
+            hx = torch.where(shear_sel, hx_sh, hx)
+            hy = torch.where(shear_sel, hy_sh, hy)
+            c = torch.where(shear_sel, c_sh, c)
+        # rule-of-thumb branch and optimizer-failure fallback (data units)
+        use_rule = rule_sel | ~ok
+        fragile = fragile & ~use_rule
+        hx = torch.where(use_rule, sr_a / pair_neff ** (1.0 / 6), hx)
+        hy = torch.where(use_rule, sr_b / pair_neff ** (1.0 / 6), hy)
+        c = torch.clamp(torch.where(use_rule, c_cap, c), -0.99, 0.99)
+        if mult_bias_order:
+            scale = 1.1 * pair_neff ** (1.0 / 6 - 1.0 / (2 + 4 * (1 + mult_bias_order)))
+            hx = hx * scale
+            hy = hy * scale
+    if bandwidth_scale is not None:
+        hx = hx * bandwidth_scale
+        hy = hy * bandwidth_scale
+    rx = torch.clamp(hx / fine_width[pa], 0.8, winw / 2.5)  # bin units
+    ry = torch.clamp(hy / fine_width[pb], 0.8, winw / 2.5)
+    support = None if kernel_support is None else _tensor(kernel_support, device, dtype)
+    kernels = _gauss_kernel_2d(rx, ry, c, winw, support=support)
+
+    # 'same' convolutions: full[winw : winw + fine_bins] of each pair's frame
+    ur, ui = dft_conv_spectrum(kernels, pad)
+    smoothed = dft_conv2d(hists, ur, ui, fine_bins, winw, pad)
+    # multiplicative bias rounds (without limits the reference's edge
+    # normalization mask is ~1 wherever there is mass)
+    for _ in range(mult_bias_order):
+        maxes = torch.amax(smoothed, dim=(1, 2), keepdim=True)
+        flat = torch.where(smoothed > maxes * 1e-8, hists / torch.where(smoothed == 0, 1.0, smoothed), hists)
+        smoothed = smoothed * dft_conv2d(flat, ur, ui, fine_bins, winw, pad)
+
+    density = smoothed / torch.amax(smoothed, dim=(1, 2), keepdim=True)
+    out = {
+        "P": density,
+        "contours": _contour_levels_batch(density, contours),
+        "rx": rx,
+        "ry": ry,
+        "corr": c,
+        "neff": pair_neff,
+        "likes": None,
+        # pairs whose f32 correlation search sat on a knife edge
+        "fragile": fragile,
+        # packed host-facing diagnostics [fragile, rx, ry]
+        "diag": torch.cat([fragile.to(rx.dtype), rx, ry]),
+    }
+    if export_hists:
+        out["hists"] = hists
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the fused program
+# ---------------------------------------------------------------------------
+
+
+def _triangle_program(
+    samples, weights, pair_a, pair_b, contours, int8_weights, max_corr=0.95, enable_shear=True,
+    bandwidth_scale_1d=None, bandwidth_scale_2d=None,
+):
+    """The 1D stage, then the all-pairs 2D stage on its ranges and N_eff."""
+    d1 = all_1d_densities(samples, weights, bandwidth_scale=bandwidth_scale_1d)
+    d2 = all_2d_densities(
+        samples,
+        weights,
+        pair_a,
+        pair_b,
+        d1["neff"],
+        d1["range"][0],
+        d1["range"][1],
+        contours,
+        int8_weights=int8_weights,
+        bandwidth_scale=bandwidth_scale_2d,
+        sigma_range=d1["sigma_range"],
+        max_corr=max_corr,
+        enable_shear=enable_shear,
+    )
+    return d1, d2
+
+
+def _sniff_shear(samples, max_corr, pairs=None, weights=None):
+    """Host pre-check: which pairs may want bandwidth shearing (0.2 < |corr|)?
+
+    Only inspects numpy samples; anything else returns True (correct, pays
+    the shear cost) rather than forcing a device->host copy. Without
+    ``pairs`` returns a bool; with a (K, 2) ``pairs`` list returns the tuple
+    of pair positions whose |corr| clears 0.15 (a margin under the 0.2
+    threshold), or True/False for all/none.
+    """
+    if not isinstance(samples, np.ndarray):
+        return True
+    if samples.shape[1] < 2:
+        return False
+    step = max(1, samples.shape[0] // 100000)
+    sub = samples[::step]
+    if weights is not None and isinstance(weights, np.ndarray) and weights.shape[:1] == samples.shape[:1]:
+        cv = np.cov(sub.T, aweights=weights[::step])
+        sd = np.sqrt(np.diag(cv))
+        corr = cv / np.outer(sd, sd)
+    else:
+        corr = np.corrcoef(sub.T)
+    if pairs is None:
+        off = corr[~np.eye(corr.shape[0], dtype=bool)]
+        return bool(np.any(np.abs(off) > 0.18))
+    sel = [k for k, (a, b) in enumerate(np.asarray(pairs)) if abs(corr[a, b]) > 0.15]
+    if not sel:
+        return False
+    if len(sel) == len(pairs):
+        return True
+    return tuple(sel)
+
+
+def triangle_densities(
+    samples,
+    weights,
+    contours=(0.68, 0.95),
+    fine_bins_2d=256,
+    limits_lo=None,
+    limits_hi=None,
+    periodic=None,
+    int8_weights=None,
+    max_corr=0.95,
+    enable_shear=None,
+    like_weights=None,
+    bandwidth_scale_1d=None,
+    bandwidth_scale_2d=None,
+    device="cpu",
+):
+    """All 1D and all-pairs 2D densities of a chain on ``device``.
+
+    samples (N, P) and weights (N,) as numpy arrays or tensors. Returns the
+    two output dicts of :func:`all_1d_densities` and
+    :func:`all_2d_densities`, as tensors on ``device``. ``int8_weights``
+    (exact int32 histogram accumulation) is sniffed from numpy weights when
+    None: integers in [0, 127] with a total below 2^31, the JAX package's
+    rule. ``enable_shear`` is sniffed from numpy samples when None.
+    Float weights are accumulated in f32 directly (no bf16 split).
+    """
+    if limits_lo is not None or limits_hi is not None or periodic is not None:
+        raise _not_ported("hard limits and periodic parameters", "A2/A3")
+    if like_weights is not None:
+        raise _not_ported("like_weights", "A2/A3")
+    if fine_bins_2d != 256:
+        raise _not_ported(f"fine_bins_2d={fine_bins_2d}", "A3")
+    sniffable = isinstance(weights, np.ndarray) or np.isscalar(weights) or isinstance(weights, (list, tuple))
+    host_weights = np.asarray(weights) if sniffable else None
+    if int8_weights is None:
+        int8_weights = bool(
+            sniffable
+            and host_weights.size
+            and np.all(host_weights == np.round(host_weights))
+            and 0 <= host_weights.min()
+            and host_weights.max() <= 127
+            and host_weights.size * float(host_weights.max()) < 2**31
+        )
+    torch.backends.cuda.matmul.allow_tf32 = False  # every plain matrix product runs in full FP32
+    p = samples.shape[1]
+    pairs = np.array([(i, j) for i in range(p) for j in range(i + 1, p)], np.int64).reshape(-1, 2)
+    if enable_shear is None:
+        enable_shear = _sniff_shear(samples, max_corr, pairs=pairs, weights=host_weights)
+    samples, weights = prepare_chain(samples, weights, device=device)
+    with torch.no_grad():
+        return _triangle_program(
+            samples,
+            weights,
+            pairs[:, 0],
+            pairs[:, 1],
+            np.asarray(contours, np.float32),
+            int8_weights,
+            max_corr,
+            enable_shear,
+            bandwidth_scale_1d=bandwidth_scale_1d,
+            bandwidth_scale_2d=bandwidth_scale_2d,
+        )
