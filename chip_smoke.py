@@ -6,14 +6,25 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
     python3 chip_smoke.py
 
 Phases: require CUDA and print the card's name and power limit; build the
-CUDA kernels from ``getdist_tpu_torch/csrc``; run the main path,
-``triangle_densities`` on ``bench.make_chain(1_000_000, 30)`` (30 1D and 435
-2D densities), counting each kernel's launches in one run and timing warm
-runs; profile one run (the top of the kernel-time table is printed);
-check its outputs; hold each kernel against its plain PyTorch version
-on the main path's own inputs (timing both); compare the slice on the card
-with the port on the CPU at 100k x 8. Prints one JSON line of kernel
-results, then ``{"ok": true, "device": {...}}`` as the last line. Any
+CUDA kernels from ``getdist_tpu_torch/csrc``. Then two paths on
+``bench.make_chain(1_000_000, 30)`` (30 1D and 435 2D densities):
+
+1. the fused path, ``triangle_densities``: count each kernel's launches in
+   one run, time warm runs, profile one run (the top of the kernel-time
+   table is printed), check its outputs, hold K1/K2/K3 against their plain
+   PyTorch versions on its own inputs (timing both), and compare the path
+   on the card with the port on the CPU at 100k x 8;
+2. device parity mode, ``MCSamples(...).fastParityDensities(device=True)``:
+   one cold and two warm runs (stage profile, peak memory, launch counts of
+   one run), checks of its outputs, bin indices of all 30 columns against
+   numpy's formula, K4 on this run's sheared stack and f64 K2/K3 on its
+   largest bucket against their plain versions, and parity on the card
+   against the port on the CPU at 20k x 6 (a bounded parameter and a
+   pair with |corr| > 0.87).
+
+Prints one JSON line of kernel results (with each kernel's bound on the
+card and, where one exists, a single PyTorch call's time), the card line
+again, then ``{"ok": true, "device": {...}}`` as the last line. Any
 failure exits non-zero without the ok line. Imports nothing of JAX.
 """
 
@@ -25,6 +36,12 @@ import time
 import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s; FP32
+# outside the tensor cores; FP64 on the tensor cores (34 TFLOP/s outside)
+HBM_BYTES_S = 3.35e12
+FP32_FLOPS = 67e12
+FP64_FLOPS = 67e12
 
 
 def check(cond, msg):
@@ -58,6 +75,72 @@ def wall_s(fn):
     return time.perf_counter() - t0, out
 
 
+def bound(nbytes, ops, rate):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    operations over the peak rate for their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def hist_bound(ix, k, nbins):
+    """K1/K4: index rows and weights read once, histograms written once; one
+    add per sample and pair, at the FP32 rate (the published table has no
+    integer scalar rate)."""
+    n = ix.shape[1]
+    return bound(ix.numel() * ix.element_size() + 4 * n + 4 * k * nbins * nbins, k * n, FP32_FLOPS)
+
+
+def spectrum_bound(kernels, pad):
+    """K2: kernels and two DFT matrices read, two spectra written. Flops per
+    pair of U = F K F with the contractions over the m x m kernel support
+    only (the frame's zero padding needs none): (pad x m) real x complex,
+    then (pad x m) x (m x pad) complex x complex."""
+    k, m, _ = kernels.shape
+    e = kernels.element_size()
+    rate = FP64_FLOPS if e == 8 else FP32_FLOPS
+    flops = k * (4 * pad * m * m + 8 * pad * pad * m)
+    return bound(e * (k * m * m + 2 * pad * pad + 2 * k * pad * pad), flops, rate)
+
+
+def conv_bound(grids, pad, out_size):
+    """K3: grids, two spectra and four DFT matrices read, the slice written.
+    Flops per pair: the forward transform contracts over the I x I grid, the
+    spectrum product is 6 per frame point, and the inverse computes only the
+    out_size rows and (real part of the) columns of the slice."""
+    k, size, _ = grids.shape
+    e = grids.element_size()
+    rate = FP64_FLOPS if e == 8 else FP32_FLOPS
+    nbytes = e * (k * size * size + 2 * k * pad * pad + 4 * pad * pad + k * out_size * out_size)
+    forward = 4 * pad * size * size + 8 * pad * pad * size
+    inverse = 8 * out_size * pad * pad + 4 * out_size * out_size * pad
+    return bound(nbytes, k * (forward + 6 * pad * pad + inverse), rate)
+
+
+def library_conv_ms(grids, kernels, out_size, offset, reps):
+    """One PyTorch call computing K3's function: a grouped cuDNN convolution
+    (TF32 off) of each grid with its own kernel, full size, then the slice."""
+    import torch
+    import torch.nn.functional as F
+
+    torch.backends.cudnn.allow_tf32 = False
+    k, m, _ = kernels.shape
+    weight = torch.flip(kernels, dims=(1, 2))[:, None]
+
+    def run():
+        full = F.conv2d(grids[None], weight, padding=m - 1, groups=k)[0]
+        return full[:, offset : offset + out_size, offset : offset + out_size]
+
+    return cuda_ms(run, reps)
+
+
+def library_spectrum_ms(kernels, pad, reps):
+    """One PyTorch call computing K2's function: the 2D FFT of the
+    zero-padded kernels (U = F K F)."""
+    import torch
+
+    return cuda_ms(lambda: torch.fft.fft2(kernels, s=(pad, pad)), reps)
+
+
 def check_outputs(d1, d2, p, k):
     import torch
 
@@ -76,9 +159,21 @@ def check_outputs(d1, d2, p, k):
         check(bool(torch.isfinite(d2[key]).all()), f"2D {key} finite")
 
 
+def check_parity_outputs(dens1, dens2, p, k):
+    import numpy as np
+
+    check(len(dens1) == p and len(dens2) == k, f"parity returns {len(dens1)} 1D and {len(dens2)} 2D densities")
+    for name, d in list(dens1.items()) + list(dens2.items()):
+        check(bool(np.isfinite(d.P).all()), f"parity grid {name} finite")
+        check(abs(float(d.P.max()) - 1) < 1e-12, f"parity grid {name} peaks at 1")
+    for name, d in dens2.items():
+        levels = np.asarray(d.contours)
+        check(bool(np.all((levels > 0) & (levels <= 1))), f"parity contour levels of {name} in (0, 1]")
+
+
 def cross_device(make_chain, triangle_densities):
-    """The slice on the card against the port on the CPU (plain versions),
-    at the tolerances of tests/test_torch_batched.py."""
+    """The fused path on the card against the port on the CPU (plain
+    versions), at the tolerances of tests/test_torch_batched.py."""
     import numpy as np
 
     samples, weights = make_chain(100_000, 8)
@@ -105,6 +200,34 @@ def cross_device(make_chain, triangle_densities):
     return report
 
 
+def parity_cross_device(MCSamples):
+    """Parity mode on the card against the port on the CPU, at the slice
+    tests' tolerances, on a 20k x 6 chain with a bounded parameter and one
+    pair with |corr| > 0.87 (a 384-bin fine group)."""
+    import numpy as np
+
+    rng = np.random.RandomState(17)
+    n = 20_000
+    base = rng.standard_normal((n, 6))
+    samples = base.copy()
+    samples[:, 1] = 0.9 * base[:, 0] + np.sqrt(1 - 0.81) * base[:, 1]
+    samples[:, 2] = 0.4 * base[:, 0] + base[:, 2]
+    samples[:, 5] = np.abs(base[:, 5])
+    kwargs = dict(samples=samples, weights=rng.randint(1, 5, n).astype(np.float64),
+                  names=[f"q{i}" for i in range(6)], ranges={"q5": [0, None]})
+    g1, g2 = MCSamples(device="cuda", **kwargs).fastParityDensities(device=True)
+    c1, c2 = MCSamples(device="cpu", **kwargs).fastParityDensities(device=True)
+    check(set(g2) == set(c2) and set(g1) == set(c1), "parity cross-device keys")
+    d1 = max(float(np.abs(g1[key].P - c1[key].P).max()) for key in c1)
+    d2 = max(float(np.abs(g2[key].P / g2[key].P.max() - c2[key].P / c2[key].P.max()).max()) for key in c2)
+    dc = max(float(np.abs(np.asarray(g2[key].contours) - np.asarray(c2[key].contours)).max()) for key in c2)
+    fines = sorted({d.P.shape[0] for d in c2.values()})
+    check(d1 <= 1e-10, f"parity cross-device 1D P {d1}")
+    check(d2 <= 1e-5 and dc <= 1e-5, f"parity cross-device 2D P {d2}, contours {dc}")
+    check(len(fines) > 1, f"a stretched fine group ({fines})")
+    return {"1D P": d1, "2D P / peak": d2, "2D contours": dc, "fine grids": fines}
+
+
 def profile_slice(run):
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -115,30 +238,30 @@ def profile_slice(run):
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
 
 
-def main():
+def profile_device_busy(run):
+    """(device busy ms, wall ms) of one call under torch.profiler: the sum
+    of CUDA kernel, memcpy and memset times, printed with the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [
+        e for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith("Activity Buffer")
+    ]
+    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=12))
+    return busy_ms, wall_ms
+
+
+def fused_path(samples, weights, batched, dft_conv, pair_hist, make_chain):
+    """Phase 1: the fused triangle-densities path (PR 1's phases)."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 2
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
-    )
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "nvidia-smi failed"
-    print(card)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
-
-    sys.path.insert(0, ROOT)
-    from bench import make_chain
-    from getdist_tpu_torch.ops import _cuda, batched, dft_conv, pair_hist
-
-    lib = _cuda.library()
-    print(f"build: {lib.build_seconds:.2f} s with nvcc -> {os.path.relpath(lib.path, ROOT)}")
-
-    # main path at full size
-    t0 = time.perf_counter()
-    samples, weights = make_chain(1_000_000, 30)
-    print(f"chain 1,000,000 x 30 made in {time.perf_counter() - t0:.1f} s")
     p = samples.shape[1]
     k = p * (p - 1) // 2
 
@@ -180,6 +303,7 @@ def main():
     err_h = float((hists - ref_h).abs().max())
     check(err_h == 0.0, f"K1 bit-exact (max abs diff {err_h})")
     check(float(hists.double().sum()) == float(weights.sum()) * k, "K1 total mass")
+    b_h, by_h = hist_bound(ix, k, 256)
     results = [
         {
             "name": "pair_histograms",
@@ -190,6 +314,9 @@ def main():
             "max_abs_err": err_h,
             "ms": cuda_ms(lambda: pair_hist.pair_histograms(ix, w_dev, pa, pb, integer_weights=True), 10),
             "plain_ms": cuda_ms(lambda: pair_hist.pair_histograms_plain(ix, w_dev, pa, pb, integer_weights=True), 2),
+            "bound_ms": b_h,
+            "bound_by": by_h,
+            "library_ms": None,
         }
     ]
     kernels = batched._gauss_kernel_2d(d2["rx"], d2["ry"], d2["corr"], 30)
@@ -202,6 +329,8 @@ def main():
     conv0 = dft_conv.dft_conv2d_plain(hists, ur0, ui0, 256, 30)
     err_c = float((conv - conv0).abs().max())
     check(err_c <= 1e-4 * float(conv0.abs().max()), f"K3 within 1e-4 max|ref| ({err_c} vs {float(conv0.abs().max())})")
+    b_s, by_s = spectrum_bound(kernels, 384)
+    b_c, by_c = conv_bound(hists, 384, 256)
     results += [
         {
             "name": "dft_conv_spectrum",
@@ -212,6 +341,9 @@ def main():
             "max_abs_err": err_s,
             "ms": cuda_ms(lambda: dft_conv.dft_conv_spectrum(kernels), 5),
             "plain_ms": cuda_ms(lambda: dft_conv.dft_conv_spectrum_plain(kernels), 5),
+            "bound_ms": b_s,
+            "bound_by": by_s,
+            "library_ms": library_spectrum_ms(kernels, 384, 5),
         },
         {
             "name": "dft_conv2d",
@@ -222,13 +354,204 @@ def main():
             "max_abs_err": err_c,
             "ms": cuda_ms(lambda: dft_conv.dft_conv2d(hists, ur, ui, 256, 30), 5),
             "plain_ms": cuda_ms(lambda: dft_conv.dft_conv2d_plain(hists, ur0, ui0, 256, 30), 5),
+            "bound_ms": b_c,
+            "bound_by": by_c,
+            "library_ms": library_conv_ms(hists, kernels, 256, 30, 3),
         },
     ]
-    for r in results:
-        print(f"{r['name']}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, max abs err {r['max_abs_err']:.3g}")
-
     report = cross_device(make_chain, batched.triangle_densities)
     print(f"cross-device 100k x 8 (cuda vs cpu), max abs diffs: {json.dumps(report)}")
+    return results
+
+
+def parity_path(samples, weights, batched, dft_conv, pair_hist):
+    """Phase 2: device parity mode at full size."""
+    import numpy as np
+    import torch
+
+    from getdist_tpu_torch.mcsamples import MCSamples
+    from getdist_tpu_torch.ops import parity_device as pdev
+
+    p = samples.shape[1]
+    k = p * (p - 1) // 2
+    names = [f"p{i}" for i in range(p)]
+
+    def fresh():
+        t0 = time.perf_counter()
+        mc = MCSamples(samples=samples, weights=weights, names=names, device="cuda")
+        return mc, time.perf_counter() - t0
+
+    mc, build_s = fresh()
+    cold_s, _ = wall_s(lambda: mc.fastParityDensities(device=True))
+    counters = (pair_hist.pair_histograms, pair_hist.pair_histograms_dynamic, dft_conv.dft_conv_spectrum,
+                dft_conv.dft_conv2d)
+    warm = []
+    for rep in range(2):
+        mc, _ = fresh()
+        if rep == 0:
+            for fn in counters:
+                fn.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+        seconds, (dens1, dens2) = wall_s(lambda: mc.fastParityDensities(device=True))
+        if rep == 0:
+            launches = {fn.__name__: fn.launches for fn in counters}
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        warm.append(seconds)
+    print(f"launches in one parity run: {launches}")
+    check(all(v >= 1 for v in launches.values()), "parity run launched K1, K4, K2 and K3")
+    check_parity_outputs(dens1, dens2, p, k)
+    profile = ", ".join(f"{key} {sec:.3f}" for key, sec in mc.parity_profile.items())
+    print(
+        f"parity 30 x 1M: MCSamples built in {build_s:.2f} s; fastParityDensities first call {cold_s:.2f} s, "
+        f"warm {warm[0]:.2f} s and {warm[1]:.2f} s; peak device memory {peak_gb:.2f} GB"
+    )
+    print(f"parity stages (s, last warm run): {profile}")
+    print(f"parity buckets: {json.dumps(mc.parity_buckets)}")
+    mc, _ = fresh()
+    busy_ms, wall_ms = profile_device_busy(lambda: mc.fastParityDensities(device=True))
+    print(f"parity device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms wall under the profiler "
+          f"(idle share {1 - busy_ms / wall_ms:.3f})")
+
+    # bin indices of all columns at 1M, against numpy's formula
+    idx = list(range(p))
+    infos = [mc._initParamRanges(j) for j in idx]
+    binmin = np.array([min(i.param_min, i.range_min) - (0 if i.has_limits_bot else (i.range_max - i.range_min) * 0.1)
+                       for i in infos])
+    binmax = np.array([max(i.param_max, i.range_max) + (0 if i.has_limits_top else (i.range_max - i.range_min) * 0.1)
+                       for i in infos])
+    fw = (binmax - binmin) / 255
+    st = mc._parity_chain()
+    got = pdev.bin_indices(st["samples"], binmin, fw).cpu().numpy()
+    want = ((samples - binmin) / fw + 0.5).astype(np.int64).T
+    flips = int(np.count_nonzero(got != want))
+    check(flips == 0, f"bin indices bit-exact against numpy ({flips} of {want.size} differ)")
+    print(f"bin indices 30 x 1M on the card: 0 of {want.size} differ from numpy's formula")
+
+    # K4 on this run's sheared stack
+    _, sheared_jobs = mc._parity_pairs(idx, infos)
+    stack = mc._sheared_stack(idx, infos, sheared_jobs, st["samples"])
+    ix = stack["ix"].to(torch.uint8).contiguous()
+    sa = torch.tensor(stack["pair_a"], dtype=torch.int32, device="cuda")
+    sb = torch.tensor(stack["pair_b"], dtype=torch.int32, device="cuda")
+    check(not pdev.static_route(ix.shape[0], len(sheared_jobs)), "the sheared stack takes K4's route")
+    w32 = st["weights32"]
+    h4 = pair_hist.pair_histograms_dynamic(ix, w32, sa, sb, integer_weights=True)
+    ref4 = pair_hist.pair_histograms_plain(ix, w32, sa, sb, integer_weights=True)
+    err4 = float((h4 - ref4).abs().max())
+    check(err4 == 0.0, f"K4 bit-exact (max abs diff {err4})")
+    b4, by4 = hist_bound(ix, len(sheared_jobs), 256)
+    results = [
+        {
+            "name": "pair_histograms_dynamic",
+            "route": "cuda",
+            "source": "getdist_tpu_torch/csrc/pair_hist.cu",
+            "replaces": "getdist_tpu/ops/pallas_kernels.py:65",
+            "launches": launches["pair_histograms_dynamic"],
+            "max_abs_err": err4,
+            "ms": cuda_ms(lambda: pair_hist.pair_histograms_dynamic(ix, w32, sa, sb, integer_weights=True), 10),
+            "plain_ms": cuda_ms(lambda: pair_hist.pair_histograms_plain(ix, w32, sa, sb, integer_weights=True), 2),
+            "bound_ms": b4,
+            "bound_by": by4,
+            "library_ms": None,
+        }
+    ]
+    print(f"sheared stack: {ix.shape[0]} index rows, {len(sheared_jobs)} pairs")
+
+    # f64 K2/K3 on the run's largest bucket (at fine 256): K1 histograms of
+    # the bucket's pair count, kernels at the bucket's window
+    bucket = max((b for b in mc.parity_buckets if b["fine"] == 256), key=lambda b: b["pairs"])
+    kb, winw = bucket["pairs"], bucket["winw"]
+    pad = dft_conv.frame_for(256 + 4 * winw + 1)
+    ix256 = np.ascontiguousarray(got, dtype=np.uint8)
+    pairs = np.array([(i, j) for i in range(p) for j in range(i + 1, p)][:kb], np.int32)
+    hists = pair_hist.pair_histograms(
+        torch.from_numpy(ix256).cuda(), w32, torch.from_numpy(pairs[:, 0].copy()).cuda(),
+        torch.from_numpy(pairs[:, 1].copy()).cuda(), integer_weights=True,
+    ).double()
+    widths = torch.linspace(0.8, winw / 2.5, kb, dtype=torch.float64, device="cuda")
+    kernels = batched._gauss_kernel_2d(widths, widths.flip(0), torch.full_like(widths, 0.3), winw)
+    ur, ui = dft_conv.dft_conv_spectrum(kernels, pad)
+    ur0, ui0 = dft_conv.dft_conv_spectrum_plain(kernels, pad)
+    scale = float(torch.maximum(ur0.abs().max(), ui0.abs().max()))
+    err_s = max(float((ur - ur0).abs().max()), float((ui - ui0).abs().max()))
+    check(err_s <= 1e-12 * scale, f"K2 f64 within 1e-12 max|ref| ({err_s} vs {scale})")
+    conv = dft_conv.dft_conv2d(hists, ur, ui, 256, winw, pad)
+    conv0 = dft_conv.dft_conv2d_plain(hists, ur0, ui0, 256, winw, pad)
+    err_c = float((conv - conv0).abs().max())
+    check(err_c <= 1e-12 * float(conv0.abs().max()), f"K3 f64 within 1e-12 max|ref| ({err_c})")
+    print(f"f64 K2/K3 on the largest bucket: {kb} pairs, winw {winw}, frame {pad}")
+    b_s, by_s = spectrum_bound(kernels, pad)
+    b_c, by_c = conv_bound(hists, pad, 256)
+    results += [
+        {
+            "name": "dft_conv_spectrum_f64",
+            "route": "cuda",
+            "source": "getdist_tpu_torch/csrc/dft_conv.cu",
+            "replaces": "getdist_tpu/ops/dft_conv.py:155",
+            "launches": launches["dft_conv_spectrum"],
+            "max_abs_err": err_s,
+            "ms": cuda_ms(lambda: dft_conv.dft_conv_spectrum(kernels, pad), 3),
+            "plain_ms": cuda_ms(lambda: dft_conv.dft_conv_spectrum_plain(kernels, pad), 3),
+            "bound_ms": b_s,
+            "bound_by": by_s,
+            "library_ms": library_spectrum_ms(kernels, pad, 3),
+        },
+        {
+            "name": "dft_conv2d_f64",
+            "route": "cuda",
+            "source": "getdist_tpu_torch/csrc/dft_conv.cu",
+            "replaces": "getdist_tpu/ops/dft_conv.py:190",
+            "launches": launches["dft_conv2d"],
+            "max_abs_err": err_c,
+            "ms": cuda_ms(lambda: dft_conv.dft_conv2d(hists, ur, ui, 256, winw, pad), 3),
+            "plain_ms": cuda_ms(lambda: dft_conv.dft_conv2d_plain(hists, ur0, ui0, 256, winw, pad), 3),
+            "bound_ms": b_c,
+            "bound_by": by_c,
+            "library_ms": library_conv_ms(hists, kernels, 256, winw, 1),
+        },
+    ]
+    report = parity_cross_device(MCSamples)
+    print(f"parity cross-device 20k x 6 (cuda vs cpu), max abs diffs: {json.dumps(report)}")
+    return results
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
+    )
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "nvidia-smi failed"
+    print(card)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+
+    sys.path.insert(0, ROOT)
+    from bench import make_chain
+    from getdist_tpu_torch.ops import _cuda, batched, dft_conv, pair_hist
+
+    lib = _cuda.library()
+    print(f"build: {lib.build_seconds:.2f} s with nvcc -> {os.path.relpath(lib.path, ROOT)}")
+    usage = [line.strip() for line in lib.log.splitlines() if "registers" in line or "spill" in line]
+    print("ptxas: " + " | ".join(usage))
+
+    t0 = time.perf_counter()
+    samples, weights = make_chain(1_000_000, 30)
+    print(f"chain 1,000,000 x 30 made in {time.perf_counter() - t0:.1f} s")
+
+    results = fused_path(samples, weights, batched, dft_conv, pair_hist, make_chain)
+    results += parity_path(samples, weights, batched, dft_conv, pair_hist)
+    for r in results:
+        # a bound is a least time: no measured way of computing the function may beat it
+        measured = [t for t in (r["ms"], r["plain_ms"], r["library_ms"]) if t is not None]
+        check(r["bound_ms"] <= min(measured), f"{r['name']}: bound {r['bound_ms']} ms above a measured {min(measured)} ms")
+        print(
+            f"{r['name']}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+            f"({r['bound_by']}), library {r['library_ms']}, max abs err {r['max_abs_err']:.3g}, "
+            f"launches {r['launches']}"
+        )
 
     print(card)
     print(json.dumps({"kernels": results}))

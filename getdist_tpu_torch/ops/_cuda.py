@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels of ``getdist_tpu_torch/csrc``.
 
-The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, cached under
+The sources are compiled at first use with ``nvcc`` for ``sm_90a`` (one
+``nvcc`` per source, run in parallel) and linked into one shared library
+with a plain C interface, cached under
 ``getdist_tpu_torch/_build`` by a hash of the sources, and loaded with
 ``ctypes``.  Nothing here runs at import time: machines without ``nvcc``
 (and the CPU tests) import the package and never build.
@@ -24,14 +25,14 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "pair_hist_launch": (_I, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P, _P),
-    "dft_spectrum_launch": (_I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P),
-    "dft_conv_launch": (_I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "pair_hist_launch": (_I, _P, _I, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _P, _P),
+    "dft_spectrum_launch": (_I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P),
+    "dft_conv_launch": (_I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 
@@ -40,6 +41,7 @@ class KernelLibrary:
     lib: ctypes.CDLL
     path: Path
     build_seconds: float  # 0.0 when the library was already built
+    log: str  # ptxas resource usage (registers, spills) of a fresh build
 
 
 def _nvcc():
@@ -55,23 +57,39 @@ def library() -> KernelLibrary:
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(b"".join(p.read_bytes() for p in sources) + " ".join(NVCC_FLAGS).encode()).hexdigest()
     path = BUILD_DIR / f"libgetdist_kernels_{digest[:16]}.so"
-    seconds = 0.0
+    seconds, log = 0.0, ""
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
+        # one nvcc per source, all started together, then one link
+        objects = [BUILD_DIR / f"{src.stem}_{digest[:16]}.{os.getpid()}.o" for src in sources]
+        procs = [
+            subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for src, obj in zip(sources, objects)
+        ]
+        logs = [proc.communicate()[0] for proc in procs]
+        failed = [(src.name, proc.returncode, log) for src, proc, log in zip(sources, procs, logs) if proc.returncode]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(f"{name} ({rc}):\n{log}" for name, rc, log in failed))
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        link = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]
+        proc = subprocess.run(link, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        for obj in objects:
+            obj.unlink()
         os.replace(tmp, path)
+        seconds = time.perf_counter() - t0
+        log = "\n".join(logs)
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-    return KernelLibrary(lib, path, seconds)
+    return KernelLibrary(lib, path, seconds, log)
 
 
 def call(name, device: torch.device, *args):
@@ -93,3 +111,12 @@ def require_cuda(*tensors, dtype):
             raise ValueError("expected a contiguous tensor")
         if t.dtype != dtype:
             raise TypeError(f"expected {dtype}, got {t.dtype}")
+
+
+def resolve_device(device):
+    """``device`` as a torch.device; a CUDA device must exist (the port's
+    entry points run on the card unless the caller names the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: pass device='cpu' to run on the host")
+    return device

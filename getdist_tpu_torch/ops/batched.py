@@ -9,9 +9,10 @@ two Pallas kernels on this path are CUDA kernels:
 * pair histograms -> :func:`getdist_tpu_torch.ops.pair_hist.pair_histograms`
 * 2D convolutions -> :mod:`getdist_tpu_torch.ops.dft_conv`
 
-Only the main-path branches are ported: no hard limits, no periodic axes,
-no ``like_weights``, no ``exact_mult_bias``, no sharding. Those raise
-``NotImplementedError`` naming their ROADMAP item. The TPU workarounds are
+The fused path's branches are ported, and the 2D stage's parity-mode
+branches (hard limits and ``exact_mult_bias`` with host bandwidths,
+``hists_in`` at any fine grid, f64); periodic axes, ``like_weights`` and
+sharding raise ``NotImplementedError`` naming their ROADMAP item. The TPU workarounds are
 not carried over: there is no bf16 weight split (the histogram kernel
 accumulates int32 or f32 weights directly), no chunked inverse FFT, no
 x64 toggling and no VMEM/HBM sizing of histogram tiles.
@@ -24,7 +25,8 @@ import math
 import numpy as np
 import torch
 
-from getdist_tpu_torch.ops.dft_conv import DEFAULT_PAD, dft_conv2d, dft_conv_spectrum
+from getdist_tpu_torch.ops._cuda import resolve_device
+from getdist_tpu_torch.ops.dft_conv import dft_conv2d, dft_conv_spectrum, frame_for
 from getdist_tpu_torch.ops.fft import dct
 from getdist_tpu_torch.ops.pair_hist import pair_histograms
 
@@ -78,13 +80,20 @@ def _tensor(x, device, dtype=torch.float32):
     return torch.from_numpy(arr).to(device)
 
 
-_NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64, torch.int64: np.int64, torch.int32: np.int32}
+_NP_DTYPES = {
+    torch.float32: np.float32,
+    torch.float64: np.float64,
+    torch.int64: np.int64,
+    torch.int32: np.int32,
+    torch.bool: np.bool_,
+}
 
 
-def prepare_chain(samples, weights, device="cpu", dtype=torch.float32):
+def prepare_chain(samples, weights, device="cuda", dtype=torch.float32):
     """Move a chain to ``device``: samples (N, P), weights (N,), as ``dtype``
-    (numpy chains are rounded to f32 on the host, as the JAX package does)."""
-    device = torch.device(device)
+    (numpy chains are rounded to f32 on the host, as the JAX package does).
+    Raises when ``device`` is CUDA and no card is present."""
+    device = resolve_device(device)
     return _tensor(samples, device, dtype), _tensor(weights, device, dtype)
 
 
@@ -776,6 +785,7 @@ def all_2d_densities(
     int8_weights=False,
     bandwidth_scale=None,
     sigma_range=None,
+    boundary_order=1,
     max_corr=0.95,
     enable_shear=True,
     bandwidth_override=None,
@@ -789,127 +799,76 @@ def all_2d_densities(
     """All-pairs marginalized 2D densities on the chain's device.
 
     pair_a / pair_b: (K,) parameter indices; neff, binmin, binmax: (P,)
-    from :func:`all_1d_densities`. Returns a dict with 'P' (K, 256, 256)
+    from :func:`all_1d_densities`. Returns a dict with 'P' (K, fine, fine)
     peak-normalized densities (rows = y = b), 'contours' (K, C), the kernel
     parameters 'rx', 'ry', 'corr', 'neff', 'fragile' and the packed 'diag'.
     Pipeline: pair histograms (CUDA kernel K1) -> bandwidth optimizer
     (sheared spectra for correlated pairs) -> correlated Gaussian kernels ->
-    DFT-matmul convolutions (K2, K3) -> multiplicative bias round ->
-    contour levels.
+    DFT-matmul convolutions (K2, K3) -> boundary correction at hard limits
+    -> multiplicative bias round -> contour levels. Everything runs in the
+    samples' type: f32 on the fused path, f64 in parity mode.
 
     ``int8_weights``: every weight is an integer (the histogram kernel then
     accumulates exactly in int32). ``enable_shear``: bool, or the pair
     positions that may shear (host pre-sniffed, :func:`_sniff_shear`).
-    Hooks for stage isolation: ``hists_in`` (K, 256, 256) replaces the
+    Hooks for stage isolation: ``hists_in`` (K, fine, fine) replaces the
     binning, ``bandwidth_override`` (hx, hy, c) in data units replaces the
     optimizer, ``kernel_support`` (K,) sets the window half-widths;
     ``export_hists`` adds the histograms to the output.
+
+    Parity mode's branches (``getdist_tpu/ops/batched.py:1756-1895``), which
+    need ``bandwidth_override``: ``active_lo`` / ``active_hi`` (P,) hard
+    limits, with the order-0 edge normalization and, at
+    ``boundary_order=1``, the linear boundary kernel; ``exact_mult_bias``,
+    the reference's full edge mask in the multiplicative bias round. The
+    DFT frame is sized to the largest convolution (a multiple of 128).
     """
-    if active_lo is not None or active_hi is not None or prior_mask is not None:
-        raise _not_ported("2D hard limits and prior masks", "A3")
+    if prior_mask is not None:
+        raise _not_ported("2D prior masks", "A3")
     if periodic is not None:
         raise _not_ported("2D periodic parameters", "A3")
     if like_weights is not None:
         raise _not_ported("2D like_weights", "A3")
-    if exact_mult_bias:
-        raise _not_ported("exact_mult_bias (parity mode)", "A8")
     if axis_name is not None:
         raise _not_ported("sharded 2D densities", "A9")
-    pad = DEFAULT_PAD
-    if fine_bins + 4 * winw + 1 > pad:
-        raise _not_ported(f"2D frames past {pad} (fine_bins={fine_bins}, winw={winw})", "A3")
+    has_limits = active_lo is not None or active_hi is not None
+    if bandwidth_override is None and (has_limits or exact_mult_bias):
+        # the parity branches run with host-exact bandwidths; the in-program
+        # optimizer's limit rules (swap, rule-of-thumb, no correlation) are
+        # not ported
+        raise _not_ported("the in-program 2D optimizer with hard limits or exact_mult_bias", "A3/A8")
+    if boundary_order not in (0, 1):
+        raise ValueError(f"boundary_order must be 0 or 1, got {boundary_order}")
     # the plain matrix products below (psi functionals) need full FP32
     torch.backends.cuda.matmul.allow_tf32 = False
-    n, p = samples.shape
     dtype, device = samples.dtype, samples.device
     pa = _tensor(pair_a, device, torch.int64)
     pb = _tensor(pair_b, device, torch.int64)
     k_all = pa.shape[0]
     neff, binmin, binmax = (_tensor(v, device, dtype) for v in (neff, binmin, binmax))
     contours = _tensor(contours, device, dtype)
-
-    cols = samples.T.contiguous()
-    norm = torch.sum(weights)
-    means = torch.matmul(cols, weights) / norm
-    diffs = cols - means[:, None]
-    cov = torch.matmul(diffs * weights[None, :], diffs.T) / norm
-    sd = torch.sqrt(torch.diagonal(cov))
-    corr_mat = cov / torch.outer(sd, sd)
     fine_width = (binmax - binmin) / (fine_bins - 1)
+    cols = None if hists_in is not None and bandwidth_override is not None else samples.T.contiguous()
 
     if hists_in is not None:
         hists = _tensor(hists_in, device, dtype)
     elif fine_bins != 256:
-        raise _not_ported(f"pair histograms at {fine_bins} bins (the kernel bins 256)", "A3")
+        raise _not_ported(f"in-program pair histograms at {fine_bins} bins (parity mode passes hists_in)", "A3")
     else:
         ix_all = _fine_indices(cols, binmin, fine_width, fine_bins).to(torch.uint8)
-        hists = pair_histograms(ix_all, weights, pa.to(torch.int32), pb.to(torch.int32), integer_weights=int8_weights)
+        hists = pair_histograms(
+            ix_all, weights.to(torch.float32), pa.to(torch.int32), pb.to(torch.int32), integer_weights=int8_weights
+        ).to(dtype)
 
     pair_neff = torch.minimum(neff[pa], neff[pb])
-    range_a = (binmax - binmin)[pa]
-    range_b = (binmax - binmin)[pb]
-    sr = sd if sigma_range is None else _tensor(sigma_range, device, dtype)
-    sr_a, sr_b = sr[pa], sr[pb]
-
     if bandwidth_override is not None:
         hx, hy, c = (_tensor(v, device, dtype) for v in bandwidth_override)
         fragile = torch.zeros(k_all, dtype=torch.bool, device=device)
     else:
-        # shear correlated pairs for bandwidth estimation; pure rule of
-        # thumb at extreme correlation; plain optimizer otherwise
-        c_s = corr_mat[pa, pb]
-        c_cap = torch.clamp(c_s, -max_corr, max_corr)
-        c_eff = torch.where(torch.abs(c_cap) < 0.1, 0.0, c_cap)
-        shear_sel = (torch.abs(c_eff) > 0.2) & (torch.abs(c_eff) <= max_corr)
-        rule_sel = torch.abs(c_s) > max_corr
-        do_corr = torch.ones(k_all, dtype=torch.bool, device=device)
-        fb_t = (torch.minimum(sr_a / range_a, sr_b / range_b) / pair_neff ** (1.0 / 6)) ** 2
-        shear_on, subset = _shear_subset(enable_shear, k_all)
-        if shear_on:
-            # the sheared spectrum feeds the optimizer only; the density
-            # convolution runs on the original grid
-            xc = binmin[:, None] + fine_width[:, None] * torch.arange(fine_bins, dtype=dtype, device=device)[None, :]
-            swap = torch.zeros(k_all, dtype=torch.bool, device=device)  # no limited parameter to put first
-            r0, r1, s_mats = _shear_plan_2d(cov[pa, pa], cov[pa, pb], cov[pb, pb], swap)
-            sub = torch.arange(k_all, device=device) if subset is None else torch.tensor(subset, device=device)
-            sh_p, sh_r1, sh_r2 = _sheared_power(hists[sub], xc[pa[sub]], xc[pb[sub]], r0[sub], r1[sub], swap[sub])
-            sh_power = torch.zeros_like(hists)
-            sh_power[sub] = sh_p
-            sh_range1 = range_a.clone()
-            sh_range1[sub] = sh_r1
-            sh_range2 = range_b.clone()
-            sh_range2[sub] = sh_r2
-            in_sub = torch.zeros(k_all, dtype=torch.bool, device=device)
-            in_sub[sub] = True
-            shear_sel = shear_sel & in_sub
-            opt_range1 = torch.where(shear_sel, sh_range1, range_a)
-            opt_range2 = torch.where(shear_sel, sh_range2, range_b)
-            opt_corr = torch.where(shear_sel, 0.0, c_eff)
-            wx, wy, c_k, ok, fragile = _kernel_bandwidth_2d(
-                hists, pair_neff, opt_corr, do_corr, fb_t, sh_power, shear_sel
-            )
-        else:
-            opt_range1, opt_range2 = range_a, range_b
-            wx, wy, c_k, ok, fragile = _kernel_bandwidth_2d(hists, pair_neff, c_eff, do_corr, fb_t)
-        hx = wx * opt_range1
-        hy = wy * opt_range2
-        c = c_k
-        if shear_on:
-            # sheared-space kernels back through the scaled Cholesky root
-            hx_sh, hy_sh, c_sh = _shear_kernel_back(hx, hy, c_k, s_mats, swap)
-            hx = torch.where(shear_sel, hx_sh, hx)
-            hy = torch.where(shear_sel, hy_sh, hy)
-            c = torch.where(shear_sel, c_sh, c)
-        # rule-of-thumb branch and optimizer-failure fallback (data units)
-        use_rule = rule_sel | ~ok
-        fragile = fragile & ~use_rule
-        hx = torch.where(use_rule, sr_a / pair_neff ** (1.0 / 6), hx)
-        hy = torch.where(use_rule, sr_b / pair_neff ** (1.0 / 6), hy)
-        c = torch.clamp(torch.where(use_rule, c_cap, c), -0.99, 0.99)
-        if mult_bias_order:
-            scale = 1.1 * pair_neff ** (1.0 / 6 - 1.0 / (2 + 4 * (1 + mult_bias_order)))
-            hx = hx * scale
-            hy = hy * scale
+        hx, hy, c, fragile = _optimized_bandwidths(
+            cols, weights, pa, pb, hists, pair_neff, binmin, binmax, fine_width, fine_bins, sigma_range, max_corr,
+            enable_shear, mult_bias_order,
+        )
     if bandwidth_scale is not None:
         hx = hx * bandwidth_scale
         hy = hy * bandwidth_scale
@@ -918,15 +877,102 @@ def all_2d_densities(
     support = None if kernel_support is None else _tensor(kernel_support, device, dtype)
     kernels = _gauss_kernel_2d(rx, ry, c, winw, support=support)
 
-    # 'same' convolutions: full[winw : winw + fine_bins] of each pair's frame
-    ur, ui = dft_conv_spectrum(kernels, pad)
-    smoothed = dft_conv2d(hists, ur, ui, fine_bins, winw, pad)
-    # multiplicative bias rounds (without limits the reference's edge
-    # normalization mask is ~1 wherever there is mass)
+    # one frame covers every convolution below: 'same' convolutions of the
+    # (fine, fine) grids and 'valid' ones of the (fine + 2 winw)^2 masks
+    pad = frame_for(fine_bins + 4 * winw + 1)
+    spec = dft_conv_spectrum(kernels, pad)
+
+    def conv_same(grids, sp=spec):
+        return dft_conv2d(grids, *sp, fine_bins, winw, pad)
+
+    def conv_valid_ext(grids, sp=spec):
+        return dft_conv2d(grids, *sp, fine_bins, 2 * winw, pad)
+
+    smoothed = conv_same(hists)
+    ext = fine_bins + 2 * winw
+    idx = torch.arange(ext, device=device)
+    no_limit = torch.zeros(k_all, dtype=torch.bool, device=device)
+    if has_limits:
+        unlimited = np.zeros(samples.shape[1], bool)
+        lim_lo = _tensor(unlimited if active_lo is None else active_lo, device, torch.bool)
+        lim_hi = _tensor(unlimited if active_hi is None else active_hi, device, torch.bool)
+        lo_a, hi_a, lo_b, hi_b = lim_lo[pa], lim_hi[pa], lim_lo[pb], lim_hi[pb]
+    else:
+        lo_a = hi_a = lo_b = hi_b = no_limit
+
+    if has_limits:
+        # order-0 edge normalization (reference mcsamples.py:1921-1933): the
+        # prior mask is ones beyond unbounded edges, zero beyond an active
+        # limit with a half-weight limit line; a00 = conv(mask) is the
+        # kernel mass inside the prior
+        def edge_mask(act_l, act_h):
+            m = torch.ones((k_all, ext), dtype=dtype, device=device)
+            lo_edge = torch.where(idx < winw, 0.0, torch.where(idx == winw, 0.5, 1.0)).to(dtype)
+            hi_edge = torch.where(idx >= ext - winw, 0.0, torch.where(idx == ext - winw - 1, 0.5, 1.0)).to(dtype)
+            m = torch.where(act_l[:, None], lo_edge[None, :] * m, m)
+            return torch.where(act_h[:, None], hi_edge[None, :] * m, m)
+
+        masks = edge_mask(lo_b, hi_b)[:, :, None] * edge_mask(lo_a, hi_a)[:, None, :]  # (K, ext, ext)
+        a00 = conv_valid_ext(masks)
+        pair_limited = lo_a | hi_a | lo_b | hi_b
+        good = pair_limited[:, None, None] & (a00 > 1e-12)
+        a00 = torch.where(good, a00, 1.0)
+        maxes0 = torch.amax(smoothed, dim=(1, 2), keepdim=True)
+        apply_ix = good & (a00 * smoothed > maxes0 * 1e-8)
+        normed = torch.where(apply_ix, smoothed / a00, smoothed)
+        if boundary_order == 1:
+            # linear boundary-kernel correction (reference mcsamples.py:1933-1961)
+            moment = torch.arange(-winw, winw + 1, dtype=dtype, device=device)
+            win_x = kernels * moment[None, None, :]
+            win_y = kernels * moment[None, :, None]
+            spec_wx = dft_conv_spectrum(win_x, pad)
+            spec_wy = dft_conv_spectrum(win_y, pad)
+            a10 = conv_valid_ext(masks, spec_wx)
+            a01 = conv_valid_ext(masks, spec_wy)
+            x_p = conv_same(hists, spec_wx)
+            y_p = conv_same(hists, spec_wy)
+            del spec_wx, spec_wy
+            a20 = conv_valid_ext(masks, dft_conv_spectrum(win_x * moment[None, None, :], pad))
+            a02 = conv_valid_ext(masks, dft_conv_spectrum(win_y * moment[None, :, None], pad))
+            a11 = conv_valid_ext(masks, dft_conv_spectrum(win_y * moment[None, None, :], pad))
+            denom = a20 * a01**2 + a10**2 * a02 - a00 * a02 * a20 + a11**2 * a00 - 2 * a01 * a10 * a11
+            lin_a = a11**2 - a02 * a20
+            lin_x = a10 * a02 - a01 * a11
+            lin_y = a01 * a20 - a10 * a11
+            safe_denom = torch.where(denom == 0, 1.0, denom)
+            corrected = (smoothed * lin_a + x_p * lin_x + y_p * lin_y) / safe_denom
+            safe_normed = torch.where(normed == 0, 1.0, normed)
+            lifted = normed * torch.exp(torch.clamp(corrected / safe_normed, max=4) - 1)
+            smoothed = torch.where(apply_ix & (denom != 0), lifted, normed)
+        else:
+            smoothed = normed
+
+    a00_mb = None
+    if mult_bias_order and exact_mult_bias:
+        # the reference's full mask (mcsamples.py _setAllEdgeMask2D after
+        # _setEdgeMask2D): ones with zeroed winw borders, half-weight limit
+        # lines on hard-limited directions, convolved with the pair kernel
+        border = (idx < winw) | (idx >= ext - winw)
+
+        def mb_axis_mask(act_l, act_h):
+            m = torch.where(border, 0.0, 1.0).to(dtype)[None, :].expand(k_all, ext)
+            m = torch.where(act_l[:, None] & (idx == winw)[None, :], m * 0.5, m)
+            return torch.where(act_h[:, None] & (idx == ext - winw - 1)[None, :], m * 0.5, m)
+
+        mb_masks = mb_axis_mask(lo_b, hi_b)[:, :, None] * mb_axis_mask(lo_a, hi_a)[:, None, :]
+        a00_mb = conv_valid_ext(mb_masks)
+        a00_mb = torch.where(a00_mb <= 1e-12, 1.0, a00_mb)
+    # multiplicative bias rounds; without limits or the exact mask the
+    # reference's edge normalization is ~1 wherever there is mass
     for _ in range(mult_bias_order):
         maxes = torch.amax(smoothed, dim=(1, 2), keepdim=True)
         flat = torch.where(smoothed > maxes * 1e-8, hists / torch.where(smoothed == 0, 1.0, smoothed), hists)
-        smoothed = smoothed * dft_conv2d(flat, ur, ui, fine_bins, winw, pad)
+        round_conv = conv_same(flat)
+        if a00_mb is not None:
+            round_conv = round_conv / a00_mb
+        elif has_limits:
+            round_conv = torch.where(pair_limited[:, None, None], round_conv / a00, round_conv)
+        smoothed = smoothed * round_conv
 
     density = smoothed / torch.amax(smoothed, dim=(1, 2), keepdim=True)
     out = {
@@ -945,6 +991,80 @@ def all_2d_densities(
     if export_hists:
         out["hists"] = hists
     return out
+
+
+def _optimized_bandwidths(
+    cols, weights, pa, pb, hists, pair_neff, binmin, binmax, fine_width, fine_bins, sigma_range, max_corr,
+    enable_shear, mult_bias_order,
+):
+    """(hx, hy, c, fragile) in data units from the in-program optimizer:
+    sheared spectra for correlated pairs, pure rule of thumb at extreme
+    correlation, the plain optimizer otherwise."""
+    dtype, device = cols.dtype, cols.device
+    k_all = pa.shape[0]
+    norm = torch.sum(weights)
+    means = torch.matmul(cols, weights) / norm
+    diffs = cols - means[:, None]
+    cov = torch.matmul(diffs * weights[None, :], diffs.T) / norm
+    sd = torch.sqrt(torch.diagonal(cov))
+    corr_mat = cov / torch.outer(sd, sd)
+    range_a = (binmax - binmin)[pa]
+    range_b = (binmax - binmin)[pb]
+    sr = sd if sigma_range is None else _tensor(sigma_range, device, dtype)
+    sr_a, sr_b = sr[pa], sr[pb]
+
+    c_s = corr_mat[pa, pb]
+    c_cap = torch.clamp(c_s, -max_corr, max_corr)
+    c_eff = torch.where(torch.abs(c_cap) < 0.1, 0.0, c_cap)
+    shear_sel = (torch.abs(c_eff) > 0.2) & (torch.abs(c_eff) <= max_corr)
+    rule_sel = torch.abs(c_s) > max_corr
+    do_corr = torch.ones(k_all, dtype=torch.bool, device=device)
+    fb_t = (torch.minimum(sr_a / range_a, sr_b / range_b) / pair_neff ** (1.0 / 6)) ** 2
+    shear_on, subset = _shear_subset(enable_shear, k_all)
+    if shear_on:
+        # the sheared spectrum feeds the optimizer only; the density
+        # convolution runs on the original grid
+        xc = binmin[:, None] + fine_width[:, None] * torch.arange(fine_bins, dtype=dtype, device=device)[None, :]
+        swap = torch.zeros(k_all, dtype=torch.bool, device=device)  # no limited parameter to put first
+        r0, r1, s_mats = _shear_plan_2d(cov[pa, pa], cov[pa, pb], cov[pb, pb], swap)
+        sub = torch.arange(k_all, device=device) if subset is None else torch.tensor(subset, device=device)
+        sh_p, sh_r1, sh_r2 = _sheared_power(hists[sub], xc[pa[sub]], xc[pb[sub]], r0[sub], r1[sub], swap[sub])
+        sh_power = torch.zeros_like(hists)
+        sh_power[sub] = sh_p
+        sh_range1 = range_a.clone()
+        sh_range1[sub] = sh_r1
+        sh_range2 = range_b.clone()
+        sh_range2[sub] = sh_r2
+        in_sub = torch.zeros(k_all, dtype=torch.bool, device=device)
+        in_sub[sub] = True
+        shear_sel = shear_sel & in_sub
+        opt_range1 = torch.where(shear_sel, sh_range1, range_a)
+        opt_range2 = torch.where(shear_sel, sh_range2, range_b)
+        opt_corr = torch.where(shear_sel, 0.0, c_eff)
+        wx, wy, c_k, ok, fragile = _kernel_bandwidth_2d(hists, pair_neff, opt_corr, do_corr, fb_t, sh_power, shear_sel)
+    else:
+        opt_range1, opt_range2 = range_a, range_b
+        wx, wy, c_k, ok, fragile = _kernel_bandwidth_2d(hists, pair_neff, c_eff, do_corr, fb_t)
+    hx = wx * opt_range1
+    hy = wy * opt_range2
+    c = c_k
+    if shear_on:
+        # sheared-space kernels back through the scaled Cholesky root
+        hx_sh, hy_sh, c_sh = _shear_kernel_back(hx, hy, c_k, s_mats, swap)
+        hx = torch.where(shear_sel, hx_sh, hx)
+        hy = torch.where(shear_sel, hy_sh, hy)
+        c = torch.where(shear_sel, c_sh, c)
+    # rule-of-thumb branch and optimizer-failure fallback (data units)
+    use_rule = rule_sel | ~ok
+    fragile = fragile & ~use_rule
+    hx = torch.where(use_rule, sr_a / pair_neff ** (1.0 / 6), hx)
+    hy = torch.where(use_rule, sr_b / pair_neff ** (1.0 / 6), hy)
+    c = torch.clamp(torch.where(use_rule, c_cap, c), -0.99, 0.99)
+    if mult_bias_order:
+        scale = 1.1 * pair_neff ** (1.0 / 6 - 1.0 / (2 + 4 * (1 + mult_bias_order)))
+        hx = hx * scale
+        hy = hy * scale
+    return hx, hy, c, fragile
 
 
 # ---------------------------------------------------------------------------
@@ -1022,7 +1142,7 @@ def triangle_densities(
     like_weights=None,
     bandwidth_scale_1d=None,
     bandwidth_scale_2d=None,
-    device="cpu",
+    device="cuda",
 ):
     """All 1D and all-pairs 2D densities of a chain on ``device``.
 
@@ -1032,7 +1152,8 @@ def triangle_densities(
     (exact int32 histogram accumulation) is sniffed from numpy weights when
     None: integers in [0, 127] with a total below 2^31, the JAX package's
     rule. ``enable_shear`` is sniffed from numpy samples when None.
-    Float weights are accumulated in f32 directly (no bf16 split).
+    Float weights are accumulated in f32 directly (no bf16 split). Runs on
+    the card unless ``device`` names the CPU; raises without CUDA.
     """
     if limits_lo is not None or limits_hi is not None or periodic is not None:
         raise _not_ported("hard limits and periodic parameters", "A2/A3")
@@ -1051,6 +1172,7 @@ def triangle_densities(
             and host_weights.max() <= 127
             and host_weights.size * float(host_weights.max()) < 2**31
         )
+    device = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False  # every plain matrix product runs in full FP32
     p = samples.shape[1]
     pairs = np.array([(i, j) for i in range(p) for j in range(i + 1, p)], np.int64).reshape(-1, 2)

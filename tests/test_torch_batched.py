@@ -327,7 +327,7 @@ def test_slice_outputs_are_sane(slices):
 
 
 def test_port_imports_no_jax():
-    code = "import sys, getdist_tpu_torch.ops.batched; sys.exit(int('jax' in sys.modules))"
+    code = "import sys, getdist_tpu_torch.ops.batched, getdist_tpu_torch.mcsamples; sys.exit(int('jax' in sys.modules))"
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
 
