@@ -6,7 +6,7 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
     python3 chip_smoke.py
 
 Phases: require CUDA and print the card's name and power limit; build the
-CUDA kernels from ``getdist_tpu_torch/csrc``. Then two paths on
+CUDA kernels from ``getdist_tpu_torch/csrc``. Then three paths on
 ``bench.make_chain(1_000_000, 30)`` (30 1D and 435 2D densities):
 
 1. the fused path, ``triangle_densities``: count each kernel's launches in
@@ -20,7 +20,16 @@ CUDA kernels from ``getdist_tpu_torch/csrc``. Then two paths on
    numpy's formula, K4 on this run's sheared stack and f64 K2/K3 on its
    largest bucket against their plain versions, and parity on the card
    against the port on the CPU at 20k x 6 (a bounded parameter and a
-   pair with |corr| > 0.87).
+   pair with |corr| > 0.87);
+3. the sharded path (``getdist_tpu_torch.parallel``) in a one-rank NCCL
+   group: ``sharded_triangle_densities`` (first call, warm runs, peak
+   memory and launch counts of one run, beside ``triangle_densities`` on
+   the same device tensors, and agreement with it), then
+   ``sharded_pair_hists`` over all 435 pairs through K5 (both weight
+   modes, bit-exact against K1 and the plain version) and without a pair
+   plan through K4; last, 4 gloo ranks on the CPU run the sharded path on
+   a 40k x 6 chain, held against the one-rank run on the card (the only
+   run where the N_eff halo exchange and the card meet).
 
 Prints one JSON line of kernel results (with each kernel's bound on the
 card and, where one exists, a single PyTorch call's time), the card line
@@ -515,6 +524,169 @@ def parity_path(samples, weights, batched, dft_conv, pair_hist):
     return results
 
 
+SHARDED_TOL = {"neff": ("rtol", 1e-3), "1D P": ("atol", 1e-5), "2D P": ("atol", 3e-5), "contours": ("rtol", 1e-3)}
+
+
+def sharded_diffs(got, want, label):
+    """Max differences of (d1, d2) against (d1, d2) at the tolerances of
+    tests/test_parallel.py (SHARDED_TOL); fails past them."""
+    import numpy as np
+
+    (g1, g2), (w1, w2) = got, want
+    pairs = {"neff": (g1["neff"], w1["neff"]), "1D P": (g1["P"], w1["P"]), "2D P": (g2["P"], w2["P"]),
+             "contours": (g2["contours"], w2["contours"])}
+    report = {}
+    for name, (g, w) in pairs.items():
+        g, w = (np.asarray(x.cpu() if hasattr(x, "cpu") else x, np.float64) for x in (g, w))
+        kind, tol = SHARDED_TOL[name]
+        err = np.abs(g - w)
+        report[name] = float(err.max())
+        limit = tol * np.abs(w) if kind == "rtol" else tol
+        check(bool(np.all(err <= limit)), f"{label} {name}: max abs diff {err.max()} ({kind} {tol})")
+    return report
+
+
+def cross_rank_worker(group, samples, weights):
+    """One gloo rank of the cross-check: its block through the sharded path
+    on the CPU."""
+    from getdist_tpu_torch.parallel import shard_samples, sharded_triangle_densities
+
+    d1, d2 = sharded_triangle_densities(group, *shard_samples(group, samples, weights, device="cpu"),
+                                        n_samples=len(samples))
+    return {k: d1[k].numpy() for k in ("neff", "P")}, {k: d2[k].numpy() for k in ("P", "contours")}
+
+
+def sharded_path(samples, weights, batched, dft_conv, pair_hist, make_chain):
+    """Phase 3: the sharded path, one NCCL rank on the card."""
+    import torch.distributed as dist
+
+    from getdist_tpu_torch.ops._cuda import BUILD_DIR
+    from getdist_tpu_torch.parallel import init_group
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    store = BUILD_DIR / f"nccl_store_{os.getpid()}"
+    store.unlink(missing_ok=True)
+    group = init_group("nccl", rank=0, world_size=1, init_method=f"file://{store}")
+    try:
+        return sharded_runs(group, samples, weights, batched, dft_conv, pair_hist, make_chain)
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+
+
+def sharded_runs(group, samples, weights, batched, dft_conv, pair_hist, make_chain):
+    import numpy as np
+    import torch
+
+    from getdist_tpu_torch.parallel import shard_samples, sharded_pair_hists, sharded_triangle_densities, spawn_ranks
+
+    p = samples.shape[1]
+    k = p * (p - 1) // 2
+    local = shard_samples(group, samples, weights, device="cuda")
+
+    def run():
+        return sharded_triangle_densities(group, *local, n_samples=len(samples))
+
+    def run_fused():
+        return batched.triangle_densities(*local, int8_weights=False, enable_shear=True)
+
+    cold_s, _ = wall_s(run)
+    counters = (pair_hist.pair_histograms, dft_conv.dft_conv_spectrum, dft_conv.dft_conv2d)
+    for fn in counters:
+        fn.launches = 0
+    _, (d1, d2) = wall_s(run)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    print(f"launches in one sharded run: {launches}")
+    check(launches == {"pair_histograms": 1, "dft_conv_spectrum": 1, "dft_conv2d": 2}, "sharded launch counts")
+    check_outputs(d1, d2, p, k)
+    # warm walls in turns (S, T, T, S, S, T), then each peak with no other run's output alive
+    fns = {"sharded": run, "triangle_densities": run_fused}
+    walls = {name: [] for name in fns}
+    for name in ("sharded", "triangle_densities", "triangle_densities", "sharded", "sharded", "triangle_densities"):
+        walls[name].append(wall_s(fns[name])[0])
+    peaks = {}
+    for name, fn in fns.items():
+        torch.cuda.reset_peak_memory_stats()
+        _, out = wall_s(fn)
+        peaks[name] = torch.cuda.max_memory_allocated() / 1e9
+        if name == "triangle_densities":
+            fused = out
+        del out
+    warm = {name: min(ws) for name, ws in walls.items()}
+    print(
+        f"sharded 30 x 1M (one-rank NCCL group): first call {cold_s * 1e3:.1f} ms, warm {warm['sharded'] * 1e3:.1f}"
+        f" ms (min of 3), peak device memory {peaks['sharded']:.2f} GB; triangle_densities on the same device "
+        f"tensors: warm {warm['triangle_densities'] * 1e3:.1f} ms, peak {peaks['triangle_densities']:.2f} GB; "
+        f"walls in turns (ms): {json.dumps({k: [round(x * 1e3, 1) for x in v] for k, v in walls.items()})}"
+    )
+    report = sharded_diffs((d1, d2), fused, "sharded vs triangle_densities")
+    print(f"sharded vs triangle_densities on the card, max abs diffs: {json.dumps(report)}")
+
+    # K5 through sharded_pair_hists over all pairs, both weight modes; K4 without a pair plan
+    s_dev, w_dev = local
+    binmin, binmax = d1["range"]
+    ix = batched._fine_indices(s_dev.T.contiguous(), binmin, (binmax - binmin) / 255, 256).to(torch.uint8)
+    pairs = [(i, j) for i in range(p) for j in range(i + 1, p)]
+    pa = torch.tensor([a for a, _ in pairs], dtype=torch.int32, device="cuda")
+    pb = torch.tensor([b for _, b in pairs], dtype=torch.int32, device="cuda")
+    counters = (pair_hist.pair_histograms_grouped, pair_hist.pair_histograms_dynamic)
+    for fn in counters:
+        fn.launches = 0
+    grouped = {mode: sharded_pair_hists(group, ix, w_dev, pa, pb, static_pairs=pairs, int8_weights=mode)
+               for mode in (True, False)}
+    dynamic = sharded_pair_hists(group, ix, w_dev, pa, pb)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    print(f"launches in the sharded pair-histogram calls: {launches}")
+    check(launches == {"pair_histograms_grouped": 2, "pair_histograms_dynamic": 1}, "K5/K4 launch counts")
+    plan = [torch.from_numpy(x).cuda() for x in pair_hist.group_pairs(pairs)]
+    err5 = 0.0
+    for mode, hists in grouped.items():
+        ref = pair_hist.pair_histograms_grouped_plain(ix, w_dev, *plan, int8_weights=mode)
+        k1 = pair_hist.pair_histograms(ix, w_dev, pa, pb, integer_weights=mode)
+        err5 = max(err5, float((hists - ref).abs().max()))
+        check(torch.equal(hists, ref) and torch.equal(hists, k1), f"K5 (int8_weights={mode}) bit-exact vs plain and K1")
+    check(float(grouped[True].double().sum()) == float(weights.sum()) * k, "K5 total mass")
+    check(torch.equal(dynamic, grouped[True]), "K4 route of sharded_pair_hists equals K5's")
+    t5 = {mode: cuda_ms(lambda m=mode: pair_hist.pair_histograms_grouped(ix, w_dev, *plan, int8_weights=m), 10)
+          for mode in (True, False)}
+    t1 = cuda_ms(lambda: pair_hist.pair_histograms(ix, w_dev, pa, pb, integer_weights=True), 10)
+    print(f"K5 on 30 x 1M, 435 pairs in {plan[0].shape[0]} groups of {plan[0].shape[1]}: int32 {t5[True]:.3f} ms, "
+          f"f32 {t5[False]:.3f} ms; K1 on the same rows, int32 {t1:.3f} ms")
+    b5, by5 = hist_bound(ix, k, 256)
+    result = {
+        "name": "pair_histograms_grouped",
+        "route": "cuda",
+        "source": "getdist_tpu_torch/csrc/pair_hist.cu",
+        "replaces": "getdist_tpu/ops/pallas_kernels.py:170",
+        "launches": launches["pair_histograms_grouped"],
+        "max_abs_err": err5,
+        "ms": t5[True],
+        "plain_ms": cuda_ms(lambda: pair_hist.pair_histograms_grouped_plain(ix, w_dev, *plan, int8_weights=True), 2),
+        "bound_ms": b5,
+        "bound_by": by5,
+        "library_ms": None,
+    }
+
+    # 4 gloo ranks on the CPU against the one-rank run on the card
+    base, cw = make_chain(40_000, 6, seed=19)
+    cs = base.copy()
+    cs[:, 1] = 0.8 * base[:, 0] + 0.6 * base[:, 1]
+    corr = np.corrcoef(cs.T)[0, 1]
+    check(abs(corr) > 0.5, f"cross-rank chain has a correlated pair ({corr})")
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(cross_rank_worker, 4, "gloo", args=(cs, cw), timeout_s=600)
+    spawn_s = time.perf_counter() - t0
+    for rank, got in enumerate(ranks[1:], start=1):
+        for mine, first in zip(got, ranks[0]):
+            check(all(np.array_equal(mine[key], first[key]) for key in first), f"rank {rank} bitwise equal to rank 0")
+    card = sharded_triangle_densities(group, *shard_samples(group, cs, cw, device="cuda"), n_samples=len(cs))
+    report = sharded_diffs(ranks[0], card, "4 gloo ranks vs one NCCL rank")
+    print(f"cross-rank 40k x 6 (|corr| {abs(corr):.2f}): 4 gloo ranks on the CPU ({spawn_s:.1f} s, bitwise equal "
+          f"across ranks) vs one NCCL rank on the card, max abs diffs: {json.dumps(report)}")
+    return [result]
+
+
 def main():
     import torch
 
@@ -543,6 +715,7 @@ def main():
 
     results = fused_path(samples, weights, batched, dft_conv, pair_hist, make_chain)
     results += parity_path(samples, weights, batched, dft_conv, pair_hist)
+    results += sharded_path(samples, weights, batched, dft_conv, pair_hist, make_chain)
     for r in results:
         # a bound is a least time: no measured way of computing the function may beat it
         measured = [t for t in (r["ms"], r["plain_ms"], r["library_ms"]) if t is not None]

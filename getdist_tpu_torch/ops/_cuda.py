@@ -31,6 +31,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "pair_hist_launch": (_I, _P, _I, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _P, _P),
+    "pair_hist_grouped_launch": (_I, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P, _P),
     "dft_spectrum_launch": (_I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P),
     "dft_conv_launch": (_I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
 }

@@ -11,8 +11,10 @@ two Pallas kernels on this path are CUDA kernels:
 
 The fused path's branches are ported, and the 2D stage's parity-mode
 branches (hard limits and ``exact_mult_bias`` with host bandwidths,
-``hists_in`` at any fine grid, f64); periodic axes, ``like_weights`` and
-sharding raise ``NotImplementedError`` naming their ROADMAP item. The TPU workarounds are
+``hists_in`` at any fine grid, f64), and the sharded hooks (``group=``, a
+``torch.distributed`` process group, used by
+:mod:`getdist_tpu_torch.parallel`); periodic axes and ``like_weights``
+raise ``NotImplementedError`` naming their ROADMAP item. The TPU workarounds are
 not carried over: there is no bf16 weight split (the histogram kernel
 accumulates int32 or f32 weights directly), no chunked inverse FFT, no
 x64 toggling and no VMEM/HBM sizing of histogram tiles.
@@ -25,6 +27,7 @@ import math
 import numpy as np
 import torch
 
+from getdist_tpu_torch.ops import collectives as coll
 from getdist_tpu_torch.ops._cuda import resolve_device
 from getdist_tpu_torch.ops.dft_conv import dft_conv2d, dft_conv_spectrum, frame_for
 from getdist_tpu_torch.ops.fft import dct
@@ -102,14 +105,15 @@ def prepare_chain(samples, weights, device="cuda", dtype=torch.float32):
 # ---------------------------------------------------------------------------
 
 
-def _hist_rows(ix_rows, weights, nbins):
-    """(P, nbins) f32 weighted histograms of (P, N) integer index rows,
-    summed in f64 (exact for integer weights, order independent) and then
-    cast; the role of the JAX package's one-hot ``_onehot_hist_rows``."""
+def _hist_rows(ix_rows, weights, nbins, group=None):
+    """(P, nbins) weighted histograms of (P, N) integer index rows, summed
+    in f64 (exact for integer weights, order independent), over the ranks
+    of ``group`` too, and then cast to the weights' type; the role of the
+    JAX package's one-hot ``_onehot_hist_rows`` (and its psum)."""
     p = ix_rows.shape[0]
     out = torch.zeros((p, nbins), dtype=torch.float64, device=ix_rows.device)
     out.scatter_add_(1, ix_rows.to(torch.int64), weights.to(torch.float64).expand(p, -1))
-    return out.to(weights.dtype)
+    return coll.psum(out, group).to(weights.dtype)
 
 
 def _quantiles_from_hist(hist, edges_lo, width, probs):
@@ -133,30 +137,82 @@ def _lag_grid(n, max_lag=None, num=40):
     return tuple(int(k) for k in ks)
 
 
-def _neff_kde_batch(values, weights, sigmas, lags):
-    """Gaussian-KDE effective sample numbers for all parameters (the
-    single-device branch of the JAX estimator): corr_k pair sums on the
-    lag grid with an uncorrelated far-lag baseline, trapezoid-integrated
-    until the first drop below 0.05 corr0. values: (P, N). Returns (P,)."""
+def _neff_kde_batch(values, weights, sigmas, lags, group=None, n_samples=None):
+    """Gaussian-KDE effective sample numbers for all parameters: corr_k
+    pair sums on the lag grid with an uncorrelated far-lag baseline,
+    trapezoid-integrated until the first drop below 0.05 corr0.
+    values: (P, N) local columns. Returns (P,).
+
+    ``group`` (replaces the JAX hooks ``axis_name``/``axis_size``): each
+    rank holds one contiguous block of N samples. It receives the next
+    rank's first max(lags) columns (the last rank gets zeros, whose zero
+    weights drop the pairs past the chain's end), so the short-lag sums are
+    the true global sums. The uncorrelated baseline pairs each sample with
+    the one a global lag L + j away (j < 5): from the block L // n ranks
+    on, and the blocks after it as far as the window reaches. Every sum is
+    all-reduced. By default L = (ranks // 2) x block, and the exchanges are
+    the JAX package's permutations (a full block from half a group away,
+    the head of the next), which also hold for an odd rank count.
+    ``n_samples``: the chain's length when the last blocks end in
+    zero-weight padding; the pair counts and L = n_samples // 2 are then
+    the unsharded estimator's, so the sums run over its pairs."""
     n = values.shape[1]
+    world = coll.size(group)
     min_corr = 0.05
     kernel_std = sigmas * 0.2
     inv2 = 1.0 / (4.0 * kernel_std**2)
 
-    def pair_sum(k):
-        # pairs (i, i + k) for i < n - k
-        diff2 = (values[:, : n - k] - values[:, k:]) ** 2 * inv2[:, None]
-        return torch.sum(torch.exp(-diff2) * weights[None, : n - k] * weights[None, k:], dim=1)
+    def pair_sum(left, left_w, right, right_w):
+        diff2 = (left - right) ** 2 * inv2[:, None]
+        return torch.sum(torch.exp(-diff2) * left_w[None, :] * right_w[None, :], dim=1)
 
     n_base = 5
-    uncorr_len = n // 2
-    uncorr = sum(pair_sum(uncorr_len + j) for j in range(n_base))
-    nav = sum(n - (uncorr_len + j) for j in range(n_base))
+    if world > 1:
+        perm = [(d, d - 1) for d in range(1, world)]
+        max_lag = max(lags)
+        ext = torch.cat([values, coll.ppermute(values[:, :max_lag], group, perm)], dim=1)
+        ext_w = torch.cat([weights, coll.ppermute(weights[:max_lag], group, perm)])
+
+        def lag_sum(k):  # pairs (i, i + k) for every local i; past n the partner is in the halo
+            return pair_sum(values, weights, ext[:, k : k + n], ext_w[k : k + n])
+
+        uncorr_len = (world // 2) * n if n_samples is None else n_samples // 2
+        ranks_away, offset = divmod(uncorr_len, n)
+        # columns [offset, offset + n + n_base) of the blocks from ranks_away
+        # ranks on (plus 2 spare, as the JAX head of n_base + 2 has); ranks
+        # past the last one send zeros
+        need = offset + n + n_base + 2
+        parts, parts_w = [], []
+        while sum(part.shape[1] for part in parts) < need:
+            take = min(n, need - sum(part.shape[1] for part in parts))
+            away = ranks_away + len(parts)
+            perm_away = [(d, d - away) for d in range(away, world)]
+            parts.append(coll.ppermute(values[:, :take], group, perm_away))
+            parts_w.append(coll.ppermute(weights[:take], group, perm_away))
+        base = torch.cat(parts, dim=1)
+        base_w = torch.cat(parts_w)
+
+        def base_sum(j):
+            return pair_sum(values, weights, base[:, offset + j : offset + j + n], base_w[offset + j : offset + j + n])
+
+    else:
+
+        def lag_sum(k):  # pairs (i, i + k) for i < n - k
+            return pair_sum(values[:, : n - k], weights[: n - k], values[:, k:], weights[k:])
+
+        uncorr_len = n // 2
+
+        def base_sum(j):
+            return lag_sum(uncorr_len + j)
+
+    n_global = world * n if n_samples is None else n_samples
+    uncorr = coll.psum(sum(base_sum(j) for j in range(n_base)), group)
+    nav = sum(n_global - (uncorr_len + j) for j in range(n_base))
     uncorr_term = uncorr / nav
 
-    corr0 = torch.sum(weights * weights)
-    corr_k = torch.stack([pair_sum(k) for k in lags])  # (L, P)
-    n_pairs_k = torch.tensor([n - k for k in lags], dtype=values.dtype, device=values.device)[:, None]
+    corr0 = coll.psum(torch.sum(weights * weights), group)
+    corr_k = coll.psum(torch.stack([lag_sum(k) for k in lags]), group)  # (L, P)
+    n_pairs_k = torch.tensor([n_global - k for k in lags], dtype=values.dtype, device=values.device)[:, None]
     corr_k = corr_k - n_pairs_k * uncorr_term[None, :]
     alive = torch.cumprod((corr_k >= min_corr * corr0).to(corr_k.dtype), dim=0)  # stop at first drop
     contrib = corr_k * alive
@@ -165,7 +221,7 @@ def _neff_kde_batch(values, weights, sigmas, lags):
         (steps + np.append(np.diff(np.asarray(lags)), 0)) / 2.0, dtype=values.dtype, device=values.device
     )
     total = corr0 + 2.0 * torch.sum(contrib * weights_lag[:, None], dim=0)
-    return torch.sum(weights) ** 2 / total
+    return coll.psum(torch.sum(weights), group) ** 2 / total
 
 
 # ---------------------------------------------------------------------------
@@ -623,6 +679,21 @@ def _contour_levels_batch(grids, contours, iters=40):
 # ---------------------------------------------------------------------------
 
 
+def _chain_length(n, group, n_samples):
+    """The chain's length: ``n`` unsharded; under ``group`` the caller's
+    ``n_samples``, which blocks of ``n`` = ceil(n_samples / ranks) must
+    hold (a missing or wrong length would move N_eff silently)."""
+    world = coll.size(group)
+    if group is None and n_samples is None:
+        return n
+    if n_samples is None or -(-n_samples // world) != n:
+        raise ValueError(
+            f"n_samples (the chain's length) is required with a process group and must give blocks of {n} samples "
+            f"on {world} ranks, got {n_samples}"
+        )
+    return n_samples
+
+
 def _fine_indices(cols, lo, width, nbins):
     """(P, N) int32 bin indices clip((x - lo) / width + 0.5, 0, nbins - 1)."""
     return torch.clamp((((cols - lo[:, None]) / width[:, None]) + 0.5).to(torch.int32), 0, nbins - 1)
@@ -636,7 +707,8 @@ def all_1d_densities(
     limits_lo=None,
     limits_hi=None,
     periodic=None,
-    axis_name=None,
+    group=None,
+    n_samples=None,
     neff_override=None,
     range_override=None,
     bandwidth_override=None,
@@ -652,6 +724,16 @@ def all_1d_densities(
     N_eff -> ISJ bandwidth with rule-of-thumb fallback -> rFFT Gaussian
     smoothing -> multiplicative bias correction -> peak normalization.
 
+    ``group`` (a ``torch.distributed`` process group; replaces the JAX
+    hooks ``axis_name``/``axis_size``): the samples are this rank's block;
+    moments, histograms (sum) and ranges (min/max) are all-reduced, the
+    N_eff lag sums use the halo exchange of :func:`_neff_kde_batch`, and
+    every rank returns the same result. ``n_samples``: the chain's length,
+    required with ``group`` (``shard_samples`` pads the last blocks with
+    zero-weight samples, and the N_eff lag grid and pair counts follow the
+    real chain, as unsharded); it must fit blocks of this rank's length,
+    ceil(n_samples / ranks).
+
     Hooks for stage isolation: ``neff_override`` (P,), ``range_override``
     (binmin, binmax) and ``bandwidth_override`` (P,) fractions of the range.
     """
@@ -659,23 +741,22 @@ def all_1d_densities(
         raise _not_ported("1D hard limits and periodic parameters", "A2")
     if like_weights is not None:
         raise _not_ported("1D like_weights", "A2")
-    if axis_name is not None:
-        raise _not_ported("sharded 1D densities", "A9")
     n, p = samples.shape
     dtype, device = samples.dtype, samples.device
+    n_global = _chain_length(n, group, n_samples)
 
     cols = samples.T.contiguous()  # (P, N)
-    norm = torch.sum(weights)
-    means = torch.matmul(cols, weights) / norm
-    variances = torch.matmul((cols - means[:, None]) ** 2, weights) / norm
+    norm = coll.psum(torch.sum(weights), group)
+    means = coll.psum(torch.matmul(cols, weights), group) / norm
+    variances = coll.psum(torch.matmul((cols - means[:, None]) ** 2, weights), group) / norm
     sigmas = torch.sqrt(variances)
 
     # ranges from histogram quantiles
-    mins = torch.amin(cols, dim=1)
-    maxs = torch.amax(cols, dim=1)
+    mins = coll.pmin(torch.amin(cols, dim=1), group)
+    maxs = coll.pmax(torch.amax(cols, dim=1), group)
     qwidth = (maxs - mins) / _QBINS
     qix = torch.clamp(((cols - mins[:, None]) / qwidth[:, None]).to(torch.int32), 0, _QBINS - 1)
-    qhists = _hist_rows(qix, weights, _QBINS)
+    qhists = _hist_rows(qix, weights, _QBINS, group)
     range_conf = 0.001
     probs = torch.cat(
         [
@@ -700,12 +781,14 @@ def all_1d_densities(
         binmin, binmax = (_tensor(r, device, dtype) for r in range_override)
     fine_width = (binmax - binmin) / (fine_bins - 1)
 
-    bins = _hist_rows(_fine_indices(cols, binmin, fine_width, fine_bins), weights, fine_bins)  # (P, fine_bins)
+    bins = _hist_rows(_fine_indices(cols, binmin, fine_width, fine_bins), weights, fine_bins, group)  # (P, fine_bins)
 
     if neff_override is not None:
         neff = _tensor(neff_override, device, dtype)
     else:
-        neff = _neff_kde_batch(cols, weights, sigma_range, _lag_grid(n))
+        # the halo is at most one block long, so a sharded run caps the lags at it
+        lags = _lag_grid(n_global, max_lag=None if group is None else n)
+        neff = _neff_kde_batch(cols, weights, sigma_range, lags, group, n_global)
     if bandwidth_override is not None:
         h_frac = _tensor(bandwidth_override, device, dtype)
     else:
@@ -781,7 +864,7 @@ def all_2d_densities(
     active_lo=None,
     active_hi=None,
     periodic=None,
-    axis_name=None,
+    group=None,
     int8_weights=False,
     bandwidth_scale=None,
     sigma_range=None,
@@ -816,6 +899,12 @@ def all_2d_densities(
     optimizer, ``kernel_support`` (K,) sets the window half-widths;
     ``export_hists`` adds the histograms to the output.
 
+    ``group`` (a ``torch.distributed`` process group; replaces the JAX hook
+    ``axis_name``): the samples are this rank's block; the pair histograms
+    of each block and the optimizer's moments (norm, means, covariance) are
+    all-reduced, so every grid-local stage sees the same global inputs on
+    every rank and every rank returns the same result.
+
     Parity mode's branches (``getdist_tpu/ops/batched.py:1756-1895``), which
     need ``bandwidth_override``: ``active_lo`` / ``active_hi`` (P,) hard
     limits, with the order-0 edge normalization and, at
@@ -829,8 +918,6 @@ def all_2d_densities(
         raise _not_ported("2D periodic parameters", "A3")
     if like_weights is not None:
         raise _not_ported("2D like_weights", "A3")
-    if axis_name is not None:
-        raise _not_ported("sharded 2D densities", "A9")
     has_limits = active_lo is not None or active_hi is not None
     if bandwidth_override is None and (has_limits or exact_mult_bias):
         # the parity branches run with host-exact bandwidths; the in-program
@@ -858,7 +945,8 @@ def all_2d_densities(
         ix_all = _fine_indices(cols, binmin, fine_width, fine_bins).to(torch.uint8)
         hists = pair_histograms(
             ix_all, weights.to(torch.float32), pa.to(torch.int32), pb.to(torch.int32), integer_weights=int8_weights
-        ).to(dtype)
+        )
+        hists = coll.psum(hists, group).to(dtype)
 
     pair_neff = torch.minimum(neff[pa], neff[pb])
     if bandwidth_override is not None:
@@ -867,7 +955,7 @@ def all_2d_densities(
     else:
         hx, hy, c, fragile = _optimized_bandwidths(
             cols, weights, pa, pb, hists, pair_neff, binmin, binmax, fine_width, fine_bins, sigma_range, max_corr,
-            enable_shear, mult_bias_order,
+            enable_shear, mult_bias_order, group,
         )
     if bandwidth_scale is not None:
         hx = hx * bandwidth_scale
@@ -995,17 +1083,18 @@ def all_2d_densities(
 
 def _optimized_bandwidths(
     cols, weights, pa, pb, hists, pair_neff, binmin, binmax, fine_width, fine_bins, sigma_range, max_corr,
-    enable_shear, mult_bias_order,
+    enable_shear, mult_bias_order, group=None,
 ):
     """(hx, hy, c, fragile) in data units from the in-program optimizer:
     sheared spectra for correlated pairs, pure rule of thumb at extreme
-    correlation, the plain optimizer otherwise."""
+    correlation, the plain optimizer otherwise. The moments are global
+    (all-reduced over ``group``), so every rank plans the same shears."""
     dtype, device = cols.dtype, cols.device
     k_all = pa.shape[0]
-    norm = torch.sum(weights)
-    means = torch.matmul(cols, weights) / norm
+    norm = coll.psum(torch.sum(weights), group)
+    means = coll.psum(torch.matmul(cols, weights), group) / norm
     diffs = cols - means[:, None]
-    cov = torch.matmul(diffs * weights[None, :], diffs.T) / norm
+    cov = coll.psum(torch.matmul(diffs * weights[None, :], diffs.T), group) / norm
     sd = torch.sqrt(torch.diagonal(cov))
     corr_mat = cov / torch.outer(sd, sd)
     range_a = (binmax - binmin)[pa]
@@ -1074,25 +1163,30 @@ def _optimized_bandwidths(
 
 def _triangle_program(
     samples, weights, pair_a, pair_b, contours, int8_weights, max_corr=0.95, enable_shear=True,
-    bandwidth_scale_1d=None, bandwidth_scale_2d=None,
+    bandwidth_scale_1d=None, bandwidth_scale_2d=None, group=None, n_samples=None, export_hists=False,
 ):
-    """The 1D stage, then the all-pairs 2D stage on its ranges and N_eff."""
-    d1 = all_1d_densities(samples, weights, bandwidth_scale=bandwidth_scale_1d)
-    d2 = all_2d_densities(
-        samples,
-        weights,
-        pair_a,
-        pair_b,
-        d1["neff"],
-        d1["range"][0],
-        d1["range"][1],
-        contours,
-        int8_weights=int8_weights,
-        bandwidth_scale=bandwidth_scale_2d,
-        sigma_range=d1["sigma_range"],
-        max_corr=max_corr,
-        enable_shear=enable_shear,
-    )
+    """The 1D stage, then the all-pairs 2D stage on its ranges and N_eff;
+    ``group`` / ``n_samples`` shard both stages (see :func:`all_1d_densities`)."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # every plain matrix product runs in full FP32
+    with torch.no_grad():
+        d1 = all_1d_densities(samples, weights, group=group, n_samples=n_samples, bandwidth_scale=bandwidth_scale_1d)
+        d2 = all_2d_densities(
+            samples,
+            weights,
+            pair_a,
+            pair_b,
+            d1["neff"],
+            d1["range"][0],
+            d1["range"][1],
+            contours,
+            int8_weights=int8_weights,
+            bandwidth_scale=bandwidth_scale_2d,
+            sigma_range=d1["sigma_range"],
+            max_corr=max_corr,
+            enable_shear=enable_shear,
+            group=group,
+            export_hists=export_hists,
+        )
     return d1, d2
 
 
@@ -1173,22 +1267,20 @@ def triangle_densities(
             and host_weights.size * float(host_weights.max()) < 2**31
         )
     device = resolve_device(device)
-    torch.backends.cuda.matmul.allow_tf32 = False  # every plain matrix product runs in full FP32
     p = samples.shape[1]
     pairs = np.array([(i, j) for i in range(p) for j in range(i + 1, p)], np.int64).reshape(-1, 2)
     if enable_shear is None:
         enable_shear = _sniff_shear(samples, max_corr, pairs=pairs, weights=host_weights)
     samples, weights = prepare_chain(samples, weights, device=device)
-    with torch.no_grad():
-        return _triangle_program(
-            samples,
-            weights,
-            pairs[:, 0],
-            pairs[:, 1],
-            np.asarray(contours, np.float32),
-            int8_weights,
-            max_corr,
-            enable_shear,
-            bandwidth_scale_1d=bandwidth_scale_1d,
-            bandwidth_scale_2d=bandwidth_scale_2d,
-        )
+    return _triangle_program(
+        samples,
+        weights,
+        pairs[:, 0],
+        pairs[:, 1],
+        np.asarray(contours, np.float32),
+        int8_weights,
+        max_corr,
+        enable_shear,
+        bandwidth_scale_1d=bandwidth_scale_1d,
+        bandwidth_scale_2d=bandwidth_scale_2d,
+    )

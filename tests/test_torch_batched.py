@@ -327,7 +327,10 @@ def test_slice_outputs_are_sane(slices):
 
 
 def test_port_imports_no_jax():
-    code = "import sys, getdist_tpu_torch.ops.batched, getdist_tpu_torch.mcsamples; sys.exit(int('jax' in sys.modules))"
+    code = (
+        "import sys, getdist_tpu_torch.ops.batched, getdist_tpu_torch.mcsamples, getdist_tpu_torch.parallel; "
+        "sys.exit(int('jax' in sys.modules))"
+    )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
 
@@ -350,10 +353,25 @@ def test_unported_branches_raise(chain, kwargs):
 
 @pytest.mark.parametrize(
     "kwargs",
-    [dict(exact_mult_bias=True), dict(axis_name="x"), dict(prior_mask=np.ones((1, 316, 316)))],
-    ids=["exact_mult_bias", "axis_name", "prior_mask"],
+    [dict(exact_mult_bias=True), dict(periodic=[False, True, False, False]), dict(prior_mask=np.ones((1, 316, 316)))],
+    ids=["exact_mult_bias", "periodic", "prior_mask"],
 )
 def test_unported_2d_branches_raise(chain32, kwargs):
     s, w = chain32
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tb.all_2d_densities(s, w, [0], [1], np.ones(4), np.zeros(4), np.ones(4), CONTOURS, **kwargs)
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [dict(limits_lo=[0.0, np.nan, np.nan, np.nan]), dict(periodic=[False, True, False, False]), dict(like_weights=np.ones(200))],
+    ids=["limits", "periodic", "like_weights"],
+)
+def test_sharded_unported_branches_raise(chain32, kwargs):
+    """The sharded path raises for what the unsharded one lacks, before any
+    collective (so no process group is needed here)."""
+    from getdist_tpu_torch.parallel import sharded_triangle_densities
+
+    s, w = chain32
+    with pytest.raises(NotImplementedError, match="ROADMAP A2/A3"):
+        sharded_triangle_densities(None, _t(s[:200]), _t(w[:200]), **kwargs)

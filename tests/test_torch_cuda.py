@@ -157,3 +157,48 @@ def test_dft_conv_batches_split_over_pairs(cuda, monkeypatch):
     assert (dft_conv.dft_conv_spectrum.launches - before[0], dft_conv.dft_conv2d.launches - before[1]) == (3, 3)
     torch.testing.assert_close(ur2, ur, rtol=0, atol=0)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("int8_weights", [True, False], ids=["int32", "f32-integer-valued"])
+def test_grouped_pair_histograms_bit_exact(cuda, int8_weights):
+    """K5 at 30 parameters (68 groups of 8, short groups padded) against its
+    plain version and against K1 on the same rows."""
+    p, n = 30, 20_000
+    ix = torch.from_numpy(_indices(p, n, seed=9)).to(cuda)
+    w = torch.from_numpy(np.random.default_rng(10).integers(1, 5, n).astype(np.float32)).to(cuda)
+    pairs = [(i, j) for i in range(p) for j in range(i + 1, p)]
+    plan = [torch.from_numpy(x).to(cuda) for x in pair_hist.group_pairs(pairs)]
+    before = pair_hist.pair_histograms_grouped.launches
+    got = pair_hist.pair_histograms_grouped(ix, w, *plan, int8_weights=int8_weights)
+    assert pair_hist.pair_histograms_grouped.launches == before + 1
+    want = pair_hist.pair_histograms_grouped_plain(ix, w, *plan, int8_weights=int8_weights)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    pa, pb = _pairs(p, cuda)
+    torch.testing.assert_close(got, pair_hist.pair_histograms(ix, w, pa, pb, integer_weights=int8_weights), rtol=0, atol=0)
+
+
+def test_one_rank_nccl_sharded_pair_hists(cuda, tmp_path):
+    """A one-rank NCCL group: the all-reduce of K5's and K4's per-rank
+    histograms runs on the card and changes nothing."""
+    import torch.distributed as dist
+
+    from getdist_tpu_torch.parallel import init_group, sharded_pair_hists
+
+    p, n = 6, 50_000
+    ix = torch.from_numpy(_indices(p, n, seed=11)).to(cuda)
+    w = torch.from_numpy(np.random.default_rng(12).integers(1, 5, n).astype(np.float32)).to(cuda)
+    pairs = [(i, j) for i in range(p) for j in range(i + 1, p)]
+    pa, pb = _pairs(p, cuda)
+    want = pair_hist.pair_histograms_plain(ix, w, pa, pb, integer_weights=True)
+    group = init_group("nccl", 0, 1, init_method=f"file://{tmp_path}/store")
+    try:
+        before = (pair_hist.pair_histograms_grouped.launches, pair_hist.pair_histograms_dynamic.launches)
+        grouped = sharded_pair_hists(group, ix, w, pa.tolist(), pb.tolist(), static_pairs=pairs, int8_weights=True)
+        dynamic = sharded_pair_hists(group, ix, w, pa.tolist(), pb.tolist())
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    after = (pair_hist.pair_histograms_grouped.launches, pair_hist.pair_histograms_dynamic.launches)
+    assert (after[0] - before[0], after[1] - before[1]) == (1, 1)
+    torch.testing.assert_close(grouped, want, rtol=0, atol=0)
+    torch.testing.assert_close(dynamic, want, rtol=0, atol=0)

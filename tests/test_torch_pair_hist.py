@@ -1,8 +1,8 @@
-"""getdist_tpu_torch pair histograms (kernel K1) against the JAX package.
+"""getdist_tpu_torch pair histograms (kernels K1 and K5) against the JAX package.
 
-The port's plain version must equal the TPU tiled kernel (run in interpret
-mode) bit for bit: integer weights, and float weights that bf16 holds
-exactly (the TPU kernel rounds weights to bf16). The CUDA kernel itself
+The port's plain versions must equal the TPU tiled and grouped kernels
+(run in interpret mode) bit for bit: integer weights, and float weights
+that bf16 holds exactly (the TPU kernels round weights to bf16). The CUDA kernel itself
 is held against the plain version by tests/test_torch_cuda.py and by
 chip_smoke.py on the card.
 """
@@ -16,7 +16,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from getdist_tpu.ops.batched import _pair_hist_256  # noqa: E402
-from getdist_tpu.ops.pallas_kernels import pair_histograms_tiled, tile_plan  # noqa: E402
+from getdist_tpu.ops.pallas_kernels import group_pairs, pair_histograms_grouped, pair_histograms_tiled, tile_plan  # noqa: E402
 from getdist_tpu_torch.ops import pair_hist  # noqa: E402
 
 
@@ -70,6 +70,35 @@ def test_plain_matches_tiled_tpu_kernel(int8_weights):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("int8_weights", [True, False], ids=["int8", "bf16-exact-float"])
+def test_grouped_plain_matches_grouped_tpu_kernel(int8_weights):
+    """K5 on 11 parameters in groups of 8: b = 9 and b = 10 end in short
+    groups, whose a = b padding slots must not reach the output."""
+    p, n = 11, 1024
+    rng = np.random.default_rng(6)
+    ix = _indices(p, n, seed=5)
+    if int8_weights:
+        w = rng.integers(1, 5, n).astype(np.float32)
+    else:
+        w = (rng.integers(1, 64, n) / 16.0).astype(np.float32)
+    pairs = [tuple(int(x) for x in pr) for pr in _all_pairs(p)]
+    plan = group_pairs(pairs)
+    with jax.enable_x64(False):
+        want = np.asarray(
+            pair_histograms_grouped(
+                jnp.asarray(ix), jnp.asarray(w), *(jnp.asarray(x) for x in plan), block=512,
+                interpret=True, int8_weights=int8_weights,
+            )
+        )
+    got = pair_hist.pair_histograms_grouped(
+        torch.from_numpy(ix), torch.from_numpy(w), *(torch.from_numpy(x) for x in pair_hist.group_pairs(pairs)),
+        int8_weights=int8_weights,
+    ).numpy()
+    assert got.dtype == np.float32 and got.shape == (len(pairs), 256, 256)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, _port(ix, w, _all_pairs(p), int8_weights))
+
+
 def test_plain_matches_onehot_on_ragged_n():
     """No padding: a sample count that is no multiple of any block."""
     p, n = 4, 10007
@@ -102,3 +131,21 @@ def test_wrapper_refuses_non_cuda_devices():
     with pytest.raises(ValueError, match="CUDA"):
         pair_hist.pair_histograms(ix, torch.ones(8, device="meta"), pa, pa)
 
+
+@pytest.mark.parametrize("group", [5, 16])
+def test_grouped_wrapper_refuses_other_group_widths(group):
+    """K5 is built for groups of 8 pairs; another width raises on the CPU
+    too, so both devices accept the same plans."""
+    ix = torch.from_numpy(_indices(6, 64, seed=4))
+    pairs = [(i, j) for i in range(6) for j in range(i + 1, 6)]
+    plan = [torch.from_numpy(x) for x in pair_hist.group_pairs(pairs, group=group)]
+    with pytest.raises(ValueError, match="groups of 8"):
+        pair_hist.pair_histograms_grouped(ix, torch.ones(64), *plan)
+
+
+def test_grouped_wrapper_refuses_non_cuda_devices():
+    ix = torch.zeros((2, 8), dtype=torch.uint8, device="meta")
+    grp = torch.zeros((1, 8), dtype=torch.int32, device="meta")
+    one = torch.zeros(1, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        pair_hist.pair_histograms_grouped(ix, torch.ones(8, device="meta"), grp, one, one)
