@@ -12,13 +12,17 @@ CUDA kernels from ``getdist_tpu_torch/csrc``. Then three paths on
 1. the fused path, ``triangle_densities``: count each kernel's launches in
    one run, time warm runs, profile one run (the top of the kernel-time
    table is printed), check its outputs, hold K1/K2/K3 against their plain
-   PyTorch versions on its own inputs (timing both), and compare the path
-   on the card with the port on the CPU at 100k x 8;
+   PyTorch versions on its own inputs (timing both; f32 K2/K3 within 1e-5
+   of the largest value at this production frame, two calls bitwise
+   equal, both against an f64 chain; each beside the library call and its
+   bytes and operations bounds), and compare the path on the card with the
+   port on the CPU at 100k x 8;
 2. device parity mode, ``MCSamples(...).fastParityDensities(device=True)``:
    one cold and two warm runs (stage profile, peak memory, launch counts of
    one run), checks of its outputs, bin indices of all 30 columns against
    numpy's formula, K4 on this run's sheared stack and f64 K2/K3 on its
-   largest bucket against their plain versions, and parity on the card
+   largest bucket against their plain versions (two calls bitwise equal),
+   and parity on the card
    against the port on the CPU at 20k x 6 (a bounded parameter and a
    pair with |corr| > 0.87);
 3. the sharded path (``getdist_tpu_torch.parallel``) in a one-rank NCCL
@@ -47,9 +51,12 @@ import traceback
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s; FP32
-# outside the tensor cores; FP64 on the tensor cores (34 TFLOP/s outside)
+# outside the tensor cores; f32-accurate products on the tensor cores as
+# three TF32 passes (495 / 3); FP64 on the tensor cores (DMMA; 34 TFLOP/s
+# outside)
 HBM_BYTES_S = 3.35e12
 FP32_FLOPS = 67e12
+TF32X3_FLOPS = 495e12 / 3
 FP64_FLOPS = 67e12
 
 
@@ -84,10 +91,15 @@ def wall_s(fn):
     return time.perf_counter() - t0, out
 
 
+def bound_terms(nbytes, ops, rate):
+    """(bytes ms, operations ms): bytes over the HBM rate, operations over
+    the peak rate for their type."""
+    return nbytes / HBM_BYTES_S * 1e3, ops / rate * 1e3
+
+
 def bound(nbytes, ops, rate):
-    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
-    operations over the peak rate for their type."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / rate * 1e3
+    """(bound_ms, bound_by): the larger of the two bound_terms."""
+    t_bytes, t_ops = bound_terms(nbytes, ops, rate)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -99,30 +111,84 @@ def hist_bound(ix, k, nbins):
     return bound(ix.numel() * ix.element_size() + 4 * n + 4 * k * nbins * nbins, k * n, FP32_FLOPS)
 
 
-def spectrum_bound(kernels, pad):
-    """K2: kernels and two DFT matrices read, two spectra written. Flops per
-    pair of U = F K F with the contractions over the m x m kernel support
-    only (the frame's zero padding needs none): (pad x m) real x complex,
-    then (pad x m) x (m x pad) complex x complex."""
+def _dft_rate(e):
+    """K2/K3 operations: f32 at the 3xTF32 tensor-core rate (the fastest
+    f32-accurate products), f64 at the DMMA rate."""
+    return FP64_FLOPS if e == 8 else TF32X3_FLOPS
+
+
+def spectrum_work(kernels, pad):
+    """K2's (bytes, flops): kernels and two DFT matrices read, two spectra
+    written. Flops per pair of U = F K F contract over the m x m kernel
+    support only (the frame's zero padding needs none), and U of a real
+    kernel is Hermitian, so rows 0..P/2 (h of them) determine it: (h x m)
+    real x complex, then (h x m) x (m x P) complex x complex."""
     k, m, _ = kernels.shape
     e = kernels.element_size()
-    rate = FP64_FLOPS if e == 8 else FP32_FLOPS
-    flops = k * (4 * pad * m * m + 8 * pad * pad * m)
-    return bound(e * (k * m * m + 2 * pad * pad + 2 * k * pad * pad), flops, rate)
+    h = pad // 2 + 1
+    return e * (k * m * m + 2 * pad * pad + 2 * k * pad * pad), k * (4 * h * m * m + 8 * h * pad * m)
+
+
+def conv_work(grids, pad, out_size):
+    """K3's (bytes, flops): grids, two spectra and four DFT matrices read,
+    the slice written. Flops per pair, with h = P/2 + 1 rows of the
+    Hermitian spectrum of real grids: the forward transform contracts over
+    the I x I grid (h rows), the spectrum product is 6 per point of those
+    rows, and the inverse computes only the out_size rows and, of the real
+    part, the out_size columns of the slice; the rows of the first inverse
+    product are Hermitian too, so it needs h of their columns and the
+    second product a depth of h."""
+    k, size, _ = grids.shape
+    e = grids.element_size()
+    h = pad // 2 + 1
+    nbytes = e * (k * size * size + 2 * k * pad * pad + 4 * pad * pad + k * out_size * out_size)
+    forward = 4 * h * size * size + 8 * h * pad * size
+    inverse = 8 * out_size * pad * h + 4 * out_size * out_size * h
+    return nbytes, k * (forward + 6 * h * pad + inverse)
+
+
+def spectrum_bound(kernels, pad):
+    nbytes, flops = spectrum_work(kernels, pad)
+    return bound(nbytes, flops, _dft_rate(kernels.element_size()))
 
 
 def conv_bound(grids, pad, out_size):
-    """K3: grids, two spectra and four DFT matrices read, the slice written.
-    Flops per pair: the forward transform contracts over the I x I grid, the
-    spectrum product is 6 per frame point, and the inverse computes only the
-    out_size rows and (real part of the) columns of the slice."""
-    k, size, _ = grids.shape
-    e = grids.element_size()
-    rate = FP64_FLOPS if e == 8 else FP32_FLOPS
-    nbytes = e * (k * size * size + 2 * k * pad * pad + 4 * pad * pad + k * out_size * out_size)
-    forward = 4 * pad * size * size + 8 * pad * pad * size
-    inverse = 8 * out_size * pad * pad + 4 * out_size * out_size * pad
-    return bound(nbytes, k * (forward + 6 * pad * pad + inverse), rate)
+    nbytes, flops = conv_work(grids, pad, out_size)
+    return bound(nbytes, flops, _dft_rate(grids.element_size()))
+
+
+def dft_report(name, r, work, rate):
+    """One line: K2/K3 beside the full-frame plain chain, the library call
+    and both bounds."""
+    t_bytes, t_ops = bound_terms(*work, rate)
+    print(
+        f"{name}: kernel {r['ms']:.3f} ms, plain full-frame matmul chain {r['plain_ms']:.3f} ms, library "
+        f"{r['library_ms']:.3f} ms; bounds: bytes {t_bytes:.3f} ms ({work[0] / 1e9:.3f} GB), operations "
+        f"{t_ops:.3f} ms ({work[1] / 1e9:.1f} GFLOP at {rate / 1e12:.0f} TFLOP/s); kernel at "
+        f"{max(t_bytes, t_ops) / r['ms']:.1%} of the bound, {r['library_ms'] / r['ms']:.2f}x the library's speed"
+    )
+
+
+def dft_checks(kernels, grids, ur, ui, conv, out_size, offset, pad, label):
+    """Two calls give bitwise-equal K2/K3 results; the f32 error against the
+    plain chain, and both against an f64 chain, are printed."""
+    import torch
+
+    from getdist_tpu_torch.ops import dft_conv
+
+    ur2, ui2 = dft_conv.dft_conv_spectrum(kernels, pad)
+    conv2 = dft_conv.dft_conv2d(grids, ur2, ui2, out_size, offset, pad)
+    check(torch.equal(ur, ur2) and torch.equal(ui, ui2) and torch.equal(conv, conv2), f"{label}: two calls bitwise equal")
+    if kernels.dtype == torch.float32:
+        u64 = dft_conv.dft_conv_spectrum_plain(kernels.double(), pad)
+        ref = dft_conv.dft_conv2d_plain(grids.double(), *u64, out_size, offset, pad)
+        plain = dft_conv.dft_conv2d_plain(grids, *dft_conv.dft_conv_spectrum_plain(kernels, pad), out_size, offset, pad)
+        scale = float(ref.abs().max())
+        print(f"{label}: two calls bitwise equal; K3 against an f64 chain (of max|ref|): kernel "
+              f"{float((conv.double() - ref).abs().max()) / scale:.3g}, plain f32 chain "
+              f"{float((plain.double() - ref).abs().max()) / scale:.3g}")
+    else:
+        print(f"{label}: two calls bitwise equal")
 
 
 def library_conv_ms(grids, kernels, out_size, offset, reps):
@@ -333,11 +399,13 @@ def fused_path(samples, weights, batched, dft_conv, pair_hist, make_chain):
     ur0, ui0 = dft_conv.dft_conv_spectrum_plain(kernels)
     scale = float(torch.maximum(ur0.abs().max(), ui0.abs().max()))
     err_s = max(float((ur - ur0).abs().max()), float((ui - ui0).abs().max()))
-    check(err_s <= 1e-4 * scale, f"K2 within 1e-4 max|ref| ({err_s} vs {scale})")
+    # the production frame (384, m 61, 256 grids, offset 30): 1e-5, which one TF32 pass would miss
+    check(err_s <= 1e-5 * scale, f"K2 within 1e-5 max|ref| ({err_s} vs {scale})")
     conv = dft_conv.dft_conv2d(hists, ur, ui, 256, 30)
     conv0 = dft_conv.dft_conv2d_plain(hists, ur0, ui0, 256, 30)
     err_c = float((conv - conv0).abs().max())
-    check(err_c <= 1e-4 * float(conv0.abs().max()), f"K3 within 1e-4 max|ref| ({err_c} vs {float(conv0.abs().max())})")
+    check(err_c <= 1e-5 * float(conv0.abs().max()), f"K3 within 1e-5 max|ref| ({err_c} vs {float(conv0.abs().max())})")
+    dft_checks(kernels, hists, ur, ui, conv, 256, 30, 384, "K2/K3 f32, fused path")
     b_s, by_s = spectrum_bound(kernels, 384)
     b_c, by_c = conv_bound(hists, 384, 256)
     results += [
@@ -368,6 +436,8 @@ def fused_path(samples, weights, batched, dft_conv, pair_hist, make_chain):
             "library_ms": library_conv_ms(hists, kernels, 256, 30, 3),
         },
     ]
+    dft_report("K2 f32", results[1], spectrum_work(kernels, 384), TF32X3_FLOPS)
+    dft_report("K3 f32", results[2], conv_work(hists, 384, 256), TF32X3_FLOPS)
     report = cross_device(make_chain, batched.triangle_densities)
     print(f"cross-device 100k x 8 (cuda vs cpu), max abs diffs: {json.dumps(report)}")
     return results
@@ -489,6 +559,7 @@ def parity_path(samples, weights, batched, dft_conv, pair_hist):
     err_c = float((conv - conv0).abs().max())
     check(err_c <= 1e-12 * float(conv0.abs().max()), f"K3 f64 within 1e-12 max|ref| ({err_c})")
     print(f"f64 K2/K3 on the largest bucket: {kb} pairs, winw {winw}, frame {pad}")
+    dft_checks(kernels, hists, ur, ui, conv, 256, winw, pad, "K2/K3 f64, parity bucket")
     b_s, by_s = spectrum_bound(kernels, pad)
     b_c, by_c = conv_bound(hists, pad, 256)
     results += [
@@ -519,6 +590,8 @@ def parity_path(samples, weights, batched, dft_conv, pair_hist):
             "library_ms": library_conv_ms(hists, kernels, 256, winw, 1),
         },
     ]
+    dft_report("K2 f64", results[1], spectrum_work(kernels, pad), FP64_FLOPS)
+    dft_report("K3 f64", results[2], conv_work(hists, pad, 256), FP64_FLOPS)
     report = parity_cross_device(MCSamples)
     print(f"parity cross-device 20k x 6 (cuda vs cpu), max abs diffs: {json.dumps(report)}")
     return results

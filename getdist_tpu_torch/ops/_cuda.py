@@ -32,8 +32,13 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "pair_hist_launch": (_I, _P, _I, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _P, _P),
     "pair_hist_grouped_launch": (_I, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P, _P),
-    "dft_spectrum_launch": (_I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P),
-    "dft_conv_launch": (_I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # kernels, K, m, Fr, Fi, scratch T (re, im, ld), spectra (re, im), P
+    "dft_spectrum_launch": (_I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P),
+    # grids, K, I, Fr, Fi, Br, Bi, spectra (re, im), scratch T (re, im, ld), E (re, im),
+    # T2^T (re, im, ld), out, out_size, offset, P
+    "dft_conv_launch": (
+        _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P,
+    ),
 }
 
 

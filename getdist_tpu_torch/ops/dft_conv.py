@@ -13,21 +13,32 @@ frame of the fused 2D program (256 + 4 * 30 + 1 = 377); parity mode sizes
 the frame to its convolution, any multiple of 128 (up to ~2944 for a
 960-bin group at its widest window).
 
-The CUDA kernels are ``csrc/dft_conv.cu``: each stage is a shared-memory
-tiled GEMM over the whole frame (6 products of 2 P^3 flops per pair for
-the spectra, 12 for a convolution), with the frame's zero padding in the
-operand loads and the output slice in the last product's epilogue. They
-multiply through that padding: the function itself needs only the
-contractions over the kernel's or grid's support and the output window
-(about 1/9 of the spectrum's flops and 3/5 of the convolution's at the
-fused path's shapes). Inputs are f32 (the fused path,
-FFMA) or f64 (parity mode, DFMA); the DFT matrices are built in f64 on the
-host and rounded to the input type. The TPU kept the chain in VMEM; here
-the intermediates go through device memory, and a batch whose four
-(K, P, P) scratch arrays exceed :data:`SCRATCH_BYTES` is split over K.
-The plain versions run the same chain as batched ``torch.matmul`` in the
-input type with TF32 off (``torch.backends.cuda.matmul.allow_tf32`` is set
-to False before they run, since TF32 keeps about three decimal digits).
+The CUDA kernels are ``csrc/dft_conv.cu``: one batched complex GEMM
+kernel on the tensor cores (3xTF32 in f32, DMMA in f64) runs every stage,
+and every stage contracts over the kernel's or grid's support, or over
+the frame only for the output window's rows and columns:
+
+    spectrum:  T = F[:h, :m] W,  U = T F[:m, :]
+    conv:      T = F[:h, :I] G,  E = (T F[:I, :]) o U,
+               T2 = (B[w, :] E)[:, :h] (stored transposed),
+               out = Re(B[w, :h] T2^T)^T
+
+with w the window ``[offset, offset + out_size)`` and h = P/2 + 1: the
+spectra of real inputs are Hermitian, so their rows 0..P/2 determine
+them (the kernels write the other rows as the conjugate mirror), and so
+are the rows of T2, whose columns 0..P/2 carry the real part (the inner
+ones doubled). Inputs are f32 (the fused path) or f64 (parity mode); the
+DFT matrices are built in f64 on the host and rounded to the input type.
+The TPU kept the chain in VMEM; here the intermediates go through device
+memory: per pair, the spectrum's T (h x m) and the convolution's T
+(h x I), E (P x P) and T2^T (h x out_size), each complex, with leading
+dimensions rounded up to a multiple of 4 (16-byte rows); a batch whose
+scratch exceeds :data:`SCRATCH_BYTES` is split over K.
+
+The plain versions run the full-frame chain (through the zero padding) as
+batched ``torch.matmul`` in the input type with TF32 off
+(``torch.backends.cuda.matmul.allow_tf32`` is set to False before they
+run, since TF32 keeps about three decimal digits).
 The TPU's bf16 precision modes ("default", "split3") have no counterpart.
 """
 
@@ -44,6 +55,8 @@ from getdist_tpu_torch.ops import _cuda
 __all__ = [
     "DEFAULT_PAD",
     "SCRATCH_BYTES",
+    "spectrum_scratch",
+    "conv_scratch",
     "frame_for",
     "dft_matrices",
     "dft_conv_spectrum",
@@ -53,7 +66,7 @@ __all__ = [
 ]
 
 DEFAULT_PAD = 384
-SCRATCH_BYTES = 4 << 30  # the conv's four (K, P, P) scratch arrays, per launch
+SCRATCH_BYTES = 4 << 30  # a launch's intermediates (spectrum_scratch / conv_scratch per pair)
 
 _NP = {torch.float32: np.float32, torch.float64: np.float64}
 
@@ -137,9 +150,30 @@ def _require_float(*tensors):
     return int(dtype == torch.float64)
 
 
-def _chunks(k, pad, itemsize):
-    """Batch slices whose four (K, P, P) scratch arrays fit SCRATCH_BYTES."""
-    step = max(1, SCRATCH_BYTES // (4 * pad * pad * itemsize))
+def _ld(n):
+    """Leading dimension of a scratch row of n values: 16-byte aligned."""
+    return -(-int(n) // 4) * 4
+
+
+def _half(pad):
+    """Rows 0..P/2 of a Hermitian spectrum (real inputs) determine it."""
+    return pad // 2 + 1
+
+
+def spectrum_scratch(pad, m):
+    """Elements of the spectrum's scratch per pair: T (P/2 + 1 x m), complex."""
+    return 2 * _half(pad) * _ld(m)
+
+
+def conv_scratch(pad, in_size, out_size):
+    """Elements of the convolution's scratch per pair: T (P/2 + 1 x I),
+    E (P x P) and T2^T (P/2 + 1 x out_size), each complex."""
+    return 2 * (_half(pad) * (_ld(in_size) + _ld(out_size)) + pad * pad)
+
+
+def _chunks(k, pair_bytes):
+    """Batch slices whose scratch fits SCRATCH_BYTES."""
+    step = max(1, SCRATCH_BYTES // pair_bytes)
     return [(s, min(s + step, k)) for s in range(0, k, step)]
 
 
@@ -161,11 +195,12 @@ def dft_conv_spectrum(kernels, pad=DEFAULT_PAD):
     dtype, device = kernels.dtype, kernels.device
     fr, fi, _, _ = dft_matrices(pad, device, dtype)
     ur, ui = (torch.empty((k, pad, pad), dtype=dtype, device=device) for _ in range(2))
-    for lo, hi in _chunks(k, pad, kernels.element_size()):
-        tr, ti = (torch.empty((hi - lo, pad, pad), dtype=dtype, device=device) for _ in range(2))
+    t_ld = _ld(m)
+    for lo, hi in _chunks(k, spectrum_scratch(pad, m) * kernels.element_size()):
+        tr, ti = (torch.empty((hi - lo, _half(pad), t_ld), dtype=dtype, device=device) for _ in range(2))
         _cuda.call(
             "dft_spectrum_launch", device, is_double, kernels[lo:hi].data_ptr(), hi - lo, m, fr.data_ptr(),
-            fi.data_ptr(), tr.data_ptr(), ti.data_ptr(), ur[lo:hi].data_ptr(), ui[lo:hi].data_ptr(), pad,
+            fi.data_ptr(), tr.data_ptr(), ti.data_ptr(), t_ld, ur[lo:hi].data_ptr(), ui[lo:hi].data_ptr(), pad,
         )
         dft_conv_spectrum.launches += 1
     return ur, ui
@@ -175,10 +210,11 @@ def dft_conv2d(grids, ur, ui, out_size, offset, pad=DEFAULT_PAD):
     """Batched linear convolution against precomputed kernel spectra.
 
     grids: (K, I, I) f32 or f64 with I + m - 1 <= pad; ur, ui: (K, pad, pad)
-    from :func:`dft_conv_spectrum`, of the same type. Returns the
-    (K, out_size, out_size) slice ``full[offset : offset + out_size]`` of
-    each full convolution. CPU tensors take :func:`dft_conv2d_plain`; CUDA
-    tensors launch ``csrc/dft_conv.cu``.
+    from :func:`dft_conv_spectrum`, of the same type (the CUDA route relies
+    on their Hermitian symmetry, which the spectra of real kernels have).
+    Returns the (K, out_size, out_size) slice ``full[offset : offset +
+    out_size]`` of each full convolution. CPU tensors take
+    :func:`dft_conv2d_plain`; CUDA tensors launch ``csrc/dft_conv.cu``.
     """
     if grids.device.type == "cpu":
         return dft_conv2d_plain(grids, ur, ui, out_size, offset, pad)
@@ -194,12 +230,18 @@ def dft_conv2d(grids, ur, ui, out_size, offset, pad=DEFAULT_PAD):
     dtype, device = grids.dtype, grids.device
     fr, fi, br, bi = dft_matrices(pad, device, dtype)
     out = torch.empty((k, out_size, out_size), dtype=dtype, device=device)
-    for lo, hi in _chunks(k, pad, grids.element_size()):
-        scratch = [torch.empty((hi - lo, pad, pad), dtype=dtype, device=device) for _ in range(4)]
+    t_ld, t2_ld = _ld(in_size), _ld(out_size)
+    for lo, hi in _chunks(k, conv_scratch(pad, in_size, out_size) * grids.element_size()):
+        n = hi - lo
+        t, e, t2 = (
+            torch.empty((2, n, rows, ld), dtype=dtype, device=device)
+            for rows, ld in ((_half(pad), t_ld), (pad, pad), (_half(pad), t2_ld))
+        )
         _cuda.call(
-            "dft_conv_launch", device, is_double, grids[lo:hi].data_ptr(), hi - lo, in_size, fr.data_ptr(),
+            "dft_conv_launch", device, is_double, grids[lo:hi].data_ptr(), n, in_size, fr.data_ptr(),
             fi.data_ptr(), br.data_ptr(), bi.data_ptr(), ur[lo:hi].data_ptr(), ui[lo:hi].data_ptr(),
-            *(s.data_ptr() for s in scratch), out[lo:hi].data_ptr(), out_size, offset, pad,
+            t[0].data_ptr(), t[1].data_ptr(), t_ld, e[0].data_ptr(), e[1].data_ptr(), t2[0].data_ptr(),
+            t2[1].data_ptr(), t2_ld, out[lo:hi].data_ptr(), out_size, offset, pad,
         )
         dft_conv2d.launches += 1
     return out

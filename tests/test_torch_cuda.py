@@ -56,18 +56,63 @@ def test_pair_histograms_float_weights(cuda):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("pad,n,m,offset", [(128, 48, 13, 6), (384, 256, 61, 30)])
-def test_dft_conv_kernels_match_plain(cuda, pad, n, m, offset):
-    rng = np.random.RandomState(4)
-    grids = torch.from_numpy((rng.rand(5, n, n) * 50).astype(np.float32)).to(cuda)
-    kernels = torch.from_numpy(rng.rand(5, m, m).astype(np.float32)).to(cuda)
+# (pad, I, m, offset, out_size): the fused 'same' convolution, its 'valid'
+# extended-mask convolution (batched.py conv_valid_ext), ragged supports,
+# odd sizes (element-wise copies, unpaired stores), parity's frame 512
+GEOMETRIES = {
+    "same-384": (384, 256, 61, 30, 256),
+    "valid-ext-384": (384, 316, 61, 60, 256),
+    "ragged-128": (128, 48, 13, 6, 48),
+    "ragged-384": (384, 200, 37, 18, 200),
+    "odd-384": (384, 201, 37, 17, 199),
+    "parity-512": (512, 256, 69, 34, 256),
+}
+TOL = {torch.float32: 1e-4, torch.float64: 1e-12}  # of the largest reference value
+
+
+def _conv_inputs(k, in_size, m, dtype, device, seed):
+    rng = np.random.RandomState(seed)
+    grids = torch.from_numpy(rng.rand(k, in_size, in_size) * 50).to(device, dtype)
+    kernels = torch.from_numpy(rng.rand(k, m, m)).to(device, dtype)
+    return grids, kernels
+
+
+def _check_dft_conv(grids, kernels, out_size, offset, pad, tol):
     ur, ui = dft_conv.dft_conv_spectrum(kernels, pad)
     ur0, ui0 = dft_conv.dft_conv_spectrum_plain(kernels, pad)
     for got, want in ((ur, ur0), (ui, ui0)):
-        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
-    out = dft_conv.dft_conv2d(grids, ur, ui, n, offset, pad)
-    want = dft_conv.dft_conv2d_plain(grids, ur0, ui0, n, offset, pad)
-    torch.testing.assert_close(out, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+        torch.testing.assert_close(got, want, rtol=0, atol=tol * float(want.abs().max()))
+    out = dft_conv.dft_conv2d(grids, ur, ui, out_size, offset, pad)
+    want = dft_conv.dft_conv2d_plain(grids, ur0, ui0, out_size, offset, pad)
+    torch.testing.assert_close(out, want, rtol=0, atol=tol * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("geometry", list(GEOMETRIES))
+def test_dft_conv_kernels_match_plain(cuda, geometry, dtype):
+    pad, in_size, m, offset, out_size = GEOMETRIES[geometry]
+    grids, kernels = _conv_inputs(5, in_size, m, dtype, cuda, seed=4)
+    _check_dft_conv(grids, kernels, out_size, offset, pad, TOL[dtype])
+
+
+def test_dft_conv_f32_production_frame_within_1e5(cuda):
+    """3xTF32 at the fused path's frame keeps f32 accuracy: within 1e-5 of
+    the largest value (one TF32 pass keeps about three digits and fails)."""
+    pad, in_size, m, offset, out_size = GEOMETRIES["same-384"]
+    grids, kernels = _conv_inputs(8, in_size, m, torch.float32, cuda, seed=5)
+    _check_dft_conv(grids, kernels, out_size, offset, pad, 1e-5)
+
+
+def test_dft_conv_calls_bitwise_equal(cuda):
+    """No atomics, no split-K: two calls on the same inputs agree bit for bit."""
+    for dtype in (torch.float32, torch.float64):
+        grids, kernels = _conv_inputs(6, 256, 61, dtype, cuda, seed=6)
+        runs = []
+        for _ in range(2):
+            ur, ui = dft_conv.dft_conv_spectrum(kernels, 384)
+            runs.append((ur, ui, dft_conv.dft_conv2d(grids, ur, ui, 256, 30, 384)))
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
 
 
 def test_slice_on_card_matches_cpu(cuda):
@@ -104,18 +149,14 @@ def test_dynamic_pair_histograms_bit_exact(cuda, nbins, index_dtype):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
-def test_dft_conv_kernels_f64_match_plain(cuda):
+@pytest.mark.parametrize("pad,k", [(768, 3), (1152, 2)])
+def test_dft_conv_kernels_f64_match_plain(cuda, pad, k):
+    """Wide f64 frames (parity mode's larger groups and windows)."""
     rng = np.random.RandomState(6)
-    pad, n, m, offset = 768, 452, 197, 196
-    grids = torch.from_numpy(rng.rand(3, n, n) * 50).to(cuda)
-    kernels = torch.from_numpy(rng.rand(3, m, m)).to(cuda)
-    ur, ui = dft_conv.dft_conv_spectrum(kernels, pad)
-    ur0, ui0 = dft_conv.dft_conv_spectrum_plain(kernels, pad)
-    for got, want in ((ur, ur0), (ui, ui0)):
-        torch.testing.assert_close(got, want, rtol=0, atol=1e-12 * float(want.abs().max()))
-    out = dft_conv.dft_conv2d(grids, ur, ui, 256, offset, pad)
-    want = dft_conv.dft_conv2d_plain(grids, ur0, ui0, 256, offset, pad)
-    torch.testing.assert_close(out, want, rtol=0, atol=1e-12 * float(want.abs().max()))
+    n, m, offset = 452, 197, 196
+    grids = torch.from_numpy(rng.rand(k, n, n) * 50).to(cuda)
+    kernels = torch.from_numpy(rng.rand(k, m, m)).to(cuda)
+    _check_dft_conv(grids, kernels, 256, offset, pad, 1e-12)
 
 
 def test_parity_on_card_matches_cpu(cuda):
@@ -150,12 +191,15 @@ def test_dft_conv_batches_split_over_pairs(cuda, monkeypatch):
     kernels = torch.from_numpy(rng.rand(5, 37, 37)).to(cuda)
     ur, ui = dft_conv.dft_conv_spectrum(kernels, 384)
     want = dft_conv.dft_conv2d(grids, ur, ui, 200, 18, 384)
-    monkeypatch.setattr(dft_conv, "SCRATCH_BYTES", 2 * 4 * 384 * 384 * 8)
     before = (dft_conv.dft_conv_spectrum.launches, dft_conv.dft_conv2d.launches)
+    # two pairs' scratch a launch: 5 pairs in 3 launches
+    monkeypatch.setattr(dft_conv, "SCRATCH_BYTES", 2 * dft_conv.spectrum_scratch(384, 37) * 8)
     ur2, ui2 = dft_conv.dft_conv_spectrum(kernels, 384)
+    monkeypatch.setattr(dft_conv, "SCRATCH_BYTES", 2 * dft_conv.conv_scratch(384, 200, 200) * 8)
     got = dft_conv.dft_conv2d(grids, ur2, ui2, 200, 18, 384)
     assert (dft_conv.dft_conv_spectrum.launches - before[0], dft_conv.dft_conv2d.launches - before[1]) == (3, 3)
     torch.testing.assert_close(ur2, ur, rtol=0, atol=0)
+    torch.testing.assert_close(ui2, ui, rtol=0, atol=0)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 

@@ -87,3 +87,59 @@ def test_wrappers_refuse_non_cuda_devices():
     with pytest.raises(ValueError, match="CUDA"):
         dft_conv.dft_conv2d(torch.zeros((1, 8, 8), device="meta"), spec, spec, 8, 2, 128)
 
+
+def _tf32(x):
+    """Round f32 to TF32 (10 stored mantissa bits) to nearest, ties away from
+    zero, as cvt.rna.tf32.f32 does: add the rounding bit, mask the rest."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the CUDA kernels form it: hi = tf32(x), lo = tf32(x - hi),
+    lo.hi + hi.lo + hi.hi in f32 (lo.lo dropped)."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _mm_tf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _support_chain(grids, kernels, out_size, offset, pad, mm):
+    """The CUDA route's stages, contracted over the supports and the window
+    only, with every real product formed by ``mm``."""
+    fr, fi, br, bi = dft_conv.dft_matrices(pad, "cpu", torch.float32)
+    m, size = kernels.shape[-1], grids.shape[-1]
+    w = slice(offset, offset + out_size)
+
+    def cmul(ar, ai, xr, xi):
+        return mm(ar, xr) - mm(ai, xi), mm(ar, xi) + mm(ai, xr)
+
+    tr, ti = mm(fr[:, :m], kernels), mm(fi[:, :m], kernels)
+    ur, ui = cmul(tr, ti, fr[:m], fi[:m])
+    tr, ti = mm(fr[:, :size], grids), mm(fi[:, :size], grids)
+    hr, hi = cmul(tr, ti, fr[:size], fi[:size])
+    er, ei = hr * ur - hi * ui, hr * ui + hi * ur
+    t2r, t2i = cmul(br[w], bi[w], er, ei)
+    out = mm(t2r, br[:, w]) - mm(t2i, bi[:, w])
+    return ur, ui, out
+
+
+def test_3xtf32_support_chain_within_1e5_of_plain():
+    """The precision design of the CUDA kernels, emulated on the CPU at the
+    fused path's geometry (frame 384, 61 x 61 kernels, 256 grids, offset
+    30): three TF32 passes stay within 1e-5 of the largest value of the
+    plain f32 chain; one TF32 pass does not."""
+    rng = np.random.RandomState(5)
+    grids = torch.from_numpy((rng.rand(2, 256, 256) * 50).astype(np.float32))
+    kernels = torch.from_numpy(rng.rand(2, 61, 61).astype(np.float32))
+    ur0, ui0 = dft_conv.dft_conv_spectrum_plain(kernels, 384)
+    want = dft_conv.dft_conv2d_plain(grids, ur0, ui0, 256, 30, 384)
+    scale_u = float(torch.maximum(ur0.abs().max(), ui0.abs().max()))
+    ur, ui, out = _support_chain(grids, kernels, 256, 30, 384, _mm_3xtf32)
+    assert float(torch.maximum((ur - ur0).abs().max(), (ui - ui0).abs().max())) <= 1e-5 * scale_u
+    assert float((out - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    _, _, one_pass = _support_chain(grids, kernels, 256, 30, 384, _mm_tf32)
+    assert float((one_pass - want).abs().max()) > 1e-5 * float(want.abs().max())
