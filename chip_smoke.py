@@ -35,6 +35,11 @@ CUDA kernels from ``getdist_tpu_torch/csrc``. Then three paths on
    a 40k x 6 chain, held against the one-rank run on the card (the only
    run where the N_eff halo exchange and the card meet).
 
+K1 and K5 are timed with the weights their paths pass (integer weights
+as uint8, ``pair_hist.narrow_weights``); K1, K4 and K5 each beside one
+``torch.bincount`` over flat pair keys, the yardstick no path calls. The
+build's ptxas lines of the uint8 pair-histogram kernel are printed.
+
 Prints one JSON line of kernel results (with each kernel's bound on the
 card and, where one exists, a single PyTorch call's time), the card line
 again, then ``{"ok": true, "device": {...}}`` as the last line. Any
@@ -103,12 +108,47 @@ def bound(nbytes, ops, rate):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def hist_bound(ix, k, nbins):
-    """K1/K4: index rows and weights read once, histograms written once; one
-    add per sample and pair, at the FP32 rate (the published table has no
-    integer scalar rate)."""
+def hist_bound(ix, weights, k, nbins):
+    """K1/K4/K5: index rows and weights read once, f32 histograms written
+    once; one add per sample and pair, at the FP32 rate (the published
+    table has no integer scalar rate)."""
     n = ix.shape[1]
-    return bound(ix.numel() * ix.element_size() + 4 * n + 4 * k * nbins * nbins, k * n, FP32_FLOPS)
+    nbytes = ix.numel() * ix.element_size() + weights.numel() * weights.element_size() + 4 * k * nbins * nbins
+    return bound(nbytes, k * n, FP32_FLOPS)
+
+
+def library_hist_ms(ix, weights, pa, pb, nbins, reps):
+    """One PyTorch call computing K1/K4/K5's function: ``torch.bincount`` of
+    flat keys k * nbins^2 + b * nbins + a with the weights repeated per pair
+    (the keys and weights are built outside the timed window; ~5 GB at 30 x
+    1M, 435 pairs, freed before returning). No index lies outside [0, nbins)
+    on the paths' rows."""
+    import torch
+
+    k = pa.shape[0]
+    pair = torch.arange(k, device=ix.device)[:, None] * (nbins * nbins)
+    keys = (pair + ix[pb.long()].long() * nbins + ix[pa.long()].long()).reshape(-1)
+    repeated = weights.repeat(k)
+    ms = cuda_ms(lambda: torch.bincount(keys, weights=repeated, minlength=k * nbins * nbins), reps)
+    del pair, keys, repeated
+    torch.cuda.empty_cache()
+    return ms
+
+
+def ptxas_lines(log, name):
+    """ptxas's register and spill report of each kernel whose (mangled) name
+    holds ``name``, from a fresh build's ``-Xptxas -v`` log."""
+    lines, kernel, spill = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            kernel, spill = line.split("'")[1], ""
+        elif kernel and "spill" in line:
+            spill = line.strip()
+        elif kernel and "Used" in line and "registers" in line:
+            if name in kernel:
+                lines.append(f"{kernel}: {line.split(':', 1)[1].strip()}; {spill}")
+            kernel = None
+    return lines
 
 
 def _dft_rate(e):
@@ -373,12 +413,15 @@ def fused_path(samples, weights, batched, dft_conv, pair_hist, make_chain):
     ix = batched._fine_indices(s_dev.T.contiguous(), binmin, (binmax - binmin) / 255, 256).to(torch.uint8)
     pairs = torch.tensor([(i, j) for i in range(p) for j in range(i + 1, p)], dtype=torch.int32, device="cuda")
     pa, pb = pairs[:, 0].contiguous(), pairs[:, 1].contiguous()
-    hists = pair_hist.pair_histograms(ix, w_dev, pa, pb, integer_weights=True)
+    # the weights as the path passes them: integer weights narrowed to uint8
+    w_path = pair_hist.narrow_weights(w_dev)
+    check(w_path.dtype == torch.uint8, "the path's integer weights go to K1 as uint8")
+    hists = pair_hist.pair_histograms(ix, w_path, pa, pb, integer_weights=True)
     ref_h = pair_hist.pair_histograms_plain(ix, w_dev, pa, pb, integer_weights=True)
     err_h = float((hists - ref_h).abs().max())
     check(err_h == 0.0, f"K1 bit-exact (max abs diff {err_h})")
     check(float(hists.double().sum()) == float(weights.sum()) * k, "K1 total mass")
-    b_h, by_h = hist_bound(ix, k, 256)
+    b_h, by_h = hist_bound(ix, w_path, k, 256)
     results = [
         {
             "name": "pair_histograms",
@@ -387,11 +430,11 @@ def fused_path(samples, weights, batched, dft_conv, pair_hist, make_chain):
             "replaces": "getdist_tpu/ops/pallas_kernels.py:309",
             "launches": launches["pair_histograms"],
             "max_abs_err": err_h,
-            "ms": cuda_ms(lambda: pair_hist.pair_histograms(ix, w_dev, pa, pb, integer_weights=True), 10),
+            "ms": cuda_ms(lambda: pair_hist.pair_histograms(ix, w_path, pa, pb, integer_weights=True), 10),
             "plain_ms": cuda_ms(lambda: pair_hist.pair_histograms_plain(ix, w_dev, pa, pb, integer_weights=True), 2),
             "bound_ms": b_h,
             "bound_by": by_h,
-            "library_ms": None,
+            "library_ms": library_hist_ms(ix, w_dev, pa, pb, 256, 3),
         }
     ]
     kernels = batched._gauss_kernel_2d(d2["rx"], d2["ry"], d2["corr"], 30)
@@ -518,7 +561,7 @@ def parity_path(samples, weights, batched, dft_conv, pair_hist):
     ref4 = pair_hist.pair_histograms_plain(ix, w32, sa, sb, integer_weights=True)
     err4 = float((h4 - ref4).abs().max())
     check(err4 == 0.0, f"K4 bit-exact (max abs diff {err4})")
-    b4, by4 = hist_bound(ix, len(sheared_jobs), 256)
+    b4, by4 = hist_bound(ix, w32, len(sheared_jobs), 256)
     results = [
         {
             "name": "pair_histograms_dynamic",
@@ -531,7 +574,7 @@ def parity_path(samples, weights, batched, dft_conv, pair_hist):
             "plain_ms": cuda_ms(lambda: pair_hist.pair_histograms_plain(ix, w32, sa, sb, integer_weights=True), 2),
             "bound_ms": b4,
             "bound_by": by4,
-            "library_ms": None,
+            "library_ms": library_hist_ms(ix, w32, sa, sb, 256, 3),
         }
     ]
     print(f"sheared stack: {ix.shape[0]} index rows, {len(sheared_jobs)} pairs")
@@ -721,12 +764,14 @@ def sharded_runs(group, samples, weights, batched, dft_conv, pair_hist, make_cha
         check(torch.equal(hists, ref) and torch.equal(hists, k1), f"K5 (int8_weights={mode}) bit-exact vs plain and K1")
     check(float(grouped[True].double().sum()) == float(weights.sum()) * k, "K5 total mass")
     check(torch.equal(dynamic, grouped[True]), "K4 route of sharded_pair_hists equals K5's")
-    t5 = {mode: cuda_ms(lambda m=mode: pair_hist.pair_histograms_grouped(ix, w_dev, *plan, int8_weights=m), 10)
+    # the weights as sharded_pair_hists passes them: uint8 for integer weights
+    w_in = {True: pair_hist.narrow_weights(w_dev), False: w_dev}
+    t5 = {mode: cuda_ms(lambda m=mode: pair_hist.pair_histograms_grouped(ix, w_in[m], *plan, int8_weights=m), 10)
           for mode in (True, False)}
-    t1 = cuda_ms(lambda: pair_hist.pair_histograms(ix, w_dev, pa, pb, integer_weights=True), 10)
+    t1 = cuda_ms(lambda: pair_hist.pair_histograms(ix, w_in[True], pa, pb, integer_weights=True), 10)
     print(f"K5 on 30 x 1M, 435 pairs in {plan[0].shape[0]} groups of {plan[0].shape[1]}: int32 {t5[True]:.3f} ms, "
-          f"f32 {t5[False]:.3f} ms; K1 on the same rows, int32 {t1:.3f} ms")
-    b5, by5 = hist_bound(ix, k, 256)
+          f"f32 {t5[False]:.3f} ms; K1 on the same rows, int32 {t1:.3f} ms (K5 / K1 {t5[True] / t1:.3f})")
+    b5, by5 = hist_bound(ix, w_in[True], k, 256)
     result = {
         "name": "pair_histograms_grouped",
         "route": "cuda",
@@ -738,7 +783,7 @@ def sharded_runs(group, samples, weights, batched, dft_conv, pair_hist, make_cha
         "plain_ms": cuda_ms(lambda: pair_hist.pair_histograms_grouped_plain(ix, w_dev, *plan, int8_weights=True), 2),
         "bound_ms": b5,
         "bound_by": by5,
-        "library_ms": None,
+        "library_ms": library_hist_ms(ix, w_dev, pa, pb, 256, 3),
     }
 
     # 4 gloo ranks on the CPU against the one-rank run on the card
@@ -781,6 +826,8 @@ def main():
     print(f"build: {lib.build_seconds:.2f} s with nvcc -> {os.path.relpath(lib.path, ROOT)}")
     usage = [line.strip() for line in lib.log.splitlines() if "registers" in line or "spill" in line]
     print("ptxas: " + " | ".join(usage))
+    for line in ptxas_lines(lib.log, "pair_hist_uint8_kernel"):
+        print(f"ptxas, K1/K5 uint8 kernel: {line}")
 
     t0 = time.perf_counter()
     samples, weights = make_chain(1_000_000, 30)

@@ -31,7 +31,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "pair_hist_launch": (_I, _P, _I, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _P, _P),
-    "pair_hist_grouped_launch": (_I, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P, _P),
+    # ix, P, w, weight bytes, pa, pb, inv, slots, n, K, nbins, n_split, integer_weights, out
+    "pair_hist_uint8_launch": (_I, _P, _I, _P, _I, _P, _P, _P, _I, ctypes.c_longlong, _I, _I, _I, _I, _P, _P),
     # kernels, K, m, Fr, Fi, scratch T (re, im, ld), spectra (re, im), P
     "dft_spectrum_launch": (_I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P),
     # grids, K, I, Fr, Fi, Br, Bi, spectra (re, im), scratch T (re, im, ld), E (re, im),

@@ -31,7 +31,7 @@ from getdist_tpu_torch.ops import collectives as coll
 from getdist_tpu_torch.ops._cuda import resolve_device
 from getdist_tpu_torch.ops.dft_conv import dft_conv2d, dft_conv_spectrum, frame_for
 from getdist_tpu_torch.ops.fft import dct
-from getdist_tpu_torch.ops.pair_hist import pair_histograms
+from getdist_tpu_torch.ops.pair_hist import narrow_weights, pair_histograms
 
 __all__ = [
     "prepare_chain",
@@ -943,8 +943,10 @@ def all_2d_densities(
         raise _not_ported(f"in-program pair histograms at {fine_bins} bins (parity mode passes hists_in)", "A3")
     else:
         ix_all = _fine_indices(cols, binmin, fine_width, fine_bins).to(torch.uint8)
+        w_hist = weights.to(torch.float32)
         hists = pair_histograms(
-            ix_all, weights.to(torch.float32), pa.to(torch.int32), pb.to(torch.int32), integer_weights=int8_weights
+            ix_all, narrow_weights(w_hist) if int8_weights else w_hist, pa.to(torch.int32), pb.to(torch.int32),
+            integer_weights=int8_weights,
         )
         hists = coll.psum(hists, group).to(dtype)
 

@@ -25,7 +25,13 @@ import torch
 from getdist_tpu_torch.ops import batched
 from getdist_tpu_torch.ops import collectives as coll
 from getdist_tpu_torch.ops.batched import _gauss_kernel_2d, _hist_rows, _not_ported, _tensor
-from getdist_tpu_torch.ops.pair_hist import group_pairs, pair_histograms, pair_histograms_dynamic, pair_histograms_grouped
+from getdist_tpu_torch.ops.pair_hist import (
+    group_pairs,
+    narrow_weights,
+    pair_histograms,
+    pair_histograms_dynamic,
+    pair_histograms_grouped,
+)
 
 __all__ = [
     "sharded_moments",
@@ -85,7 +91,8 @@ def sharded_pair_hists(group, ix, weights, pair_a, pair_b, static_pairs=None, in
     weights = weights.to(torch.float32).contiguous()
     if static_pairs is not None:
         grp_a, grp_b, inv = (_tensor(x, device, torch.int32) for x in group_pairs(static_pairs))
-        hists = pair_histograms_grouped(ix.to(torch.uint8).contiguous(), weights, grp_a, grp_b, inv, int8_weights)
+        w_hist = narrow_weights(weights) if int8_weights else weights
+        hists = pair_histograms_grouped(ix.to(torch.uint8).contiguous(), w_hist, grp_a, grp_b, inv, int8_weights)
     else:
         pa, pb = (_tensor(x, device, torch.int32) for x in (pair_a, pair_b))
         index = ix if ix.dtype in (torch.uint8, torch.int16, torch.int32) else ix.to(torch.int32)

@@ -56,6 +56,114 @@ def test_pair_histograms_float_weights(cuda):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+# K1's uint8 kernel: (P, N, nbins, route). "whole": the two blocks of a
+# pair each write their half of its f32 histogram; "split": few pairs, the
+# samples split over several chunks per pair (global-atomic flush). N odd
+# or N % 16 != 0 puts the column starts off 16-byte boundaries; at 200 bins
+# the indices 200..255 are dropped.
+UINT8_CASES = {
+    "whole-30-odd-n": (30, 100_003, 256, "whole"),
+    "whole-30-200bins": (30, 20_008, 200, "whole"),
+    "split-6-odd-n": (6, 200_003, 256, "split"),
+    "split-9-200bins": (9, 200_008, 200, "split"),
+}
+
+
+def _spread_indices(p, n, seed):
+    """uint8 indices over all of 0..255, Gaussian-piled in the middle."""
+    x = np.random.default_rng(seed).standard_normal((p, n))
+    return np.clip(x * 60 + 128, 0, 255).astype(np.uint8)
+
+
+@pytest.mark.parametrize("int8_weights", [True, False], ids=["int32", "f32-integer-valued"])
+@pytest.mark.parametrize("case", list(UINT8_CASES))
+def test_pair_histograms_uint8_routes_bit_exact(cuda, case, int8_weights):
+    p, n, nbins, route = UINT8_CASES[case]
+    ix = torch.from_numpy(_spread_indices(p, n, seed=13)).to(cuda)
+    w = torch.from_numpy(np.random.default_rng(14).integers(1, 5, n).astype(np.float32)).to(cuda)
+    pa, pb = _pairs(p, cuda)
+    n_split = pair_hist.split_plan(pa.shape[0], n, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert (n_split == 1) == (route == "whole")
+    before = pair_hist.pair_histograms.launches
+    got = pair_hist.pair_histograms(ix, w, pa, pb, integer_weights=int8_weights, nbins=nbins)
+    assert pair_hist.pair_histograms.launches == before + 1
+    want = pair_hist.pair_histograms_plain(ix, w, pa, pb, integer_weights=True, nbins=nbins)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    if nbins < 256:
+        assert float(got.double().sum()) < float(w.double().sum()) * pa.shape[0]  # dropped indices
+
+
+@pytest.mark.parametrize("n", [100_003, 300_001], ids=["whole", "split"])
+def test_pair_histograms_skewed_chain_bit_exact(cuda, n):
+    """Most samples in one bin, weights up to 127: that bin passes 2^16 (and
+    stays below f32's 2^24), in both weight modes."""
+    p = 6
+    rng = np.random.default_rng(15)
+    ix = _spread_indices(p, n, seed=16)
+    ix[:, rng.random(n) < 0.9] = 131
+    ix = torch.from_numpy(ix).to(cuda)
+    w = torch.from_numpy(rng.integers(0, 128, n).astype(np.float32)).to(cuda)
+    pa, pb = _pairs(p, cuda)
+    want = pair_hist.pair_histograms_plain(ix, w, pa, pb, integer_weights=True)
+    assert float(want.max()) > 2**16
+    for mode in (True, False):
+        torch.testing.assert_close(pair_hist.pair_histograms(ix, w, pa, pb, integer_weights=mode), want, rtol=0, atol=0)
+
+
+def test_pair_histograms_weight_types(cuda):
+    """uint8 weights (integer weights read at a quarter of the f32 stream,
+    as narrow_weights makes them) equal the same f32 integer weights;
+    integer weights past 255 stay f32 and exact."""
+    p, n = 7, 60_001
+    ix = torch.from_numpy(_spread_indices(p, n, seed=22)).to(cuda)
+    rng = np.random.default_rng(23)
+    pa, pb = _pairs(p, cuda)
+    small = torch.from_numpy(rng.integers(0, 256, n).astype(np.float32)).to(cuda)
+    want = pair_hist.pair_histograms_plain(ix, small, pa, pb, integer_weights=True)
+    narrowed = pair_hist.narrow_weights(small)
+    assert narrowed.dtype == torch.uint8
+    for w in (small, narrowed):
+        torch.testing.assert_close(pair_hist.pair_histograms(ix, w, pa, pb, integer_weights=True), want, rtol=0, atol=0)
+    torch.testing.assert_close(pair_hist.pair_histograms_grouped(
+        ix, narrowed, *(torch.from_numpy(x).to(cuda) for x in pair_hist.group_pairs(list(zip(pa.tolist(), pb.tolist())))),
+        int8_weights=True), want, rtol=0, atol=0)
+    large = torch.from_numpy(rng.integers(0, 3000, n).astype(np.float32)).to(cuda)
+    assert pair_hist.narrow_weights(large) is large
+    want = pair_hist.pair_histograms_plain(ix, large, pa, pb, integer_weights=True)
+    torch.testing.assert_close(pair_hist.pair_histograms(ix, large, pa, pb, integer_weights=True), want, rtol=0, atol=0)
+
+
+def test_uint8_kernel_checks_indices_after_its_launch(cuda):
+    """The uint8 route reads its checks back after the launch (the kernel
+    clamps pair indices): a bad pair still raises, and the card goes on."""
+    p, n = 4, 5_000
+    ix = torch.from_numpy(_spread_indices(p, n, seed=24)).to(cuda)
+    w = torch.ones(n, device=cuda)
+    bad = torch.tensor([0, 7], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="pair indices"):
+        pair_hist.pair_histograms(ix, w, bad, bad.flip(0))
+    pairs = [(0, 1), (2, 3)]
+    grp_a, grp_b, inv = (torch.from_numpy(x).to(cuda) for x in pair_hist.group_pairs(pairs))
+    with pytest.raises(ValueError, match="group parameter indices"):
+        pair_hist.pair_histograms_grouped(ix, w, grp_a + 9, grp_b, inv)
+    pa, pb = _pairs(p, cuda)
+    want = pair_hist.pair_histograms_plain(ix, w, pa, pb)
+    torch.testing.assert_close(pair_hist.pair_histograms(ix, w, pa, pb), want, rtol=0, atol=0)
+
+
+def test_pair_histograms_wide_rows_take_the_slab_kernel(cuda):
+    """K1's entry on int16 rows past 256 bins (parity's wide fine grids)."""
+    p, n, nbins = 5, 50_001, 512
+    ix = np.clip(np.random.default_rng(17).standard_normal((p, n)) * 90 + 256, 0, 600).astype(np.int16)
+    ix = torch.from_numpy(ix).to(cuda)
+    w = torch.from_numpy(np.random.default_rng(18).integers(1, 5, n).astype(np.float32)).to(cuda)
+    pa, pb = _pairs(p, cuda)
+    before = pair_hist.pair_histograms.launches
+    got = pair_hist.pair_histograms(ix, w, pa, pb, integer_weights=True, nbins=nbins)
+    assert pair_hist.pair_histograms.launches == before + 1
+    torch.testing.assert_close(got, pair_hist.pair_histograms_plain(ix, w, pa, pb, True, nbins), rtol=0, atol=0)
+
+
 # (pad, I, m, offset, out_size): the fused 'same' convolution, its 'valid'
 # extended-mask convolution (batched.py conv_valid_ext), ragged supports,
 # odd sizes (element-wise copies, unpaired stores), parity's frame 512
@@ -219,6 +327,33 @@ def test_grouped_pair_histograms_bit_exact(cuda, int8_weights):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     pa, pb = _pairs(p, cuda)
     torch.testing.assert_close(got, pair_hist.pair_histograms(ix, w, pa, pb, integer_weights=int8_weights), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("int8_weights", [True, False], ids=["int32", "f32-integer-valued"])
+def test_grouped_pair_histograms_short_groups_odd_n(cuda, int8_weights):
+    """K5 on 11 parameters (b = 9 and 10 end in short groups, padded with
+    a = b slots) at an odd N: equal to K1 and to the plain version, so no
+    padding slot reaches the output."""
+    p, n = 11, 100_003
+    ix = torch.from_numpy(_spread_indices(p, n, seed=19)).to(cuda)
+    w = torch.from_numpy(np.random.default_rng(20).integers(1, 5, n).astype(np.float32)).to(cuda)
+    pairs = [(i, j) for i in range(p) for j in range(i + 1, p)]
+    plan = [torch.from_numpy(x).to(cuda) for x in pair_hist.group_pairs(pairs)]
+    assert int((plan[0] == plan[1][:, None]).sum()) > 0  # the plan has padding slots
+    got = pair_hist.pair_histograms_grouped(ix, w, *plan, int8_weights=int8_weights)
+    pa, pb = _pairs(p, cuda)
+    want = pair_hist.pair_histograms_plain(ix, w, pa, pb, integer_weights=True)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(got, pair_hist.pair_histograms(ix, w, pa, pb, int8_weights), rtol=0, atol=0)
+
+
+def test_grouped_wrapper_refuses_repeated_slots(cuda):
+    ix = torch.from_numpy(_indices(4, 64, seed=21)).to(cuda)
+    pairs = [(i, j) for i in range(4) for j in range(i + 1, 4)]
+    grp_a, grp_b, inv = (torch.from_numpy(x).to(cuda) for x in pair_hist.group_pairs(pairs))
+    inv[1] = inv[0]
+    with pytest.raises(ValueError, match="distinct slots"):
+        pair_hist.pair_histograms_grouped(ix, torch.ones(64, device=cuda), grp_a, grp_b, inv)
 
 
 def test_one_rank_nccl_sharded_pair_hists(cuda, tmp_path):

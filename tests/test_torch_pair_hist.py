@@ -149,3 +149,72 @@ def test_grouped_wrapper_refuses_non_cuda_devices():
     one = torch.zeros(1, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         pair_hist.pair_histograms_grouped(ix, torch.ones(8, device="meta"), grp, one, one)
+
+
+@pytest.mark.parametrize(
+    "k,n,sms,want",
+    [
+        (435, 1_000_000, 132, 1),  # the paths' 435 pairs: 870 blocks, each owns and writes half a histogram
+        (66, 1_000_000, 132, 1),  # exactly one wave
+        (15, 200_003, 132, 3),  # few pairs: samples split, at least SPLIT_MIN_SAMPLES a chunk
+        (36, 200_008, 132, 2),  # enough chunks to fill the card, no more
+        (15, 20_000, 132, 1),  # too few samples to split
+        (1, 10**8, 132, 66),
+    ],
+)
+def test_split_plan(k, n, sms, want):
+    assert pair_hist.split_plan(k, n, sms) == want
+
+
+@pytest.mark.parametrize("p,seed", [(11, None), (30, None), (9, 3)])
+def test_grouped_work_list_matches_jax_group_pairs(p, seed):
+    """K5's work list, built from the JAX package's plan (group_pairs /
+    inv_perm) of the same pairs, is the pair list itself, in order; the
+    a = b padding slots never enter it. The port's plan equals JAX's."""
+    pairs = [(int(a), int(b)) for a, b in _all_pairs(p)]
+    if seed is not None:  # an arbitrary pair list: repeated b rows, any order
+        rng = np.random.default_rng(seed)
+        pairs = [pairs[i] for i in rng.permutation(len(pairs))][: len(pairs) // 2]
+    want = group_pairs(pairs)
+    for got, ref in zip(pair_hist.group_pairs(pairs), want):
+        np.testing.assert_array_equal(got, ref)
+    grp_a, grp_b, inv = (torch.from_numpy(np.asarray(x, np.int32)) for x in want)
+    assert int((grp_a == grp_b[:, None]).sum()) > 0  # the plan pads
+    pa, pb = pair_hist.grouped_work_list(grp_a, grp_b, inv)
+    assert pa.dtype == torch.int32 and list(zip(pa.tolist(), pb.tolist())) == pairs
+    assert not bool((pa == pb).any())
+
+
+def test_plain_takes_uint8_weights():
+    ix = _indices(3, 5000, seed=8)
+    w = np.random.default_rng(9).integers(0, 256, 5000).astype(np.float32)
+    pairs = _all_pairs(3)
+    want = _port(ix, w, pairs, True)
+    got = pair_hist.pair_histograms_plain(
+        torch.from_numpy(ix), torch.from_numpy(w).to(torch.uint8), torch.from_numpy(pairs[:, 0].copy()),
+        torch.from_numpy(pairs[:, 1].copy()), integer_weights=True,
+    ).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize(
+    "values,narrowed",
+    [
+        ([1.0, 4.0, 3.0], True),
+        ([0.0, 255.0], True),
+        ([-0.4, 255.4], True),  # rounds into [0, 255], as the kernel rounds
+        ([0.0, 255.5], False),  # rounds to 256
+        ([-0.6, 3.0], False),
+        ([1.0, 300.0], False),
+    ],
+)
+def test_narrow_weights(values, narrowed):
+    """Integer weights go to the uint8 kernel as uint8 where every rounded
+    value fits, with the values the kernel would take from f32."""
+    w = torch.tensor(values, dtype=torch.float32)
+    got = pair_hist.narrow_weights(w)
+    assert (got.dtype == torch.uint8) == narrowed
+    if narrowed:
+        np.testing.assert_array_equal(got.numpy(), np.round(np.asarray(values, np.float32)))
+    else:
+        assert got is w
