@@ -20,8 +20,9 @@ CUDA kernels from ``getdist_tpu_torch/csrc``. Then three paths on
 2. device parity mode, ``MCSamples(...).fastParityDensities(device=True)``:
    one cold and two warm runs (stage profile, peak memory, launch counts of
    one run), checks of its outputs, bin indices of all 30 columns against
-   numpy's formula, K4 on this run's sheared stack and f64 K2/K3 on its
-   largest bucket against their plain versions (two calls bitwise equal),
+   numpy's formula, K4 on this run's sheared stack (timed with the path's
+   uint8 weights and with f32 weights) and f64 K2/K3 on its largest bucket
+   against their plain versions (two calls bitwise equal),
    and parity on the card
    against the port on the CPU at 20k x 6 (a bounded parameter and a
    pair with |corr| > 0.87);
@@ -35,10 +36,11 @@ CUDA kernels from ``getdist_tpu_torch/csrc``. Then three paths on
    a 40k x 6 chain, held against the one-rank run on the card (the only
    run where the N_eff halo exchange and the card meet).
 
-K1 and K5 are timed with the weights their paths pass (integer weights
-as uint8, ``pair_hist.narrow_weights``); K1, K4 and K5 each beside one
+K1, K4 and K5 are timed with the weights their paths pass (integer
+weights as uint8, ``pair_hist.narrow_weights``), each beside one
 ``torch.bincount`` over flat pair keys, the yardstick no path calls. The
-build's ptxas lines of the uint8 pair-histogram kernel are printed.
+build's ptxas lines of the uint8 pair-histogram kernel (K1, K4 and K5) are
+printed.
 
 Prints one JSON line of kernel results (with each kernel's bound on the
 card and, where one exists, a single PyTorch call's time), the card line
@@ -552,16 +554,27 @@ def parity_path(samples, weights, batched, dft_conv, pair_hist):
     # K4 on this run's sheared stack
     _, sheared_jobs = mc._parity_pairs(idx, infos)
     stack = mc._sheared_stack(idx, infos, sheared_jobs, st["samples"])
-    ix = stack["ix"].to(torch.uint8).contiguous()
+    ix = pair_hist.narrow_rows(stack["ix"], 256)
+    check(ix.dtype == torch.uint8, "the sheared stack's rows narrow to uint8")
     sa = torch.tensor(stack["pair_a"], dtype=torch.int32, device="cuda")
     sb = torch.tensor(stack["pair_b"], dtype=torch.int32, device="cuda")
     check(not pdev.static_route(ix.shape[0], len(sheared_jobs)), "the sheared stack takes K4's route")
-    w32 = st["weights32"]
-    h4 = pair_hist.pair_histograms_dynamic(ix, w32, sa, sb, integer_weights=True)
+    # the weights as the path passes them: integer weights narrowed to uint8
+    w_path = st["hist_weights"]
+    check(w_path.dtype == torch.uint8, "the path's integer weights go to K1 and K4 as uint8")
+    w32 = st["weights"].to(torch.float32)
     ref4 = pair_hist.pair_histograms_plain(ix, w32, sa, sb, integer_weights=True)
-    err4 = float((h4 - ref4).abs().max())
-    check(err4 == 0.0, f"K4 bit-exact (max abs diff {err4})")
-    b4, by4 = hist_bound(ix, w32, len(sheared_jobs), 256)
+    err4 = 0.0
+    for w_in in (w_path, w32):
+        h4 = pair_hist.pair_histograms_dynamic(ix, w_in, sa, sb, integer_weights=True)
+        err4 = max(err4, float((h4 - ref4).abs().max()))
+    check(err4 == 0.0, f"K4 bit-exact in both weight types (max abs diff {err4})")
+    del h4
+    t4 = cuda_ms(lambda: pair_hist.pair_histograms_dynamic(ix, w_path, sa, sb, integer_weights=True), 10)
+    t4_f32 = cuda_ms(lambda: pair_hist.pair_histograms_dynamic(ix, w32, sa, sb, integer_weights=True), 10)
+    print(f"K4 on the sheared stack ({ix.shape[0]} index rows, {len(sheared_jobs)} pairs): {t4:.3f} ms with the "
+          f"path's uint8 weights, {t4_f32:.3f} ms with f32 weights")
+    b4, by4 = hist_bound(ix, w_path, len(sheared_jobs), 256)
     results = [
         {
             "name": "pair_histograms_dynamic",
@@ -570,14 +583,13 @@ def parity_path(samples, weights, batched, dft_conv, pair_hist):
             "replaces": "getdist_tpu/ops/pallas_kernels.py:65",
             "launches": launches["pair_histograms_dynamic"],
             "max_abs_err": err4,
-            "ms": cuda_ms(lambda: pair_hist.pair_histograms_dynamic(ix, w32, sa, sb, integer_weights=True), 10),
+            "ms": t4,
             "plain_ms": cuda_ms(lambda: pair_hist.pair_histograms_plain(ix, w32, sa, sb, integer_weights=True), 2),
             "bound_ms": b4,
             "bound_by": by4,
             "library_ms": library_hist_ms(ix, w32, sa, sb, 256, 3),
         }
     ]
-    print(f"sheared stack: {ix.shape[0]} index rows, {len(sheared_jobs)} pairs")
 
     # f64 K2/K3 on the run's largest bucket (at fine 256): K1 histograms of
     # the bucket's pair count, kernels at the bucket's window
@@ -587,7 +599,7 @@ def parity_path(samples, weights, batched, dft_conv, pair_hist):
     ix256 = np.ascontiguousarray(got, dtype=np.uint8)
     pairs = np.array([(i, j) for i in range(p) for j in range(i + 1, p)][:kb], np.int32)
     hists = pair_hist.pair_histograms(
-        torch.from_numpy(ix256).cuda(), w32, torch.from_numpy(pairs[:, 0].copy()).cuda(),
+        torch.from_numpy(ix256).cuda(), w_path, torch.from_numpy(pairs[:, 0].copy()).cuda(),
         torch.from_numpy(pairs[:, 1].copy()).cuda(), integer_weights=True,
     ).double()
     widths = torch.linspace(0.8, winw / 2.5, kb, dtype=torch.float64, device="cuda")
@@ -827,7 +839,7 @@ def main():
     usage = [line.strip() for line in lib.log.splitlines() if "registers" in line or "spill" in line]
     print("ptxas: " + " | ".join(usage))
     for line in ptxas_lines(lib.log, "pair_hist_uint8_kernel"):
-        print(f"ptxas, K1/K5 uint8 kernel: {line}")
+        print(f"ptxas, K1/K4/K5 uint8 kernel: {line}")
 
     t0 = time.perf_counter()
     samples, weights = make_chain(1_000_000, 30)

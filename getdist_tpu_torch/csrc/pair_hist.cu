@@ -7,15 +7,19 @@
 // The TPU kernels (getdist_tpu/ops/pallas_kernels.py) built weighted one-hot
 // stacks and contracted them on the MXU; on Hopper that is ~7.7 GB of one-hot
 // traffic at 30 params x 1M samples and 256 bins, so these kernels bin
-// directly with shared-memory atomics.  The index rows stay L2-resident
-// (30 x 1M uint8 = 30 MB < 50 MB L2).  Integer weights accumulate in int32
+// directly with shared-memory atomics.  Integer weights accumulate in int32
 // (bit-exact, order independent); float weights in f32 (the atomic order
 // varies from run to run).
 //
 // pair_hist_uint8_kernel: uint8 index rows, nbins <= 256.  Replaces
-// pair_histograms_tiled (K1, the static all-pairs schedule, via
-// pair_histograms) and pair_histograms_grouped (K5, b-anchored groups, via
-// pair_histograms_grouped, whose non-padding slots become the pair list).
+// pair_histograms_tiled (K1, pallas_kernels.py:309, the static all-pairs
+// schedule, via pair_histograms), pair_histograms (K4, pallas_kernels.py:65,
+// dynamic pair lists such as parity mode's sheared lead/residual stacks,
+// via pair_histograms_dynamic) and pair_histograms_grouped (K5,
+// pallas_kernels.py:170, b-anchored groups, via pair_histograms_grouped,
+// whose non-padding slots become the pair list).  K1's rows stay in L2 (30
+// x 1M uint8 = 30 MB < 50 MB); K4's sheared stack (139 rows x 1M, 112 pairs
+// whose a rows repeat) does not, and comes once from HBM (139 MB).
 // Two blocks per pair (and sample chunk), each owning half of the pair's
 // rows: [0, R) or [R, nbins), R = ceil(nbins / 2), 128 KB of int32 or f32 at
 // 256 bins, the most one block's shared memory holds.  Each block reads a, b
@@ -42,22 +46,30 @@
 //   Where the pairs' blocks would not fill the card (few pairs), each pair's
 //   samples are split over several chunks, which flush their nonzero bins
 //   with global atomics into a zeroed accumulator instead.
-// A cluster of 2 CTAs holding the whole histogram in distributed shared
-// memory, each CTA scanning half the samples once and adding into its
-// peer's rows with red.shared::cluster, halves the reads but measured 3x
-// slower on an H100: the remote adds are far slower than local ones.  f32
-// adds to shared memory take twice the time of int32 ones.
+// Two designs that halve those reads lost to this one on an H100, both as
+// a 2-CTA cluster per pair: one holding the whole histogram in distributed
+// shared memory, each CTA scanning half the samples and adding into its
+// peer's rows with red.shared::cluster (3x slower: remote adds are far
+// slower than local ones); and one whose CTA 0 multicast each chunk of a, b
+// and w into both CTAs' shared memory with bulk asynchronous copies
+// (cp.async.bulk .multicast::cluster into a ring of mbarrier-completed
+// stages), each CTA adding its own rows from the staged chunk (2-9% slower
+// on K4's sheared stack, 9-10% on K1's rows: halving the L2 reads bought
+// nothing once the adds bound the scan, and the staging writes and reads
+// the shared memory that the atomics use).  f32 adds to shared memory take
+// twice the time of int32 ones.
 //
 // pair_hist_kernel: any bin count up to 1024, uint8 / int16 / int32 rows.
-// Replaces pair_histograms (K4, dynamic pair lists such as parity mode's
-// sheared lead/residual stacks) and serves K1's entry for int16 / int32 rows
-// (parity's fine grids past 256 bins).  A full histogram tile does not fit
-// a block's shared memory (3.7 MB at 960 bins), so each block owns a slab of
-// R rows of one pair's histogram (R * nbins * 4 bytes <= 128 KB: R = 128 at
-// 256 bins, 34 at 960) over one chunk of samples, skips samples whose b bin
-// lies in another slab, and flushes its nonzero bins with global atomics into
-// a zeroed output.  Bounded by the same atomics and by the latency of its
-// scalar index reads.
+// Serves K1's and K4's entries for int16 / int32 rows: parity's fine grids
+// past 256 bins, and rows that their caller cannot narrow to uint8 (a
+// narrowing never wraps an index outside [0, nbins) into range, so such a
+// row stays wide, and this kernel drops the index).  A full histogram tile
+// does not fit a block's shared memory (3.7 MB at 960 bins), so each block
+// owns a slab of R rows of one pair's histogram (R * nbins * 4 bytes <= 128
+// KB: R = 128 at 256 bins, 34 at 960) over one chunk of samples, skips
+// samples whose b bin lies in another slab, and flushes its nonzero bins
+// with global atomics into a zeroed output.  Bounded by the same atomics and
+// by the latency of its scalar index reads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

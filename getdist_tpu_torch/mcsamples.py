@@ -38,11 +38,22 @@ from getdist_tpu_torch.ops import parity_device as pdev
 from getdist_tpu_torch.ops._cuda import resolve_device
 from getdist_tpu_torch.ops.batched import all_2d_densities
 from getdist_tpu_torch.ops.convolve import convolveFFT_host as convolve1D
+from getdist_tpu_torch.ops.pair_hist import narrow_weights
 from getdist_tpu_torch.parampriors import ParamBounds
 
 __all__ = ["MCSamples", "MCSamplesError", "SettingError", "BandwidthError", "default_getdist_settings"]
 
 default_getdist_settings = os.path.join(os.path.dirname(os.path.abspath(__file__)), "analysis_defaults.ini")
+
+
+class LikeStats:
+    """Likelihood statistics of a chain with loglikes: the best-fit sample's
+    -log(like) and the parameters, which carry their N-D limits
+    (``ND_limit_bot`` / ``ND_limit_top``)."""
+
+    def __init__(self, logLike_sample, names):
+        self.logLike_sample = logLike_sample
+        self.names = names
 
 
 class MCSamplesError(WeightedSampleError):
@@ -120,7 +131,7 @@ class MCSamples(Chains):
         for key, value in _BASE_ANALYSIS_SETTINGS.items():
             setattr(self, key, value)
         self.contours = np.array([0.68, 0.95])
-        self.no_warning_params, self.density1D = [], {}
+        self.likeStats, self.no_warning_params, self.density1D = None, [], {}
         self.parity_profile, self.parity_buckets = {}, []
         if "ignore_rows" in kwargs:
             settings = dict(settings or {})
@@ -229,7 +240,31 @@ class MCSamples(Chains):
         self._initLimits(self.ini)
         for par in self.paramNames.names:
             par.N_eff_kde = None
+        self._setLikeStats()
         return self
+
+    def _setLikeStats(self):
+        """For a chain with loglikes, each parameter's N-D confidence region
+        per contour (``ND_limit_bot`` / ``ND_limit_top``: the extremes of the
+        best-likelihood samples that hold the contour's mass) and
+        ``self.likeStats`` (None without loglikes), as the reference's
+        ``_setLikeStats`` sets them for ``range_ND_contour``; its likelihood
+        moments are not ported."""
+        logl = self.loglikes
+        if logl is None:
+            self.likeStats = None
+            return
+        by_like = logl.argsort()
+        mass = np.cumsum(self.weights[by_like])
+        cutoffs = np.searchsorted(mass, self.norm * self.contours)
+        for j, info in enumerate(self.paramNames.names):
+            info.ND_limit_bot = np.empty(len(cutoffs))
+            info.ND_limit_top = np.empty(len(cutoffs))
+            for i, cut in enumerate(cutoffs):
+                region = self.samples[by_like[:cut], j]
+                info.ND_limit_bot[i] = np.min(region)
+                info.ND_limit_top[i] = np.max(region)
+        self.likeStats = LikeStats(logl[by_like[0]], self.paramNames.names)
 
     # -- parameter ranges ----------------------------------------------------------------
 
@@ -280,8 +315,13 @@ class MCSamples(Chains):
         levels = self.confidence(paramConfid, probe)
         par.range_min, par.range_max = levels[0], levels[1]
         par.sigma_range = self._peak_scale(levels[2:], par.param_min, par.param_max, par.err)
-        if self.range_ND_contour >= 0 and self.loglikes is not None:
-            raise _not_ported("ranges from the ND likelihood contour (range_ND_contour >= 0)", "A10")
+        if self.range_ND_contour >= 0 and self.likeStats:
+            if self.range_ND_contour >= par.ND_limit_bot.size:
+                raise SettingError("range_ND_contour must be -1 (disabled) or a valid contour-level index")
+            nd_lo = par.ND_limit_bot[self.range_ND_contour]
+            nd_hi = par.ND_limit_top[self.range_ND_contour]
+            par.range_min = min(max(par.range_min - par.err, nd_lo), par.range_min)
+            par.range_max = max(max(par.range_max + par.err, nd_hi), par.range_max)
         self._snap_range_to_limits(par, par.sigma_range * 0.4)
         return par
 
@@ -567,18 +607,21 @@ class MCSamples(Chains):
 
     def _parity_chain(self):
         """The chain on ``self.device`` for parity mode: f64 samples and
-        weights, f32 weights for the histogram kernels, and whether every
-        weight is a non-negative integer with a total below 2^31 (the
-        kernels then accumulate exactly in int32). Cached until the samples
-        change."""
+        weights, whether every weight is a non-negative integer with a total
+        below 2^31 (the kernels then accumulate exactly in int32), and the
+        histogram kernels' weights: integer weights narrowed to uint8 where
+        they fit (``pair_hist.narrow_weights``, a quarter of the f32
+        stream), else f32. Cached until the samples change."""
         st = self._parity_chain_cache
         if st is None:
             w = self.weights
+            integer = bool(w.size and np.all(w == np.round(w)) and w.min() >= 0 and float(w.sum()) < 2**31)
+            w32 = torch.from_numpy(w.astype(np.float32)).to(self.device)
             st = {
                 "samples": torch.from_numpy(self.samples).to(self.device),
                 "weights": torch.from_numpy(w).to(self.device),
-                "weights32": torch.from_numpy(w.astype(np.float32)).to(self.device),
-                "integer": bool(w.size and np.all(w == np.round(w)) and w.min() >= 0 and float(w.sum()) < 2**31),
+                "hist_weights": narrow_weights(w32) if integer else w32,
+                "integer": integer,
             }
             self._parity_chain_cache = st
         return st
@@ -735,7 +778,7 @@ class MCSamples(Chains):
         names = [info.name for info in infos]
         mark("ranges")
         st = self._parity_chain()
-        dev_s64, dev_w64, dev_w32 = st["samples"], st["weights"], st["weights32"]
+        dev_s64, dev_w64, dev_hist_w = st["samples"], st["weights"], st["hist_weights"]
         mark("chain_state")
 
         # per-param fine ranges (the reference _binSamples convention)
@@ -764,7 +807,7 @@ class MCSamples(Chains):
                 ix,
                 [local[a] for a, b, _ in members],
                 [local[b] for a, b, _ in members],
-                dev_w32,
+                dev_hist_w,
                 fine,
                 st["integer"],
             )
@@ -827,7 +870,7 @@ class MCSamples(Chains):
         if sheared_jobs:
             stack = self._sheared_stack(idx, infos, sheared_jobs, sub64)
             sh_hists = pdev.group_pair_hists(
-                stack["ix"], stack["pair_a"], stack["pair_b"], dev_w32, self.fine_bins_2D, st["integer"]
+                stack["ix"], stack["pair_a"], stack["pair_b"], dev_hist_w, self.fine_bins_2D, st["integer"]
             )
             sh_hists = sh_hists.to(torch.float64).cpu().numpy()
             lead_width, lead_rank, rwidth = stack["lead_width"], stack["lead_rank"], stack["rwidth"]

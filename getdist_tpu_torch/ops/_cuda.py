@@ -10,6 +10,7 @@ with a plain C interface, cached under
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -127,3 +128,17 @@ def resolve_device(device):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: pass device='cpu' to run on the host")
     return device
+
+
+@contextlib.contextmanager
+def full_fp32_matmuls():
+    """Run float32 matrix products in full FP32 (cuBLAS keeps TF32, about
+    three decimal digits, out): ``torch.backends.cuda.matmul.allow_tf32``
+    is False inside and the caller's value comes back on exit, exception or
+    not. Also a decorator: ``@full_fp32_matmuls()``."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved

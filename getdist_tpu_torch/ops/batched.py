@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from getdist_tpu_torch.ops import collectives as coll
-from getdist_tpu_torch.ops._cuda import resolve_device
+from getdist_tpu_torch.ops._cuda import full_fp32_matmuls, resolve_device
 from getdist_tpu_torch.ops.dft_conv import dft_conv2d, dft_conv_spectrum, frame_for
 from getdist_tpu_torch.ops.fft import dct
 from getdist_tpu_torch.ops.pair_hist import narrow_weights, pair_histograms
@@ -699,6 +699,7 @@ def _fine_indices(cols, lo, width, nbins):
     return torch.clamp((((cols - lo[:, None]) / width[:, None]) + 0.5).to(torch.int32), 0, nbins - 1)
 
 
+@full_fp32_matmuls()
 def all_1d_densities(
     samples,
     weights,
@@ -849,6 +850,7 @@ def _shear_subset(enable_shear, k):
     return bool(enable_shear), None
 
 
+@full_fp32_matmuls()  # the plain matrix products (psi functionals) need full FP32
 def all_2d_densities(
     samples,
     weights,
@@ -926,8 +928,6 @@ def all_2d_densities(
         raise _not_ported("the in-program 2D optimizer with hard limits or exact_mult_bias", "A3/A8")
     if boundary_order not in (0, 1):
         raise ValueError(f"boundary_order must be 0 or 1, got {boundary_order}")
-    # the plain matrix products below (psi functionals) need full FP32
-    torch.backends.cuda.matmul.allow_tf32 = False
     dtype, device = samples.dtype, samples.device
     pa = _tensor(pair_a, device, torch.int64)
     pb = _tensor(pair_b, device, torch.int64)
@@ -1163,13 +1163,13 @@ def _optimized_bandwidths(
 # ---------------------------------------------------------------------------
 
 
+@full_fp32_matmuls()  # every plain matrix product runs in full FP32
 def _triangle_program(
     samples, weights, pair_a, pair_b, contours, int8_weights, max_corr=0.95, enable_shear=True,
     bandwidth_scale_1d=None, bandwidth_scale_2d=None, group=None, n_samples=None, export_hists=False,
 ):
     """The 1D stage, then the all-pairs 2D stage on its ranges and N_eff;
     ``group`` / ``n_samples`` shard both stages (see :func:`all_1d_densities`)."""
-    torch.backends.cuda.matmul.allow_tf32 = False  # every plain matrix product runs in full FP32
     with torch.no_grad():
         d1 = all_1d_densities(samples, weights, group=group, n_samples=n_samples, bandwidth_scale=bandwidth_scale_1d)
         d2 = all_2d_densities(

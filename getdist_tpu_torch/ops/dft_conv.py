@@ -37,8 +37,9 @@ scratch exceeds :data:`SCRATCH_BYTES` is split over K.
 
 The plain versions run the full-frame chain (through the zero padding) as
 batched ``torch.matmul`` in the input type with TF32 off
-(``torch.backends.cuda.matmul.allow_tf32`` is set to False before they
-run, since TF32 keeps about three decimal digits).
+(inside ``_cuda.full_fp32_matmuls``, which turns
+``torch.backends.cuda.matmul.allow_tf32`` off and restores the caller's
+value, since TF32 keeps about three decimal digits).
 The TPU's bf16 precision modes ("default", "split3") have no counterpart.
 """
 
@@ -98,19 +99,14 @@ def dft_matrices(pad, device, dtype=torch.float32):
     return _dft_mats_on(int(pad), torch.device(device), dtype)
 
 
-def _highest_matmuls():
-    # the plain chain is the kernels' oracle: keep cuBLAS out of TF32
-    torch.backends.cuda.matmul.allow_tf32 = False
-
-
 def _padded(x, pad):
     size = x.shape[-1]
     return F.pad(x, (0, pad - size, 0, pad - size))
 
 
+@_cuda.full_fp32_matmuls()  # the plain chain is the kernels' oracle
 def dft_conv_spectrum_plain(kernels, pad=DEFAULT_PAD):
     """Plain PyTorch version of :func:`dft_conv_spectrum`."""
-    _highest_matmuls()
     fr, fi, _, _ = dft_matrices(pad, kernels.device, kernels.dtype)
     kp = _padded(kernels, pad)
     tr = fr @ kp
@@ -118,9 +114,9 @@ def dft_conv_spectrum_plain(kernels, pad=DEFAULT_PAD):
     return tr @ fr - ti @ fi, tr @ fi + ti @ fr
 
 
+@_cuda.full_fp32_matmuls()
 def dft_conv2d_plain(grids, ur, ui, out_size, offset, pad=DEFAULT_PAD):
     """Plain PyTorch version of :func:`dft_conv2d`."""
-    _highest_matmuls()
     fr, fi, br, bi = dft_matrices(pad, grids.device, grids.dtype)
     gp = _padded(grids, pad)
     tr = fr @ gp

@@ -14,30 +14,32 @@ Counterparts of three TPU schedules of the same computation in
   :func:`pair_histograms_grouped`, with :func:`group_pairs`.
 
 All three bin directly with shared-memory atomics instead of building the
-TPU's one-hot stacks (7.7 GB of traffic at 30 x 1M), from index rows that
-stay in the H100's L2. Each entry keeps its own launch counter.
+TPU's one-hot stacks (7.7 GB of traffic at 30 x 1M). Each entry keeps its
+own launch counter.
 
-* K1 on uint8 rows (the three paths' case) and K5 launch the uint8 kernel
-  of ``csrc/pair_hist.cu``: two blocks per pair, each owning half of the
-  pair's rows (128 KB of shared memory at 256 bins) and writing them as f32
-  (no zero fill, no flush, no conversion pass). It is bound by reading a, b
-  and w of every sample twice (once per half) from L2: each thread reads 16
-  samples of each as 16-byte vectors, and callers that know their weights
-  are integers pass them as uint8 where they fit (:func:`narrow_weights`),
-  a quarter of the f32 stream. Few pairs take the split route
-  (:func:`split_plan`).
-  K5 runs it on :func:`grouped_work_list`: its padding slots are never
-  scanned, and the TPU's grouping (one weighted b one-hot per step shared
-  by 8 pairs on the MXU) would save only the b reads here (``PERF.md``).
-* K4, and K1 on int16/int32 rows (parity's fine grids past 256 bins),
-  launch the slab kernel: one block per slab of R rows
-  (R * nbins * 4 bytes <= 128 KB) and chunk of samples, flushed with
-  global atomics into a zeroed output.
+* On uint8 rows (at most 256 bins, the three paths' case) all three launch
+  the uint8 kernel of ``csrc/pair_hist.cu``: two blocks per pair, each
+  owning half of its rows (128 KB of shared memory at 256 bins) and writing
+  them as f32 (no zero fill, no flush, no conversion pass). Each block reads
+  a, b and w of every sample as 16-byte vectors; callers that know their
+  weights are integers pass them as uint8 where they fit
+  (:func:`narrow_weights`), a quarter of the f32 stream. Few pairs take the
+  split route (:func:`split_plan`). K1's rows (30 MB at 30 x 1M) stay in
+  L2; K4's sheared stack (139 MB at 1M) does not. K5 runs the kernel on
+  :func:`grouped_work_list`: its padding slots are never scanned, and the
+  TPU's grouping (one weighted b one-hot per step shared by 8 pairs on the
+  MXU) would save only the b reads here (``PERF.md``).
+* Rows that are not uint8 (int16 / int32: parity's fine grids past 256
+  bins, or rows that a caller cannot narrow) take the slab kernel, with f32
+  weights: one block per slab of R rows (R * nbins * 4 bytes <= 128 KB) and
+  chunk of samples, flushed with global atomics into a zeroed output.
 
 Convention (``getdist_tpu/ops/batched.py:_pair_hist_256``): ``out[k, b, a]``
 sums the weights of samples with ``ix[pair_b[k]] == b`` and
 ``ix[pair_a[k]] == a`` (rows = b, cols = a); samples with an index outside
-``[0, nbins)`` are dropped. No padding of N is needed.
+``[0, nbins)`` are dropped. A narrowing of rows never wraps such an index
+into range (:func:`narrow_rows` keeps a row that holds one wider, and the
+slab kernel drops it). No padding of N is needed.
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ __all__ = [
     "MAX_BINS",
     "group_pairs",
     "grouped_work_list",
+    "narrow_rows",
     "narrow_weights",
     "pair_histograms",
     "pair_histograms_dynamic",
@@ -99,12 +102,12 @@ def split_plan(k, n, sms):
     return max(1, min(-(-sms // (2 * k)), n // SPLIT_MIN_SAMPLES))
 
 
-def _check_rows(ix, weights, pair_a, pair_b, nbins, slab):
+def _check_rows(ix, weights, pair_a, pair_b, nbins):
     """Check what the kernels take; (P, N, K)."""
     _cuda.require_cuda(ix, dtype=ix.dtype)
     if ix.dtype not in _INDEX_BYTES or (ix.dtype == torch.uint8 and nbins > 256):
         raise TypeError(f"index rows must be uint8 (at most 256 bins), int16 or int32, got {ix.dtype} at {nbins} bins")
-    uint8_weights = weights.dtype == torch.uint8 and ix.dtype == torch.uint8 and not slab
+    uint8_weights = weights.dtype == torch.uint8 and ix.dtype == torch.uint8
     _cuda.require_cuda(weights, dtype=torch.uint8 if uint8_weights else torch.float32)
     _cuda.require_cuda(pair_a, pair_b, dtype=torch.int32)
     if ix.dim() != 2 or weights.shape != (ix.shape[1],) or pair_a.dim() != 1 or pair_a.shape != pair_b.shape:
@@ -129,6 +132,22 @@ def narrow_weights(weights):
     if -0.5 <= lo and hi < 255.5:
         return torch.round(weights).to(torch.uint8)
     return weights
+
+
+def narrow_rows(ix, nbins):
+    """``ix`` in the narrowest index type of the kernels that holds every
+    value: uint8 at most 256 bins, else int16, else int32 (one readback,
+    none for uint8 rows). A narrowing never wraps an index outside
+    ``[0, nbins)`` into range: a row that holds one at 256 bins stays int16,
+    and the slab kernel drops the index."""
+    if ix.dtype == torch.uint8 and nbins <= 256:
+        return ix.contiguous()
+    lo, hi = torch.stack(list(torch.aminmax(ix))).tolist() if ix.numel() else (0, 0)
+    if nbins <= 256 and 0 <= lo and hi <= 255:
+        return ix.to(torch.uint8).contiguous()
+    if -(2**15) <= lo and hi < 2**15:
+        return ix.to(torch.int16).contiguous()
+    return ix.to(torch.int32).contiguous()
 
 
 def _launch_then_check(checks, launch):
@@ -191,16 +210,15 @@ def _launch_slab(ix, weights, pair_a, pair_b, integer_weights, nbins):
     return out.to(torch.float32)
 
 
-def _launch(ix, weights, pair_a, pair_b, integer_weights, nbins, slab):
-    """Check the arguments and launch ``csrc/pair_hist.cu``: the slab kernel
-    when ``slab`` or for int16/int32 rows (pair indices checked before the
-    launch), else the uint8 kernel (checked after it). Returns (out,
-    launched)."""
-    p, n, k = _check_rows(ix, weights, pair_a, pair_b, nbins, slab)
+def _launch(ix, weights, pair_a, pair_b, integer_weights, nbins):
+    """Check the arguments and launch ``csrc/pair_hist.cu``: the uint8 kernel
+    for uint8 rows (pair indices checked after the launch: it clamps them),
+    else the slab kernel (checked before it). Returns (out, launched)."""
+    p, n, k = _check_rows(ix, weights, pair_a, pair_b, nbins)
     if k == 0 or n == 0:
         return torch.zeros((k, nbins, nbins), dtype=torch.float32, device=ix.device), False
     checks = torch.aminmax(torch.cat([pair_a, pair_b]))
-    if slab or ix.dtype != torch.uint8:
+    if ix.dtype != torch.uint8:
         (lo, hi), out = torch.stack(checks).tolist(), None
     else:
         (lo, hi), out = _launch_then_check(
@@ -228,18 +246,18 @@ def pair_histograms(ix, weights, pair_a, pair_b, integer_weights=False, nbins=NB
     """
     if ix.device.type == "cpu":
         return pair_histograms_plain(ix, weights, pair_a, pair_b, integer_weights, nbins)
-    out, launched = _launch(ix, weights, pair_a, pair_b, integer_weights, nbins, slab=False)
+    out, launched = _launch(ix, weights, pair_a, pair_b, integer_weights, nbins)
     pair_histograms.launches += int(launched)
     return out
 
 
 def pair_histograms_dynamic(ix, weights, pair_a, pair_b, integer_weights=False, nbins=NBINS):
     """K4's entry: the same histograms for an arbitrary pair list (repeated
-    a rows, unique b rows), as :func:`pair_histograms` computes them, by the
-    slab kernel (f32 weights)."""
+    a rows, unique b rows, in any order), with the arguments and kernels of
+    :func:`pair_histograms`."""
     if ix.device.type == "cpu":
         return pair_histograms_plain(ix, weights, pair_a, pair_b, integer_weights, nbins)
-    out, launched = _launch(ix, weights, pair_a, pair_b, integer_weights, nbins, slab=True)
+    out, launched = _launch(ix, weights, pair_a, pair_b, integer_weights, nbins)
     pair_histograms_dynamic.launches += int(launched)
     return out
 

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from getdist_tpu_torch.ops.fft import next_fast_len
-from getdist_tpu_torch.ops.pair_hist import pair_histograms, pair_histograms_dynamic
+from getdist_tpu_torch.ops.pair_hist import narrow_rows, pair_histograms, pair_histograms_dynamic
 
 __all__ = [
     "ACL_BAND",
@@ -99,19 +99,23 @@ def static_route(r, k):
     return slots <= max(2 * k, k + 64)
 
 
-def group_pair_hists(ix, pa, pb, weights32, fine, integer_weights):
+def group_pair_hists(ix, pa, pb, weights, fine, integer_weights):
     """(K, fine, fine) f32 weighted pair histograms (rows = b, cols = a,
     the ``_make2Dhist`` convention), exact for integer weights with bin sums
-    below 2^24. ``ix``: (R, N) int32 index rows; ``pa``/``pb``: (K,) row
-    positions (host arrays); ``weights32``: (N,) f32. Pair lists whose TPU
-    tile plan would not pad take K1's entry, the others (the sheared
-    lead/residual stacks) K4's."""
+    below 2^24. ``ix``: (R, N) int32 index rows, narrowed by
+    :func:`narrow_rows`; ``pa``/``pb``: (K,) row positions (host arrays);
+    ``weights``: (N,) f32, or uint8 integer weights (widened to f32 for
+    rows that stay wider than uint8). Pair lists whose TPU tile plan would
+    not pad take K1's entry, the others (the sheared lead/residual stacks)
+    K4's."""
     device = ix.device
     pa = torch.as_tensor(np.asarray(pa, np.int32), device=device)
     pb = torch.as_tensor(np.asarray(pb, np.int32), device=device)
-    rows = ix.to(torch.uint8 if fine <= 256 else torch.int16).contiguous()
+    rows = narrow_rows(ix, fine)
+    if rows.dtype != torch.uint8:
+        weights = weights.to(torch.float32)
     entry = pair_histograms if static_route(ix.shape[0], pa.shape[0]) else pair_histograms_dynamic
-    return entry(rows, weights32, pa, pb, integer_weights=integer_weights, nbins=fine)
+    return entry(rows, weights, pa, pb, integer_weights=integer_weights, nbins=fine)
 
 
 def acl_batch(samples, weights, means, variances, col_ix, maxlag, min_corr=0.05):

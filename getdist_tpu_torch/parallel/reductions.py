@@ -26,7 +26,9 @@ from getdist_tpu_torch.ops import batched
 from getdist_tpu_torch.ops import collectives as coll
 from getdist_tpu_torch.ops.batched import _gauss_kernel_2d, _hist_rows, _not_ported, _tensor
 from getdist_tpu_torch.ops.pair_hist import (
+    NBINS,
     group_pairs,
+    narrow_rows,
     narrow_weights,
     pair_histograms,
     pair_histograms_dynamic,
@@ -85,8 +87,10 @@ def sharded_pair_hists(group, ix, weights, pair_a, pair_b, static_pairs=None, in
     With ``static_pairs`` (a sequence of (a, b), the order of ``pair_a`` /
     ``pair_b``), each rank bins its block with the b-anchored kernel K5
     (:func:`group_pairs` plans the groups on the host); without, with the
-    dynamic pair-list kernel K4. ``int8_weights``: every weight an integer
-    (int32 accumulation, bit-exact). One all-reduce combines the ranks."""
+    dynamic pair-list kernel K4 (rows narrowed by :func:`narrow_rows`).
+    ``int8_weights``: every weight an integer (int32 accumulation,
+    bit-exact), passed to the kernels as uint8 where they fit. One
+    all-reduce combines the ranks."""
     device = ix.device
     weights = weights.to(torch.float32).contiguous()
     if static_pairs is not None:
@@ -95,8 +99,9 @@ def sharded_pair_hists(group, ix, weights, pair_a, pair_b, static_pairs=None, in
         hists = pair_histograms_grouped(ix.to(torch.uint8).contiguous(), w_hist, grp_a, grp_b, inv, int8_weights)
     else:
         pa, pb = (_tensor(x, device, torch.int32) for x in (pair_a, pair_b))
-        index = ix if ix.dtype in (torch.uint8, torch.int16, torch.int32) else ix.to(torch.int32)
-        hists = pair_histograms_dynamic(index.contiguous(), weights, pa, pb, integer_weights=int8_weights)
+        index = narrow_rows(ix, NBINS)
+        w_hist = narrow_weights(weights) if int8_weights and index.dtype == torch.uint8 else weights
+        hists = pair_histograms_dynamic(index, w_hist, pa, pb, integer_weights=int8_weights)
     return coll.psum(hists, group)
 
 

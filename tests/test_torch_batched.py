@@ -375,3 +375,42 @@ def test_sharded_unported_branches_raise(chain32, kwargs):
     s, w = chain32
     with pytest.raises(NotImplementedError, match="ROADMAP A2/A3"):
         sharded_triangle_densities(None, _t(s[:200]), _t(w[:200]), **kwargs)
+
+
+def _tf32_calls(chain):
+    samples, weights = chain
+    s32, w32 = (_t(x.astype(np.float32)) for x in (samples[:3000], weights[:3000]))
+    grids = torch.from_numpy(np.random.RandomState(9).rand(2, 40, 40).astype(np.float32))
+    kernels = torch.from_numpy(np.random.RandomState(10).rand(2, 9, 9).astype(np.float32))
+
+    def dft_conv_call():
+        from getdist_tpu_torch.ops import dft_conv
+
+        ur, ui = dft_conv.dft_conv_spectrum(kernels, 64)
+        dft_conv.dft_conv2d(grids, ur, ui, 40, 4, 64)
+
+    def raising_call():
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tb.all_2d_densities(s32, w32, [0], [1], np.ones(4), np.zeros(4), np.ones(4), CONTOURS,
+                                prior_mask=np.ones((1, 316, 316)))
+
+    return {
+        "triangle_densities": lambda: tb.triangle_densities(samples[:3000], weights[:3000], device="cpu"),
+        "dft_conv": dft_conv_call,
+        "raising all_2d_densities": raising_call,
+    }
+
+
+@pytest.mark.parametrize("allow", [True, False], ids=["tf32-on", "tf32-off"])
+@pytest.mark.parametrize("call", ["triangle_densities", "dft_conv", "raising all_2d_densities"])
+def test_calls_leave_the_tf32_switch_as_found(chain, call, allow):
+    """The port keeps cuBLAS out of TF32 only inside its own calls: the
+    caller's ``allow_tf32`` is the same after each call, and after one that
+    raises."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = allow
+    try:
+        _tf32_calls(chain)[call]()
+        assert torch.backends.cuda.matmul.allow_tf32 is allow
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved

@@ -257,6 +257,81 @@ def test_dynamic_pair_histograms_bit_exact(cuda, nbins, index_dtype):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+def _k4_stack(k, n, seed, device):
+    """uint8 index rows shaped like parity's sheared stacks: max(1, k // 4)
+    lead rows that the pairs' a sides repeat (in no order), and one residual
+    row per pair as its b side."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    leads = max(1, k // 4)
+    ix = (torch.randn((leads + k, n), generator=g, device=device) * 45 + 128).clamp(0, 255).to(torch.uint8)
+    pa = torch.randint(0, leads, (k,), generator=g, device=device, dtype=torch.int32)
+    pb = (leads + torch.randperm(k, generator=g, device=device)).to(torch.int32)
+    w = torch.randint(1, 5, (n,), generator=g, device=device).to(torch.float32)
+    return ix, w, pa, pb
+
+
+@pytest.mark.parametrize("weights", ["uint8", "f32-integer", "f32-fractional"])
+@pytest.mark.parametrize("n", [200_003, 1_000_000], ids=["misaligned", "aligned"])
+@pytest.mark.parametrize("k", [1, 5, 66, 112, 133])
+def test_dynamic_pairs_uint8_rows(cuda, k, n, weights):
+    """K4 on uint8 rows (the uint8 kernel) against the plain version: split
+    route (k < 66) and one chunk a pair, columns off and on 16-byte
+    boundaries, each weight type. Integer weights bit-exact; fractional ones to 1e-5 (f32
+    atomics add in an order that varies from run to run, the plain version
+    sums in f64 and rounds once)."""
+    ix, w, pa, pb = _k4_stack(k, n, seed=k, device=cuda)
+    integer = weights != "f32-fractional"
+    w_in = {"uint8": pair_hist.narrow_weights(w), "f32-integer": w, "f32-fractional": w * 0.37}[weights]
+    assert (w_in.dtype == torch.uint8) == (weights == "uint8")
+    before = pair_hist.pair_histograms_dynamic.launches
+    got = pair_hist.pair_histograms_dynamic(ix, w_in, pa, pb, integer_weights=integer)
+    assert pair_hist.pair_histograms_dynamic.launches == before + 1
+    want = pair_hist.pair_histograms_plain(ix, w_in, pa, pb, integer_weights=integer)
+    tol = 0 if integer else 1e-5
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("k", [7, 70], ids=["split", "whole"])
+def test_dynamic_pairs_uint8_rows_200_bins(cuda, k):
+    """uint8 rows over 0..255 at 200 bins: indices 200..255 are dropped."""
+    n = 200_003
+    ix, w, pa, pb = _k4_stack(k, n, seed=40 + k, device=cuda)
+    ix = ((ix.to(torch.int32) - 128) * 2 + 128).clamp(0, 255).to(torch.uint8)
+    w8 = pair_hist.narrow_weights(w)
+    got = pair_hist.pair_histograms_dynamic(ix, w8, pa, pb, integer_weights=True, nbins=200)
+    want = pair_hist.pair_histograms_plain(ix, w8, pa, pb, integer_weights=True, nbins=200)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert float(got.double().sum()) < float(w.double().sum()) * k
+
+
+def test_dynamic_pairs_int16_rows_drop_out_of_range(cuda):
+    """int16 rows at 256 bins (rows that hold indices outside [0, 256), which
+    no narrowing to uint8 may wrap into range) take the slab kernel, which
+    drops those indices."""
+    n = 200_003
+    ix, w, pa, pb = _k4_stack(9, n, seed=50, device=cuda)
+    wide = ix.to(torch.int16) * 2 - 20  # -20 .. 490
+    assert pair_hist.narrow_rows(wide, 256).dtype == torch.int16
+    before = pair_hist.pair_histograms_dynamic.launches
+    got = pair_hist.pair_histograms_dynamic(wide, w, pa, pb, integer_weights=True)
+    assert pair_hist.pair_histograms_dynamic.launches == before + 1
+    want = pair_hist.pair_histograms_plain(wide, w, pa, pb, integer_weights=True)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert float(got.double().sum()) < float(w.double().sum()) * pa.shape[0]
+
+
+def test_dynamic_pairs_checked_after_the_launch(cuda):
+    """K4 on uint8 rows reads its pair checks back after the launch (the
+    kernel clamps its rows): a bad pair raises, and the card goes on."""
+    ix, w, pa, pb = _k4_stack(5, 50_000, seed=60, device=cuda)
+    bad = pb.clone()
+    bad[2] = ix.shape[0] + 3
+    with pytest.raises(ValueError, match="pair indices"):
+        pair_hist.pair_histograms_dynamic(ix, w, pa, bad, integer_weights=True)
+    want = pair_hist.pair_histograms_plain(ix, w, pa, pb, integer_weights=True)
+    torch.testing.assert_close(pair_hist.pair_histograms_dynamic(ix, w, pa, pb, True), want, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("pad,k", [(768, 3), (1152, 2)])
 def test_dft_conv_kernels_f64_match_plain(cuda, pad, k):
     """Wide f64 frames (parity mode's larger groups and windows)."""

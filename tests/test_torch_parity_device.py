@@ -55,9 +55,11 @@ def _sheared_stack(p, n, seed):
 # ---------------------------------------------------------------------------
 
 
-def test_dynamic_pairs_match_pallas_kernel_bit_exact():
+@pytest.mark.parametrize("narrowed", [False, True], ids=["f32-weights", "uint8-weights"])
+def test_dynamic_pairs_match_pallas_kernel_bit_exact(narrowed):
     """P = 5, N = 8192, K = 6 with repeated a rows: the plain version equals
-    the TPU kernel (interpret mode) bit for bit on integer weights."""
+    the TPU kernel (interpret mode) bit for bit on integer weights, given as
+    f32 or narrowed to uint8 as parity mode passes them."""
     ix, w, pa, pb = _sheared_stack(5, 8192, seed=1)
     with jax.enable_x64(False):
         want = np.asarray(
@@ -65,8 +67,10 @@ def test_dynamic_pairs_match_pallas_kernel_bit_exact():
                 jnp.asarray(ix), jnp.asarray(w), jnp.asarray(pa), jnp.asarray(pb), block=4096, interpret=True
             )
         )
+    weights = pair_hist.narrow_weights(_t(w)) if narrowed else _t(w)
+    assert weights.dtype == (torch.uint8 if narrowed else torch.float32)
     before = pair_hist.pair_histograms_dynamic.launches
-    got = pair_hist.pair_histograms_dynamic(_t(ix), _t(w), _t(pa), _t(pb), integer_weights=True).numpy()
+    got = pair_hist.pair_histograms_dynamic(_t(ix), weights, _t(pa), _t(pb), integer_weights=True).numpy()
     assert pair_hist.pair_histograms_dynamic.launches == before  # CPU tensors never launch
     assert got.dtype == np.float32 and got.shape == (6, 256, 256)
     np.testing.assert_array_equal(got, want)
@@ -148,8 +152,11 @@ def test_sheared_rows_and_bin_rows(chain):
     np.testing.assert_array_equal(got, ((j_rows - rmin[:, None]) / dx[:, None]).astype(int))
 
 
+@pytest.mark.parametrize("narrowed", [False, True], ids=["f32-weights", "uint8-weights"])
 @pytest.mark.parametrize("fine", [256, 384])
-def test_group_pair_hists_bit_exact(chain, fine):
+def test_group_pair_hists_bit_exact(chain, fine, narrowed):
+    """Both weight types parity mode passes (uint8 weights are widened to f32
+    for the 384-bin group's int16 rows)."""
     samples, weights = chain
     lo = samples.min(0) - 0.1 * np.ptp(samples, 0)
     fw = (samples.max(0) + 0.1 * np.ptp(samples, 0) - lo) / (fine - 1)
@@ -157,8 +164,45 @@ def test_group_pair_hists_bit_exact(chain, fine):
     pa, pb = np.triu_indices(4, 1)
     parts = jpdev.weight_parts(jnp.asarray(weights, jnp.float32))
     want = np.asarray(jpdev.group_pair_hists(jnp.asarray(ix), pa, pb, parts, fine))
-    got = pdev.group_pair_hists(_t(ix), pa, pb, _t(weights.astype(np.float32)), fine, True).numpy()
+    w32 = _t(weights.astype(np.float32))
+    hist_w = pair_hist.narrow_weights(w32) if narrowed else w32
+    assert hist_w.dtype == (torch.uint8 if narrowed else torch.float32)
+    got = pdev.group_pair_hists(_t(ix), pa, pb, hist_w, fine, True).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def test_group_pair_hists_drop_out_of_range_indices():
+    """An index outside [0, 256) at 256 bins is dropped, as the JAX function
+    drops it: the narrowing keeps the rows int16 instead of wrapping the
+    index into range."""
+    rng = np.random.default_rng(4)
+    ix = rng.integers(0, 256, (3, 500)).astype(np.int32)
+    ix[0, :5] = [256, 300, -1, -40, 511]
+    w = rng.integers(1, 5, 500).astype(np.float32)
+    pa, pb = np.array([0, 0, 1]), np.array([1, 2, 2])
+    want = np.asarray(jpdev.group_pair_hists(jnp.asarray(ix), pa, pb, jpdev.weight_parts(jnp.asarray(w)), 256))
+    got = pdev.group_pair_hists(_t(ix), pa, pb, pair_hist.narrow_weights(_t(w)), 256, True).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got[:2].sum() < 2 * w.sum()
+
+
+@pytest.mark.parametrize(
+    "values,nbins,dtype",
+    [
+        ([0, 255], 256, torch.uint8),
+        ([0, 256], 256, torch.int16),
+        ([-1, 200], 256, torch.int16),
+        ([0, 200], 384, torch.int16),
+        ([0, 40000], 960, torch.int32),
+        ([-40000, 5], 256, torch.int32),
+    ],
+    ids=["in-range", "past-256", "negative", "wide-grid", "past-int16", "below-int16"],
+)
+def test_narrow_rows_never_wraps(values, nbins, dtype):
+    ix = torch.tensor([values, values[::-1]], dtype=torch.int32)
+    got = pair_hist.narrow_rows(ix, nbins)
+    assert got.dtype == dtype
+    np.testing.assert_array_equal(got.to(torch.int64).numpy(), ix.numpy())
 
 
 def test_pair_routes_follow_the_tile_plan():

@@ -166,6 +166,24 @@ def test_unmaterialized_groups_match():
             np.testing.assert_array_equal(group["P"][k].numpy(), dens2[pair].P)
 
 
+@pytest.mark.parametrize("settings", [None, {"range_ND_contour": 0}], ids=["defaults", "range_ND_contour-0"])
+def test_chain_with_loglikes_matches(settings):
+    """A chain with loglikes: range_ND_contour (1 by default) widens the
+    ranges only once likelihood statistics exist, which a fresh MCSamples
+    lacks, so parity mode runs as in the JAX package."""
+    kwargs = _bounded_chain()
+    kwargs["loglikes"] = 0.5 * np.sum(kwargs["samples"] ** 2, axis=1)
+    w1, w2 = JaxMCSamples(settings=settings, **kwargs).fastParityDensities(device=True)
+    d1, d2 = MCSamples(settings=settings, device="cpu", **kwargs).fastParityDensities(device=True)
+    assert set(d1) == set(w1) and set(d2) == set(w2)
+    for key in w1:
+        assert np.abs(d1[key].P - w1[key].P).max() <= 1e-10, key
+    for key in w2:
+        got, want = d2[key].P, w2[key].P
+        assert np.abs(got / got.max() - want / want.max()).max() <= 1e-5, key
+        assert np.abs(np.asarray(d2[key].contours) - np.asarray(w2[key].contours)).max() <= 1e-5, key
+
+
 @pytest.mark.parametrize(
     "weights,reason",
     [(np.random.RandomState(8).uniform(0.5, 2.0, 3000), "fractional"), (np.full(3000, 6000.0), "reaches 2\\*\\*24")],
