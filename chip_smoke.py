@@ -34,7 +34,16 @@ CUDA kernels from ``getdist_tpu_torch/csrc``. Then three paths on
    modes, bit-exact against K1 and the plain version) and without a pair
    plan through K4; last, 4 gloo ranks on the CPU run the sharded path on
    a 40k x 6 chain, held against the one-rank run on the card (the only
-   run where the N_eff halo exchange and the card meet).
+   run where the N_eff halo exchange and the card meet);
+4. the public fused entry, ``MCSamples(...).fastTriangleDensities()``: on
+   the bench chain (single dispatch: cold and warm walls, launches, the
+   device idle share and stage split under the profiler, outputs held
+   against ``triangle_densities``, bitwise where the shear subsets
+   agree), then on a 1M x 8 hard chain (``hard_chain``: two programs, a
+   960-bin regrid through K1's slab kernel, a sheared f64 assist), with
+   K1's slab kernel and f32 K2/K3 at the run's larger DFT frames held
+   against their plain versions, and the entry on the card against the
+   port on the CPU at 100k x 8.
 
 K1, K4 and K5 are timed with the weights their paths pass (integer
 weights as uint8, ``pair_hist.narrow_weights``), each beside one
@@ -65,6 +74,31 @@ HBM_BYTES_S = 3.35e12
 FP32_FLOPS = 67e12
 TF32X3_FLOPS = 495e12 / 3
 FP64_FLOPS = 67e12
+
+
+def hard_chain(n, seed=23):
+    """A chain that takes every rescue of the public fused entry: four
+    columns of ``bench.make_chain(n, 4, seed)`` (its integer weights), a
+    pair correlated at 0.99 (corr-adaptive fine grid of 960 bins), and a
+    non-Gaussian correlated pair drawn like the zoo's "hammer" (two
+    Gaussians, |corr| ~0.66: the sheared f64 host assist). Made with numpy
+    from ``seed``; (samples (n, 8), weights (n,))."""
+    import numpy as np
+
+    sys.path.insert(0, ROOT)
+    from bench import make_chain
+
+    base, weights = make_chain(n, 4, seed=seed)
+    rng = np.random.RandomState(seed + 1)
+    z = rng.standard_normal(n)
+    tight = np.column_stack([z, 0.99 * z + np.sqrt(1 - 0.99**2) * rng.standard_normal(n)])
+    comp = rng.rand(n) < 0.5
+    hammer = np.empty((n, 2))
+    for pick, mean, (sx, sy, c) in ((comp, (0.0, 0.0), (np.sqrt(0.5), 1.0, 0.9)),
+                                    (~comp, (1.0, 1.8), (0.3, 1.0, -0.7))):
+        cov = [[sx * sx, c * sx * sy], [c * sx * sy, sy * sy]]
+        hammer[pick] = rng.multivariate_normal(mean, cov, int(pick.sum()))
+    return np.column_stack([base, tight, hammer]), weights
 
 
 def check(cond, msg):
@@ -817,6 +851,286 @@ def sharded_runs(group, samples, weights, batched, dft_conv, pair_hist, make_cha
     return [result]
 
 
+STAGE_PREFIXES = ("fast:", "1d:", "2d:")
+
+
+def fused_stage_rows(prof):
+    """(stage, host ms, device ms) of the stage ranges of one profiled
+    ``fastTriangleDensities`` call: its own ``fast:<stage>`` ranges and
+    the ``1d:`` / ``2d:`` ranges of ``ops.batched`` inside them."""
+    import torch
+
+    rows = []
+    for e in prof.key_averages():
+        # the host-side range (the profiler also lists each range's span on the device timeline)
+        if e.key.startswith(STAGE_PREFIXES) and e.device_type == torch.autograd.DeviceType.CPU:
+            device_us = getattr(e, "device_time_total", None)
+            if device_us is None:
+                device_us = e.cuda_time_total
+            rows.append((e.key, e.cpu_time_total / 1e3, device_us / 1e3, e.count))
+    return rows
+
+
+def entry_call(mc):
+    """One profiled public-entry call: (device busy ms, wall ms, stage rows)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mc.fastTriangleDensities()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [
+        e for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and not e.name.startswith(("Activity Buffer",) + STAGE_PREFIXES)  # not the stage ranges' device spans
+    ]
+    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    return busy_ms, wall_ms, fused_stage_rows(prof)
+
+
+def print_entry_profile(label, mc, busy_ms, wall_ms, rows):
+    print(f"{label}: device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms wall under the profiler "
+          f"(idle share {1 - busy_ms / wall_ms:.3f}); stages (host ms, device ms of the kernels they queued, "
+          "calls): " + ", ".join(f"{name} {cpu:.1f}/{dev:.1f} x{n}" for name, cpu, dev, n in rows))
+    print(f"{label}: stage split of the last unprofiled call (host clock, s): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in mc.fast_profile.items()))
+    groups = [dict(g, pairs=len(g["pairs"])) for g in mc.fast_regrid_groups]
+    print(f"{label}: regrid groups (pair counts) {json.dumps(groups)}")
+
+
+def check_entry_outputs(d1, d2, pairs, p, label):
+    import torch
+
+    check(len(pairs) == p * (p - 1) // 2, f"{label}: pair list")
+    check_outputs(d1, d2, p, len(pairs))
+    for key, entry in d2["regrid"].items():
+        grid, levels = entry["P"], entry["contours"]
+        check(bool(torch.isfinite(grid).all()) and abs(float(grid.max()) - 1) < 1e-6, f"{label}: regrid {key} peaks at 1")
+        check(bool(((levels > 0) & (levels <= 1)).all()), f"{label}: regrid {key} contour levels in (0, 1]")
+
+
+def entry_vs_program(mc, d1, d2, samples, weights, batched):
+    """The public entry against ``triangle_densities`` on the same chain,
+    given the entry's shear subset (from the exact correlations): bitwise
+    equal on every output the program served. Also reports whether the
+    program's own subsampled sniff picks the same subset."""
+    import numpy as np
+    import torch
+
+    p = samples.shape[1]
+    pairs = [(a, b) for a in range(p) for b in range(a + 1, p)]
+    corr = mc.getCorrelationMatrix()
+    exact = tuple(k for k, (a, b) in enumerate(pairs) if abs(corr[a, b]) > 0.15)
+    sniffed = batched._sniff_shear(samples, 0.99, pairs=np.array(pairs), weights=weights)
+    subset = tuple(range(len(pairs))) if sniffed is True else () if sniffed is False else tuple(sniffed)
+    t1, t2 = batched.triangle_densities(samples, weights, max_corr=float(mc.max_corr_2D), enable_shear=exact,
+                                        device="cuda")
+    served = [k for k, key in enumerate(pairs) if key not in d2["regrid"]]
+    same = all(torch.equal(d1[key], t1[key]) for key in ("P", "neff", "bandwidth"))
+    same = same and all(torch.equal(d2[key][served], t2[key][served]) for key in ("P", "contours", "rx", "ry", "corr"))
+    check(same, "public entry bitwise equal to triangle_densities on the pairs it served from the program")
+    print(f"public entry vs triangle_densities (the entry's shear subset, {len(exact)} pairs): bitwise equal on the "
+          f"{len(served)} of {len(pairs)} pairs served from the program; the subsampled sniff picks "
+          f"{len(subset)} pairs, {len(set(subset) ^ set(exact))} of them different")
+
+
+def entry_cross_device(MCSamples):
+    """The public entry on the card against the port on the CPU at 100k x 8
+    of the hard chain: the same regrid keys and sizes, grids within the
+    zoo's 5e-3, 1D within 1e-4."""
+    samples, weights = hard_chain(100_000)
+    kw = dict(samples=samples, weights=weights, names=[f"h{i}" for i in range(8)])
+    g1, g2, pairs = MCSamples(device="cuda", **kw).fastTriangleDensities()
+    c1, c2, _ = MCSamples(device="cpu", **kw).fastTriangleDensities()
+    check(set(g2["regrid"]) == set(c2["regrid"]), f"cross-device regrid keys {sorted(g2['regrid'])} {sorted(c2['regrid'])}")
+    err2 = 0.0
+    for k, key in enumerate(pairs):
+        got = g2["regrid"][key]["P"] if key in g2["regrid"] else g2["P"][k]
+        want = c2["regrid"][key]["P"] if key in c2["regrid"] else c2["P"][k]
+        check(got.shape == want.shape, f"cross-device grid size of {key}")
+        err2 = max(err2, float((got.cpu() - want).abs().max()))
+    err1 = float((g1["P"].cpu() - c1["P"]).abs().max())
+    check(err1 <= 1e-4 and err2 <= 5e-3, f"public entry cross-device 1D {err1}, 2D {err2}")
+    sizes = sorted({int(e["P"].shape[0]) for e in g2["regrid"].values()})
+    return {"1D P": err1, "2D P (served)": err2, "regrid keys": len(g2["regrid"]), "regrid sizes": sizes}
+
+
+def new_shape_rows(mc, d1, d2, launches, pair_hist, dft_conv, batched):
+    """Kernel rows of the shapes the public entry adds, on the inputs of
+    the run's own reruns: K1's slab kernel on the rows of its first fine >
+    256 regrid group, and f32 K2/K3 at each DFT frame past 384 that the run
+    launched (the first group there: its histograms and its pairs'
+    kernels); each against its plain version, the library call and its
+    bound."""
+    import torch
+
+    st = mc._fast_chain_state()
+    s_dev, w_dev = st["samples"], st["weights"]
+    binmin, binmax = d1["range"]
+
+    def group_hists(group):
+        fine, keys = group["fine"], [tuple(key) for key in group["pairs"]]
+        cols = sorted({c for key in keys for c in key})
+        pos = {c: i for i, c in enumerate(cols)}
+        sel = torch.as_tensor(cols, device="cuda")
+        ix = pair_hist.narrow_rows(batched._fine_indices(
+            s_dev[:, sel].T.contiguous(), binmin[sel], (binmax - binmin)[sel] / (fine - 1), fine), fine)
+        pa = torch.tensor([pos[a] for a, _ in keys], dtype=torch.int32, device="cuda")
+        pb = torch.tensor([pos[b] for _, b in keys], dtype=torch.int32, device="cuda")
+        return ix, pa, pb, keys
+
+    rows = []
+    wide = next((g for g in mc.fast_regrid_groups if g["fine"] > 256), None)
+    check(wide is not None, "the run regridded a pair past 256 bins")
+    fine = wide["fine"]
+    ix, pa, pb, keys = group_hists(wide)
+    check(ix.dtype == torch.int16, f"rows at {fine} bins narrow to int16")
+    hists = pair_hist.pair_histograms(ix, w_dev, pa, pb, integer_weights=st["int8"], nbins=fine)
+    ref = pair_hist.pair_histograms_plain(ix, w_dev, pa, pb, integer_weights=st["int8"], nbins=fine)
+    err_h = float((hists - ref).abs().max())
+    check(err_h == 0.0, f"K1 slab kernel at {fine} bins bit-exact ({err_h})")
+    b_h, by_h = hist_bound(ix, w_dev, len(keys), fine)
+    rows.append({
+        "name": f"pair_histograms_slab_{fine}bins",
+        "route": "cuda",
+        "source": "getdist_tpu_torch/csrc/pair_hist.cu",
+        "replaces": "getdist_tpu/ops/pallas_kernels.py:309",
+        "launches": launches["slab"],
+        "max_abs_err": err_h,
+        "ms": cuda_ms(lambda: pair_hist.pair_histograms(ix, w_dev, pa, pb, integer_weights=st["int8"], nbins=fine), 10),
+        "plain_ms": cuda_ms(lambda: pair_hist.pair_histograms_plain(ix, w_dev, pa, pb, st["int8"], fine), 2),
+        "bound_ms": b_h,
+        "bound_by": by_h,
+        "library_ms": library_hist_ms(ix, w_dev, pa, pb, fine, 3),
+    })
+    print(f"K1 slab kernel on the {fine}-bin regrid: {len(keys)} pair(s) of int16 rows x {ix.shape[1]}, "
+          f"{rows[-1]['ms']:.3f} ms")
+    done = set()
+    for group in mc.fast_regrid_groups:
+        size, off = group["fine"], group["winw"]
+        pad = dft_conv.frame_for(size + 4 * off + 1)
+        if pad <= 384 or pad in done:
+            continue
+        done.add(pad)
+        ix, pa, pb, keys = group_hists(group)
+        grids = pair_hist.pair_histograms(ix, w_dev, pa, pb, integer_weights=st["int8"], nbins=size)
+        entries = [d2["regrid"][key] for key in keys]
+        kernels = batched._gauss_kernel_2d(*(torch.stack([e[n] for e in entries]) for n in ("rx", "ry", "corr")), off)
+        ur, ui = dft_conv.dft_conv_spectrum(kernels, pad)
+        ur0, ui0 = dft_conv.dft_conv_spectrum_plain(kernels, pad)
+        scale = float(torch.maximum(ur0.abs().max(), ui0.abs().max()))
+        err_s = max(float((ur - ur0).abs().max()), float((ui - ui0).abs().max()))
+        check(err_s <= 1e-5 * scale, f"K2 f32 at frame {pad} within 1e-5 max|ref| ({err_s} vs {scale})")
+        conv = dft_conv.dft_conv2d(grids, ur, ui, size, off, pad)
+        conv0 = dft_conv.dft_conv2d_plain(grids, ur0, ui0, size, off, pad)
+        err_c = float((conv - conv0).abs().max())
+        check(err_c <= 1e-5 * float(conv0.abs().max()), f"K3 f32 at frame {pad} within 1e-5 max|ref| ({err_c})")
+        b_s, by_s = spectrum_bound(kernels, pad)
+        b_c, by_c = conv_bound(grids, pad, size)
+        rows += [
+            {
+                "name": f"dft_conv_spectrum_frame{pad}",
+                "route": "cuda",
+                "source": "getdist_tpu_torch/csrc/dft_conv.cu",
+                "replaces": "getdist_tpu/ops/dft_conv.py:155",
+                "launches": launches["spectrum_frames"].get(pad, 0),
+                "max_abs_err": err_s,
+                "ms": cuda_ms(lambda: dft_conv.dft_conv_spectrum(kernels, pad), 5),
+                "plain_ms": cuda_ms(lambda: dft_conv.dft_conv_spectrum_plain(kernels, pad), 5),
+                "bound_ms": b_s,
+                "bound_by": by_s,
+                "library_ms": library_spectrum_ms(kernels, pad, 5),
+            },
+            {
+                "name": f"dft_conv2d_frame{pad}",
+                "route": "cuda",
+                "source": "getdist_tpu_torch/csrc/dft_conv.cu",
+                "replaces": "getdist_tpu/ops/dft_conv.py:190",
+                "launches": launches["conv_frames"].get(pad, 0),
+                "max_abs_err": err_c,
+                "ms": cuda_ms(lambda: dft_conv.dft_conv2d(grids, ur, ui, size, off, pad), 5),
+                "plain_ms": cuda_ms(lambda: dft_conv.dft_conv2d_plain(grids, ur0, ui0, size, off, pad), 5),
+                "bound_ms": b_c,
+                "bound_by": by_c,
+                "library_ms": library_conv_ms(grids, kernels, size, off, 3),
+            },
+        ]
+        print(f"K2/K3 f32 at frame {pad} ({group['bandwidths']} group): {len(keys)} pair(s) of {size}^2, window {off}")
+        dft_checks(kernels, grids, ur, ui, conv, size, off, pad, f"K2/K3 f32, frame {pad}")
+        dft_report(f"K2 f32 frame {pad}", rows[-2], spectrum_work(kernels, pad), TF32X3_FLOPS)
+        dft_report(f"K3 f32 frame {pad}", rows[-1], conv_work(grids, pad, size), TF32X3_FLOPS)
+    return rows
+
+
+def public_entry(samples, weights, batched, dft_conv, pair_hist):
+    """Phase 4: the public fused entry, ``MCSamples.fastTriangleDensities``,
+    on the bench chain and on the 1M x 8 hard chain."""
+    import torch
+
+    from getdist_tpu_torch.mcsamples import MCSamples
+
+    counters = (pair_hist.pair_histograms, dft_conv.dft_conv_spectrum, dft_conv.dft_conv2d)
+
+    def reset():
+        for fn in counters:
+            fn.launches = 0
+        pair_hist.pair_histograms.slab_launches = 0
+        dft_conv.dft_conv_spectrum.frames.clear()
+        dft_conv.dft_conv2d.frames.clear()
+
+    def read():
+        out = {fn.__name__: fn.launches for fn in counters}
+        out.update(slab=pair_hist.pair_histograms.slab_launches, spectrum_frames=dict(dft_conv.dft_conv_spectrum.frames),
+                   conv_frames=dict(dft_conv.dft_conv2d.frames))
+        return out
+
+    def timed_runs(label, s, w, names):
+        t0 = time.perf_counter()
+        mc = MCSamples(samples=s, weights=w, names=names, device="cuda")
+        build_s = time.perf_counter() - t0
+        cold_s, _ = wall_s(lambda: mc.fastTriangleDensities())
+        reset()
+        _, (d1, d2, pairs) = wall_s(lambda: mc.fastTriangleDensities())
+        launches = read()
+        walls = [wall_s(lambda: mc.fastTriangleDensities())[0] for _ in range(3)]
+        profile = dict(mc.fast_profile)
+        route = "single dispatch" if "program" in profile else "two programs"
+        print(f"{label}: MCSamples built in {build_s:.2f} s; fastTriangleDensities first call {cold_s * 1e3:.1f} ms "
+              f"(chain upload included), warm {min(walls) * 1e3:.1f} ms (min of 3: "
+              f"{', '.join(f'{x * 1e3:.1f}' for x in walls)}); route: {route}; launches of one run: {json.dumps(launches)}")
+        check(launches["pair_histograms"] >= 1 and launches["dft_conv_spectrum"] >= 1 and launches["dft_conv2d"] >= 2,
+              f"{label}: the run launched K1, K2 and K3")
+        check_entry_outputs(d1, d2, pairs, s.shape[1], label)
+        busy_ms, wall_ms, rows = entry_call(mc)
+        mc.fast_profile = profile
+        print_entry_profile(label, mc, busy_ms, wall_ms, rows)
+        return mc, d1, d2, launches, route
+
+    p = samples.shape[1]
+    mc, d1, d2, _, route = timed_runs("public entry, bench chain 30 x 1M", samples, weights, [f"p{i}" for i in range(p)])
+    check(route == "single dispatch", "the bench chain takes the single-dispatch route")
+    entry_vs_program(mc, d1, d2, samples, weights, batched)
+    del mc, d1, d2
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    hs, hw = hard_chain(1_000_000)
+    print(f"hard chain 1,000,000 x 8 made in {time.perf_counter() - t0:.1f} s")
+    mc, d1, d2, launches, route = timed_runs("public entry, hard chain 8 x 1M", hs, hw, [f"h{i}" for i in range(8)])
+    kinds = {g["bandwidths"] for g in mc.fast_regrid_groups}
+    check(route == "two programs", "the hard chain takes the two-program route")
+    check(launches["slab"] >= 1, "a fine > 256 regrid ran K1's slab kernel")
+    check("assist" in kinds, "a sheared f64 assist ran")
+    print(f"hard chain rescues: {sorted(kinds)}; clamped or fragile rescue "
+          f"{'present' if kinds & {'clamped', 'fragile'} else 'absent on this chain'}")
+    rows = new_shape_rows(mc, d1, d2, launches, pair_hist, dft_conv, batched)
+    report = entry_cross_device(MCSamples)
+    print(f"public entry cross-device 100k x 8 hard chain (cuda vs cpu), max abs diffs: {json.dumps(report)}")
+    return rows
+
+
 def main():
     import torch
 
@@ -848,6 +1162,7 @@ def main():
     results = fused_path(samples, weights, batched, dft_conv, pair_hist, make_chain)
     results += parity_path(samples, weights, batched, dft_conv, pair_hist)
     results += sharded_path(samples, weights, batched, dft_conv, pair_hist, make_chain)
+    results += public_entry(samples, weights, batched, dft_conv, pair_hist)
     for r in results:
         # a bound is a least time: no measured way of computing the function may beat it
         measured = [t for t in (r["ms"], r["plain_ms"], r["library_ms"]) if t is not None]

@@ -124,8 +124,9 @@ class WeightedSamples:
         for stale in ("means", "mean_loglike", "diffs", "fullcov", "correlationMatrix", "vars", "sddev"):
             setattr(self, stale, None)
         self.needs_update = True
-        # the parity path's device-resident chain (MCSamples)
+        # the parity and fused paths' device-resident chains (MCSamples)
         self._parity_chain_cache = None
+        self._fast_chain_cache = None
         self._param_range_cache = {}
 
     # -- parameter access --------------------------------------------------------

@@ -29,7 +29,7 @@ import numpy as np
 import scipy.fftpack as _fftpack
 from scipy.optimize import brentq, fsolve, minimize
 
-__all__ = ["gaussian_kde_bandwidth_binned", "KernelOptimizer2D"]
+__all__ = ["bin_samples", "gaussian_kde_bandwidth_binned", "KernelOptimizer2D"]
 
 _ROOT_PI = np.sqrt(np.pi)
 _PI_SQ = np.pi**2
@@ -49,6 +49,24 @@ _STAGE_XI = {
     j: (1 + 0.5 ** (j + 0.5)) / 3 * _double_factorial(j) / (_ROOT_PI / np.sqrt(2.0))
     for j in range(2, ISJ_LMAX)
 }
+
+
+def bin_samples(samples, range_min=None, range_max=None, nbins=2046, edge_fac=0.1):
+    """Map samples to integer bin indices over an edge-padded range.
+
+    Returns (indices, range_width); the default range pads the data extent
+    by edge_fac on each side (role of reference ``kde_bandwidth.py:76-87``).
+    """
+    lo = np.min(samples)
+    hi = np.max(samples)
+    pad = (hi - lo) * edge_fac
+    if range_min is None:
+        range_min = lo - pad
+    if range_max is None:
+        range_max = hi + pad
+    width = range_max - range_min
+    dx = width / (nbins - 1)
+    return ((samples - range_min) / dx).astype(int), width
 
 
 def _refine_bandwidth_root(modes, neff):

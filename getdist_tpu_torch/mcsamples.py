@@ -1,12 +1,15 @@
-"""MCSamples: the sample-analysis object of the port, for parity mode.
+"""MCSamples: the sample-analysis object of the port, for the fused and
+parity paths.
 
 The port's own, jax-free copy of the parts of ``getdist_tpu/mcsamples.py``
-that device parity mode (``fastParityDensities(device=True)``) runs: the
-constructor from arrays and analysis settings, parameter ranges, the host
-1D densities (binning, ISJ bandwidth, FFT smoothing, boundary and
-multiplicative bias corrections), the host-exact 2D bandwidths, and the
-parity driver itself, whose O(N) passes and 2D convolutions run on a torch
-device (the card by default) through :mod:`getdist_tpu_torch.ops`.
+that the public fused entry (``fastTriangleDensities`` / ``fastDensities``
+on unbounded chains, with its host rescues) and device parity mode
+(``fastParityDensities(device=True)``) run: the constructor from arrays and
+analysis settings, parameter ranges, the host 1D densities (binning, ISJ
+bandwidth, FFT smoothing, boundary and multiplicative bias corrections),
+the host-exact 2D bandwidths, and both pipelines themselves, whose O(N) passes and
+2D convolutions run on a torch device (the card by default) through
+:mod:`getdist_tpu_torch.ops`.
 
 Host statistics (means, covariance, correlation lengths, N_eff) are numpy,
 as the JAX package's parity modes pin them (``_pin_host_stats``): the
@@ -15,7 +18,8 @@ so their inputs are kept identical to the JAX package's wherever the
 arithmetic allows.
 
 Not ported here: loading chains from files and the plots/CLI layers
-(ROADMAP A10), the fused ``fastTriangleDensities`` host layer (A6), the
+(ROADMAP A10), the fused entry on chains with hard limits, periodic
+parameters or ``meanlikes`` grids (A2/A3) and on a device mesh (A9), the
 host parity variant ``fastParityDensities(device=False)`` and chains with
 fractional weights (A8), periodic parameters in parity mode (A3), and the
 2D effective-sample estimate (``use_effective_samples_2D``).
@@ -31,12 +35,18 @@ import numpy as np
 import torch
 
 from getdist_tpu_torch import kde_bandwidth as kde
-from getdist_tpu_torch.chains import Chains, WeightedSampleError
+from getdist_tpu_torch.chains import Chains, ParamError, WeightedSampleError
 from getdist_tpu_torch.densities import Density1D, Density2D
 from getdist_tpu_torch.inifile import IniFile
 from getdist_tpu_torch.ops import parity_device as pdev
 from getdist_tpu_torch.ops._cuda import resolve_device
-from getdist_tpu_torch.ops.batched import all_2d_densities
+from getdist_tpu_torch.ops.batched import (
+    _triangle_program,
+    all_1d_densities,
+    all_2d_densities,
+    pair_cumulant_score,
+    prepare_chain,
+)
 from getdist_tpu_torch.ops.convolve import convolveFFT_host as convolve1D
 from getdist_tpu_torch.ops.pair_hist import narrow_weights
 from getdist_tpu_torch.parampriors import ParamBounds
@@ -70,6 +80,15 @@ class BandwidthError(MCSamplesError):
 
 def _not_ported(what, item):
     return NotImplementedError(f"{what} is not ported to getdist_tpu_torch yet (ROADMAP {item})")
+
+
+def _host(x):
+    """A tensor's values as a numpy array (a readback from the card)."""
+    return x.detach().cpu().numpy()
+
+
+# the regrid rescue's keys of an all_2d_densities result
+_REGRID_KEYS = ("P", "contours", "rx", "ry", "corr", "neff")
 
 
 # defaults applied as attributes of every MCSamples before settings merge;
@@ -133,6 +152,7 @@ class MCSamples(Chains):
         self.contours = np.array([0.68, 0.95])
         self.likeStats, self.no_warning_params, self.density1D = None, [], {}
         self.parity_profile, self.parity_buckets = {}, []
+        self.fast_profile, self.fast_regrid_groups = {}, []
         if "ignore_rows" in kwargs:
             settings = dict(settings or {})
             settings["ignore_rows"] = kwargs["ignore_rows"]
@@ -547,12 +567,55 @@ class MCSamples(Chains):
                 fine_bins = stretched
         return fine_bins, nbin2D
 
+    def _make2Dhist(self, ixs, iys, xsize, ysize):
+        """(weighted (ysize, xsize) histogram, rows = y, and the flat
+        indices) of host bin indices, by ``np.bincount``."""
+        flatix = ixs + iys * xsize
+        hist = np.bincount(flatix, weights=self.weights, minlength=xsize * ysize).reshape((ysize, xsize))
+        return hist, flatix
+
+    def _optimize_bandwidth_sheared(self, parx, pary, paramx, paramy, N_eff, nbins):
+        """2D bandwidth for a correlated pair, in f64 on the host: shear the
+        samples so the pair decorrelates (keeping a bounded axis untouched as
+        the first coordinate), optimize an axis-aligned kernel on the sheared
+        histogram, and map the kernel covariance back through the shear
+        (reference ``mcsamples.py:1347-1391``)."""
+        lead_par, other = (pary, paramx) if pary.has_limits else (parx, paramy)
+        lead = paramy if pary.has_limits else paramx
+        bound_lo = lead_par.range_min if lead_par.has_limits_bot else None
+        bound_hi = lead_par.range_max if lead_par.has_limits_top else None
+
+        pair_cov = self.getCov(pars=[lead, other])
+        root = np.linalg.cholesky(pair_cov)
+        # second coordinate = residual of `other` against `lead`, rescaled to
+        # the lead's sigma; unshear maps unit-lead coords back to parameters
+        unshear = root / root[0, 0]
+        sheared = (root[0, 0] * self.samples[:, other] - root[1, 0] * self.samples[:, lead]) / root[1, 1]
+
+        lead_ix, lead_scale = kde.bin_samples(
+            self.samples[:, lead], nbins=nbins, range_min=bound_lo, range_max=bound_hi
+        )
+        resid_ix, resid_scale = kde.bin_samples(sheared, nbins=nbins)
+        hist, _ = self._make2Dhist(lead_ix, resid_ix, nbins, nbins)
+        opt = kde.KernelOptimizer2D(hist, N_eff, 0, do_correlation=not (parx.has_limits or pary.has_limits))
+        h1, h2, c12 = opt.get_h()
+        h1 *= lead_scale
+        h2 *= resid_scale
+        kernel_cov = unshear @ np.array([[h1 * h1, h1 * h2 * c12], [h1 * h2 * c12, h2 * h2]]) @ unshear.T
+        widths = np.sqrt(kernel_cov.diagonal())
+        c = kernel_cov[0, 1] / (widths[0] * widths[1])
+        if pary.has_limits:
+            return widths[1], widths[0], c
+        return widths[0], widths[1], c
+
     def getAutoBandwidth2D(self, bins, parx, pary, paramx, paramy, corr, rangex, rangey, base_fine_bins_2D,
                            mult_bias_correction_order=None, min_corr=0.2, N_eff=None, sheared_result=None):
         """Bandwidth matrix (hx, hy, c) in parameter units via 2D ISJ in
         (optionally Cholesky-sheared) coordinates (reference
         ``mcsamples.py:1285-1419``). The sheared branch takes its result
-        from parity mode's batched device pass (``sheared_result``)."""
+        from parity mode's batched device pass (``sheared_result``), or
+        computes it for this pair on the host
+        (:meth:`_optimize_bandwidth_sheared`)."""
         if N_eff is None:
             N_eff = min(self._get1DNeff(parx, paramx), self._get1DNeff(pary, paramy))
         plugin_width = N_eff ** (-1.0 / 6)
@@ -570,9 +633,14 @@ class MCSamples(Chains):
             # too degenerate to optimize: plug-in widths at clipped correlation
             hx, hy, c = parx.sigma_range * plugin_width, pary.sigma_range * plugin_width, clipped_corr
         elif abs(corr) > min_corr and not both_limited:
-            if sheared_result is None:
-                raise _not_ported("per-pair host sheared bandwidths (the host parity variant)", "A8")
-            hx, hy, c = fallback_widths(sheared_result) if isinstance(sheared_result, Exception) else sheared_result
+            if sheared_result is not None:
+                hx, hy, c = fallback_widths(sheared_result) if isinstance(sheared_result, Exception) \
+                    else sheared_result
+            else:
+                try:
+                    hx, hy, c = self._optimize_bandwidth_sheared(parx, pary, paramx, paramy, N_eff, base_fine_bins_2D)
+                except ValueError as e:
+                    hx, hy, c = fallback_widths(e)
         else:
             seed_t = (min(pary.sigma_range / rangey, parx.sigma_range / rangex) * plugin_width) ** 2
             try:
@@ -602,6 +670,460 @@ class MCSamples(Chains):
             if w + 3 <= level <= cap:
                 return level
         return cap
+
+    # -- fused path ------------------------------------------------------------------------------
+
+    def fastDensities(self, params=None, contours=(0.68, 0.95), cache_1d=True, meanlikes=False, parity=False):
+        """Fused-pipeline densities as plot-ready objects: a dict of
+        :class:`~.densities.Density1D` per parameter name and a dict of
+        :class:`~.densities.Density2D` per name pair.
+
+        With ``cache_1d`` the 1D results populate the ``density1D`` cache.
+        Fast-path KDE conventions (see :meth:`fastTriangleDensities`), or
+        reference-exact ones with ``parity=True`` (see
+        :meth:`fastParityDensities`, whose host variant is not ported).
+        """
+        if parity:
+            dens1, dens2 = self.fastParityDensities(params=params, contours=contours)
+            if cache_1d:
+                self.density1D.update(dens1)
+            return dens1, dens2
+        d1, d2, pairs = self.fastTriangleDensities(params=params, contours=contours, meanlikes=meanlikes)
+        if params is None:
+            infos = list(self.paramNames.names)
+        else:
+            infos = [self._parAndNumber(p)[1] for p in params]
+        names = [par.name for par in infos]
+        bmin = _host(d1["range"][0]).astype(float)
+        bmax = _host(d1["range"][1]).astype(float)
+        x1, p1 = _host(d1["x"]).astype(float), _host(d1["P"]).astype(float)
+        dens1 = {}
+        for i, (name, par) in enumerate(zip(names, infos)):
+            view = [par.range_min, par.range_max] if hasattr(par, "range_min") else None
+            dens1[name] = Density1D(x1[i], P=p1[i], view_ranges=view)
+            dens1[name].likes = None
+        regrid = d2.get("regrid", {})
+        grids, levels = _host(d2["P"]).astype(float), _host(d2["contours"]).astype(float)
+        dens2 = {}
+        for k, (a, b) in enumerate(pairs):
+            fine = regrid.get((a, b))
+            grid_p = _host(fine["P"]).astype(float) if fine else grids[k]
+            npts = grid_p.shape[0]
+            density = Density2D(np.linspace(bmin[a], bmax[a], npts), np.linspace(bmin[b], bmax[b], npts), grid_p)
+            density.contours = _host(fine["contours"]).astype(float) if fine else levels[k]
+            density.likes = None
+            dens2[(names[a], names[b])] = density
+        if cache_1d:
+            self.density1D.update(dens1)
+        return dens1, dens2
+
+    def _fast_chain_state(self):
+        """The fused path's chain on ``self.device``, cached until the
+        samples change (``chains._weightsChanged``): f32 samples and weights
+        (``prepare_chain``), whether every weight is an integer in [0, 127]
+        with a total below 2^31 (the histogram kernel then accumulates
+        exactly), and the pair cumulant score once computed.
+
+        The JAX package's x64 'native' copies and its bf16 'exact' weight
+        sniff are TPU/x64 artefacts: the reruns use this f32 copy, as a
+        device with x64 off does, and f32 weights need no bf16 split."""
+        st = getattr(self, "_fast_chain_cache", None)
+        if st is None:
+            w = self.weights
+            int8 = bool(
+                w.size
+                and np.all(w == np.round(w))
+                and w.min() >= 0
+                and w.max() <= 127
+                and w.size * float(w.max()) < 2**31
+            )
+            dev_s, dev_w = prepare_chain(self.samples, w, device=self.device)
+            st = {"samples": dev_s, "weights": dev_w, "int8": int8, "cum_score": None}
+            self._fast_chain_cache = st
+        return st
+
+    def _fast_cum_score(self):
+        """|k31| + |k13| + |k22| standardized joint cumulants per pair (host
+        (P, P) array) — the gate separating genuinely non-Gaussian pairs
+        (hard zoo shapes measure 0.4-3.4) from Gaussian ones (<= 0.11).
+        Computed on the device from the cached chain and cached with it."""
+        st = self._fast_chain_state()
+        if st["cum_score"] is None:
+            st["cum_score"] = _host(pair_cumulant_score(st["samples"], st["weights"]))
+        return st["cum_score"]
+
+    def _fast_device_view(self, idx):
+        """Cached device chain restricted to the given parameter columns."""
+        st = self._fast_chain_state()
+        s, w = st["samples"], st["weights"]
+        if list(idx) != list(range(self.n)):
+            s = s[:, torch.as_tensor(idx, device=s.device)]
+        return s, w
+
+    def fastTriangleDensities(self, params=None, contours=(0.68, 0.95), meanlikes=False, mesh=None):
+        """All 1D and all-pairs 2D densities via the fused device pipeline
+        (:mod:`getdist_tpu_torch.ops.batched`) on ``self.device``, with the
+        JAX package's host rescues. Results follow the fast path's own KDE
+        conventions rather than exact reference parity. Returns the (d1, d2)
+        dicts of device tensors plus the pair index list; ``d2["regrid"]``
+        maps a pair tuple to its rerun's grid, contours and kernel.
+
+        Routes (``getdist_tpu/mcsamples.py:2255-2496``):
+
+        * single dispatch, when no pre-pass rescue can fire (max |corr|
+          below 0.866, and no pair at |corr| >= 0.5 measurably non-Gaussian):
+          the 1D and 2D stages in one call, then the fragile-pair regrid and
+          the clamped-window rescue read off the packed diagnostics;
+        * two programs otherwise: the 1D stage and one readback of its
+          planning fields; the 2D stage queued with its histograms exported;
+          while the card runs it, the host plans the corr-adaptive fine
+          regrids (fine > 256 bins, binned by K1's slab kernel) and the
+          sheared f64 assists (:meth:`_fast_regrid_plan`), whose reruns
+          (:meth:`_fast_regrid_exec`) reuse the 256-bin histograms; then the
+          diagnostics readback, the fragile-pair regrid and the clamped
+          rescue (:meth:`_fast_rescue_clamped_pairs`).
+
+        Stage times of the last call (host clock, seconds, in order; the
+        card is not synchronized for them) are kept in ``self.fast_profile``,
+        and each stage is a ``torch.profiler.record_function`` range named
+        ``fast:<stage>``. Its reruns are listed in
+        ``self.fast_regrid_groups``: one dict per rerun with its ``fine``
+        grid, ``winw``, ``pairs`` (position tuples) and ``bandwidths`` ("program": the
+        in-program optimizer at a corr-adaptive grid; "assist": host f64
+        sheared; "fragile": host ``getAutoBandwidth2D``; "clamped": the
+        saturated-window rescue).
+
+        Hard limits, periodic parameters and ``meanlikes`` grids (ROADMAP
+        A2/A3) and ``mesh`` (A9) raise ``NotImplementedError``. There is no
+        ``use_pallas`` switch: on the card the kernels always run, and a
+        chain on the CPU takes their plain versions.
+        """
+        if mesh is not None:
+            raise _not_ported("fastTriangleDensities on a device mesh (mesh=)", "A9")
+        if self.needs_update:
+            self.updateBaseStatistics()
+        if params is None:
+            idx = list(range(self.n))
+        else:
+            idx = [self._parAndNumber(p)[0] for p in params]
+            if None in idx:
+                raise ParamError("Unknown parameter %s" % [p for p, j in zip(params, idx) if j is None])
+        pars = [self.paramNames.names[j] for j in idx]
+        if any(p.has_limits_bot or p.has_limits_top or getattr(p, "periodic", False) for p in pars):
+            raise _not_ported("fastTriangleDensities with hard limits or periodic parameters", "A2/A3")
+        if meanlikes and self.loglikes is not None:
+            raise _not_ported("fastTriangleDensities meanlikes grids", "A2/A3")
+
+        profile = {}
+        clock = [time.perf_counter()]
+        span = [None]
+
+        def stage(label):
+            """Close the running stage (if any) and open ``label`` (None: end)."""
+            now = time.perf_counter()
+            if span[0] is not None:
+                profile[span[0][0]] = now - clock[0]
+                span[0][1].__exit__(None, None, None)
+            clock[0] = now
+            span[0] = None
+            if label is not None:
+                rf = torch.profiler.record_function(f"fast:{label}")
+                rf.__enter__()
+                span[0] = (label, rf)
+
+        self.fast_regrid_groups = []
+        stage("chain_state")
+        try:
+            out = self._fast_triangle(idx, contours, stage)
+        finally:
+            stage(None)
+            self.fast_profile = profile
+        return out
+
+    def _fast_triangle(self, idx, contours, stage):
+        """The routes of :meth:`fastTriangleDensities`; ``stage(label)``
+        marks the start of each stage."""
+        st = self._fast_chain_state()
+        # reference smooth_scale = -scale convention: auto bandwidth x scale
+        scale_1d = -float(self.smooth_scale_1D) if float(self.smooth_scale_1D) < 0 else 1.0
+        scale_2d = -float(self.smooth_scale_2D) if float(self.smooth_scale_2D) < 0 else 1.0
+        bs1 = None if scale_1d == 1.0 else scale_1d
+        bs2 = None if scale_2d == 1.0 else scale_2d
+        dev_s, dev_w = self._fast_device_view(idx)
+        p = len(idx)
+        pairs = [(a, b) for a in range(p) for b in range(a + 1, p)]
+        pairs_arr = np.array(pairs, np.int64).reshape(-1, 2)
+        # exact weighted correlations decide the static shear subset (the
+        # same 0.15-margin rule as ops.batched._sniff_shear, from the
+        # chain's cached correlation matrix)
+        corr = np.asarray(self.getCorrelationMatrix())[np.ix_(idx, idx)]
+        sel = [k for k, (a, b) in enumerate(pairs) if abs(corr[a, b]) > 0.15]
+        enable_shear = False if not sel else (True if len(sel) == len(pairs) else tuple(sel))
+        contours_np = np.array(contours, np.float32)
+        max_corr = float(self.max_corr_2D)
+        k_pairs = len(pairs)
+
+        # single dispatch when no pre-pass rescue can fire: no corr-adaptive
+        # fine > 256 pair (|corr| >= ~0.87) and no sheared-assist candidate
+        # (|corr| >= 0.5 AND measurably non-Gaussian)
+        abs_corr = np.abs(np.asarray(corr, float))
+        np.fill_diagonal(abs_corr, 0.0)
+        max_corr_val = float(abs_corr.max(initial=0.0))
+        single = max_corr_val < 0.866
+        if single and max_corr_val >= 0.5:
+            stage("cum_score")
+            cum = self._fast_cum_score()[np.ix_(idx, idx)]
+            single = not any(abs(corr[a, b]) >= 0.5 and cum[a, b] > 0.25 for a, b in pairs)
+        if single:
+            stage("program")
+            d1, d2 = _triangle_program(
+                dev_s, dev_w, pairs_arr[:, 0], pairs_arr[:, 1], contours_np, st["int8"], max_corr=max_corr,
+                enable_shear=enable_shear, bandwidth_scale_1d=bs1, bandwidth_scale_2d=bs2,
+            )
+            d2 = dict(d2)
+            stage("diag")
+            diag = _host(d2["diag"])
+            frag = diag[:k_pairs] > 0.5
+            regrid = {}
+            if frag.any():
+                stage("fragile_regrid")
+                plan = self._fast_regrid_plan(idx, pairs, d1, fragile=frag, fragile_only=True)
+                regrid = self._fast_regrid_exec(plan, idx, pairs, d1, contours, scale_2d)
+            d2["regrid"] = regrid
+            stage("clamped_rescue")
+            self._fast_rescue_clamped_pairs(
+                idx, pairs, d1, d2, contours, scale_2d, rx_host=diag[k_pairs : 2 * k_pairs],
+                ry_host=diag[2 * k_pairs : 3 * k_pairs],
+            )
+            return d1, d2, pairs
+
+        if any(0.5 <= abs(corr[a, b]) <= max_corr for a, b in pairs):
+            # the plan's cumulant gate reads this score back: computed before
+            # program B is queued, its readback does not wait for B
+            stage("cum_score")
+            self._fast_cum_score()
+        # program A: all 1D densities, and one readback of the packed
+        # planning fields before program B is queued (the same stream), so
+        # it waits for program A only
+        stage("program_a")
+        with torch.no_grad():
+            d1 = all_1d_densities(dev_s, dev_w, bandwidth_scale=bs1)
+        packed = _host(d1["host_pack"])
+        d1h = {
+            "neff": packed[:p],
+            "sigma_range": packed[p : 2 * p],
+            "range0": packed[2 * p : 3 * p],
+            "range1": packed[3 * p : 4 * p],
+            "bandwidth": packed[4 * p : 5 * p],
+        }
+        # program B: all-pairs 2D densities with the histograms exported;
+        # its tail (AMISE searches, convolutions, contours) runs on the card
+        # while the host plans
+        stage("program_b")
+        with torch.no_grad():
+            d2 = all_2d_densities(
+                dev_s, dev_w, pairs_arr[:, 0], pairs_arr[:, 1], d1["neff"], d1["range"][0], d1["range"][1],
+                contours_np, int8_weights=st["int8"], bandwidth_scale=bs2, sigma_range=d1["sigma_range"],
+                max_corr=max_corr, enable_shear=enable_shear, export_hists=True,
+            )
+        d2 = dict(d2)
+        hists = d2.pop("hists", None)
+        stage("plan")
+        plan = self._fast_regrid_plan(idx, pairs, d1, fragile=None, d1_host=d1h)
+        stage("regrid")
+        regrid = self._fast_regrid_exec(plan, idx, pairs, d1, contours, scale_2d, hists=hists)
+        # program B's packed diagnostics (fragile flags + kernel widths in
+        # bin units): the route's one readback of program B
+        stage("diag")
+        diag = _host(d2["diag"])
+        frag = diag[:k_pairs] > 0.5
+        stage("fragile_regrid")
+        plan = self._fast_regrid_plan(idx, pairs, d1, fragile=frag, fragile_only=True, d1_host=d1h)
+        regrid.update(self._fast_regrid_exec(plan, idx, pairs, d1, contours, scale_2d, hists=hists))
+        d2["regrid"] = regrid
+        stage("clamped_rescue")
+        self._fast_rescue_clamped_pairs(
+            idx, pairs, d1, d2, contours, scale_2d, rx_host=diag[k_pairs : 2 * k_pairs],
+            ry_host=diag[2 * k_pairs : 3 * k_pairs],
+        )
+        return d1, d2, pairs
+
+    def _fast_rescue_clamped_pairs(self, idx, pairs, d1, d2, contours, scale_2d=1.0, rx_host=None, ry_host=None):
+        """Re-run pairs whose kernel width saturated the fused program's
+        fixed convolution window (rx/ry at winw/2.5 bins) with a near-half-
+        grid window (winw = 126 at 256 bins, a 768 DFT frame), and serve its
+        results in ``d2["regrid"]``. The reference sizes its window from the
+        bandwidth with no cap (``mcsamples.py:1884`` winw = 2.5 width)."""
+        regrid = d2.get("regrid", {})
+        base_cap = 30 / 2.5
+
+        def regrid_cap(entry):
+            n_fine = int(entry["P"].shape[0])
+            return max(30, int(round(n_fine / 9.0))) / 2.5
+
+        if rx_host is not None:
+            rxs, rys = rx_host, ry_host
+        else:
+            rxs, rys = _host(d2["rx"]), _host(d2["ry"])
+        saturated = []
+        for k, key in enumerate(pairs):
+            entry = regrid.get(key)
+            if entry is not None:
+                widest = max(float(entry["rx"]), float(entry["ry"]))
+                cap = regrid_cap(entry)
+            else:
+                widest, cap = max(float(rxs[k]), float(rys[k])), base_cap
+            if widest >= cap - 1e-3:
+                saturated.append(key)
+        if not saturated:
+            return
+        fine = 256
+        dev_samples, dev_weights = self._fast_device_view(idx)
+        with torch.no_grad():
+            d2w = all_2d_densities(
+                dev_samples, dev_weights, np.array([a for a, _ in saturated]), np.array([b for _, b in saturated]),
+                d1["neff"], d1["range"][0], d1["range"][1], np.array(contours, np.float32), fine_bins=fine,
+                int8_weights=self._fast_chain_state()["int8"], bandwidth_scale=None if scale_2d == 1.0 else scale_2d,
+                sigma_range=d1["sigma_range"], max_corr=float(self.max_corr_2D), winw=fine // 2 - 2,
+            )
+        for i, key in enumerate(saturated):
+            regrid[key] = {name: d2w[name][i] for name in _REGRID_KEYS}
+        d2["regrid"] = regrid
+        self.fast_regrid_groups.append(
+            {"fine": fine, "winw": fine // 2 - 2, "pairs": saturated, "bandwidths": "clamped"}
+        )
+
+    def _fast_regrid_plan(self, idx, pairs, d1, fragile=None, fragile_only=False, d1_host=None):
+        """Host half of the regrid rescue: pick the pairs to re-run at the
+        reference's corr-adaptive fine grid (``mcsamples.py:1812-1819``
+        scales fine_bins_2D by the degeneracy angle) and compute their f64
+        bandwidth overrides. Host numpy and scipy only (besides the cached
+        cumulant score). Returns a list of ``(fine, plist, override, kind)``
+        groups for :meth:`_fast_regrid_exec`, ``kind`` naming where the
+        bandwidths come from ("program", "assist" or "fragile").
+
+        Pairs at |corr| >= 0.5 that are measurably non-Gaussian (cumulant
+        score > 0.25) get their bandwidth matrix from the host f64 sheared
+        re-binning (:meth:`_optimize_bandwidth_sheared`). ``fragile``
+        (per-pair bools from the fused program): pairs whose f32 AMISE
+        correlation search sat on a knife edge get theirs from
+        :meth:`getAutoBandwidth2D` at 256 bins, when the cumulant gate passes
+        too. Hard limits raise before the plan (ROADMAP A2/A3)."""
+        max_corr = float(self.max_corr_2D)
+        corr = np.asarray(self.getCorrelationMatrix())[np.ix_(idx, idx)]
+        cum_cache = [None]
+
+        def cum_gate(a, b):
+            if cum_cache[0] is None:
+                cum_cache[0] = self._fast_cum_score()[np.ix_(idx, idx)]
+            return cum_cache[0][a, b] > 0.25
+
+        if fragile is not None and fragile.any():
+            # gate the device's blind-search flags on the same score
+            fragile = np.array([bool(f) and cum_gate(a, b) for f, (a, b) in zip(fragile, pairs)])
+        if fragile_only and (fragile is None or not fragile.any()):
+            return []
+
+        groups = {}
+        for k, (a, b) in enumerate(pairs):
+            cc_raw = float(corr[a, b])
+            cc = float(np.clip(cc_raw, -max_corr, max_corr))
+            fine = 256
+            if abs(cc) >= 0.1:
+                angle_scale = max(0.2, np.sqrt(1 - min(max_corr, abs(cc)) ** 2))
+                if int(1 / angle_scale) > 1:
+                    scaled = 192 * int(3 / angle_scale) // 3
+                    if scaled > 256:
+                        fine = scaled
+            # the O(N)-per-pair host re-binning assist is reserved for pairs
+            # that are both strongly correlated and measurably non-Gaussian
+            assist = 0.5 <= abs(cc_raw) <= max_corr and cum_gate(a, b)
+            frag = bool(fragile is not None and fragile[k]) and not assist
+            if fragile_only:
+                if frag:
+                    groups.setdefault((fine, False, True), []).append((a, b))
+            elif fine > 256 or assist or frag:
+                groups.setdefault((fine, assist, frag), []).append((a, b))
+        neff_h = d1_host["neff"] if d1_host else _host(d1["neff"])
+        plan = []
+        for (fine, assist, frag), plist in groups.items():
+            override = None
+            kind = "assist" if assist else "fragile" if frag else "program"
+            if assist:
+                sigma_range = d1_host["sigma_range"] if d1_host else _host(d1["sigma_range"])
+                override = zip(*(self._assist_bandwidths(idx, a, b, corr, sigma_range, float(min(neff_h[a], neff_h[b])))
+                                 for a, b in plist))
+            elif frag:
+                override = zip(*(self._fragile_bandwidths(idx, a, b, float(min(neff_h[a], neff_h[b])))
+                                 for a, b in plist))
+            if override is not None:
+                override = tuple(np.array(v, float) for v in override)
+            plan.append((fine, plist, override, kind))
+        return plan
+
+    def _assist_bandwidths(self, idx, a, b, corr, sigma_range, pair_neff):
+        """(hx, hy, c) of a sheared-assist pair: the host f64 sheared
+        optimizer at 256 bins, with the reference's optimizer-failure
+        fallback (plug-in widths at the clipped sample correlation) and the
+        multiplicative-bias widening."""
+        max_corr = float(self.max_corr_2D)
+        parx = self._initParamRanges(idx[a])
+        pary = self._initParamRanges(idx[b])
+        try:
+            wx, wy, cc = self._optimize_bandwidth_sheared(parx, pary, idx[a], idx[b], pair_neff, 256)
+        except ValueError:
+            plug = pair_neff ** (-1.0 / 6)
+            wx, wy = sigma_range[a] * plug, sigma_range[b] * plug
+            cc = np.clip(corr[a, b], -max_corr, max_corr)
+        order = int(self.mult_bias_correction_order)
+        if order:
+            rescale = 1.1 * pair_neff ** (1.0 / 6 - 1.0 / (2 + 4 * (1 + order)))
+            wx, wy = wx * rescale, wy * rescale
+        return wx, wy, cc
+
+    def _fragile_bandwidths(self, idx, a, b, pair_neff):
+        """(hx, hy, c) of a fragile pair: the reference branch itself
+        (:meth:`getAutoBandwidth2D` on the host 256-bin histogram)."""
+        parx = self._initParamRanges(idx[a])
+        pary = self._initParamRanges(idx[b])
+        _, actual_corr = self._pair_correlation(idx[a], idx[b], parx, pary)
+        ix_, _sx, x_lo, x_hi = self._binSamples(self.samples[:, idx[a]], parx, 256)
+        iy_, _sy, y_lo, y_hi = self._binSamples(self.samples[:, idx[b]], pary, 256)
+        hist, _ = self._make2Dhist(ix_, iy_, 256, 256)
+        return self.getAutoBandwidth2D(
+            hist, parx, pary, idx[a], idx[b], actual_corr, x_hi - x_lo, y_hi - y_lo, 256,
+            mult_bias_correction_order=self.mult_bias_correction_order, N_eff=pair_neff,
+        )
+
+    def _fast_regrid_exec(self, plan, idx, pairs, d1, contours, scale_2d=1.0, hists=None):
+        """Device half of the regrid rescue: re-run each planned group
+        through :func:`all_2d_densities` with its bandwidth override and a
+        window of max(30, fine / 9) bins. ``hists`` (program B's exported
+        256-bin histograms) lets fine = 256 groups skip the re-binning; past
+        256 bins the rerun bins in-program (K1's slab kernel on int16 rows)."""
+        regrid = {}
+        if not plan:
+            return regrid
+        pair_pos = {key: k for k, key in enumerate(pairs)}
+        dev_samples, dev_weights = self._fast_device_view(idx)
+        int8 = self._fast_chain_state()["int8"]
+        for fine, plist, override, kind in plan:
+            winw = max(30, int(round(fine / 9.0)))
+            hin = None
+            if hists is not None and fine == 256:
+                hin = hists[torch.as_tensor([pair_pos[key] for key in plist], device=hists.device)]
+            with torch.no_grad():
+                d2x = all_2d_densities(
+                    dev_samples, dev_weights, np.array([a for a, _ in plist]), np.array([b for _, b in plist]),
+                    d1["neff"], d1["range"][0], d1["range"][1], np.array(contours, np.float32), fine_bins=fine,
+                    int8_weights=int8, bandwidth_scale=None if scale_2d == 1.0 else scale_2d,
+                    bandwidth_override=override, sigma_range=d1["sigma_range"], max_corr=float(self.max_corr_2D),
+                    winw=winw, hists_in=hin,
+                )
+            for i, key in enumerate(plist):
+                regrid[key] = {name: d2x[name][i] for name in _REGRID_KEYS}
+            self.fast_regrid_groups.append({"fine": fine, "winw": winw, "pairs": plist, "bandwidths": kind})
+        return regrid
 
     # -- parity mode ---------------------------------------------------------------------------
 

@@ -9,7 +9,9 @@ two Pallas kernels on this path are CUDA kernels:
 * pair histograms -> :func:`getdist_tpu_torch.ops.pair_hist.pair_histograms`
 * 2D convolutions -> :mod:`getdist_tpu_torch.ops.dft_conv`
 
-The fused path's branches are ported, and the 2D stage's parity-mode
+The fused path's branches are ported, with in-program pair histograms at
+any fine grid up to 1024 bins (the regrid reruns of
+``MCSamples.fastTriangleDensities``), and the 2D stage's parity-mode
 branches (hard limits and ``exact_mult_bias`` with host bandwidths,
 ``hists_in`` at any fine grid, f64), and the sharded hooks (``group=``, a
 ``torch.distributed`` process group, used by
@@ -31,10 +33,14 @@ from getdist_tpu_torch.ops import collectives as coll
 from getdist_tpu_torch.ops._cuda import full_fp32_matmuls, resolve_device
 from getdist_tpu_torch.ops.dft_conv import dft_conv2d, dft_conv_spectrum, frame_for
 from getdist_tpu_torch.ops.fft import dct
-from getdist_tpu_torch.ops.pair_hist import narrow_weights, pair_histograms
+from getdist_tpu_torch.ops.pair_hist import narrow_rows, narrow_weights, pair_histograms
+
+# profiler ranges of the stages ("1d:...", "2d:..."); microseconds each while no profiler runs
+_stage = torch.profiler.record_function
 
 __all__ = [
     "prepare_chain",
+    "pair_cumulant_score",
     "all_1d_densities",
     "all_2d_densities",
     "triangle_densities",
@@ -100,6 +106,25 @@ def prepare_chain(samples, weights, device="cuda", dtype=torch.float32):
     return _tensor(samples, device, dtype), _tensor(weights, device, dtype)
 
 
+@full_fp32_matmuls()
+def pair_cumulant_score(samples, weights):
+    """|k31| + |k13| + |k22| standardized joint cumulants for every param
+    pair, as a (P, P) tensor on the samples' device. These vanish for
+    jointly-Gaussian pairs, so the host uses them to gate the fragile-
+    bandwidth f64 assist (``MCSamples._fast_regrid_plan``): genuinely
+    non-Gaussian zoo shapes measure 0.4-3.4 where Gaussian chains stay
+    below ~0.11. The products run in full FP32 (no TF32)."""
+    wn = weights / torch.sum(weights)
+    zc = samples - torch.matmul(wn, samples)
+    zc = zc / torch.sqrt(torch.matmul(wn, zc * zc))
+    z2 = zc * zc
+    zw = zc * wn[:, None]
+    rho = torch.matmul(zw.T, zc)
+    k31 = torch.matmul((z2 * zw).T, zc) - 3 * rho
+    k22 = torch.matmul((z2 * wn[:, None]).T, z2) - 1 - 2 * rho * rho
+    return torch.abs(k31) + torch.abs(k31).T + torch.abs(k22)
+
+
 # ---------------------------------------------------------------------------
 # histograms, ranges, N_eff
 # ---------------------------------------------------------------------------
@@ -137,6 +162,7 @@ def _lag_grid(n, max_lag=None, num=40):
     return tuple(int(k) for k in ks)
 
 
+@_stage("1d:neff")
 def _neff_kde_batch(values, weights, sigmas, lags, group=None, n_samples=None):
     """Gaussian-KDE effective sample numbers for all parameters: corr_k
     pair sums on the lag grid with an uncorrelated far-lag baseline,
@@ -264,6 +290,7 @@ def _isj_log_gamma(h2_pi2, big_i, log_i, log_a2, neff):
     return lf
 
 
+@_stage("1d:isj_bandwidth")
 def _isj_bandwidth_1d(bins, neff):
     """ISJ bandwidths (fractions of the bin range) of (R, nb) histograms by
     bisection on f(h) = h - (2 N sqrt(pi) gamma(h))^{-1/5}, bracketed by a
@@ -653,6 +680,7 @@ def _gauss_kernel_2d(rx, ry, corr, winw, support=None):
     return win / torch.sum(win, dim=(1, 2), keepdim=True)
 
 
+@_stage("2d:contours")
 def _contour_levels_batch(grids, contours, iters=40):
     """Water-level contour levels by bisection: t per (grid, contour) with
     sum(P[P > t]) = contour * total, edges half-weighted. Returns (K, C)."""
@@ -699,6 +727,7 @@ def _fine_indices(cols, lo, width, nbins):
     return torch.clamp((((cols - lo[:, None]) / width[:, None]) + 0.5).to(torch.int32), 0, nbins - 1)
 
 
+@_stage("1d:all")
 @full_fp32_matmuls()
 def all_1d_densities(
     samples,
@@ -894,7 +923,9 @@ def all_2d_densities(
     samples' type: f32 on the fused path, f64 in parity mode.
 
     ``int8_weights``: every weight is an integer (the histogram kernel then
-    accumulates exactly in int32). ``enable_shear``: bool, or the pair
+    accumulates exactly in int32). The bin indices go to K1 as uint8 rows
+    up to 256 bins and as int16 rows past that (its slab kernel; at most
+    ``pair_hist.MAX_BINS`` on the card). ``enable_shear``: bool, or the pair
     positions that may shear (host pre-sniffed, :func:`_sniff_shear`).
     Hooks for stage isolation: ``hists_in`` (K, fine, fine) replaces the
     binning, ``bandwidth_override`` (hx, hy, c) in data units replaces the
@@ -939,16 +970,18 @@ def all_2d_densities(
 
     if hists_in is not None:
         hists = _tensor(hists_in, device, dtype)
-    elif fine_bins != 256:
-        raise _not_ported(f"in-program pair histograms at {fine_bins} bins (parity mode passes hists_in)", "A3")
     else:
-        ix_all = _fine_indices(cols, binmin, fine_width, fine_bins).to(torch.uint8)
-        w_hist = weights.to(torch.float32)
-        hists = pair_histograms(
-            ix_all, narrow_weights(w_hist) if int8_weights else w_hist, pa.to(torch.int32), pb.to(torch.int32),
-            integer_weights=int8_weights,
-        )
-        hists = coll.psum(hists, group).to(dtype)
+        with _stage("2d:histograms"):
+            # uint8 rows up to 256 bins (K1's uint8 kernel, which also takes
+            # integer weights as uint8); int16 past that (its slab kernel)
+            ix_all = narrow_rows(_fine_indices(cols, binmin, fine_width, fine_bins), fine_bins)
+            w_hist = weights.to(torch.float32)
+            if int8_weights and ix_all.dtype == torch.uint8:
+                w_hist = narrow_weights(w_hist)
+            hists = pair_histograms(
+                ix_all, w_hist, pa.to(torch.int32), pb.to(torch.int32), integer_weights=int8_weights, nbins=fine_bins
+            )
+            hists = coll.psum(hists, group).to(dtype)
 
     pair_neff = torch.minimum(neff[pa], neff[pb])
     if bandwidth_override is not None:
@@ -1083,6 +1116,7 @@ def all_2d_densities(
     return out
 
 
+@_stage("2d:bandwidths")
 def _optimized_bandwidths(
     cols, weights, pa, pb, hists, pair_neff, binmin, binmax, fine_width, fine_bins, sigma_range, max_corr,
     enable_shear, mult_bias_order, group=None,

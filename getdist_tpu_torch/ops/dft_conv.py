@@ -199,6 +199,7 @@ def dft_conv_spectrum(kernels, pad=DEFAULT_PAD):
             fi.data_ptr(), tr.data_ptr(), ti.data_ptr(), t_ld, ur[lo:hi].data_ptr(), ui[lo:hi].data_ptr(), pad,
         )
         dft_conv_spectrum.launches += 1
+        dft_conv_spectrum.frames[pad] = dft_conv_spectrum.frames.get(pad, 0) + 1
     return ur, ui
 
 
@@ -240,8 +241,12 @@ def dft_conv2d(grids, ur, ui, out_size, offset, pad=DEFAULT_PAD):
             t2[1].data_ptr(), t2_ld, out[lo:hi].data_ptr(), out_size, offset, pad,
         )
         dft_conv2d.launches += 1
+        dft_conv2d.frames[pad] = dft_conv2d.frames.get(pad, 0) + 1
     return out
 
 
+# launches, in all and by DFT frame
 dft_conv_spectrum.launches = 0
+dft_conv_spectrum.frames = {}
 dft_conv2d.launches = 0
+dft_conv2d.frames = {}

@@ -213,10 +213,11 @@ def _launch_slab(ix, weights, pair_a, pair_b, integer_weights, nbins):
 def _launch(ix, weights, pair_a, pair_b, integer_weights, nbins):
     """Check the arguments and launch ``csrc/pair_hist.cu``: the uint8 kernel
     for uint8 rows (pair indices checked after the launch: it clamps them),
-    else the slab kernel (checked before it). Returns (out, launched)."""
+    else the slab kernel (checked before it). Returns (out, the kernel
+    launched: "uint8", "slab" or None)."""
     p, n, k = _check_rows(ix, weights, pair_a, pair_b, nbins)
     if k == 0 or n == 0:
-        return torch.zeros((k, nbins, nbins), dtype=torch.float32, device=ix.device), False
+        return torch.zeros((k, nbins, nbins), dtype=torch.float32, device=ix.device), None
     checks = torch.aminmax(torch.cat([pair_a, pair_b]))
     if ix.dtype != torch.uint8:
         (lo, hi), out = torch.stack(checks).tolist(), None
@@ -226,9 +227,9 @@ def _launch(ix, weights, pair_a, pair_b, integer_weights, nbins):
         )
     if lo < 0 or hi >= p:
         raise ValueError(f"pair indices must lie in [0, {p}), got [{int(lo)}, {int(hi)}]")
-    if out is None:
-        out = _launch_slab(ix, weights, pair_a, pair_b, integer_weights, nbins)
-    return out, True
+    if out is not None:
+        return out, "uint8"
+    return _launch_slab(ix, weights, pair_a, pair_b, integer_weights, nbins), "slab"
 
 
 def pair_histograms(ix, weights, pair_a, pair_b, integer_weights=False, nbins=NBINS):
@@ -242,12 +243,14 @@ def pair_histograms(ix, weights, pair_a, pair_b, integer_weights=False, nbins=NB
     in int32 and the result is bit-exact; otherwise it accumulates f32
     weights with atomics. CPU tensors take :func:`pair_histograms_plain`;
     CUDA tensors launch ``csrc/pair_hist.cu``: the uint8 kernel for uint8
-    rows, the slab kernel for int16/int32 rows.
+    rows, the slab kernel for int16/int32 rows. ``launches`` counts both,
+    ``slab_launches`` the slab kernel's.
     """
     if ix.device.type == "cpu":
         return pair_histograms_plain(ix, weights, pair_a, pair_b, integer_weights, nbins)
-    out, launched = _launch(ix, weights, pair_a, pair_b, integer_weights, nbins)
-    pair_histograms.launches += int(launched)
+    out, kernel = _launch(ix, weights, pair_a, pair_b, integer_weights, nbins)
+    pair_histograms.launches += int(kernel is not None)
+    pair_histograms.slab_launches += int(kernel == "slab")
     return out
 
 
@@ -257,8 +260,8 @@ def pair_histograms_dynamic(ix, weights, pair_a, pair_b, integer_weights=False, 
     :func:`pair_histograms`."""
     if ix.device.type == "cpu":
         return pair_histograms_plain(ix, weights, pair_a, pair_b, integer_weights, nbins)
-    out, launched = _launch(ix, weights, pair_a, pair_b, integer_weights, nbins)
-    pair_histograms_dynamic.launches += int(launched)
+    out, kernel = _launch(ix, weights, pair_a, pair_b, integer_weights, nbins)
+    pair_histograms_dynamic.launches += int(kernel is not None)
     return out
 
 
@@ -355,5 +358,6 @@ def pair_histograms_grouped(ix, weights, grp_a, grp_b, inv_perm, int8_weights=Fa
 
 
 pair_histograms.launches = 0
+pair_histograms.slab_launches = 0
 pair_histograms_dynamic.launches = 0
 pair_histograms_grouped.launches = 0

@@ -456,3 +456,87 @@ def test_one_rank_nccl_sharded_pair_hists(cuda, tmp_path):
     assert (after[0] - before[0], after[1] - before[1]) == (1, 1)
     torch.testing.assert_close(grouped, want, rtol=0, atol=0)
     torch.testing.assert_close(dynamic, want, rtol=0, atol=0)
+
+
+# -- the public fused entry (MCSamples.fastTriangleDensities) -----------------
+
+
+@pytest.mark.parametrize("nbins", [384, 576, 960])
+def test_slab_route_at_regrid_grids_bit_exact(cuda, nbins):
+    """K1's entry at the regrid reruns' corr-adaptive fine grids: rows
+    narrowed to int16 by ``narrow_rows`` take the slab kernel."""
+    p, n = 5, 200_003
+    x = np.random.default_rng(nbins).standard_normal((p, n))
+    ix = np.clip(x * nbins / 8 + nbins / 2, 0, nbins - 1).astype(np.int32)
+    ix = pair_hist.narrow_rows(torch.from_numpy(ix).to(cuda), nbins)
+    assert ix.dtype == torch.int16
+    w = torch.from_numpy(np.random.default_rng(2).integers(1, 5, n).astype(np.float32)).to(cuda)
+    pa, pb = _pairs(p, cuda)
+    before = (pair_hist.pair_histograms.launches, pair_hist.pair_histograms.slab_launches)
+    got = pair_hist.pair_histograms(ix, w, pa, pb, integer_weights=True, nbins=nbins)
+    after = (pair_hist.pair_histograms.launches, pair_hist.pair_histograms.slab_launches)
+    assert (after[0] - before[0], after[1] - before[1]) == (1, 1)
+    want = pair_hist.pair_histograms_plain(ix, w, pa, pb, True, nbins)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert float(got.double().sum()) == float(w.double().sum()) * pa.shape[0]
+
+
+# (pad, fine, winw): frame_for(fine + 4 winw + 1) of the regrid reruns
+# (winw = max(30, fine / 9)) and of the clamped rescue (256 bins, winw 126)
+REGRID_FRAMES = {
+    "fine384": (640, 384, 43),
+    "rescue256": (768, 256, 126),
+    "fine576": (896, 576, 64),
+    "fine960": (1408, 960, 107),
+}
+
+
+@pytest.mark.parametrize("geometry", ["same", "valid-ext"])
+@pytest.mark.parametrize("case", list(REGRID_FRAMES))
+def test_dft_conv_f32_regrid_frames_within_1e5(cuda, case, geometry):
+    """f32 K2/K3 at the fused entry's larger frames and windows: the 'same'
+    convolution of the fine grids and the 'valid' one of the extended
+    masks, within 1e-5 of the largest value of an f64 chain on the same
+    inputs, and (frames up to 896) of the f32 plain versions. At 1408 the
+    f32 plain chain itself sits ~1e-5 from the f64 one on these inputs
+    (uniform random kernels of 215^2), so the two f32 results are held to
+    each other through the f64 chain."""
+    pad, fine, winw = REGRID_FRAMES[case]
+    assert dft_conv.frame_for(fine + 4 * winw + 1) == pad
+    in_size, offset = (fine, winw) if geometry == "same" else (fine + 2 * winw, 2 * winw)
+    grids, kernels = _conv_inputs(3, in_size, 2 * winw + 1, torch.float32, cuda, seed=pad)
+    if pad <= 896:
+        _check_dft_conv(grids, kernels, fine, offset, pad, 1e-5)
+    u64 = dft_conv.dft_conv_spectrum_plain(kernels.double(), pad)
+    want = dft_conv.dft_conv2d_plain(grids.double(), *u64, fine, offset, pad)
+    got = dft_conv.dft_conv2d(grids, *dft_conv.dft_conv_spectrum(kernels, pad), fine, offset, pad)
+    torch.testing.assert_close(got.double(), want, rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
+def test_fast_triangle_on_card_matches_cpu(cuda):
+    """The public fused entry on the card against the port on the CPU, on
+    a 40k x 8 chain that takes the two-program route, a 960-bin regrid
+    (K1's slab kernel, a 1408 frame), a sheared f64 assist and, at this
+    size, the clamped-window rescue (a 768 frame): the same regrid keys and
+    grid sizes, grids within the zoo's 5e-3."""
+    from chip_smoke import hard_chain
+    from getdist_tpu_torch.mcsamples import MCSamples
+
+    samples, weights = hard_chain(40_000)
+    kw = dict(samples=samples, weights=weights, names=[f"h{i}" for i in range(8)])
+    before = pair_hist.pair_histograms.slab_launches
+    mc = MCSamples(device=cuda, **kw)
+    g1, g2, pairs = mc.fastTriangleDensities()
+    assert pair_hist.pair_histograms.slab_launches > before
+    c1, c2, _ = MCSamples(device="cpu", **kw).fastTriangleDensities()
+    assert "program_a" in mc.fast_profile
+    kinds = {group["bandwidths"] for group in mc.fast_regrid_groups}
+    assert kinds == {"program", "assist", "clamped"}, mc.fast_regrid_groups
+    assert set(g2["regrid"]) == set(c2["regrid"]) and (6, 7) in g2["regrid"]
+    assert g2["regrid"][(4, 5)]["P"].shape == (960, 960)
+    torch.testing.assert_close(g1["P"].cpu(), c1["P"], rtol=0, atol=1e-4)
+    for k, key in enumerate(pairs):
+        got = g2["regrid"][key]["P"] if key in g2["regrid"] else g2["P"][k]
+        want = c2["regrid"][key]["P"] if key in c2["regrid"] else c2["P"][k]
+        assert got.shape == want.shape
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=5e-3)
