@@ -40,16 +40,22 @@ CUDA kernels from ``getdist_tpu_torch/csrc``. Then three paths on
    device idle share and stage split under the profiler, outputs held
    against ``triangle_densities``, bitwise where the shear subsets
    agree), then on a 1M x 8 hard chain (``hard_chain``: two programs, a
-   960-bin regrid through K1's slab kernel, a sheared f64 assist), with
-   K1's slab kernel and f32 K2/K3 at the run's larger DFT frames held
+   960-bin regrid through K1's wide kernels, a sheared f64 assist), with
+   the wide kernels and f32 K2/K3 at the run's larger DFT frames held
    against their plain versions, and the entry on the card against the
-   port on the CPU at 100k x 8.
+   port on the CPU at 100k x 8;
+5. the wide kernels on a 1M x 14 degenerate chain (``degenerate_chain``:
+   26 pairs binned past 256 bins, in fine groups of 960, 576 and 384
+   bins): the public entry (cold and warm walls) and parity mode (one
+   call), each with its wide-kernel launches, and a kernel row per fine
+   group of each path (its rows, pairs and weights), bit-exact against
+   the plain version, beside ``torch.bincount`` and the bound.
 
-K1, K4 and K5 are timed with the weights their paths pass (integer
-weights as uint8, ``pair_hist.narrow_weights``), each beside one
-``torch.bincount`` over flat pair keys, the yardstick no path calls. The
-build's ptxas lines of the uint8 pair-histogram kernel (K1, K4 and K5) are
-printed.
+K1, K4, K5 and the wide kernels are timed with the weights their paths
+pass (integer weights as uint8, ``pair_hist.narrow_weights``), each beside
+one ``torch.bincount`` over flat pair keys, the yardstick no path calls.
+The build's ptxas lines of the uint8 pair-histogram kernel (K1, K4 and K5)
+and of the wide kernels are printed.
 
 Prints one JSON line of kernel results (with each kernel's bound on the
 card and, where one exists, a single PyTorch call's time), the card line
@@ -99,6 +105,34 @@ def hard_chain(n, seed=23):
         cov = [[sx * sx, c * sx * sy], [c * sx * sy, sy * sy]]
         hammer[pick] = rng.multivariate_normal(mean, cov, int(pick.sum()))
     return np.column_stack([base, tight, hammer]), weights
+
+
+# the degenerate chain's blocks: (columns, pair correlation c^2), each
+# column c z + sqrt(1 - c^2) e on its block's own latent z
+DEGENERATE_BLOCKS = ((5, 0.995), (5, 0.95), (4, 0.90))
+
+
+def degenerate_chain(n, seed=29):
+    """A chain of near-degenerate parameter blocks, as the H0 / Omega_m /
+    sigma_8 / age / theta blocks of a cosmology chain: 14 columns in three
+    blocks (``DEGENERATE_BLOCKS``: pair correlations 0.995, clipped to
+    max_corr_2D = 0.99, 0.95 and 0.90, whose corr-adaptive fine grids are
+    960, 576 and 384 bins), uncorrelated across blocks (those 65 pairs stay
+    at 256 bins), with the integer weights (1..4) of ``bench.make_chain(n,
+    1, seed)``. Unbounded. Made with numpy from ``seed``; (samples (n, 14),
+    weights (n,))."""
+    import numpy as np
+
+    sys.path.insert(0, ROOT)
+    from bench import make_chain
+
+    _, weights = make_chain(n, 1, seed=seed)
+    rng = np.random.RandomState(seed + 1)
+    cols = []
+    for size, c2 in DEGENERATE_BLOCKS:
+        z = rng.standard_normal(n)
+        cols += [np.sqrt(c2) * z + np.sqrt(1 - c2) * rng.standard_normal(n) for _ in range(size)]
+    return np.column_stack(cols), weights
 
 
 def check(cond, msg):
@@ -957,9 +991,64 @@ def entry_cross_device(MCSamples):
     return {"1D P": err1, "2D P (served)": err2, "regrid keys": len(g2["regrid"]), "regrid sizes": sizes}
 
 
+def wide_row(name, entry, ix, w, pa, pb, fine, integer, launches, pair_hist):
+    """A kernel row of the wide kernels on one fine group's rows, pairs and
+    weights, as its path passes them (``entry``: K1's or K4's): bit-exact
+    against the plain version (integer weights), timed beside the plain
+    version and one ``torch.bincount``, with its bound and the route
+    ``pair_hist.wide_plan`` takes."""
+    import torch
+
+    k, n = pa.shape[0], ix.shape[1]
+    check(ix.dtype == torch.int16, f"{name}: rows at {fine} bins narrow to int16")
+    got = entry(ix, w, pa, pb, integer_weights=integer, nbins=fine)
+    ref = pair_hist.pair_histograms_plain(ix, w, pa, pb, integer_weights=integer, nbins=fine)
+    err = float((got - ref).abs().max())
+    check(err == 0.0 if integer else err <= 1e-5 * float(ref.max()), f"{name}: against the plain version ({err})")
+    del got, ref
+    b, by = hist_bound(ix, w, k, fine)
+    row = {
+        "name": name,
+        "route": "cuda",
+        "source": "getdist_tpu_torch/csrc/pair_hist.cu",
+        "replaces": "getdist_tpu/ops/batched.py:125",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: entry(ix, w, pa, pb, integer_weights=integer, nbins=fine), 10),
+        "plain_ms": cuda_ms(lambda: pair_hist.pair_histograms_plain(ix, w, pa, pb, integer, fine), 2),
+        "bound_ms": b,
+        "bound_by": by,
+        "library_ms": library_hist_ms(ix, w, pa, pb, fine, 3),
+    }
+    plan = pair_hist.wide_plan(k, n, fine, torch.cuda.get_device_properties(0).multi_processor_count)
+    verdict = "faster" if row["ms"] <= row["library_ms"] else "SLOWER"
+    print(f"{name}: {k} pair(s) of {ix.shape[0]} int16 rows x {n} at {fine} bins, {w.dtype} weights, {plan.route} "
+          f"route: kernel {row['ms']:.3f} ms, {b / row['ms']:.1%} of its bound {b:.4f} ms ({by}); plain "
+          f"{row['plain_ms']:.3f} ms; torch.bincount {row['library_ms']:.3f} ms ({verdict} than it); launches {launches}")
+    return row
+
+
+def entry_group_rows(s_dev, ranges, group, pair_hist, batched):
+    """(index rows, pair_a, pair_b, pair keys) of a public-entry regrid group,
+    as ``all_2d_densities`` bins it: the group's columns at its fine grid
+    over the 1D stage's ranges, narrowed by ``pair_hist.narrow_rows``."""
+    import torch
+
+    binmin, binmax = ranges
+    fine, keys = group["fine"], [tuple(key) for key in group["pairs"]]
+    cols = sorted({c for key in keys for c in key})
+    pos = {c: i for i, c in enumerate(cols)}
+    sel = torch.as_tensor(cols, device="cuda")
+    ix = pair_hist.narrow_rows(batched._fine_indices(
+        s_dev[:, sel].T.contiguous(), binmin[sel], (binmax - binmin)[sel] / (fine - 1), fine), fine)
+    pa = torch.tensor([pos[a] for a, _ in keys], dtype=torch.int32, device="cuda")
+    pb = torch.tensor([pos[b] for _, b in keys], dtype=torch.int32, device="cuda")
+    return ix, pa, pb, keys
+
+
 def new_shape_rows(mc, d1, d2, launches, pair_hist, dft_conv, batched):
     """Kernel rows of the shapes the public entry adds, on the inputs of
-    the run's own reruns: K1's slab kernel on the rows of its first fine >
+    the run's own reruns: K1's wide kernels on the rows of its first fine >
     256 regrid group, and f32 K2/K3 at each DFT frame past 384 that the run
     launched (the first group there: its histograms and its pairs'
     kernels); each against its plain version, the library call and its
@@ -968,45 +1057,18 @@ def new_shape_rows(mc, d1, d2, launches, pair_hist, dft_conv, batched):
 
     st = mc._fast_chain_state()
     s_dev, w_dev = st["samples"], st["weights"]
-    binmin, binmax = d1["range"]
 
     def group_hists(group):
-        fine, keys = group["fine"], [tuple(key) for key in group["pairs"]]
-        cols = sorted({c for key in keys for c in key})
-        pos = {c: i for i, c in enumerate(cols)}
-        sel = torch.as_tensor(cols, device="cuda")
-        ix = pair_hist.narrow_rows(batched._fine_indices(
-            s_dev[:, sel].T.contiguous(), binmin[sel], (binmax - binmin)[sel] / (fine - 1), fine), fine)
-        pa = torch.tensor([pos[a] for a, _ in keys], dtype=torch.int32, device="cuda")
-        pb = torch.tensor([pos[b] for _, b in keys], dtype=torch.int32, device="cuda")
-        return ix, pa, pb, keys
+        return entry_group_rows(s_dev, d1["range"], group, pair_hist, batched)
 
-    rows = []
     wide = next((g for g in mc.fast_regrid_groups if g["fine"] > 256), None)
     check(wide is not None, "the run regridded a pair past 256 bins")
     fine = wide["fine"]
     ix, pa, pb, keys = group_hists(wide)
-    check(ix.dtype == torch.int16, f"rows at {fine} bins narrow to int16")
-    hists = pair_hist.pair_histograms(ix, w_dev, pa, pb, integer_weights=st["int8"], nbins=fine)
-    ref = pair_hist.pair_histograms_plain(ix, w_dev, pa, pb, integer_weights=st["int8"], nbins=fine)
-    err_h = float((hists - ref).abs().max())
-    check(err_h == 0.0, f"K1 slab kernel at {fine} bins bit-exact ({err_h})")
-    b_h, by_h = hist_bound(ix, w_dev, len(keys), fine)
-    rows.append({
-        "name": f"pair_histograms_slab_{fine}bins",
-        "route": "cuda",
-        "source": "getdist_tpu_torch/csrc/pair_hist.cu",
-        "replaces": "getdist_tpu/ops/pallas_kernels.py:309",
-        "launches": launches["slab"],
-        "max_abs_err": err_h,
-        "ms": cuda_ms(lambda: pair_hist.pair_histograms(ix, w_dev, pa, pb, integer_weights=st["int8"], nbins=fine), 10),
-        "plain_ms": cuda_ms(lambda: pair_hist.pair_histograms_plain(ix, w_dev, pa, pb, st["int8"], fine), 2),
-        "bound_ms": b_h,
-        "bound_by": by_h,
-        "library_ms": library_hist_ms(ix, w_dev, pa, pb, fine, 3),
-    })
-    print(f"K1 slab kernel on the {fine}-bin regrid: {len(keys)} pair(s) of int16 rows x {ix.shape[1]}, "
-          f"{rows[-1]['ms']:.3f} ms")
+    # the weights as all_2d_densities passes them: integer weights narrowed to uint8
+    w_path = pair_hist.narrow_weights(w_dev) if st["int8"] else w_dev
+    rows = [wide_row(f"pair_histograms_wide_{fine}bins", pair_hist.pair_histograms, ix, w_path, pa, pb, fine,
+                     st["int8"], launches["wide_bins"].get(fine, 0), pair_hist)]
     done = set()
     for group in mc.fast_regrid_groups:
         size, off = group["fine"], group["winw"]
@@ -1076,14 +1138,15 @@ def public_entry(samples, weights, batched, dft_conv, pair_hist):
     def reset():
         for fn in counters:
             fn.launches = 0
-        pair_hist.pair_histograms.slab_launches = 0
+        pair_hist.pair_histograms.wide_launches = 0
+        pair_hist.pair_histograms.wide_bins.clear()
         dft_conv.dft_conv_spectrum.frames.clear()
         dft_conv.dft_conv2d.frames.clear()
 
     def read():
         out = {fn.__name__: fn.launches for fn in counters}
-        out.update(slab=pair_hist.pair_histograms.slab_launches, spectrum_frames=dict(dft_conv.dft_conv_spectrum.frames),
-                   conv_frames=dict(dft_conv.dft_conv2d.frames))
+        out.update(wide=pair_hist.pair_histograms.wide_launches, wide_bins=dict(pair_hist.pair_histograms.wide_bins),
+                   spectrum_frames=dict(dft_conv.dft_conv_spectrum.frames), conv_frames=dict(dft_conv.dft_conv2d.frames))
         return out
 
     def timed_runs(label, s, w, names):
@@ -1121,13 +1184,114 @@ def public_entry(samples, weights, batched, dft_conv, pair_hist):
     mc, d1, d2, launches, route = timed_runs("public entry, hard chain 8 x 1M", hs, hw, [f"h{i}" for i in range(8)])
     kinds = {g["bandwidths"] for g in mc.fast_regrid_groups}
     check(route == "two programs", "the hard chain takes the two-program route")
-    check(launches["slab"] >= 1, "a fine > 256 regrid ran K1's slab kernel")
+    check(launches["wide"] >= 1, "a fine > 256 regrid ran K1's wide kernels")
     check("assist" in kinds, "a sheared f64 assist ran")
     print(f"hard chain rescues: {sorted(kinds)}; clamped or fragile rescue "
           f"{'present' if kinds & {'clamped', 'fragile'} else 'absent on this chain'}")
     rows = new_shape_rows(mc, d1, d2, launches, pair_hist, dft_conv, batched)
     report = entry_cross_device(MCSamples)
     print(f"public entry cross-device 100k x 8 hard chain (cuda vs cpu), max abs diffs: {json.dumps(report)}")
+    return rows
+
+
+def degenerate_phase(pair_hist, batched):
+    """Phase 5: the wide kernels on ``degenerate_chain(1M)`` through the
+    public entry (cold and warm) and parity mode (one call): walls, wide
+    launches, and a kernel row per fine group past 256 bins of each path."""
+    import numpy as np
+    import torch
+
+    from getdist_tpu_torch.mcsamples import MCSamples
+    from getdist_tpu_torch.ops import parity_device as pdev
+
+    t0 = time.perf_counter()
+    samples, weights = degenerate_chain(1_000_000)
+    p = samples.shape[1]
+    kw = dict(samples=samples, weights=weights, names=[f"d{i}" for i in range(p)], device="cuda")
+    print(f"degenerate chain 1,000,000 x {p} made in {time.perf_counter() - t0:.1f} s")
+    entries = (pair_hist.pair_histograms, pair_hist.pair_histograms_dynamic)
+
+    def reset():
+        for fn in entries:
+            fn.launches = fn.wide_launches = 0
+            fn.wide_bins.clear()
+
+    def read():
+        return {fn.__name__: {"launches": fn.launches, "wide": fn.wide_launches, "wide_bins": dict(fn.wide_bins)}
+                for fn in entries}
+
+    def wide_groups(label, fines):
+        """{fine: pairs} past 256 bins; at least 20 pairs in at least three
+        groups, 960 among them."""
+        wide = {fine: n for fine, n in fines.items() if fine > 256}
+        check(sum(wide.values()) >= 20 and len(wide) >= 3 and 960 in wide, f"{label}: fine groups {fines}")
+        return wide
+
+    # the public entry
+    mc = MCSamples(**kw)
+    cold_s, _ = wall_s(lambda: mc.fastTriangleDensities())
+    reset()
+    warm_s, (d1, d2, pairs) = wall_s(lambda: mc.fastTriangleDensities())
+    launches = read()
+    label = "degenerate chain, public entry"
+    check_entry_outputs(d1, d2, pairs, p, label)
+    fines = {}
+    for g in mc.fast_regrid_groups:
+        fines[g["fine"]] = fines.get(g["fine"], 0) + len(g["pairs"])
+    wide = wide_groups(label, fines)
+    check(launches["pair_histograms"]["wide_bins"] == {fine: 1 for fine in wide}, f"{label}: wide launches {launches}")
+    print(f"{label}: fastTriangleDensities first call {cold_s * 1e3:.1f} ms, warm {warm_s * 1e3:.1f} ms; pairs per "
+          f"fine grid {json.dumps(fines)}; launches of the warm call {json.dumps(launches)}; stage split (s): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in mc.fast_profile.items()))
+    st = mc._fast_chain_state()
+    w_path = pair_hist.narrow_weights(st["weights"]) if st["int8"] else st["weights"]
+    check(w_path.dtype == torch.uint8, f"{label}: integer weights go to the wide kernels as uint8")
+    rows = []
+    for g in sorted((g for g in mc.fast_regrid_groups if g["fine"] > 256), key=lambda g: -g["fine"]):
+        ix, pa, pb, _ = entry_group_rows(st["samples"], d1["range"], g, pair_hist, batched)
+        rows.append(wide_row(f"pair_histograms_wide_entry_{g['fine']}bins", pair_hist.pair_histograms, ix, w_path,
+                             pa, pb, g["fine"], st["int8"], launches["pair_histograms"]["wide_bins"].get(g["fine"], 0),
+                             pair_hist))
+    del mc, d1, d2, st, w_path
+    torch.cuda.empty_cache()
+
+    # parity mode
+    mc = MCSamples(**kw)
+    reset()
+    par_s, (dens1, dens2) = wall_s(lambda: mc.fastParityDensities(device=True))
+    launches = read()
+    label = "degenerate chain, parity"
+    check_parity_outputs(dens1, dens2, p, p * (p - 1) // 2)
+    idx = list(range(p))
+    infos = [mc._initParamRanges(j) for j in idx]
+    pair_fine, _ = mc._parity_pairs(idx, infos)
+    wide = wide_groups(label, {fine: len(members) for fine, members in pair_fine.items()})
+    wide_bins = {}
+    for fn in entries:
+        for fine, count in launches[fn.__name__]["wide_bins"].items():
+            wide_bins[fine] = wide_bins.get(fine, 0) + count
+    check(wide_bins == {fine: 1 for fine in wide}, f"{label}: wide launches {launches}")
+    print(f"{label}: fastParityDensities {par_s:.2f} s (one call, fresh MCSamples); pairs per fine grid "
+          f"{json.dumps({f: len(m) for f, m in pair_fine.items()})}; launches {json.dumps(launches)}; stages (s): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in mc.parity_profile.items()))
+    # the groups' rows as fastParityDensities bins them (the reference _binSamples ranges)
+    pad = np.array([(i.range_max - i.range_min) * 0.1 for i in infos])
+    binmin = np.array([min(i.param_min, i.range_min) for i in infos]) - np.where([i.has_limits_bot for i in infos], 0, pad)
+    binmax = np.array([max(i.param_max, i.range_max) for i in infos]) + np.where([i.has_limits_top for i in infos], 0, pad)
+    st = mc._parity_chain()
+    check(st["hist_weights"].dtype == torch.uint8, f"{label}: integer weights go to the wide kernels as uint8")
+    for fine in sorted(wide, reverse=True):
+        members = pair_fine[fine]
+        params_in = sorted({c for a, b, _ in members for c in (a, b)})
+        local = {c: i for i, c in enumerate(params_in)}
+        sel = st["samples"][:, torch.as_tensor(params_in, device="cuda")]
+        ix = pair_hist.narrow_rows(pdev.bin_indices(sel, binmin[params_in], (binmax - binmin)[params_in] / (fine - 1)),
+                                   fine)
+        pa = torch.tensor([local[a] for a, _, _ in members], dtype=torch.int32, device="cuda")
+        pb = torch.tensor([local[b] for _, b, _ in members], dtype=torch.int32, device="cuda")
+        entry = entries[0] if pdev.static_route(len(params_in), len(members)) else entries[1]
+        rows.append(wide_row(f"{entry.__name__}_wide_parity_{fine}bins", entry, ix, st["hist_weights"], pa, pb, fine,
+                             st["integer"], launches[entry.__name__]["wide_bins"].get(fine, 0), pair_hist))
     return rows
 
 
@@ -1154,6 +1318,8 @@ def main():
     print("ptxas: " + " | ".join(usage))
     for line in ptxas_lines(lib.log, "pair_hist_uint8_kernel"):
         print(f"ptxas, K1/K4/K5 uint8 kernel: {line}")
+    for line in ptxas_lines(lib.log, "pair_hist_wide"):
+        print(f"ptxas, wide kernels: {line}")
 
     t0 = time.perf_counter()
     samples, weights = make_chain(1_000_000, 30)
@@ -1163,6 +1329,7 @@ def main():
     results += parity_path(samples, weights, batched, dft_conv, pair_hist)
     results += sharded_path(samples, weights, batched, dft_conv, pair_hist, make_chain)
     results += public_entry(samples, weights, batched, dft_conv, pair_hist)
+    results += degenerate_phase(pair_hist, batched)
     for r in results:
         # a bound is a least time: no measured way of computing the function may beat it
         measured = [t for t in (r["ms"], r["plain_ms"], r["library_ms"]) if t is not None]

@@ -777,7 +777,7 @@ class MCSamples(Chains):
         * two programs otherwise: the 1D stage and one readback of its
           planning fields; the 2D stage queued with its histograms exported;
           while the card runs it, the host plans the corr-adaptive fine
-          regrids (fine > 256 bins, binned by K1's slab kernel) and the
+          regrids (fine > 256 bins, binned by K1's wide kernels) and the
           sheared f64 assists (:meth:`_fast_regrid_plan`), whose reruns
           (:meth:`_fast_regrid_exec`) reuse the 256-bin histograms; then the
           diagnostics readback, the fragile-pair regrid and the clamped
@@ -1100,7 +1100,7 @@ class MCSamples(Chains):
         through :func:`all_2d_densities` with its bandwidth override and a
         window of max(30, fine / 9) bins. ``hists`` (program B's exported
         256-bin histograms) lets fine = 256 groups skip the re-binning; past
-        256 bins the rerun bins in-program (K1's slab kernel on int16 rows)."""
+        256 bins the rerun bins in-program (K1's wide kernels on int16 rows)."""
         regrid = {}
         if not plan:
             return regrid

@@ -31,7 +31,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "pair_hist_launch": (_I, _P, _I, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _P, _P),
+    # pa, pb, K, host (pinned, 2 K int32), event
+    "pair_hist_readback": (_I, _P, _P, _I, _P, _P, _P),
+    # ix, index bytes, P, w, weight bytes, pa, pb, n, K, nbins, route, rows, chunks, part, split slots,
+    # integer_weights, out, workspace, entries, split
+    "pair_hist_wide_launch": (
+        _I, _P, _I, _I, _P, _I, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, ctypes.c_longlong, ctypes.c_longlong,
+        _I, _P, _P, _P, _P, _P,
+    ),
     # ix, P, w, weight bytes, pa, pb, inv, slots, n, K, nbins, n_split, integer_weights, out
     "pair_hist_uint8_launch": (_I, _P, _I, _P, _I, _P, _P, _P, _I, ctypes.c_longlong, _I, _I, _I, _I, _P, _P),
     # kernels, K, m, Fr, Fi, scratch T (re, im, ld), spectra (re, im), P

@@ -924,7 +924,7 @@ def all_2d_densities(
 
     ``int8_weights``: every weight is an integer (the histogram kernel then
     accumulates exactly in int32). The bin indices go to K1 as uint8 rows
-    up to 256 bins and as int16 rows past that (its slab kernel; at most
+    up to 256 bins and as int16 rows past that (its wide kernels; at most
     ``pair_hist.MAX_BINS`` on the card). ``enable_shear``: bool, or the pair
     positions that may shear (host pre-sniffed, :func:`_sniff_shear`).
     Hooks for stage isolation: ``hists_in`` (K, fine, fine) replaces the
@@ -972,11 +972,11 @@ def all_2d_densities(
         hists = _tensor(hists_in, device, dtype)
     else:
         with _stage("2d:histograms"):
-            # uint8 rows up to 256 bins (K1's uint8 kernel, which also takes
-            # integer weights as uint8); int16 past that (its slab kernel)
+            # uint8 rows up to 256 bins (K1's uint8 kernel), int16 past that
+            # (its wide kernels); both take integer weights as uint8
             ix_all = narrow_rows(_fine_indices(cols, binmin, fine_width, fine_bins), fine_bins)
             w_hist = weights.to(torch.float32)
-            if int8_weights and ix_all.dtype == torch.uint8:
+            if int8_weights:
                 w_hist = narrow_weights(w_hist)
             hists = pair_histograms(
                 ix_all, w_hist, pa.to(torch.int32), pb.to(torch.int32), integer_weights=int8_weights, nbins=fine_bins

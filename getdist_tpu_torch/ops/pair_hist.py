@@ -29,22 +29,35 @@ own launch counter.
   :func:`grouped_work_list`: its padding slots are never scanned, and the
   TPU's grouping (one weighted b one-hot per step shared by 8 pairs on the
   MXU) would save only the b reads here (``PERF.md``).
-* Rows that are not uint8 (int16 / int32: parity's fine grids past 256
-  bins, or rows that a caller cannot narrow) take the slab kernel, with f32
-  weights: one block per slab of R rows (R * nbins * 4 bytes <= 128 KB) and
-  chunk of samples, flushed with global atomics into a zeroed output.
+* Rows that are not uint8 (int16 / int32: the fine grids past 256 bins of
+  the public entry's regrids and of parity mode, or rows that a caller
+  cannot narrow) take the wide kernels, by one of two routes that
+  :func:`wide_plan` picks by shape. "bucket": a counting pass, a plan, a
+  scatter pass that writes each sample once as a 16-bit in-slab key and its
+  weight into its slab's segment, and one owner block per slab of R rows
+  (R * nbins * 4 bytes <= 232,000 of shared memory) that bins its segment
+  and writes its rows as f32; long segments split over several blocks,
+  whose last writes the rows. "direct": one global atomic per sample into
+  a zeroed accumulator, for few pair samples. Integer
+  weights go in as uint8 where the caller narrows them. The JAX package
+  bins these grids with XLA one-hot matmuls
+  (``getdist_tpu/ops/batched.py:_pair_hist_256(..., nbins=fine)``), not a
+  Pallas kernel.
 
 Convention (``getdist_tpu/ops/batched.py:_pair_hist_256``): ``out[k, b, a]``
 sums the weights of samples with ``ix[pair_b[k]] == b`` and
 ``ix[pair_a[k]] == a`` (rows = b, cols = a); samples with an index outside
 ``[0, nbins)`` are dropped. A narrowing of rows never wraps such an index
 into range (:func:`narrow_rows` keeps a row that holds one wider, and the
-slab kernel drops it). No padding of N is needed.
+wide kernels drop it). No padding of N is needed.
 """
 
 from __future__ import annotations
 
+import functools
+import threading
 from collections import defaultdict
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -64,13 +77,19 @@ __all__ = [
     "pair_histograms_grouped",
     "pair_histograms_grouped_plain",
     "pair_histograms_plain",
+    "wide_plan",
 ]
 
 NBINS = 256
 MAX_BINS = 1024
 GROUP = 8  # K5's pairs per group (the TPU kernel's group width)
-_SLAB_BYTES = 128 * 1024
 SPLIT_MIN_SAMPLES = 1 << 16  # least samples per chunk on the split route
+TILE_WORDS = 58000  # a wide slab's int32 / f32 words (csrc/pair_hist.cu kTileWords)
+WIDE_MIN_CHUNK = 4096  # least samples per block of the wide scans
+WIDE_MIN_PART = 8192  # least entries per bin block of the bucket route
+WIDE_SLABS = 12  # slabs per pair histogram on the bucket route (fewer where a slab's tile would not fit)
+DIRECT_MAX_SAMPLES = 1 << 21  # most pair samples (K * N) of the direct route
+_WIDE_ROUTES = {"direct": 0, "bucket": 1}
 _INDEX_BYTES = {torch.uint8: 1, torch.int16: 2, torch.int32: 4}
 
 
@@ -102,13 +121,38 @@ def split_plan(k, n, sms):
     return max(1, min(-(-sms // (2 * k)), n // SPLIT_MIN_SAMPLES))
 
 
+class WidePlan(NamedTuple):
+    route: str  # "bucket" or "direct"
+    rows: int  # R, histogram rows per slab
+    slabs: int  # S = ceil(nbins / R)
+    chunks: int  # sample chunks per pair of the count, scatter and direct kernels
+    part: int  # most entries per block of the bucket route's bin kernel
+    split_slots: int  # accumulator slabs: the most slabs that can hold more than `part` entries
+
+
+@functools.lru_cache(maxsize=256)
+def wide_plan(k, n, nbins, sms):
+    """The wide kernels' launch for K pairs of N samples at ``nbins`` on a
+    card of ``sms`` multiprocessors. The direct route for at most
+    :data:`DIRECT_MAX_SAMPLES` pair samples (K * N), else the bucket route:
+    about :data:`WIDE_SLABS` slabs of at most :data:`TILE_WORDS` words, about
+    four scan blocks per multiprocessor, and bin blocks of at least
+    :data:`WIDE_MIN_PART` entries, about two per multiprocessor's share of
+    the K * N entries."""
+    rows = max(1, min(TILE_WORDS // nbins, -(-nbins // WIDE_SLABS)))
+    slabs = -(-nbins // rows)
+    chunks = max(1, min(-(-4 * sms // k), -(-n // WIDE_MIN_CHUNK)))
+    part = max(WIDE_MIN_PART, 2 * -(-k * n // sms))
+    route = "direct" if k * n <= DIRECT_MAX_SAMPLES else "bucket"
+    return WidePlan(route, rows, slabs, chunks, part, min(k * slabs, k * n // part))
+
+
 def _check_rows(ix, weights, pair_a, pair_b, nbins):
     """Check what the kernels take; (P, N, K)."""
     _cuda.require_cuda(ix, dtype=ix.dtype)
     if ix.dtype not in _INDEX_BYTES or (ix.dtype == torch.uint8 and nbins > 256):
         raise TypeError(f"index rows must be uint8 (at most 256 bins), int16 or int32, got {ix.dtype} at {nbins} bins")
-    uint8_weights = weights.dtype == torch.uint8 and ix.dtype == torch.uint8
-    _cuda.require_cuda(weights, dtype=torch.uint8 if uint8_weights else torch.float32)
+    _cuda.require_cuda(weights, dtype=torch.uint8 if weights.dtype == torch.uint8 else torch.float32)
     _cuda.require_cuda(pair_a, pair_b, dtype=torch.int32)
     if ix.dim() != 2 or weights.shape != (ix.shape[1],) or pair_a.dim() != 1 or pair_a.shape != pair_b.shape:
         raise ValueError(f"bad shapes: ix {tuple(ix.shape)}, weights {tuple(weights.shape)}, pairs {tuple(pair_a.shape)}")
@@ -122,12 +166,13 @@ def _check_rows(ix, weights, pair_a, pair_b, nbins):
 
 
 def narrow_weights(weights):
-    """Integer weights for the uint8 kernel: a uint8 copy when every rounded
-    weight lies in [0, 255] (the values the kernel would take from f32: it
-    rounds as ``torch.round`` does), else ``weights`` itself. The kernel
-    reads uint8 weights at a quarter of the f32 stream, which is 4 of the 6
-    bytes it reads a sample. One readback; for callers that know their
-    weights are integers."""
+    """Integer weights for the kernels: a uint8 copy when every rounded
+    weight lies in [0, 255] (the values the kernels would take from f32:
+    they round as ``torch.round`` does), else ``weights`` itself. The
+    uint8 kernel reads uint8 weights at a quarter of the f32 stream, which
+    is 4 of the 6 bytes it reads a sample; the wide kernels' bucket route
+    stores each sample in 4 bytes instead of 8. One readback; for callers
+    that know their weights are integers."""
     lo, hi = torch.stack(list(torch.aminmax(weights))).tolist()
     if -0.5 <= lo and hi < 255.5:
         return torch.round(weights).to(torch.uint8)
@@ -139,7 +184,7 @@ def narrow_rows(ix, nbins):
     value: uint8 at most 256 bins, else int16, else int32 (one readback,
     none for uint8 rows). A narrowing never wraps an index outside
     ``[0, nbins)`` into range: a row that holds one at 256 bins stays int16,
-    and the slab kernel drops the index."""
+    and the wide kernels drop the index."""
     if ix.dtype == torch.uint8 and nbins <= 256:
         return ix.contiguous()
     lo, hi = torch.stack(list(torch.aminmax(ix))).tolist() if ix.numel() else (0, 0)
@@ -167,6 +212,27 @@ def _launch_then_check(checks, launch):
     return host.tolist(), out
 
 
+_local = threading.local()
+
+
+def _pair_readback(device, k):
+    """This thread's pinned host buffer (of at least 2 K int32, and its numpy
+    view) and event for the pair indices' readback on ``device``."""
+    cache = _local.__dict__.setdefault("readback", {})
+    entry = cache.get(device.index)
+    if entry is None or entry[0].numel() < 2 * k:
+        host = torch.empty(max(2 * k, 1024), dtype=torch.int32, pin_memory=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(device))  # creates the event
+        entry = cache[device.index] = (host, host.numpy(), event)
+    return entry
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _launch_uint8(ix, weights, pair_a, pair_b, integer_weights, nbins, inv_perm=None):
     """Launch the uint8 kernel of ``csrc/pair_hist.cu`` on checked uint8
     rows; (K, nbins, nbins) f32. uint8 weights are integer weights. With
@@ -177,7 +243,7 @@ def _launch_uint8(ix, weights, pair_a, pair_b, integer_weights, nbins, inv_perm=
     integer = bool(integer_weights) or weights.dtype == torch.uint8
     if weights.data_ptr() % 16:
         weights = weights.clone()  # the kernel reads the weights as 16-byte vectors
-    n_split = split_plan(k, n, torch.cuda.get_device_properties(ix.device).multi_processor_count)
+    n_split = split_plan(k, n, _sms(ix.device.index))
     if n_split == 1:
         out = torch.empty((k, nbins, nbins), dtype=torch.float32, device=ix.device)
     else:
@@ -190,46 +256,70 @@ def _launch_uint8(ix, weights, pair_a, pair_b, integer_weights, nbins, inv_perm=
     return out.to(torch.float32)
 
 
-def _launch_slab(ix, weights, pair_a, pair_b, integer_weights, nbins):
-    """Launch the slab kernel of ``csrc/pair_hist.cu`` on checked rows and
-    in-range pairs; (K, nbins, nbins) f32."""
-    n = ix.shape[1]
+def _launch_wide(ix, weights, pair_a, pair_b, integer_weights, nbins):
+    """Launch the wide kernels of ``csrc/pair_hist.cu`` on checked int16 /
+    int32 rows (pair indices are clamped in the kernels); (K, nbins, nbins)
+    f32 and the route taken. uint8 weights are integer weights."""
+    p, n = ix.shape
     k = pair_a.shape[0]
-    acc = torch.int32 if integer_weights else torch.float32
-    out = torch.zeros((k, nbins, nbins), dtype=acc, device=ix.device)
-    rows = min(nbins, _SLAB_BYTES // (4 * nbins))
-    slabs = -(-nbins // rows)
-    # enough (chunk, slab, pair) blocks for ~4 blocks per SM; a block holds
-    # up to 128 KB of shared memory, so one block runs per SM at a time
-    sms = torch.cuda.get_device_properties(ix.device).multi_processor_count
-    n_chunks = max(1, min(-(-4 * sms // (slabs * k)), -(-n // 65536)))
+    integer = bool(integer_weights) or weights.dtype == torch.uint8
+    if weights.data_ptr() % 16:
+        weights = weights.clone()  # the kernels read the weights as 16-byte vectors
+    plan = wide_plan(k, n, nbins, _sms(ix.device.index))
+    out = torch.empty((k, nbins, nbins), dtype=torch.float32, device=ix.device)
+    pointers = (0, 0, 0)
+    if plan.route == "bucket":
+        # one buffer: the workspace, the entries (4 bytes with uint8 weights,
+        # else 8) and the split slabs' accumulators, each 16-byte aligned
+        ks = k * plan.slabs
+        sizes = (8 * ks * (plan.chunks + 1) + 4 * (4 * ks + 2), k * n * (4 if weights.dtype == torch.uint8 else 8),
+                 4 * plan.split_slots * plan.rows * nbins)
+        offsets = [0]
+        for size in sizes:
+            offsets.append(offsets[-1] + -(-size // 16) * 16)
+        scratch = torch.empty(offsets[-1], dtype=torch.uint8, device=ix.device)
+        pointers = tuple(scratch.data_ptr() + off for off in offsets[:3])
     _cuda.call(
-        "pair_hist_launch", ix.device, ix.data_ptr(), _INDEX_BYTES[ix.dtype], weights.data_ptr(), pair_a.data_ptr(),
-        pair_b.data_ptr(), n, k, nbins, rows, n_chunks, int(bool(integer_weights)), out.data_ptr(),
+        "pair_hist_wide_launch", ix.device, ix.data_ptr(), _INDEX_BYTES[ix.dtype], p, weights.data_ptr(),
+        weights.element_size(), pair_a.data_ptr(), pair_b.data_ptr(), n, k, nbins, _WIDE_ROUTES[plan.route],
+        plan.rows, plan.chunks, plan.part, plan.split_slots, int(integer), out.data_ptr(), *pointers,
     )
-    return out.to(torch.float32)
+    return out, plan.route
 
 
 def _launch(ix, weights, pair_a, pair_b, integer_weights, nbins):
     """Check the arguments and launch ``csrc/pair_hist.cu``: the uint8 kernel
-    for uint8 rows (pair indices checked after the launch: it clamps them),
-    else the slab kernel (checked before it). Returns (out, the kernel
-    launched: "uint8", "slab" or None)."""
+    for uint8 rows, else the wide kernels. Returns (out, the route taken:
+    "uint8", "bucket", "direct" or None)."""
     p, n, k = _check_rows(ix, weights, pair_a, pair_b, nbins)
     if k == 0 or n == 0:
         return torch.zeros((k, nbins, nbins), dtype=torch.float32, device=ix.device), None
-    checks = torch.aminmax(torch.cat([pair_a, pair_b]))
-    if ix.dtype != torch.uint8:
-        (lo, hi), out = torch.stack(checks).tolist(), None
-    else:
-        (lo, hi), out = _launch_then_check(
-            checks, lambda: _launch_uint8(ix, weights, pair_a, pair_b, integer_weights, nbins)
-        )
+    # the pair indices' readback is queued before the launch and waited for
+    # after it (the kernels clamp them)
+    host, view, event = _pair_readback(ix.device, k)
+    _cuda.call("pair_hist_readback", ix.device, pair_a.data_ptr(), pair_b.data_ptr(), k, host.data_ptr(),
+               event.cuda_event)
+    try:
+        if ix.dtype == torch.uint8:
+            out, route = _launch_uint8(ix, weights, pair_a, pair_b, integer_weights, nbins), "uint8"
+        else:
+            out, route = _launch_wide(ix, weights, pair_a, pair_b, integer_weights, nbins)
+    finally:
+        event.synchronize()
+    lo, hi = int(view[: 2 * k].min()), int(view[: 2 * k].max())
     if lo < 0 or hi >= p:
-        raise ValueError(f"pair indices must lie in [0, {p}), got [{int(lo)}, {int(hi)}]")
-    if out is not None:
-        return out, "uint8"
-    return _launch_slab(ix, weights, pair_a, pair_b, integer_weights, nbins), "slab"
+        raise ValueError(f"pair indices must lie in [0, {p}), got [{lo}, {hi}]")
+    return out, route
+
+
+def _count(entry, route, nbins):
+    """An entry's launch counters: ``launches`` (every launch),
+    ``wide_launches`` (the wide kernels') and ``wide_bins`` (the wide
+    kernels' by bin count)."""
+    entry.launches += int(route is not None)
+    if route in ("bucket", "direct"):
+        entry.wide_launches += 1
+        entry.wide_bins[nbins] = entry.wide_bins.get(nbins, 0) + 1
 
 
 def pair_histograms(ix, weights, pair_a, pair_b, integer_weights=False, nbins=NBINS):
@@ -237,20 +327,20 @@ def pair_histograms(ix, weights, pair_a, pair_b, integer_weights=False, nbins=NB
     all-pairs list).
 
     ix: (P, N) fine-bin indices, uint8 (at most 256 bins), int16 or int32;
-    weights: (N,) f32, or uint8 (integer weights) with uint8 rows; pair_a,
+    weights: (N,) f32, or uint8 (integer weights); pair_a,
     pair_b: (K,) int32 parameter indices. With ``integer_weights`` (every
     weight an integer and the total below 2^31) the CUDA kernel accumulates
     in int32 and the result is bit-exact; otherwise it accumulates f32
     weights with atomics. CPU tensors take :func:`pair_histograms_plain`;
     CUDA tensors launch ``csrc/pair_hist.cu``: the uint8 kernel for uint8
-    rows, the slab kernel for int16/int32 rows. ``launches`` counts both,
-    ``slab_launches`` the slab kernel's.
+    rows, the wide kernels (:func:`wide_plan`) for int16/int32 rows.
+    ``launches`` counts both, ``wide_launches`` the wide kernels' and
+    ``wide_bins`` theirs by bin count.
     """
     if ix.device.type == "cpu":
         return pair_histograms_plain(ix, weights, pair_a, pair_b, integer_weights, nbins)
-    out, kernel = _launch(ix, weights, pair_a, pair_b, integer_weights, nbins)
-    pair_histograms.launches += int(kernel is not None)
-    pair_histograms.slab_launches += int(kernel == "slab")
+    out, route = _launch(ix, weights, pair_a, pair_b, integer_weights, nbins)
+    _count(pair_histograms, route, nbins)
     return out
 
 
@@ -260,8 +350,8 @@ def pair_histograms_dynamic(ix, weights, pair_a, pair_b, integer_weights=False, 
     :func:`pair_histograms`."""
     if ix.device.type == "cpu":
         return pair_histograms_plain(ix, weights, pair_a, pair_b, integer_weights, nbins)
-    out, kernel = _launch(ix, weights, pair_a, pair_b, integer_weights, nbins)
-    pair_histograms_dynamic.launches += int(kernel is not None)
+    out, route = _launch(ix, weights, pair_a, pair_b, integer_weights, nbins)
+    _count(pair_histograms_dynamic, route, nbins)
     return out
 
 
@@ -358,6 +448,9 @@ def pair_histograms_grouped(ix, weights, grp_a, grp_b, inv_perm, int8_weights=Fa
 
 
 pair_histograms.launches = 0
-pair_histograms.slab_launches = 0
+pair_histograms.wide_launches = 0
+pair_histograms.wide_bins = {}
 pair_histograms_dynamic.launches = 0
+pair_histograms_dynamic.wide_launches = 0
+pair_histograms_dynamic.wide_bins = {}
 pair_histograms_grouped.launches = 0

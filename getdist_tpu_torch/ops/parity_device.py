@@ -104,16 +104,13 @@ def group_pair_hists(ix, pa, pb, weights, fine, integer_weights):
     the ``_make2Dhist`` convention), exact for integer weights with bin sums
     below 2^24. ``ix``: (R, N) int32 index rows, narrowed by
     :func:`narrow_rows`; ``pa``/``pb``: (K,) row positions (host arrays);
-    ``weights``: (N,) f32, or uint8 integer weights (widened to f32 for
-    rows that stay wider than uint8). Pair lists whose TPU tile plan would
-    not pad take K1's entry, the others (the sheared lead/residual stacks)
-    K4's."""
+    ``weights``: (N,) f32, or uint8 integer weights (which every kernel
+    takes). Pair lists whose TPU tile plan would not pad take K1's entry,
+    the others (the sheared lead/residual stacks) K4's."""
     device = ix.device
     pa = torch.as_tensor(np.asarray(pa, np.int32), device=device)
     pb = torch.as_tensor(np.asarray(pb, np.int32), device=device)
     rows = narrow_rows(ix, fine)
-    if rows.dtype != torch.uint8:
-        weights = weights.to(torch.float32)
     entry = pair_histograms if static_route(ix.shape[0], pa.shape[0]) else pair_histograms_dynamic
     return entry(rows, weights, pa, pb, integer_weights=integer_weights, nbins=fine)
 

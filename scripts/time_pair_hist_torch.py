@@ -1,9 +1,11 @@
 #!/usr/bin/env python
-"""Time the port's pair-histogram kernels K1, K4 and K5 on one CUDA card.
+"""Time the port's pair-histogram kernels K1, K4 and K5, and the wide
+kernels past 256 bins, on one CUDA card.
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``:
 
-    python3 scripts/time_pair_hist_torch.py
+    python3 scripts/time_pair_hist_torch.py          # all of it
+    python3 scripts/time_pair_hist_torch.py --wide   # the wide kernels only
 
 Two stacks of uint8 index rows from ``bench.make_chain(1_000_000, 30)``:
 
@@ -19,26 +21,43 @@ times (mean of 10 calls after a warm-up, taken in two turns of opposite
 order) of the wrappers: K1 and K5 in each weight mode; K4 in each weight
 mode, at N = 1,000,003 (columns off 16-byte boundaries), with its pairs
 shuffled, and with its samples split over 2 and 4 chunks a pair (the split
-route's global-atomic flush); the slab kernel on K4's pairs (K4's kernel
-before it moved to the uint8 kernel). Then the uint8 kernel alone
+route's global-atomic flush). Then the uint8 kernel alone
 (launches on prepared buffers, without the wrapper's checks) on both
 stacks, the device time per K4 call under torch.profiler by kernel, and
 the ``torch.bincount`` yardstick of ``chip_smoke.py`` beside each stack's
 bound. Prints the pair-histogram kernels' ptxas lines of a fresh build.
-Imports nothing of JAX.
+
+The wide kernels (int16 rows past 256 bins) on the shapes their paths
+give them: the three fine groups of ``chip_smoke.degenerate_chain(1M)``'s
+blocks and ``chip_smoke.hard_chain(1M)``'s 0.99 pair, binned over each
+column's range widened by a tenth on both sides (parity's convention), with
+uint8 integer weights as the paths pass them. Each is checked bit-exact
+against the plain version and timed (CUDA events, mean of 10 calls, two
+turns of opposite order) by the route rule, by each design alone (the
+direct and bucket routes of ``pair_hist.wide_plan``) and with f32 weights,
+beside ``torch.bincount`` and the bound; then each design's device time per
+call by kernel under torch.profiler, also for the bucket route with the most
+rows a slab's tile holds and with half and twice the rule's entries per bin
+block, and the host time per call of the rule's route. Copied with ``chip_smoke.py`` into an
+older tree whose ``pair_hist`` has no ``wide_plan``, ``--wide`` times that
+tree's kernel for int16 rows (f32 weights) on the same rows instead, so that
+two trees compare in one call. Imports nothing of JAX.
 """
 
 import json
 import os
 import subprocess
 import sys
+import time
 
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 from bench import make_chain  # noqa: E402
-from chip_smoke import cuda_ms, hist_bound, library_hist_ms, ptxas_lines  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    DEGENERATE_BLOCKS, cuda_ms, degenerate_chain, hard_chain, hist_bound, library_hist_ms, ptxas_lines,
+)
 from getdist_tpu_torch.mcsamples import MCSamples  # noqa: E402
 from getdist_tpu_torch.ops import _cuda, batched, pair_hist  # noqa: E402
 
@@ -115,6 +134,122 @@ def in_turns(runs):
     return times
 
 
+def wide_shapes():
+    """{name: (int16 rows (P, N), nbins, f32 weights)} of the wide kernels' shapes,
+    the rows at each group's fine grid (see the module's docstring)."""
+    import numpy as np
+
+    samples, weights = degenerate_chain(1_000_000)
+    hard, hard_w = hard_chain(1_000_000)
+    shapes, start = {}, 0
+    for (size, _), (label, fine) in zip(DEGENERATE_BLOCKS, (("A", 960), ("B", 576), ("C", 384))):
+        shapes[f"{label}: degenerate block, {fine} bins x {size * (size - 1) // 2} pairs"] = (
+            samples[:, start : start + size], fine, weights)
+        start += size
+    shapes["hard chain's 0.99 pair, 960 bins x 1 pair"] = (hard[:, 4:6], 960, hard_w)
+    rows = {}
+    for name, (cols, fine, w) in shapes.items():
+        lo, hi = cols.min(0), cols.max(0)
+        lo, hi = lo - 0.1 * (hi - lo), hi + 0.1 * (hi - lo)
+        ix = ((cols - lo) / ((hi - lo) / (fine - 1)) + 0.5).astype(np.int16).T.copy()
+        rows[name] = (torch.from_numpy(ix).cuda(), fine, torch.from_numpy(w.astype(np.float32)).cuda())
+    return rows
+
+
+def device_by_kernel(fn, reps=10):
+    """{kernel: mean device us per call} under torch.profiler, with the total."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.split("pair_hist_wide_")[-1].split("(")[0].split("<")[0][:40]
+            per[name] = per.get(name, 0.0) + e.time_range.elapsed_us() / reps
+    per = {k: round(v, 1) for k, v in sorted(per.items(), key=lambda kv: -kv[1])}
+    per["total"] = round(sum(per.values()), 1)
+    return per
+
+
+def time_wide(card):
+    """The wide kernels (or an older tree's kernel for int16 rows) on
+    :func:`wide_shapes`; True when every route is bit-exact."""
+    older = not hasattr(pair_hist, "wide_plan")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ok = True
+    for name, (ix, fine, w) in wide_shapes().items():
+        p = ix.shape[0]
+        pairs = [(i, j) for i in range(p) for j in range(i + 1, p)]
+        pa = torch.tensor([a for a, _ in pairs], dtype=torch.int32, device="cuda")
+        pb = torch.tensor([b for _, b in pairs], dtype=torch.int32, device="cuda")
+        k, n = len(pairs), ix.shape[1]
+        w8 = pair_hist.narrow_weights(w)
+        ref = pair_hist.pair_histograms_plain(ix, w, pa, pb, integer_weights=True, nbins=fine)
+
+        def entry(weights, **forced):
+            def run():
+                if not forced:
+                    return pair_hist.pair_histograms(ix, weights, pa, pb, integer_weights=True, nbins=fine)
+                plan = pair_hist.wide_plan
+                pair_hist.wide_plan = lambda *args: plan(*args)._replace(**forced)
+                try:
+                    return pair_hist.pair_histograms(ix, weights, pa, pb, integer_weights=True, nbins=fine)
+                finally:
+                    pair_hist.wide_plan = plan
+
+            return run
+
+        if older:
+            runs = {"older tree's kernel, f32 weights": entry(w)}
+        else:
+            runs = {
+                "rule, uint8 weights": entry(w8),
+                "direct alone, uint8 weights": entry(w8, route="direct"),
+                "bucket alone, uint8 weights": entry(w8, route="bucket"),
+                "rule, f32 weights": entry(w),
+            }
+        checks = {key: torch.equal(fn(), ref) for key, fn in runs.items()}
+        ok = ok and all(checks.values())
+        times = in_turns(runs)
+        times["library bincount"] = [round(library_hist_ms(ix, w, pa, pb, fine, 10), 4)]
+        times["plain"] = [round(cuda_ms(lambda: pair_hist.pair_histograms_plain(ix, w, pa, pb, True, fine), 2), 4)]
+        bound, by = hist_bound(ix, w8, k, fine)
+        route = "" if older else f", rule's plan {pair_hist.wide_plan(k, n, fine, sms)}"
+        print(f"{card}: wide, {name} (int16 rows x {n}{route}); bit-exact {json.dumps(checks)}; ms per call: "
+              f"{json.dumps({key: [round(x, 4) for x in v] for key, v in times.items()})}; bound {bound:.4f} ms ({by}, "
+              "uint8 weights)")
+        designs = {key: fn for key, fn in runs.items() if "alone" in key or older}
+        if not older:
+            # the bucket route beside the rule's choices of rows and part: the most rows a
+            # slab's tile holds, and half and twice the entries a bin block takes
+            plan = pair_hist.wide_plan(k, n, fine, sms)
+            rows = min(fine, pair_hist.TILE_WORDS // fine)
+            slabs = -(-fine // rows)
+            designs[f"bucket, {rows} rows a slab"] = entry(
+                w8, route="bucket", rows=rows, slabs=slabs, split_slots=min(k * slabs, k * n // plan.part))
+            for scale in (0.5, 2):
+                part = int(plan.part * scale)
+                designs[f"bucket, part {part}"] = entry(
+                    w8, route="bucket", part=part, split_slots=min(k * plan.slabs, k * n // part))
+        for key, fn in designs.items():
+            ok = ok and torch.equal(fn(), ref)
+            print(f"  device us per call by kernel, {key}: {json.dumps(device_by_kernel(fn))}")
+        fn = runs["older tree's kernel, f32 weights" if older else "rule, uint8 weights"]
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            fn()
+        print(f"  host us per call (100 calls, each reading its pair indices back): "
+              f"{(time.perf_counter() - t0) * 1e4:.1f}")
+    return ok
+
+
 def main():
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -126,6 +261,8 @@ def main():
     print(f"build {lib.build_seconds:.1f} s")
     for line in ptxas_lines(lib.log, "pair_hist"):
         print(f"ptxas: {line}")
+    if "--wide" in sys.argv[1:]:
+        return 0 if time_wide(card) else 1
 
     samples, weights = make_chain(1_000_000, 30)
     s_dev, w_dev = batched.prepare_chain(samples, weights, "cuda")
@@ -169,7 +306,6 @@ def main():
         "K4 split 2, uint8 weights": forced_split(2, lambda: pair_hist.pair_histograms_dynamic(sx, w8, sa, sb, True)),
         "K4 split 4, uint8 weights": forced_split(4, lambda: pair_hist.pair_histograms_dynamic(sx, w8, sa, sb, True)),
         "K4 uint8 kernel alone": kernel_alone(sx, w8, sa, sb),
-        "slab kernel, K4's pairs, f32 integer weights": lambda: pair_hist._launch_slab(sx, w_dev, sa, sb, True, 256),
     }
     for name, fn in k4.items():
         checks[name] = torch.equal(fn(), ref4)
@@ -205,7 +341,8 @@ def main():
     bound4, by4 = hist_bound(sx, w8, sa.shape[0], 256)
     print(f"{card}: ms per call, two turns each: {json.dumps(times)}")
     print(f"bounds: K1's stack {bound1:.4f} ms ({by1}), K4's stack {bound4:.4f} ms ({by4}), uint8 weights")
-    return 0 if all(checks.values()) else 1
+    wide_ok = time_wide(card)
+    return 0 if all(checks.values()) and wide_ok else 1
 
 
 if __name__ == "__main__":

@@ -6,6 +6,8 @@ imports no JAX, so it runs on a machine that has none:
     python3 -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -152,15 +154,16 @@ def test_uint8_kernel_checks_indices_after_its_launch(cuda):
 
 
 def test_pair_histograms_wide_rows_take_the_slab_kernel(cuda):
-    """K1's entry on int16 rows past 256 bins (parity's wide fine grids)."""
+    """K1's entry on int16 rows past 256 bins (parity's wide fine grids, with
+    indices past the grid, which are dropped) takes the wide kernels."""
     p, n, nbins = 5, 50_001, 512
     ix = np.clip(np.random.default_rng(17).standard_normal((p, n)) * 90 + 256, 0, 600).astype(np.int16)
     ix = torch.from_numpy(ix).to(cuda)
     w = torch.from_numpy(np.random.default_rng(18).integers(1, 5, n).astype(np.float32)).to(cuda)
     pa, pb = _pairs(p, cuda)
-    before = pair_hist.pair_histograms.launches
+    before = (pair_hist.pair_histograms.launches, pair_hist.pair_histograms.wide_launches)
     got = pair_hist.pair_histograms(ix, w, pa, pb, integer_weights=True, nbins=nbins)
-    assert pair_hist.pair_histograms.launches == before + 1
+    assert (pair_hist.pair_histograms.launches, pair_hist.pair_histograms.wide_launches) == (before[0] + 1, before[1] + 1)
     torch.testing.assert_close(got, pair_hist.pair_histograms_plain(ix, w, pa, pb, True, nbins), rtol=0, atol=0)
 
 
@@ -304,20 +307,24 @@ def test_dynamic_pairs_uint8_rows_200_bins(cuda, k):
     assert float(got.double().sum()) < float(w.double().sum()) * k
 
 
-def test_dynamic_pairs_int16_rows_drop_out_of_range(cuda):
+def test_dynamic_pairs_int16_rows_drop_out_of_range(cuda, monkeypatch):
     """int16 rows at 256 bins (rows that hold indices outside [0, 256), which
-    no narrowing to uint8 may wrap into range) take the slab kernel, which
-    drops those indices."""
+    no narrowing to uint8 may wrap into range) take the wide kernels, which
+    drop those indices: both routes, f32 and uint8 integer weights."""
     n = 200_003
     ix, w, pa, pb = _k4_stack(9, n, seed=50, device=cuda)
     wide = ix.to(torch.int16) * 2 - 20  # -20 .. 490
     assert pair_hist.narrow_rows(wide, 256).dtype == torch.int16
-    before = pair_hist.pair_histograms_dynamic.launches
-    got = pair_hist.pair_histograms_dynamic(wide, w, pa, pb, integer_weights=True)
-    assert pair_hist.pair_histograms_dynamic.launches == before + 1
     want = pair_hist.pair_histograms_plain(wide, w, pa, pb, integer_weights=True)
-    torch.testing.assert_close(got, want, rtol=0, atol=0)
-    assert float(got.double().sum()) < float(w.double().sum()) * pa.shape[0]
+    assert float(want.double().sum()) < float(w.double().sum()) * pa.shape[0]
+    for route in ("direct", "bucket"):
+        for w_in in (w, pair_hist.narrow_weights(w)):
+            with _forced_route(monkeypatch, route):
+                before = (pair_hist.pair_histograms_dynamic.launches, pair_hist.pair_histograms_dynamic.wide_launches)
+                got = pair_hist.pair_histograms_dynamic(wide, w_in, pa, pb, integer_weights=True)
+            after = (pair_hist.pair_histograms_dynamic.launches, pair_hist.pair_histograms_dynamic.wide_launches)
+            assert after == (before[0] + 1, before[1] + 1)
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def test_dynamic_pairs_checked_after_the_launch(cuda):
@@ -330,6 +337,94 @@ def test_dynamic_pairs_checked_after_the_launch(cuda):
         pair_hist.pair_histograms_dynamic(ix, w, pa, bad, integer_weights=True)
     want = pair_hist.pair_histograms_plain(ix, w, pa, pb, integer_weights=True)
     torch.testing.assert_close(pair_hist.pair_histograms_dynamic(ix, w, pa, pb, True), want, rtol=0, atol=0)
+
+
+@contextlib.contextmanager
+def _forced_route(monkeypatch, route, **fields):
+    """pair_hist.wide_plan with its route (and any other fields) forced."""
+    plan = pair_hist.wide_plan
+    with monkeypatch.context() as m:
+        m.setattr(pair_hist, "wide_plan", lambda *args: plan(*args)._replace(route=route, **fields))
+        yield
+
+
+def _wide_stack(p, n, nbins, seed, device):
+    """int16 rows of p columns correlated at 0.9 on one latent, over the
+    grid's middle, and integer weights 1..4."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    z = torch.randn(n, generator=g, device=device)
+    x = 0.95 * z + 0.31 * torch.randn((p, n), generator=g, device=device)
+    ix = (x * nbins / 10 + nbins / 2).round().clamp(0, nbins - 1).to(torch.int16)
+    return ix, torch.randint(1, 5, (n,), generator=g, device=device).to(torch.float32)
+
+
+@pytest.mark.parametrize("weights", ["uint8", "f32-integer", "f32-fractional"])
+@pytest.mark.parametrize("n", [1_000_003, 200_003])
+@pytest.mark.parametrize("k", [1, 10, 26])
+@pytest.mark.parametrize("nbins", [257, 384, 576, 960, 1024])
+def test_wide_kernels_bit_exact(cuda, monkeypatch, nbins, k, n, weights):
+    """The wide kernels against the plain version, by both routes and by the
+    route rule: K of the pairs of 2, 5 or 8 int16 columns, N odd (columns
+    off 16-byte boundaries). Integer weights (uint8, or f32 with int32
+    accumulation) bit-exact; fractional f32 weights within f32 round-off
+    (atomics add in an order that varies from run to run, the plain
+    version sums in f64 and rounds once)."""
+    p = {1: 2, 10: 5, 26: 8}[k]
+    ix, w = _wide_stack(p, n, nbins, seed=nbins + k, device=cuda)
+    pa, pb = (x[:k].contiguous() for x in _pairs(p, cuda))
+    integer = weights != "f32-fractional"
+    w_in = {"uint8": pair_hist.narrow_weights(w), "f32-integer": w, "f32-fractional": w * 0.37}[weights]
+    want = pair_hist.pair_histograms_plain(ix, w_in, pa, pb, integer_weights=integer, nbins=nbins)
+    atol = 0 if integer else 1e-5 * float(want.max())
+    for route in ("direct", "bucket", None):
+        if route is None:
+            got = pair_hist.pair_histograms(ix, w_in, pa, pb, integer_weights=integer, nbins=nbins)
+        else:
+            with _forced_route(monkeypatch, route):
+                got = pair_hist.pair_histograms(ix, w_in, pa, pb, integer_weights=integer, nbins=nbins)
+        torch.testing.assert_close(got, want, rtol=0 if integer else 1e-5, atol=atol, msg=f"route {route}")
+
+
+def test_wide_kernels_check_pairs_after_the_launch(cuda, monkeypatch):
+    """The wide kernels clamp their pair indices and the wrapper reads them
+    back after the launch: a bad pair raises on both routes, and the card
+    goes on."""
+    ix, w = _wide_stack(4, 100_003, 960, seed=3, device=cuda)
+    pa, pb = _pairs(4, cuda)
+    bad = pb.clone()
+    bad[1] = 9
+    want = pair_hist.pair_histograms_plain(ix, w, pa, pb, integer_weights=True, nbins=960)
+    for route in ("direct", "bucket"):
+        with _forced_route(monkeypatch, route):
+            with pytest.raises(ValueError, match="pair indices"):
+                pair_hist.pair_histograms(ix, w, pa, bad, integer_weights=True, nbins=960)
+            with pytest.raises(ValueError, match="pair indices"):
+                pair_hist.pair_histograms_dynamic(ix, w, pa - 1, pb, integer_weights=True, nbins=960)
+            got = pair_hist.pair_histograms(ix, w, pa, pb, integer_weights=True, nbins=960)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("weights", ["uint8", "f32-fractional"])
+def test_wide_bucket_splits_a_skewed_slab_exactly(cuda, weights):
+    """90% of the samples in one slab: the bucket route splits that slab's
+    segment over several blocks, which flush into its accumulator slab, the
+    last writing the rows; integer weights stay bit-exact."""
+    nbins, n, p = 960, 1_000_000, 4
+    ix, w = _wide_stack(p, n, nbins, seed=7, device=cuda)
+    plan = pair_hist.wide_plan(6, n, nbins, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert plan.route == "bucket" and 0.9 * n > 2 * plan.part
+    g = torch.Generator(device=cuda).manual_seed(8)
+    crowd = torch.rand(n, generator=g, device=cuda) < 0.9
+    row0 = 5 * plan.rows
+    ix[:, crowd] = (row0 + torch.randint(0, plan.rows, (p, int(crowd.sum())), generator=g, device=cuda)).to(torch.int16)
+    pa, pb = _pairs(p, cuda)
+    integer = weights == "uint8"
+    w_in = pair_hist.narrow_weights(w) if integer else w * 0.37
+    want = pair_hist.pair_histograms_plain(ix, w_in, pa, pb, integer_weights=integer, nbins=nbins)
+    got = pair_hist.pair_histograms(ix, w_in, pa, pb, integer_weights=integer, nbins=nbins)
+    assert float(want[:, row0 : row0 + plan.rows].double().sum()) >= 0.9 * float(want.double().sum())
+    tol = 0 if integer else 1e-5
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol * float(want.max()))
 
 
 @pytest.mark.parametrize("pad,k", [(768, 3), (1152, 2)])
@@ -464,7 +559,7 @@ def test_one_rank_nccl_sharded_pair_hists(cuda, tmp_path):
 @pytest.mark.parametrize("nbins", [384, 576, 960])
 def test_slab_route_at_regrid_grids_bit_exact(cuda, nbins):
     """K1's entry at the regrid reruns' corr-adaptive fine grids: rows
-    narrowed to int16 by ``narrow_rows`` take the slab kernel."""
+    narrowed to int16 by ``narrow_rows`` take the wide kernels."""
     p, n = 5, 200_003
     x = np.random.default_rng(nbins).standard_normal((p, n))
     ix = np.clip(x * nbins / 8 + nbins / 2, 0, nbins - 1).astype(np.int32)
@@ -472,9 +567,9 @@ def test_slab_route_at_regrid_grids_bit_exact(cuda, nbins):
     assert ix.dtype == torch.int16
     w = torch.from_numpy(np.random.default_rng(2).integers(1, 5, n).astype(np.float32)).to(cuda)
     pa, pb = _pairs(p, cuda)
-    before = (pair_hist.pair_histograms.launches, pair_hist.pair_histograms.slab_launches)
+    before = (pair_hist.pair_histograms.launches, pair_hist.pair_histograms.wide_launches)
     got = pair_hist.pair_histograms(ix, w, pa, pb, integer_weights=True, nbins=nbins)
-    after = (pair_hist.pair_histograms.launches, pair_hist.pair_histograms.slab_launches)
+    after = (pair_hist.pair_histograms.launches, pair_hist.pair_histograms.wide_launches)
     assert (after[0] - before[0], after[1] - before[1]) == (1, 1)
     want = pair_hist.pair_histograms_plain(ix, w, pa, pb, True, nbins)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
@@ -516,7 +611,7 @@ def test_dft_conv_f32_regrid_frames_within_1e5(cuda, case, geometry):
 def test_fast_triangle_on_card_matches_cpu(cuda):
     """The public fused entry on the card against the port on the CPU, on
     a 40k x 8 chain that takes the two-program route, a 960-bin regrid
-    (K1's slab kernel, a 1408 frame), a sheared f64 assist and, at this
+    (K1's wide kernels, a 1408 frame), a sheared f64 assist and, at this
     size, the clamped-window rescue (a 768 frame): the same regrid keys and
     grid sizes, grids within the zoo's 5e-3."""
     from chip_smoke import hard_chain
@@ -524,10 +619,10 @@ def test_fast_triangle_on_card_matches_cpu(cuda):
 
     samples, weights = hard_chain(40_000)
     kw = dict(samples=samples, weights=weights, names=[f"h{i}" for i in range(8)])
-    before = pair_hist.pair_histograms.slab_launches
+    before = pair_hist.pair_histograms.wide_launches
     mc = MCSamples(device=cuda, **kw)
     g1, g2, pairs = mc.fastTriangleDensities()
-    assert pair_hist.pair_histograms.slab_launches > before
+    assert pair_hist.pair_histograms.wide_launches > before
     c1, c2, _ = MCSamples(device="cpu", **kw).fastTriangleDensities()
     assert "program_a" in mc.fast_profile
     kinds = {group["bandwidths"] for group in mc.fast_regrid_groups}

@@ -1,10 +1,12 @@
-"""getdist_tpu_torch pair histograms (kernels K1 and K5) against the JAX package.
+"""getdist_tpu_torch pair histograms (kernels K1 and K5, and the wide
+kernels past 256 bins) against the JAX package.
 
 The port's plain versions must equal the TPU tiled and grouped kernels
-(run in interpret mode) bit for bit: integer weights, and float weights
-that bf16 holds exactly (the TPU kernels round weights to bf16). The CUDA kernel itself
-is held against the plain version by tests/test_torch_cuda.py and by
-chip_smoke.py on the card.
+(run in interpret mode) and, past 256 bins, the XLA one-hot binning bit for
+bit: integer weights, and float weights that bf16 holds exactly (the TPU
+kernels round weights to bf16). The CUDA kernels themselves are held
+against the plain version by tests/test_torch_cuda.py and by chip_smoke.py
+on the card.
 """
 
 import numpy as np
@@ -116,6 +118,35 @@ def test_plain_matches_onehot_on_ragged_n():
     np.testing.assert_array_equal(_port(ix, w, pairs, False), want)
 
 
+@pytest.mark.parametrize("nbins", [384, 576, 960])
+def test_plain_matches_onehot_at_wide_grids(nbins):
+    """The wide kernels' oracle at the regrid reruns' fine grids, on int16
+    rows, against the JAX package's XLA one-hot binning past 256 bins
+    (``_pair_hist_256(..., nbins=fine)``): bit-exact with integer weights,
+    N ragged against its block, and indices outside [0, nbins), which both
+    drop (``jax.nn.one_hot`` gives such an index an all-zero row)."""
+    p, n = 3, 2003
+    rng = np.random.default_rng(nbins)
+    ix = np.clip(rng.standard_normal((p, n)) * nbins / 6 + nbins / 2, 0, nbins - 1).astype(np.int16)
+    ix[0, :7] = -3
+    ix[1, 7:12] = nbins + 5
+    ix[2, 12:14] = nbins
+    w = rng.integers(1, 5, n).astype(np.float32)
+    pairs = np.array([(0, 1), (1, 2), (0, 2)], np.int32)
+    with jax.enable_x64(False):
+        want = np.stack([
+            np.asarray(_pair_hist_256(jnp.asarray(ix[a], jnp.int32), jnp.asarray(ix[b], jnp.int32), jnp.asarray(w),
+                                      block=512, nbins=nbins))
+            for a, b in pairs
+        ])
+    got = pair_hist.pair_histograms_plain(
+        torch.from_numpy(ix), torch.from_numpy(w), torch.from_numpy(pairs[:, 0].copy()),
+        torch.from_numpy(pairs[:, 1].copy()), integer_weights=True, nbins=nbins,
+    ).numpy()
+    assert got.shape == (3, nbins, nbins) and got.sum() < 3 * w.sum()  # dropped indices
+    np.testing.assert_array_equal(got, want)
+
+
 def test_rows_are_b_and_columns_are_a():
     ix = np.array([[3, 3], [7, 200]], np.uint8)
     w = np.array([2.0, 5.0], np.float32)
@@ -164,6 +195,34 @@ def test_grouped_wrapper_refuses_non_cuda_devices():
 )
 def test_split_plan(k, n, sms, want):
     assert pair_hist.split_plan(k, n, sms) == want
+
+
+@pytest.mark.parametrize(
+    "k,n,nbins,sms,want",
+    [
+        # the hard chain's 0.99 pair: few pair samples, the direct route
+        (1, 1_000_000, 960, 132, ("direct", 60, 16, 245, 15152)),
+        # the degenerate chain's fine groups: the bucket route, about 12
+        # slabs (16 where a 960-bin slab's tile would not fit), two bin
+        # blocks' worth of entries a multiprocessor
+        (10, 1_000_000, 960, 132, ("bucket", 60, 16, 53, 151516)),
+        (10, 1_000_000, 576, 132, ("bucket", 48, 12, 53, 151516)),
+        (6, 1_000_000, 384, 132, ("bucket", 32, 12, 88, 90910)),
+        (26, 1_000_000, 960, 132, ("bucket", 60, 16, 21, 393940)),
+        (2, 1_000_000, 1024, 132, ("direct", 56, 19, 245, 30304)),
+        (3, 1_000_000, 257, 132, ("bucket", 22, 12, 176, 45456)),
+        # wide rows at 256 bins (indices outside the grid)
+        (9, 200_003, 256, 132, ("direct", 22, 12, 49, 27274)),
+        (1, 1_000, 960, 132, ("direct", 60, 16, 1, 8192)),
+    ],
+)
+def test_wide_plan(k, n, nbins, sms, want):
+    plan = pair_hist.wide_plan(k, n, nbins, sms)
+    assert (plan.route, plan.rows, plan.slabs, plan.chunks, plan.part) == want
+    assert plan.rows * nbins <= pair_hist.TILE_WORDS and plan.slabs * plan.rows >= nbins > (plan.slabs - 1) * plan.rows
+    # a slab of more than `part` entries takes an accumulator slot
+    assert plan.split_slots == min(k * plan.slabs, k * n // plan.part)
+    assert (plan.route == "direct") == (k * n <= pair_hist.DIRECT_MAX_SAMPLES)
 
 
 @pytest.mark.parametrize("p,seed", [(11, None), (30, None), (9, 3)])
