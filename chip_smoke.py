@@ -49,7 +49,20 @@ CUDA kernels from ``getdist_tpu_torch/csrc``. Then three paths on
    bins): the public entry (cold and warm walls) and parity mode (one
    call), each with its wide-kernel launches, and a kernel row per fine
    group of each path (its rows, pairs and weights), bit-exact against
-   the plain version, beside ``torch.bincount`` and the bound.
+   the plain version, beside ``torch.bincount`` and the bound;
+6. hard limits, periodic axes and meanlikes on a 1M x 30 bounded chain
+   (``bounded_chain``: lower, upper, two-sided and periodic columns,
+   loglikes): the public entry cold and warm with meanlikes off and on
+   (launches per kernel, the idle share and stage split of one profiled
+   call, checks of its outputs: limits on the grid edges, wrap lines, like
+   grids in [0, 1]), ``triangle_densities`` with the same arguments, K1
+   with the f32 like weights (f32 atomics add in another order: each bin
+   within 1e-5 of itself plus 1e-5 of its pair's peak, the low tails within
+   1e-5 of their sum), K3 on the 316-wide periodically extended grids and
+   edge masks, and K2 and K3 at the clamped rescue's 768 frame (its
+   kernels, 256-bin grids and 508-wide edge masks), each against its plain
+   version, and the entry on the card against the port on the CPU at
+   100k x 10.
 
 K1, K4, K5 and the wide kernels are timed with the weights their paths
 pass (integer weights as uint8, ``pair_hist.narrow_weights``), each beside
@@ -133,6 +146,49 @@ def degenerate_chain(n, seed=29):
         z = rng.standard_normal(n)
         cols += [np.sqrt(c2) * z + np.sqrt(1 - c2) * rng.standard_normal(n) for _ in range(size)]
     return np.column_stack(cols), weights
+
+
+# the bounded chain's columns by kind: (lower limit at 0, upper limit at 1,
+# two-sided flat prior on [-1, 1.5], periodic on [0, 2 pi)); the rest of
+# the columns stay unbounded
+BOUNDED_KINDS = (4, 2, 2, 2)
+
+
+def bounded_chain(n, p=30, seed=31, kinds=BOUNDED_KINDS):
+    """A cosmology-like chain with hard priors: the columns of
+    ``bench.make_chain(n, p, seed)`` (its integer weights), standardized to
+    z, then by kind (``kinds``: counts of each kind, first columns first):
+    |z| (half-normal, lower limit 0, as tau or mnu), 1 - |z| / 2 (upper
+    limit 1), z reflected into the flat prior [-1, 1.5], and 1.5 z + pi
+    wrapped into the periodic [0, 2 pi) (an angle); the rest unbounded.
+    loglikes = 0.5 sum z^2. Made with numpy from ``seed``; returns
+    (samples (n, p), weights (n,), loglikes (n,), names, ranges)."""
+    import numpy as np
+
+    sys.path.insert(0, ROOT)
+    from bench import make_chain
+
+    x, weights = make_chain(n, p, seed=seed)
+    z = (x - x.mean(0)) / x.std(0)
+    names = [f"b{i}" for i in range(p)]
+    samples = x.copy()
+    ranges = {}
+    col = 0
+    for kind, count in enumerate(kinds):
+        for _ in range(count):
+            v = z[:, col]
+            if kind == 0:
+                samples[:, col], ranges[names[col]] = np.abs(v), [0.0, None]
+            elif kind == 1:
+                samples[:, col], ranges[names[col]] = 1 - 0.5 * np.abs(v), [None, 1.0]
+            elif kind == 2:
+                lo, span = -1.0, 2.5
+                y = np.mod(v - lo, 2 * span)
+                samples[:, col], ranges[names[col]] = lo + np.where(y > span, 2 * span - y, y), [lo, lo + span]
+            else:
+                samples[:, col], ranges[names[col]] = np.mod(1.5 * v + np.pi, 2 * np.pi), [0.0, 2 * np.pi, True]
+            col += 1
+    return samples, weights, 0.5 * np.sum(z * z, axis=1), names, ranges
 
 
 def check(cond, msg):
@@ -905,14 +961,14 @@ def fused_stage_rows(prof):
     return rows
 
 
-def entry_call(mc):
+def entry_call(mc, **kwargs):
     """One profiled public-entry call: (device busy ms, wall ms, stage rows)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        mc.fastTriangleDensities()
+        mc.fastTriangleDensities(**kwargs)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [
@@ -1046,6 +1102,14 @@ def entry_group_rows(s_dev, ranges, group, pair_hist, batched):
     return ix, pa, pb, keys
 
 
+def conv_frames(dft_conv):
+    """K3's launches by DFT frame, summed over its (frame, input size) counts."""
+    frames = {}
+    for (pad, _), n in dft_conv.dft_conv2d.inputs.items():
+        frames[pad] = frames.get(pad, 0) + n
+    return frames
+
+
 def new_shape_rows(mc, d1, d2, launches, pair_hist, dft_conv, batched):
     """Kernel rows of the shapes the public entry adds, on the inputs of
     the run's own reruns: K1's wide kernels on the rows of its first fine >
@@ -1141,12 +1205,12 @@ def public_entry(samples, weights, batched, dft_conv, pair_hist):
         pair_hist.pair_histograms.wide_launches = 0
         pair_hist.pair_histograms.wide_bins.clear()
         dft_conv.dft_conv_spectrum.frames.clear()
-        dft_conv.dft_conv2d.frames.clear()
+        dft_conv.dft_conv2d.inputs.clear()
 
     def read():
         out = {fn.__name__: fn.launches for fn in counters}
         out.update(wide=pair_hist.pair_histograms.wide_launches, wide_bins=dict(pair_hist.pair_histograms.wide_bins),
-                   spectrum_frames=dict(dft_conv.dft_conv_spectrum.frames), conv_frames=dict(dft_conv.dft_conv2d.frames))
+                   spectrum_frames=dict(dft_conv.dft_conv_spectrum.frames), conv_frames=conv_frames(dft_conv))
         return out
 
     def timed_runs(label, s, w, names):
@@ -1295,6 +1359,321 @@ def degenerate_phase(pair_hist, batched):
     return rows
 
 
+def check_bounded_outputs(d1, d2, pairs, kinds, label):
+    """The bounded chain's outputs: every served grid finite, peak 1 and
+    non-negative (no value below -1e-6 of the peak: f32 round-off of the
+    convolutions in empty tails); the grid starts at the limit on each
+    lower-limited column and ends at it on each upper-limited one; a
+    periodic parameter's 1D density, and a pair's grid along a periodic
+    axis whose other parameter has no active limit, equal at both ends (the
+    wrap line). Like curves and grids lie in [-1e-6, 1]. Returns the
+    largest wrap-line difference on pairs of a periodic and an actively
+    limited parameter (the JAX package's boundary correction there is not
+    periodic, ROADMAP C11)."""
+    import torch
+
+    p = d1["P"].shape[0]
+    check_entry_outputs(d1, d2, pairs, p, label)
+    per = d1["periodic"].cpu()
+    act_lo, act_hi = d1["active_lo"].cpu(), d1["active_hi"].cpu()
+    x = d1["x"].cpu()
+    col = 0
+    for kind, count in enumerate(kinds):
+        for i in range(col, col + count):
+            if kind in (0, 2):
+                lim = 0.0 if kind == 0 else -1.0
+                check(bool(act_lo[i]) and float(x[i, 0]) == lim,
+                      f"{label}: x[0] at the lower limit of column {i}")
+            if kind in (1, 2):
+                # x[-1] = binmin + 1023 (binmax - binmin) / 1023, within f32 rounding of the limit
+                lim = 1.0 if kind == 1 else 1.5
+                check(bool(act_hi[i]) and abs(float(x[i, -1]) - lim) <= 1e-6,
+                      f"{label}: x[-1] at the upper limit of column {i}")
+            if kind == 3:
+                check(bool(per[i]) and not act_lo[i] and not act_hi[i], f"{label}: column {i} periodic")
+        col += count
+    check(not bool(per[col:].any() | act_lo[col:].any() | act_hi[col:].any()), f"{label}: unbounded columns unflagged")
+    check(float(d1["P"].min()) >= -1e-6, f"{label}: 1D grids non-negative")
+    for i in torch.nonzero(per).flatten().tolist():
+        check(abs(float(d1["P"][i, 0]) - float(d1["P"][i, -1])) <= 1e-6, f"{label}: 1D wrap of column {i}")
+    limited = act_lo | act_hi
+    wrap_limited = 0.0
+    for k, (a, b) in enumerate(pairs):
+        grid = (d2["regrid"][(a, b)]["P"] if (a, b) in d2["regrid"] else d2["P"][k]).cpu()
+        check(float(grid.min()) >= -1e-6, f"{label}: 2D grid {(a, b)} non-negative ({float(grid.min())})")
+        for axis, periodic, other in ((1, per[a], b), (0, per[b], a)):
+            if periodic:
+                diff = float((grid.select(axis, 0) - grid.select(axis, -1)).abs().max())
+                if limited[other]:
+                    wrap_limited = max(wrap_limited, diff)
+                else:
+                    check(diff == 0.0, f"{label}: wrap line of {(a, b)} on its periodic axis ({diff})")
+    for name, likes in (("1D", d1["likes"]), ("2D", d2["likes"])):
+        if likes is not None:
+            check(bool(torch.isfinite(likes).all()) and float(likes.min()) >= -1e-6 and float(likes.max()) <= 1.0,
+                  f"{label}: {name} like grids in [0, 1]")
+    return wrap_limited
+
+
+def bounded_cross_device(MCSamples):
+    """The public entry with meanlikes on the card against the port on the
+    CPU at 100k x 10 of a bounded chain (every 10th sample of
+    ``bounded_chain(1M, 10)``: one column of each limit kind and one
+    periodic): the same regrid keys, grids within the zoo's 5e-3, 1D and
+    its like curves within 1e-4, the program's like grids within 5e-3."""
+    samples, weights, loglikes, names, ranges = bounded_chain(1_000_000, p=10, kinds=(1, 1, 1, 1))
+    kw = dict(samples=samples[::10].copy(), weights=weights[::10].copy(), loglikes=loglikes[::10].copy(),
+              names=names, ranges=ranges)
+    g1, g2, pairs = MCSamples(device="cuda", **kw).fastTriangleDensities(meanlikes=True)
+    c1, c2, _ = MCSamples(device="cpu", **kw).fastTriangleDensities(meanlikes=True)
+    check(set(g2["regrid"]) == set(c2["regrid"]), f"cross-device regrid keys {sorted(g2['regrid'])} {sorted(c2['regrid'])}")
+    err2 = 0.0
+    for k, key in enumerate(pairs):
+        got = g2["regrid"][key]["P"] if key in g2["regrid"] else g2["P"][k]
+        want = c2["regrid"][key]["P"] if key in c2["regrid"] else c2["P"][k]
+        check(got.shape == want.shape, f"cross-device grid size of {key}")
+        err2 = max(err2, float((got.cpu() - want).abs().max()))
+    err1 = float((g1["P"].cpu() - c1["P"]).abs().max())
+    like1 = float((g1["likes"].cpu() - c1["likes"]).abs().max())
+    like2 = float((g2["likes"].cpu() - c2["likes"]).abs().max())
+    check(err1 <= 1e-4 and like1 <= 1e-4 and err2 <= 5e-3 and like2 <= 5e-3,
+          f"bounded entry cross-device 1D {err1}, 1D likes {like1}, 2D {err2}, 2D likes {like2}")
+    return {"1D P": err1, "1D likes": like1, "2D P (served)": err2, "2D likes": like2, "regrid keys": len(g2["regrid"])}
+
+
+def spectrum_row(name, kernels, pad, launches):
+    """A K2 row at ``pad`` on ``kernels``, held within 1e-5 of max|ref| of
+    its plain version."""
+    import torch
+
+    from getdist_tpu_torch.ops import dft_conv
+
+    ur, ui = dft_conv.dft_conv_spectrum(kernels, pad)
+    ur0, ui0 = dft_conv.dft_conv_spectrum_plain(kernels, pad)
+    scale = float(torch.maximum(ur0.abs().max(), ui0.abs().max()))
+    err = max(float((ur - ur0).abs().max()), float((ui - ui0).abs().max()))
+    check(err <= 1e-5 * scale, f"{name}: K2 within 1e-5 max|ref| ({err} vs {scale})")
+    b, by = spectrum_bound(kernels, pad)
+    row = {
+        "name": name,
+        "route": "cuda",
+        "source": "getdist_tpu_torch/csrc/dft_conv.cu",
+        "replaces": "getdist_tpu/ops/dft_conv.py:155",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: dft_conv.dft_conv_spectrum(kernels, pad), 5),
+        "plain_ms": cuda_ms(lambda: dft_conv.dft_conv_spectrum_plain(kernels, pad), 5),
+        "bound_ms": b,
+        "bound_by": by,
+        "library_ms": library_spectrum_ms(kernels, pad, 5),
+    }
+    dft_report(f"K2 f32 {name}", row, spectrum_work(kernels, pad), TF32X3_FLOPS)
+    return row
+
+
+def conv_row(name, kernels, grids, out_size, offset, pad, launches):
+    """A K3 row at ``pad`` on ``grids`` with the spectra of ``kernels``,
+    held within 1e-5 of max|ref| of its plain version (on the plain
+    spectra), with the repeat-call and f64 checks of :func:`dft_checks`."""
+    from getdist_tpu_torch.ops import dft_conv
+
+    ur, ui = dft_conv.dft_conv_spectrum(kernels, pad)
+    ur0, ui0 = dft_conv.dft_conv_spectrum_plain(kernels, pad)
+    conv = dft_conv.dft_conv2d(grids, ur, ui, out_size, offset, pad)
+    conv0 = dft_conv.dft_conv2d_plain(grids, ur0, ui0, out_size, offset, pad)
+    err = float((conv - conv0).abs().max())
+    check(err <= 1e-5 * float(conv0.abs().max()), f"{name}: K3 within 1e-5 max|ref| ({err})")
+    b, by = conv_bound(grids, pad, out_size)
+    row = {
+        "name": name,
+        "route": "cuda",
+        "source": "getdist_tpu_torch/csrc/dft_conv.cu",
+        "replaces": "getdist_tpu/ops/dft_conv.py:190",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: dft_conv.dft_conv2d(grids, ur, ui, out_size, offset, pad), 5),
+        "plain_ms": cuda_ms(lambda: dft_conv.dft_conv2d_plain(grids, ur0, ui0, out_size, offset, pad), 5),
+        "bound_ms": b,
+        "bound_by": by,
+        "library_ms": library_conv_ms(grids, kernels, out_size, offset, 3),
+    }
+    dft_checks(kernels, grids, ur, ui, conv, out_size, offset, pad, f"K2/K3 f32, {name}")
+    dft_report(f"K3 f32 {name}", row, conv_work(grids, pad, out_size), TF32X3_FLOPS)
+    return row
+
+
+def bounded_phase(batched, dft_conv, pair_hist):
+    """Phase 6: the public entry on ``bounded_chain(1M)`` (30 x 1M with
+    lower, upper and two-sided limits and periodic columns, loglikes):
+    cold and warm walls with meanlikes off and on, launches per kernel, the
+    idle share and stage split of one profiled call, checks of the outputs,
+    ``triangle_densities`` with the same limits, periodic flags and like
+    weights; kernel rows of K1 with the f32 like weights, of K3 on the
+    periodically extended grids and on the edge-mask stack (the input
+    fine + 2 winw wide), and of K2 and K3 at the clamped rescue's frame on
+    its own pairs; the entry on the card against the CPU at 100k x 10."""
+    import numpy as np
+    import torch
+
+    from getdist_tpu_torch.mcsamples import MCSamples
+
+    t0 = time.perf_counter()
+    samples, weights, loglikes, names, ranges = bounded_chain(1_000_000)
+    p = samples.shape[1]
+    print(f"bounded chain 1,000,000 x {p} made in {time.perf_counter() - t0:.1f} s "
+          f"(kinds lower/upper/two-sided/periodic {BOUNDED_KINDS}, the rest unbounded)")
+    counters = (pair_hist.pair_histograms, dft_conv.dft_conv_spectrum, dft_conv.dft_conv2d)
+    hist = pair_hist.pair_histograms
+
+    def reset():
+        for fn in counters:
+            fn.launches = 0
+        hist.float_launches = hist.wide_launches = 0
+        hist.wide_bins.clear()
+        dft_conv.dft_conv_spectrum.frames.clear()
+        dft_conv.dft_conv2d.inputs.clear()
+
+    def read():
+        out = {fn.__name__: fn.launches for fn in counters}
+        out.update(float=hist.float_launches, wide=hist.wide_launches, wide_bins=dict(hist.wide_bins),
+                   spectrum_frames=dict(dft_conv.dft_conv_spectrum.frames),
+                   conv_inputs={f"{pad}:{size}": n for (pad, size), n in dft_conv.dft_conv2d.inputs.items()})
+        return out
+
+    t0 = time.perf_counter()
+    mc = MCSamples(samples=samples, weights=weights, loglikes=loglikes, names=names, ranges=ranges, device="cuda")
+    print(f"bounded chain: MCSamples built in {time.perf_counter() - t0:.2f} s")
+    label = "public entry, bounded chain 30 x 1M"
+    for meanlikes in (False, True):
+        run = lambda: mc.fastTriangleDensities(meanlikes=meanlikes)  # noqa: E731
+        cold_s, _ = wall_s(run)
+        reset()
+        warm_s, (d1, d2, pairs) = wall_s(run)
+        launches = read()
+        walls = [warm_s] + [wall_s(run)[0] for _ in range(2)]
+        tag = f"{label}, meanlikes={meanlikes}"
+        print(f"{tag}: first call {cold_s * 1e3:.1f} ms, warm {min(walls) * 1e3:.1f} ms (min of 3: "
+              f"{', '.join(f'{x * 1e3:.1f}' for x in walls)}); launches of one run: {json.dumps(launches)}; stage "
+              "split (s): " + ", ".join(f"{k} {v:.4f}" for k, v in mc.fast_profile.items()))
+        check("program_b" in mc.fast_profile, f"{tag}: two programs")
+        check(launches["pair_histograms"] >= 1 + meanlikes and launches["dft_conv_spectrum"] >= 1
+              and launches["dft_conv2d"] >= 2, f"{tag}: the run launched K1, K2 and K3")
+        check(launches["float"] == int(meanlikes), f"{tag}: K1 with f32 like weights once with meanlikes")
+        check(launches["conv_inputs"].get("384:316", 0) >= 6, f"{tag}: K3 on the extended grids")
+        wrap = check_bounded_outputs(d1, d2, pairs, BOUNDED_KINDS, tag)
+        check((d1["likes"] is not None) == meanlikes and (d2["likes"] is not None) == meanlikes, f"{tag}: like grids")
+        print(f"{tag}: outputs checked; wrap-line difference on pairs of a periodic and a limited parameter "
+              f"{wrap:.4g} (the JAX package's non-periodic boundary correction, ROADMAP C11); regrid groups "
+              + json.dumps([dict(g, pairs=len(g["pairs"])) for g in mc.fast_regrid_groups]))
+    busy_ms, wall_ms, rows = entry_call(mc, meanlikes=True)
+    mc.fast_profile = dict(mc.fast_profile)
+    print_entry_profile(f"{label}, meanlikes=True", mc, busy_ms, wall_ms, rows)
+
+    # the fused program alone, with the same limits, periodic flags and like weights
+    st = mc._fast_chain_state()
+    # None (no limit) becomes NaN
+    lo = np.array([ranges.get(n, [None, None])[0] for n in names], dtype=float).astype(np.float32)
+    hi = np.array([ranges.get(n, [None, None])[1] for n in names], dtype=float).astype(np.float32)
+    per = np.array([len(ranges.get(n, ())) == 3 for n in names])
+
+    def program():
+        return batched.triangle_densities(st["samples"], st["weights"], limits_lo=lo, limits_hi=hi, periodic=per,
+                                          like_weights=st["like_weights"], int8_weights=True, device="cuda")
+
+    cold_s, _ = wall_s(program)
+    warm_s, (t1, t2) = wall_s(program)
+    check_bounded_outputs(t1, dict(t2, regrid={}), pairs, BOUNDED_KINDS, "triangle_densities, bounded chain")
+    print(f"triangle_densities, bounded chain 30 x 1M (limits, periodic, like weights): first call "
+          f"{cold_s * 1e3:.1f} ms, warm {warm_s * 1e3:.1f} ms")
+
+    # kernel rows on this run's inputs
+    s_dev, w_dev, lw = st["samples"], st["weights"], st["like_weights"]
+    binmin, binmax = d1["range"]
+    ix = batched._fine_indices(s_dev.T.contiguous(), binmin, (binmax - binmin) / 255, 256).to(torch.uint8)
+    pa = torch.tensor([a for a, _ in pairs], dtype=torch.int32, device="cuda")
+    pb = torch.tensor([b for _, b in pairs], dtype=torch.int32, device="cuda")
+    k = len(pairs)
+    got = hist(ix, lw, pa, pb, integer_weights=False)
+    ref = pair_hist.pair_histograms_plain(ix, lw, pa, pb, integer_weights=False)
+    err_l = float((got - ref).abs().max())
+    # f32 atomics add in another order than the plain version's f64 sums:
+    # each bin within 1e-5 of itself plus 1e-5 of its pair's peak bin, and
+    # the bins below 1e-3 of the peak (the low-likelihood tails, where the
+    # like weights are smallest) within 1e-5 of their pair's tail sum
+    peak = ref.amax(dim=(1, 2), keepdim=True)
+    diff = (got - ref).abs()
+    worst = float((diff / (1e-5 * ref.abs() + 1e-5 * peak)).max())
+    check(worst <= 1.0, f"K1 with f32 like weights per bin within 1e-5 (+1e-5 of the pair's peak): {worst}")
+    tail = ref < 1e-3 * peak
+    tail_sum = torch.where(tail, ref, 0.0).double().sum(dim=(1, 2))
+    tail_err = torch.where(tail, diff, 0.0).double().sum(dim=(1, 2))
+    tail_rel = float((tail_err / tail_sum.clamp_min(1e-30)).max())
+    check(tail_rel <= 1e-5, f"K1 with f32 like weights: tail bins within 1e-5 of each pair's tail sum ({tail_rel})")
+    print(f"K1, f32 like weights: max abs diff {err_l:.3g}, at most {worst:.3g} of the per-bin tolerance, tails "
+          f"{tail_rel:.3g} of their sum ({int(tail.sum())} tail bins)")
+    del got, ref, diff, tail
+    b_l, by_l = hist_bound(ix, lw, k, 256)
+    rows = [
+        {
+            "name": "pair_histograms_like_f32",
+            "route": "cuda",
+            "source": "getdist_tpu_torch/csrc/pair_hist.cu",
+            "replaces": "getdist_tpu/ops/pallas_kernels.py:309",
+            "launches": launches["float"],
+            "max_abs_err": err_l,
+            "ms": cuda_ms(lambda: hist(ix, lw, pa, pb, integer_weights=False), 10),
+            "plain_ms": cuda_ms(lambda: pair_hist.pair_histograms_plain(ix, lw, pa, pb, integer_weights=False), 2),
+            "bound_ms": b_l,
+            "bound_by": by_l,
+            "library_ms": library_hist_ms(ix, lw, pa, pb, 256, 3),
+        }
+    ]
+    hists = hist(ix, pair_hist.narrow_weights(w_dev), pa, pb, integer_weights=True)
+    kernels = batched._gauss_kernel_2d(d2["rx"], d2["ry"], d2["corr"], 30)
+    per_t = d1["periodic"]
+    ext_grids = batched._extend_periodic(hists, per_t[pa.long()], per_t[pb.long()], 30)
+    act_lo, act_hi = d1["active_lo"], d1["active_hi"]
+    masks = batched._edge_masks(act_lo[pa.long()], act_hi[pa.long()], act_lo[pb.long()], act_hi[pb.long()], 256, 30,
+                                torch.float32)
+    n_ext = launches["conv_inputs"].get("384:316", 0)
+    for name, grids in (("dft_conv2d_periodic_ext316", ext_grids), ("dft_conv2d_edge_masks_ext316", masks)):
+        check(tuple(grids.shape) == (k, 316, 316), f"{name}: the extended input")
+        rows.append(conv_row(name, kernels, grids, 256, 60, 384, n_ext))
+    print(f"K3 launches on 316-wide inputs in the meanlikes run: {n_ext} (both rows: one kernel at one shape, "
+          "counted by (frame, input size); the program's periodic grids and its edge masks)")
+    del hists, ext_grids, masks
+
+    # the clamped rescue's rerun: K2 and K3 at its 768 frame (winw 126), on
+    # its pairs' kernels, 256-bin histograms and 508-wide edge masks
+    group = next((g for g in mc.fast_regrid_groups if g["bandwidths"] == "clamped"), None)
+    check(group is not None, "the bounded chain's run took the clamped rescue")
+    winw = group["winw"]
+    pad = dft_conv.frame_for(256 + 4 * winw + 1)
+    ixg, pag, pbg, keys = entry_group_rows(s_dev, d1["range"], group, pair_hist, batched)
+    grids = hist(ixg, pair_hist.narrow_weights(w_dev), pag, pbg, integer_weights=True)
+    entries = [d2["regrid"][key] for key in keys]
+    kernels = batched._gauss_kernel_2d(*(torch.stack([e[n] for e in entries]) for n in ("rx", "ry", "corr")), winw)
+    ka = torch.tensor([a for a, _ in keys], device="cuda")
+    kb = torch.tensor([b for _, b in keys], device="cuda")
+    masks = batched._edge_masks(act_lo[ka], act_hi[ka], act_lo[kb], act_hi[kb], 256, winw, torch.float32)
+    ext = 256 + 2 * winw
+    print(f"clamped rescue: {len(keys)} pairs, window {winw}, frame {pad}; K2 launches at frame {pad}: "
+          f"{launches['spectrum_frames'].get(pad, 0)}, K3 launches by input size: "
+          f"{ {key: n for key, n in launches['conv_inputs'].items() if key.startswith(f'{pad}:')} }")
+    rows.append(spectrum_row(f"dft_conv_spectrum_clamped_frame{pad}", kernels, pad,
+                             launches["spectrum_frames"].get(pad, 0)))
+    rows.append(conv_row(f"dft_conv2d_clamped_frame{pad}", kernels, grids, 256, winw, pad,
+                         launches["conv_inputs"].get(f"{pad}:256", 0)))
+    rows.append(conv_row(f"dft_conv2d_edge_masks_ext{ext}", kernels, masks, 256, 2 * winw, pad,
+                         launches["conv_inputs"].get(f"{pad}:{ext}", 0)))
+    del grids, masks, kernels, ixg
+    del mc, st, d1, d2, t1, t2
+    torch.cuda.empty_cache()
+    report = bounded_cross_device(MCSamples)
+    print(f"bounded entry cross-device 100k x 10 (cuda vs cpu), max abs diffs: {json.dumps(report)}")
+    return rows
+
+
 def main():
     import torch
 
@@ -1330,6 +1709,7 @@ def main():
     results += sharded_path(samples, weights, batched, dft_conv, pair_hist, make_chain)
     results += public_entry(samples, weights, batched, dft_conv, pair_hist)
     results += degenerate_phase(pair_hist, batched)
+    results += bounded_phase(batched, dft_conv, pair_hist)
     for r in results:
         # a bound is a least time: no measured way of computing the function may beat it
         measured = [t for t in (r["ms"], r["plain_ms"], r["library_ms"]) if t is not None]

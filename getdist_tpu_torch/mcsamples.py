@@ -2,8 +2,9 @@
 parity paths.
 
 The port's own, jax-free copy of the parts of ``getdist_tpu/mcsamples.py``
-that the public fused entry (``fastTriangleDensities`` / ``fastDensities``
-on unbounded chains, with its host rescues) and device parity mode
+that the public fused entry (``fastTriangleDensities`` / ``fastDensities``,
+with hard limits, periodic parameters, ``meanlikes`` grids and its host
+rescues) and device parity mode
 (``fastParityDensities(device=True)``) run: the constructor from arrays and
 analysis settings, parameter ranges, the host 1D densities (binning, ISJ
 bandwidth, FFT smoothing, boundary and multiplicative bias corrections),
@@ -18,11 +19,10 @@ so their inputs are kept identical to the JAX package's wherever the
 arithmetic allows.
 
 Not ported here: loading chains from files and the plots/CLI layers
-(ROADMAP A10), the fused entry on chains with hard limits, periodic
-parameters or ``meanlikes`` grids (A2/A3) and on a device mesh (A9), the
-host parity variant ``fastParityDensities(device=False)`` and chains with
-fractional weights (A8), periodic parameters in parity mode (A3), and the
-2D effective-sample estimate (``use_effective_samples_2D``).
+(ROADMAP A10), the fused entry on a device mesh (A9), the host parity
+variant ``fastParityDensities(device=False)`` and chains with fractional
+weights (A8), periodic parameters in parity mode (A3), and the 2D
+effective-sample estimate (``use_effective_samples_2D``).
 """
 
 import copy
@@ -47,7 +47,7 @@ from getdist_tpu_torch.ops.batched import (
     pair_cumulant_score,
     prepare_chain,
 )
-from getdist_tpu_torch.ops.convolve import convolveFFT_host as convolve1D
+from getdist_tpu_torch.ops.convolve import convolve1D_host as convolve1D
 from getdist_tpu_torch.ops.pair_hist import narrow_weights
 from getdist_tpu_torch.parampriors import ParamBounds
 
@@ -422,8 +422,6 @@ class MCSamples(Chains):
         if index is None:
             return None
         par = self._initParamRanges(index, paramConfid)
-        if par.periodic:
-            raise _not_ported("periodic 1D densities", "A3")
         pick = lambda name: kwargs.get(name, getattr(self, name))  # noqa: E731
         num_bins, fine_bins = pick("num_bins"), pick("fine_bins")
         smooth_scale_1D = pick("smooth_scale_1D")
@@ -450,17 +448,21 @@ class MCSamples(Chains):
             logging.warning("%s: fine_bins too coarse to resolve the smoothing kernel", par.name)
         smooth_1D = min(max(1.0, smooth_1D), fine_bins // 2)
 
-        winw = min(int(round(2.5 * smooth_1D)), fine_bins // 2 - 2)
+        # a periodic parameter's grid ends are one point: its support is a
+        # bin shorter, and it smooths circularly
+        support = (fine_bins - 1) if par.periodic else fine_bins
+        winw = min(int(round(2.5 * smooth_1D)), support // 2 - 2)
         kernel = Kernel1D(winw, smooth_1D)
-        smoothed = convolve1D(bins, kernel.Win, "same")
+        conv_mode = "periodic" if par.periodic else "same"
+        smoothed = convolve1D(bins, kernel.Win, conv_mode)
         density1D = Density1D(np.linspace(binmin, binmax, fine_bins), P=smoothed,
                               view_ranges=[par.range_min, par.range_max])
-        if par.has_limits and boundary_order >= 0:
+        if par.has_limits and not par.periodic and boundary_order >= 0:
             self._boundary_correct_1d(density1D, bins, par, kernel, winw, fine_bins, boundary_order)
-        elif boundary_order == 2:
+        elif not par.periodic and boundary_order == 2:
             self._interior_order2_correct_1d(density1D, bins, kernel)
         if mult_bias_order:
-            self._mult_bias_correct_1d(density1D, bins, par, kernel, fine_bins, "same", mult_bias_order)
+            self._mult_bias_correct_1d(density1D, bins, par, kernel, fine_bins, conv_mode, mult_bias_order)
         density1D.normalize("max", in_place=True)
         if not kwargs:
             self.density1D[par.name] = density1D
@@ -524,19 +526,22 @@ class MCSamples(Chains):
     @staticmethod
     def _mult_bias_correct_1d(density1D, bins, par, kernel, fine_bins, convolution_mode, order):
         """Multiplicative bias iterations in place: divide out the current
-        estimate, re-smooth, multiply back (reference ``mcsamples.py:1649-1666``)."""
-        edge_weight = np.ones(fine_bins)
-        if par.has_limits_bot:
-            edge_weight[0] *= 0.5
-        if par.has_limits_top:
-            edge_weight[-1] *= 0.5
-        a0 = convolve1D(edge_weight, kernel.Win, "same")
+        estimate, re-smooth, multiply back (reference ``mcsamples.py:1649-1666``);
+        a periodic parameter has no edges to divide out."""
+        if not par.periodic:
+            edge_weight = np.ones(fine_bins)
+            if par.has_limits_bot:
+                edge_weight[0] *= 0.5
+            if par.has_limits_top:
+                edge_weight[-1] *= 0.5
+            a0 = convolve1D(edge_weight, kernel.Win, "same")
         for _ in range(order):
             current = density1D.P.copy()
             current[current == 0] = 1
             resmoothed = convolve1D(bins / current, kernel.Win, convolution_mode)
             density1D.setP(density1D.P * resmoothed)
-            density1D.P /= a0
+            if not par.periodic:
+                density1D.P /= a0
 
     # -- 2D bandwidths ---------------------------------------------------------------------
 
@@ -698,12 +703,14 @@ class MCSamples(Chains):
         bmax = _host(d1["range"][1]).astype(float)
         x1, p1 = _host(d1["x"]).astype(float), _host(d1["P"]).astype(float)
         dens1 = {}
+        likes1 = None if d1.get("likes") is None else _host(d1["likes"]).astype(float)
         for i, (name, par) in enumerate(zip(names, infos)):
             view = [par.range_min, par.range_max] if hasattr(par, "range_min") else None
             dens1[name] = Density1D(x1[i], P=p1[i], view_ranges=view)
-            dens1[name].likes = None
+            dens1[name].likes = None if likes1 is None else likes1[i]
         regrid = d2.get("regrid", {})
         grids, levels = _host(d2["P"]).astype(float), _host(d2["contours"]).astype(float)
+        likes2 = None if d2.get("likes") is None else _host(d2["likes"]).astype(float)
         dens2 = {}
         for k, (a, b) in enumerate(pairs):
             fine = regrid.get((a, b))
@@ -711,7 +718,8 @@ class MCSamples(Chains):
             npts = grid_p.shape[0]
             density = Density2D(np.linspace(bmin[a], bmax[a], npts), np.linspace(bmin[b], bmax[b], npts), grid_p)
             density.contours = _host(fine["contours"]).astype(float) if fine else levels[k]
-            density.likes = None
+            # a rerun's grid has no like grid (the program's is at 256 bins)
+            density.likes = likes2[k] if fine is None and likes2 is not None else None
             dens2[(names[a], names[b])] = density
         if cache_1d:
             self.density1D.update(dens1)
@@ -722,7 +730,8 @@ class MCSamples(Chains):
         samples change (``chains._weightsChanged``): f32 samples and weights
         (``prepare_chain``), whether every weight is an integer in [0, 127]
         with a total below 2^31 (the histogram kernel then accumulates
-        exactly), and the pair cumulant score once computed.
+        exactly), and the pair cumulant score and the f32 likelihood
+        weights (:meth:`_likelihood_weights`) once computed.
 
         The JAX package's x64 'native' copies and its bf16 'exact' weight
         sniff are TPU/x64 artefacts: the reruns use this f32 copy, as a
@@ -738,9 +747,14 @@ class MCSamples(Chains):
                 and w.size * float(w.max()) < 2**31
             )
             dev_s, dev_w = prepare_chain(self.samples, w, device=self.device)
-            st = {"samples": dev_s, "weights": dev_w, "int8": int8, "cum_score": None}
+            st = {"samples": dev_s, "weights": dev_w, "int8": int8, "cum_score": None, "like_weights": None}
             self._fast_chain_cache = st
         return st
+
+    def _likelihood_weights(self):
+        """Per-sample weights of the mean-likelihood grids: w exp(<-log L> -
+        (-log L)), with the chain's weighted mean of ``loglikes``."""
+        return self.weights * np.exp(self.mean_loglike - self.loglikes)
 
     def _fast_cum_score(self):
         """|k31| + |k13| + |k22| standardized joint cumulants per pair (host
@@ -762,23 +776,29 @@ class MCSamples(Chains):
 
     def fastTriangleDensities(self, params=None, contours=(0.68, 0.95), meanlikes=False, mesh=None):
         """All 1D and all-pairs 2D densities via the fused device pipeline
-        (:mod:`getdist_tpu_torch.ops.batched`) on ``self.device``, with the
+        (:mod:`getdist_tpu_torch.ops.batched`) on ``self.device``, with this
+        chain's hard prior bounds and periodic parameters wired in and the
         JAX package's host rescues. Results follow the fast path's own KDE
         conventions rather than exact reference parity. Returns the (d1, d2)
         dicts of device tensors plus the pair index list; ``d2["regrid"]``
-        maps a pair tuple to its rerun's grid, contours and kernel.
+        maps a pair tuple to its rerun's grid, contours and kernel. With
+        ``meanlikes`` and loglikes, ``d1["likes"]`` / ``d2["likes"]`` hold
+        the mean-likelihood curves and grids.
 
         Routes (``getdist_tpu/mcsamples.py:2255-2496``):
 
-        * single dispatch, when no pre-pass rescue can fire (max |corr|
-          below 0.866, and no pair at |corr| >= 0.5 measurably non-Gaussian):
-          the 1D and 2D stages in one call, then the fragile-pair regrid and
-          the clamped-window rescue read off the packed diagnostics;
+        * single dispatch, when no pre-pass rescue can fire (no hard limit,
+          periodic parameter or like weights, max |corr| below 0.866, and no
+          pair at |corr| >= 0.5 measurably non-Gaussian): the 1D and 2D
+          stages in one call, then the fragile-pair regrid and the
+          clamped-window rescue read off the packed diagnostics;
         * two programs otherwise: the 1D stage and one readback of its
           planning fields; the 2D stage queued with its histograms exported;
           while the card runs it, the host plans the corr-adaptive fine
           regrids (fine > 256 bins, binned by K1's wide kernels) and the
-          sheared f64 assists (:meth:`_fast_regrid_plan`), whose reruns
+          sheared f64 assists (:meth:`_fast_regrid_plan`), and serves
+          hard-limited 1D densities whose kernel spans much of their range
+          from the host (:meth:`_fast_rescue_wide_bounded_1d`); the reruns
           (:meth:`_fast_regrid_exec`) reuse the 256-bin histograms; then the
           diagnostics readback, the fragile-pair regrid and the clamped
           rescue (:meth:`_fast_rescue_clamped_pairs`).
@@ -793,8 +813,7 @@ class MCSamples(Chains):
         sheared; "fragile": host ``getAutoBandwidth2D``; "clamped": the
         saturated-window rescue).
 
-        Hard limits, periodic parameters and ``meanlikes`` grids (ROADMAP
-        A2/A3) and ``mesh`` (A9) raise ``NotImplementedError``. There is no
+        ``mesh`` (ROADMAP A9) raises ``NotImplementedError``. There is no
         ``use_pallas`` switch: on the card the kernels always run, and a
         chain on the CPU takes their plain versions.
         """
@@ -808,11 +827,6 @@ class MCSamples(Chains):
             idx = [self._parAndNumber(p)[0] for p in params]
             if None in idx:
                 raise ParamError("Unknown parameter %s" % [p for p, j in zip(params, idx) if j is None])
-        pars = [self.paramNames.names[j] for j in idx]
-        if any(p.has_limits_bot or p.has_limits_top or getattr(p, "periodic", False) for p in pars):
-            raise _not_ported("fastTriangleDensities with hard limits or periodic parameters", "A2/A3")
-        if meanlikes and self.loglikes is not None:
-            raise _not_ported("fastTriangleDensities meanlikes grids", "A2/A3")
 
         profile = {}
         clock = [time.perf_counter()]
@@ -834,16 +848,26 @@ class MCSamples(Chains):
         self.fast_regrid_groups = []
         stage("chain_state")
         try:
-            out = self._fast_triangle(idx, contours, stage)
+            out = self._fast_triangle(idx, contours, meanlikes, stage)
         finally:
             stage(None)
             self.fast_profile = profile
         return out
 
-    def _fast_triangle(self, idx, contours, stage):
+    def _fast_triangle(self, idx, contours, meanlikes, stage):
         """The routes of :meth:`fastTriangleDensities`; ``stage(label)``
         marks the start of each stage."""
+        pars = [self.paramNames.names[j] for j in idx]
+        lo = np.array([p.limmin if p.has_limits_bot else np.nan for p in pars], np.float32)
+        hi = np.array([p.limmax if p.has_limits_top else np.nan for p in pars], np.float32)
+        per = np.array([bool(getattr(p, "periodic", False)) for p in pars])
+        has = bool(np.isfinite(lo).any() or np.isfinite(hi).any() or per.any())
         st = self._fast_chain_state()
+        like_w = None
+        if meanlikes and self.loglikes is not None:
+            if st["like_weights"] is None:
+                st["like_weights"] = torch.from_numpy(self._likelihood_weights().astype(np.float32)).to(self.device)
+            like_w = st["like_weights"]
         # reference smooth_scale = -scale convention: auto bandwidth x scale
         scale_1d = -float(self.smooth_scale_1D) if float(self.smooth_scale_1D) < 0 else 1.0
         scale_2d = -float(self.smooth_scale_2D) if float(self.smooth_scale_2D) < 0 else 1.0
@@ -862,14 +886,17 @@ class MCSamples(Chains):
         contours_np = np.array(contours, np.float32)
         max_corr = float(self.max_corr_2D)
         k_pairs = len(pairs)
+        limits = dict(limits_lo=lo, limits_hi=hi) if has else {}
+        per_arg = per if per.any() else None
 
-        # single dispatch when no pre-pass rescue can fire: no corr-adaptive
-        # fine > 256 pair (|corr| >= ~0.87) and no sheared-assist candidate
-        # (|corr| >= 0.5 AND measurably non-Gaussian)
+        # single dispatch when no pre-pass rescue can fire: no hard limit,
+        # periodic axis or like weights, no corr-adaptive fine > 256 pair
+        # (|corr| >= ~0.87) and no sheared-assist candidate (|corr| >= 0.5
+        # AND measurably non-Gaussian)
         abs_corr = np.abs(np.asarray(corr, float))
         np.fill_diagonal(abs_corr, 0.0)
         max_corr_val = float(abs_corr.max(initial=0.0))
-        single = max_corr_val < 0.866
+        single = not has and like_w is None and max_corr_val < 0.866
         if single and max_corr_val >= 0.5:
             stage("cum_score")
             cum = self._fast_cum_score()[np.ix_(idx, idx)]
@@ -907,7 +934,7 @@ class MCSamples(Chains):
         # it waits for program A only
         stage("program_a")
         with torch.no_grad():
-            d1 = all_1d_densities(dev_s, dev_w, bandwidth_scale=bs1)
+            d1 = all_1d_densities(dev_s, dev_w, periodic=per_arg, like_weights=like_w, bandwidth_scale=bs1, **limits)
         packed = _host(d1["host_pack"])
         d1h = {
             "neff": packed[:p],
@@ -923,15 +950,20 @@ class MCSamples(Chains):
         with torch.no_grad():
             d2 = all_2d_densities(
                 dev_s, dev_w, pairs_arr[:, 0], pairs_arr[:, 1], d1["neff"], d1["range"][0], d1["range"][1],
-                contours_np, int8_weights=st["int8"], bandwidth_scale=bs2, sigma_range=d1["sigma_range"],
-                max_corr=max_corr, enable_shear=enable_shear, export_hists=True,
+                contours_np, active_lo=d1["active_lo"] if has else None, active_hi=d1["active_hi"] if has else None,
+                periodic=per_arg, int8_weights=st["int8"], bandwidth_scale=bs2, sigma_range=d1["sigma_range"],
+                max_corr=max_corr, enable_shear=enable_shear, like_weights=like_w, export_hists=True,
             )
         d2 = dict(d2)
         hists = d2.pop("hists", None)
         stage("plan")
         plan = self._fast_regrid_plan(idx, pairs, d1, fragile=None, d1_host=d1h)
+        if has:
+            stage("wide_bounded_1d")
+            d1 = self._fast_rescue_wide_bounded_1d(idx, d1, lo, hi, d1_host=d1h)
         stage("regrid")
-        regrid = self._fast_regrid_exec(plan, idx, pairs, d1, contours, scale_2d, hists=hists)
+        regrid = self._fast_regrid_exec(plan, idx, pairs, d1, contours, scale_2d, hists=hists, bounded=has,
+                                        per=per_arg)
         # program B's packed diagnostics (fragile flags + kernel widths in
         # bin units): the route's one readback of program B
         stage("diag")
@@ -939,21 +971,59 @@ class MCSamples(Chains):
         frag = diag[:k_pairs] > 0.5
         stage("fragile_regrid")
         plan = self._fast_regrid_plan(idx, pairs, d1, fragile=frag, fragile_only=True, d1_host=d1h)
-        regrid.update(self._fast_regrid_exec(plan, idx, pairs, d1, contours, scale_2d, hists=hists))
+        regrid.update(self._fast_regrid_exec(plan, idx, pairs, d1, contours, scale_2d, hists=hists, bounded=has,
+                                             per=per_arg))
         d2["regrid"] = regrid
         stage("clamped_rescue")
         self._fast_rescue_clamped_pairs(
             idx, pairs, d1, d2, contours, scale_2d, rx_host=diag[k_pairs : 2 * k_pairs],
-            ry_host=diag[2 * k_pairs : 3 * k_pairs],
+            ry_host=diag[2 * k_pairs : 3 * k_pairs], bounded=has, per=per_arg,
         )
         return d1, d2, pairs
 
-    def _fast_rescue_clamped_pairs(self, idx, pairs, d1, d2, contours, scale_2d=1.0, rx_host=None, ry_host=None):
+    def _fast_rescue_wide_bounded_1d(self, idx, d1, lo, hi, d1_host):
+        """Serve hard-limited parameters whose kernel spans more than 0.15 of
+        their grid from the host convention (``getdist_tpu/mcsamples.py:
+        2498-2541``): the fused boundary correction's analytic kernel
+        moments drift a few 1e-3 from the reference's masked spatial
+        iteration there (zoo 1D shape "flat") while picking the same
+        bandwidth. Each such parameter is recomputed on the host at the
+        device's width (a fixed smoothing scale in coarse bins) and
+        resampled onto the fused grid; returns ``d1`` with the new 'P'.
+        ``d1_host``: program A's planning fields, read back."""
+        bw = np.asarray(d1_host["bandwidth"], float)
+        bmin = np.asarray(d1_host["range0"], float)
+        bmax = np.asarray(d1_host["range1"], float)
+        span = np.maximum(bmax - bmin, 1e-30)
+        bounded = np.isfinite(lo) | np.isfinite(hi)
+        flagged = [i for i in range(len(idx)) if bounded[i] and bw[i] / span[i] > 0.15]
+        if not flagged:
+            return d1
+        p_rows = _host(d1["P"]).astype(float)
+        x_rows = _host(d1["x"]).astype(float)
+        for i in flagged:
+            # a fixed smooth_scale_1D >= 1 is in coarse (num_bins) bin units
+            par = self._initParamRanges(idx[i])
+            coarse_width = (par.range_max - par.range_min) / (self.num_bins - 1)
+            width_bins = max(bw[i] / coarse_width, 1.001)
+            dens = self.get1DDensityGridData(idx[i], smooth_scale_1D=float(width_bins))
+            vals = dens.Prob(np.clip(x_rows[i], dens.x[0], dens.x[-1]))
+            peak = vals.max()
+            if peak > 0:
+                p_rows[i] = vals / peak
+        d1 = dict(d1)
+        d1["P"] = torch.from_numpy(p_rows).to(d1["P"].device, d1["P"].dtype)
+        return d1
+
+    def _fast_rescue_clamped_pairs(self, idx, pairs, d1, d2, contours, scale_2d=1.0, rx_host=None, ry_host=None,
+                                   bounded=False, per=None):
         """Re-run pairs whose kernel width saturated the fused program's
         fixed convolution window (rx/ry at winw/2.5 bins) with a near-half-
         grid window (winw = 126 at 256 bins, a 768 DFT frame), and serve its
         results in ``d2["regrid"]``. The reference sizes its window from the
-        bandwidth with no cap (``mcsamples.py:1884`` winw = 2.5 width)."""
+        bandwidth with no cap (``mcsamples.py:1884`` winw = 2.5 width).
+        ``bounded``: the chain's active limits (``d1``) apply; ``per``: (P,)
+        periodic flags or None."""
         regrid = d2.get("regrid", {})
         base_cap = 30 / 2.5
 
@@ -985,6 +1055,8 @@ class MCSamples(Chains):
                 d1["neff"], d1["range"][0], d1["range"][1], np.array(contours, np.float32), fine_bins=fine,
                 int8_weights=self._fast_chain_state()["int8"], bandwidth_scale=None if scale_2d == 1.0 else scale_2d,
                 sigma_range=d1["sigma_range"], max_corr=float(self.max_corr_2D), winw=fine // 2 - 2,
+                active_lo=d1["active_lo"] if bounded else None, active_hi=d1["active_hi"] if bounded else None,
+                periodic=per,
             )
         for i, key in enumerate(saturated):
             regrid[key] = {name: d2w[name][i] for name in _REGRID_KEYS}
@@ -1003,15 +1075,20 @@ class MCSamples(Chains):
         bandwidths come from ("program", "assist" or "fragile").
 
         Pairs at |corr| >= 0.5 that are measurably non-Gaussian (cumulant
-        score > 0.25) get their bandwidth matrix from the host f64 sheared
-        re-binning (:meth:`_optimize_bandwidth_sheared`). ``fragile``
-        (per-pair bools from the fused program): pairs whose f32 AMISE
-        correlation search sat on a knife edge get theirs from
-        :meth:`getAutoBandwidth2D` at 256 bins, when the cumulant gate passes
-        too. Hard limits raise before the plan (ROADMAP A2/A3)."""
+        score > 0.25), and not both hard-limited, get their bandwidth matrix
+        from the host f64 sheared re-binning
+        (:meth:`_optimize_bandwidth_sheared`). ``fragile`` (per-pair bools
+        from the fused program): pairs whose f32 AMISE correlation search
+        sat on a knife edge get theirs from :meth:`getAutoBandwidth2D` at
+        256 bins, when the cumulant gate passes too."""
         max_corr = float(self.max_corr_2D)
         corr = np.asarray(self.getCorrelationMatrix())[np.ix_(idx, idx)]
+        infos = [self.paramNames.names[j] for j in idx]
         cum_cache = [None]
+
+        def limited(k):
+            return bool(getattr(infos[k], "has_limits_bot", False) or getattr(infos[k], "has_limits_top", False))
+
 
         def cum_gate(a, b):
             if cum_cache[0] is None:
@@ -1037,7 +1114,7 @@ class MCSamples(Chains):
                         fine = scaled
             # the O(N)-per-pair host re-binning assist is reserved for pairs
             # that are both strongly correlated and measurably non-Gaussian
-            assist = 0.5 <= abs(cc_raw) <= max_corr and cum_gate(a, b)
+            assist = 0.5 <= abs(cc_raw) <= max_corr and not (limited(a) and limited(b)) and cum_gate(a, b)
             frag = bool(fragile is not None and fragile[k]) and not assist
             if fragile_only:
                 if frag:
@@ -1095,12 +1172,14 @@ class MCSamples(Chains):
             mult_bias_correction_order=self.mult_bias_correction_order, N_eff=pair_neff,
         )
 
-    def _fast_regrid_exec(self, plan, idx, pairs, d1, contours, scale_2d=1.0, hists=None):
+    def _fast_regrid_exec(self, plan, idx, pairs, d1, contours, scale_2d=1.0, hists=None, bounded=False, per=None):
         """Device half of the regrid rescue: re-run each planned group
         through :func:`all_2d_densities` with its bandwidth override and a
         window of max(30, fine / 9) bins. ``hists`` (program B's exported
         256-bin histograms) lets fine = 256 groups skip the re-binning; past
-        256 bins the rerun bins in-program (K1's wide kernels on int16 rows)."""
+        256 bins the rerun bins in-program (K1's wide kernels on int16 rows).
+        ``bounded``: the chain's active limits (``d1``) apply; ``per``: (P,)
+        periodic flags or None."""
         regrid = {}
         if not plan:
             return regrid
@@ -1118,7 +1197,8 @@ class MCSamples(Chains):
                     d1["neff"], d1["range"][0], d1["range"][1], np.array(contours, np.float32), fine_bins=fine,
                     int8_weights=int8, bandwidth_scale=None if scale_2d == 1.0 else scale_2d,
                     bandwidth_override=override, sigma_range=d1["sigma_range"], max_corr=float(self.max_corr_2D),
-                    winw=winw, hists_in=hin,
+                    winw=winw, hists_in=hin, active_lo=d1["active_lo"] if bounded else None,
+                    active_hi=d1["active_hi"] if bounded else None, periodic=per,
                 )
             for i, key in enumerate(plist):
                 regrid[key] = {name: d2x[name][i] for name in _REGRID_KEYS}

@@ -9,14 +9,15 @@ two Pallas kernels on this path are CUDA kernels:
 * pair histograms -> :func:`getdist_tpu_torch.ops.pair_hist.pair_histograms`
 * 2D convolutions -> :mod:`getdist_tpu_torch.ops.dft_conv`
 
-The fused path's branches are ported, with in-program pair histograms at
-any fine grid up to 1024 bins (the regrid reruns of
-``MCSamples.fastTriangleDensities``), and the 2D stage's parity-mode
-branches (hard limits and ``exact_mult_bias`` with host bandwidths,
+The fused path's branches are ported: hard limits, periodic parameters,
+like weights (mean-likelihood grids) and prior masks in both stages,
+in-program pair histograms at any fine grid up to 1024 bins (the regrid
+reruns of ``MCSamples.fastTriangleDensities``), the 2D stage's
+parity-mode branches (``exact_mult_bias`` with host bandwidths,
 ``hists_in`` at any fine grid, f64), and the sharded hooks (``group=``, a
 ``torch.distributed`` process group, used by
-:mod:`getdist_tpu_torch.parallel`); periodic axes and ``like_weights``
-raise ``NotImplementedError`` naming their ROADMAP item. The TPU workarounds are
+:mod:`getdist_tpu_torch.parallel`). ``exact_mult_bias`` without host
+bandwidths raises ``NotImplementedError`` naming its ROADMAP item. The TPU workarounds are
 not carried over: there is no bf16 weight split (the histogram kernel
 accumulates int32 or f32 weights directly), no chunked inverse FFT, no
 x64 toggling and no VMEM/HBM sizing of histogram tiles.
@@ -766,14 +767,21 @@ def all_1d_densities(
 
     Hooks for stage isolation: ``neff_override`` (P,), ``range_override``
     (binmin, binmax) and ``bandwidth_override`` (P,) fractions of the range.
+
+    ``limits_lo`` / ``limits_hi``: (P,) hard prior bounds (NaN = none). A
+    limit is active where it cuts the padded range (periodic parameters
+    always snap to their full period); active limits snap the grid edge to
+    the bound and take a first-order boundary-kernel correction from
+    frequency-domain kernel moments. ``periodic``: (P,) bools; periodic
+    parameters (with both limits) smooth circularly with period
+    fine_bins - 1 (the duplicated wrap bin folded) and take no boundary
+    correction. ``like_weights`` (N,): per-sample likelihood weights; adds
+    the peak-normalized mean-likelihood curves as 'likes'.
     """
-    if limits_lo is not None or limits_hi is not None or periodic is not None:
-        raise _not_ported("1D hard limits and periodic parameters", "A2")
-    if like_weights is not None:
-        raise _not_ported("1D like_weights", "A2")
     n, p = samples.shape
     dtype, device = samples.dtype, samples.device
     n_global = _chain_length(n, group, n_samples)
+    has_limits = limits_lo is not None or limits_hi is not None or periodic is not None
 
     cols = samples.T.contiguous()  # (P, N)
     norm = coll.psum(torch.sum(weights), group)
@@ -809,9 +817,31 @@ def all_1d_densities(
     binmax = torch.maximum(maxs, range_max) + (range_max - range_min) * 0.1
     if range_override is not None:
         binmin, binmax = (_tensor(r, device, dtype) for r in range_override)
+    if has_limits:
+        # hard limits cut the padded range; a limit is active where it binds
+        # (periodic parameters always snap to their full period)
+        nan = np.full(p, np.nan, np.float32)
+        lim_lo = _tensor(nan if limits_lo is None else limits_lo, device, dtype)
+        lim_hi = _tensor(nan if limits_hi is None else limits_hi, device, dtype)
+        per = _tensor(np.zeros(p, bool) if periodic is None else periodic, device, torch.bool)
+        lo_nan, hi_nan = torch.isnan(lim_lo), torch.isnan(lim_hi)
+        active_lo = ~lo_nan & (per | (torch.where(lo_nan, -math.inf, lim_lo) > binmin))
+        active_hi = ~hi_nan & (per | (torch.where(hi_nan, math.inf, lim_hi) < binmax))
+        binmin = torch.where(active_lo, torch.where(lo_nan, binmin, lim_lo), binmin)
+        binmax = torch.where(active_hi, torch.where(hi_nan, binmax, lim_hi), binmax)
+        # boundary-kernel corrections apply only to non-periodic parameters
+        active_lo = active_lo & ~per
+        active_hi = active_hi & ~per
+    else:
+        active_lo = active_hi = per = torch.zeros(p, dtype=torch.bool, device=device)
     fine_width = (binmax - binmin) / (fine_bins - 1)
 
-    bins = _hist_rows(_fine_indices(cols, binmin, fine_width, fine_bins), weights, fine_bins, group)  # (P, fine_bins)
+    fine_ix = _fine_indices(cols, binmin, fine_width, fine_bins)
+    bins = _hist_rows(fine_ix, weights, fine_bins, group)  # (P, fine_bins)
+    like_bins = None
+    if like_weights is not None:
+        like_bins = _hist_rows(fine_ix, _tensor(like_weights, device, dtype), fine_bins, group)
+    del fine_ix
 
     if neff_override is not None:
         neff = _tensor(neff_override, device, dtype)
@@ -835,23 +865,121 @@ def all_1d_densities(
     smooth_bins = torch.clamp(h_frac * fine_bins, 1.0, fine_bins // 2)  # kernel sigma in bins
 
     # Gaussian smoothing by a frequency-domain multiplier (the 10% empty
-    # borders make the periodic pad safe)
+    # borders make the periodic pad safe; with hard limits the data sits at
+    # a centered offset, so the regions outside each edge stay distinct)
     pad = int(2 ** np.ceil(np.log2(fine_bins * 1.25)))
+    off = (pad - fine_bins) // 2 if has_limits else 0
     k = torch.arange(pad // 2 + 1, dtype=dtype, device=device)
+    if has_limits:
+        smooth_bins = torch.where(per, torch.clamp(smooth_bins, max=off / 4.0), smooth_bins)
     mult = torch.exp(-2.0 * (np.pi * smooth_bins[:, None] / pad) ** 2 * k[None, :] ** 2)
 
-    def smooth(b):
-        return torch.fft.irfft(torch.fft.rfft(b, n=pad, dim=1) * mult, n=pad, dim=1)[:, :fine_bins]
+    def smooth(b):  # b: (P, fine_bins), or (P, pad) rows already extended
+        return torch.fft.irfft(torch.fft.rfft(b, n=pad, dim=1) * mult, n=pad, dim=1)[:, off : off + fine_bins]
 
-    conv = smooth(bins)
-    for _ in range(mult_bias_order):
-        prob1 = torch.where(conv <= 0, 1.0, conv)
-        conv = conv * smooth(bins / prob1)
+    if has_limits:
+        # circular smoothing of periodic parameters: fold the duplicated
+        # wrap bin and tile the data into the pad borders (period
+        # fine_bins - 1), so one linear FFT convolution serves both kinds
+        rel = torch.arange(pad, device=device) - off
+        mod_idx = torch.remainder(rel, fine_bins - 1)
+
+        def extend(rows):
+            folded = rows.clone()
+            folded[:, 0] += rows[:, -1]
+            folded[:, -1] = 0.0
+            plain = torch.zeros((p, pad), dtype=rows.dtype, device=device)
+            plain[:, off : off + fine_bins] = rows
+            return torch.where(per[:, None], folded[:, mod_idx], plain)
+
+        def rewrap(c):  # grid points 0 and fine_bins - 1 are one periodic point
+            c = c.clone()
+            c[:, -1] = torch.where(per, c[:, 0], c[:, -1])
+            return c
+
+        def smooth_lim(rows):
+            return rewrap(smooth(extend(rows)))
+
+    else:
+        smooth_lim = smooth
+    conv = smooth_lim(bins)
+    raw_conv = conv  # before the corrections: the mean-likelihood denominator
+
+    if has_limits:
+        # first-order boundary-kernel correction (the linear boundary kernel
+        # of the reference's order-1 branch): moments of the Gaussian against
+        # the prior mask from analytic frequency-domain kernel moments
+        # FT[x^m g]
+        pos = torch.arange(pad, device=device)[None, :]
+        one = torch.ones((), dtype=dtype, device=device)
+        mask_rows = (
+            torch.where(active_lo[:, None] & (pos < off), 0.0, one)
+            * torch.where(active_lo[:, None] & (pos == off), 0.5, one)
+            * torch.where(active_hi[:, None] & (pos >= off + fine_bins), 0.0, one)
+            * torch.where(active_hi[:, None] & (pos == off + fine_bins - 1), 0.5, one)
+        )
+        c_g = 2.0 * (np.pi * smooth_bins[:, None] / pad) ** 2
+        g = torch.exp(-c_g * k[None, :] ** 2)
+        g1 = (-1j * (c_g * pad / np.pi) * k[None, :]) * g
+        g2 = (-((pad / (2 * np.pi)) ** 2) * (4 * c_g**2 * k[None, :] ** 2 - 2 * c_g)) * g
+        mspec = torch.fft.rfft(mask_rows, dim=1)
+        sl = slice(off, off + fine_bins)
+
+        def inverse(spec):
+            return torch.fft.irfft(spec, n=pad, dim=1)[:, sl]
+
+        a0 = inverse(mspec * g)
+        a1 = inverse(mspec * g1)
+        a2 = inverse(mspec * g2)
+        xp = inverse(torch.fft.rfft(extend(bins), dim=1) * g1)
+        good = (a0 > 1e-12) & (conv > 0)
+        normed = torch.where(good, conv / torch.where(good, a0, 1.0), conv)
+        denom = a0 * a2 - a1**2
+        corrected = torch.where(
+            good & (torch.abs(denom) > 1e-30),
+            (conv * a2 - xp * a1) / torch.where(denom == 0, 1.0, denom),
+            normed,
+        )
+        fixed = normed * torch.exp(torch.clamp(corrected / torch.where(normed == 0, 1.0, normed), max=4) - 1)
+        corrected = torch.where(good, fixed, conv)
+        conv = torch.where((active_lo | active_hi)[:, None], corrected, conv)
+
+    if mult_bias_order:
+        a0_mb = None
+        if has_limits:
+            # each bias round divides by the window-cut mask a0 (the edge bin
+            # half-weighted at an active limit, no mass outside the grid)
+            inside = (pos >= off) & (pos < off + fine_bins)
+            mask_mb = (
+                torch.where(inside, one, 0.0)
+                * torch.where(active_lo[:, None] & (pos == off), 0.5, one)
+                * torch.where(active_hi[:, None] & (pos == off + fine_bins - 1), 0.5, one)
+            )
+            a0_mb = smooth(mask_mb)
+            a0_mb = torch.where(a0_mb <= 1e-12, 1.0, a0_mb)
+            a0_mb = torch.where(per[:, None], 1.0, a0_mb)  # no edges on periodic axes
+        for _ in range(mult_bias_order):
+            prob1 = torch.where(conv <= 0, 1.0, conv)
+            flattened = bins / prob1
+            if has_limits:
+                conv = rewrap(conv * smooth(extend(flattened)) / a0_mb)
+            else:
+                conv = conv * smooth(flattened)
+
+    likes = None
+    if like_bins is not None:
+        # mean-likelihood curves (the reference's meanlikes block): flatten
+        # by the corrected density, re-smooth, rescale by corrected / raw
+        # density, peak-normalize
+        live = conv > 0
+        flat_likes = torch.where(live, like_bins / torch.where(live, conv, 1.0), like_bins)
+        blikes = smooth_lim(flat_likes)
+        blikes = torch.where(live, blikes * conv / torch.where(raw_conv == 0, 1.0, raw_conv), blikes)
+        likes = blikes / torch.amax(blikes, dim=1, keepdim=True)
 
     density = conv / torch.amax(conv, dim=1, keepdim=True)
     x = binmin[:, None] + fine_width[:, None] * torch.arange(fine_bins, dtype=dtype, device=device)[None, :]
     bandwidth = h_frac * (binmax - binmin)
-    no_limit = torch.zeros(p, dtype=torch.bool, device=device)
     return {
         "x": x,
         "P": density,
@@ -861,12 +989,55 @@ def all_1d_densities(
         "sigma_range": sigma_range,
         "mean": means,
         "range": (binmin, binmax),
-        "active_lo": no_limit,
-        "active_hi": no_limit,
-        "periodic": no_limit,
-        "likes": None,
+        "active_lo": active_lo,
+        "active_hi": active_hi,
+        "periodic": per,
+        "likes": likes,
         "host_pack": torch.cat([neff, sigma_range, binmin, binmax, bandwidth]),
     }
+
+
+def _extend_periodic(grids, per_x, per_y, winw):
+    """(K, fine + 2 winw, fine + 2 winw) grids for a 'valid' convolution:
+    on each periodic axis (``per_x`` columns, ``per_y`` rows; (K,) bools)
+    the duplicated wrap line is folded into the first and the grid tiles
+    periodically (period fine - 1) into the winw-wide borders; the borders
+    of the other axes are zero."""
+    k, fine, _ = grids.shape
+    ext = fine + 2 * winw
+    rel = torch.arange(ext, device=grids.device) - winw
+    wrap_idx, clip_idx = torch.remainder(rel, fine - 1), torch.clamp(rel, 0, fine - 1)
+    inside = (rel >= 0) & (rel < fine)
+    h = grids.clone()
+    h[:, 0, :] += torch.where(per_y[:, None], h[:, -1, :], 0.0)
+    h[:, -1, :] = torch.where(per_y[:, None], 0.0, h[:, -1, :])
+    h[:, :, 0] += torch.where(per_x[:, None], h[:, :, -1], 0.0)
+    h[:, :, -1] = torch.where(per_x[:, None], 0.0, h[:, :, -1])
+    src_y = torch.where(per_y[:, None], wrap_idx[None, :], clip_idx[None, :])  # (K, ext)
+    src_x = torch.where(per_x[:, None], wrap_idx[None, :], clip_idx[None, :])
+    msk_y = (per_y[:, None] | inside[None, :]).to(grids.dtype)
+    msk_x = (per_x[:, None] | inside[None, :]).to(grids.dtype)
+    g = torch.gather(h, 1, src_y[:, :, None].expand(-1, -1, fine)) * msk_y[:, :, None]
+    return torch.gather(g, 2, src_x[:, None, :].expand(-1, ext, -1)) * msk_x[:, None, :]
+
+
+def _edge_masks(lo_a, hi_a, lo_b, hi_b, fine_bins, winw, dtype):
+    """(K, fine + 2 winw, fine + 2 winw) prior masks of the order-0 edge
+    normalization (reference mcsamples.py:1921-1933): ones beyond an
+    unbounded edge, zero beyond an active limit with a half-weight limit
+    line; ``lo_a`` ... ``hi_b`` (K,) bools, the pairs' active limits (a:
+    columns, b: rows)."""
+    ext = fine_bins + 2 * winw
+    idx = torch.arange(ext, device=lo_a.device)
+    lo_edge = torch.where(idx < winw, 0.0, torch.where(idx == winw, 0.5, 1.0)).to(dtype)
+    hi_edge = torch.where(idx >= ext - winw, 0.0, torch.where(idx == ext - winw - 1, 0.5, 1.0)).to(dtype)
+
+    def axis_mask(act_l, act_h):
+        m = torch.ones((act_l.shape[0], ext), dtype=dtype, device=lo_a.device)
+        m = torch.where(act_l[:, None], lo_edge[None, :] * m, m)
+        return torch.where(act_h[:, None], hi_edge[None, :] * m, m)
+
+    return axis_mask(lo_b, hi_b)[:, :, None] * axis_mask(lo_a, hi_a)[:, None, :]
 
 
 def _shear_subset(enable_shear, k):
@@ -938,50 +1109,65 @@ def all_2d_densities(
     all-reduced, so every grid-local stage sees the same global inputs on
     every rank and every rank returns the same result.
 
-    Parity mode's branches (``getdist_tpu/ops/batched.py:1756-1895``), which
-    need ``bandwidth_override``: ``active_lo`` / ``active_hi`` (P,) hard
-    limits, with the order-0 edge normalization and, at
-    ``boundary_order=1``, the linear boundary kernel; ``exact_mult_bias``,
-    the reference's full edge mask in the multiplicative bias round. The
-    DFT frame is sized to the largest convolution (a multiple of 128).
+    Hard limits, ``active_lo`` / ``active_hi`` (P,) from
+    :func:`all_1d_densities` (``getdist_tpu/ops/batched.py:1756-1895``):
+    the order-0 edge normalization and, at ``boundary_order=1``, the linear
+    boundary kernel, with each bias round divided by the edge mass; the
+    in-program optimizer follows the reference's limit rules (no shear and
+    the rule of thumb above 0.8 for two limited parameters, no kernel
+    correlation for one). ``prior_mask`` (K, fine + 2 winw, fine + 2 winw)
+    multiplies the edge masks (a non-rectangular prior). ``periodic`` (P,)
+    bools: periodic axes fold their wrap line, extend periodically (period
+    fine - 1) into winw-wide borders and take a 'valid' convolution (K3 on
+    the extended grid), then duplicate the wrap line. ``like_weights`` (N,)
+    f32: the like-weighted pair histograms (K1 with f32 weights), smoothed,
+    flattened by one bias round and divided by the smoothed density, as
+    'likes'. ``exact_mult_bias`` (parity mode, with ``bandwidth_override``
+    only): the reference's full edge mask in the multiplicative bias round.
+    The DFT frame is sized to the largest convolution (a multiple of 128).
     """
-    if prior_mask is not None:
-        raise _not_ported("2D prior masks", "A3")
-    if periodic is not None:
-        raise _not_ported("2D periodic parameters", "A3")
-    if like_weights is not None:
-        raise _not_ported("2D like_weights", "A3")
-    has_limits = active_lo is not None or active_hi is not None
-    if bandwidth_override is None and (has_limits or exact_mult_bias):
-        # the parity branches run with host-exact bandwidths; the in-program
-        # optimizer's limit rules (swap, rule-of-thumb, no correlation) are
-        # not ported
-        raise _not_ported("the in-program 2D optimizer with hard limits or exact_mult_bias", "A3/A8")
+    if bandwidth_override is None and exact_mult_bias:
+        # the parity branch runs with host-exact bandwidths
+        raise _not_ported("exact_mult_bias with the in-program 2D optimizer", "A8")
     if boundary_order not in (0, 1):
         raise ValueError(f"boundary_order must be 0 or 1, got {boundary_order}")
     dtype, device = samples.dtype, samples.device
     pa = _tensor(pair_a, device, torch.int64)
     pb = _tensor(pair_b, device, torch.int64)
     k_all = pa.shape[0]
+    p = samples.shape[1]
     neff, binmin, binmax = (_tensor(v, device, dtype) for v in (neff, binmin, binmax))
     contours = _tensor(contours, device, dtype)
     fine_width = (binmax - binmin) / (fine_bins - 1)
-    cols = None if hists_in is not None and bandwidth_override is not None else samples.T.contiguous()
+    need_cols = hists_in is None or bandwidth_override is None or like_weights is not None
+    cols = samples.T.contiguous() if need_cols else None
+    has_limits = active_lo is not None or active_hi is not None
+    if has_limits:
+        unlimited = np.zeros(p, bool)
+        lim_lo = _tensor(unlimited if active_lo is None else active_lo, device, torch.bool)
+        lim_hi = _tensor(unlimited if active_hi is None else active_hi, device, torch.bool)
 
-    if hists_in is not None:
-        hists = _tensor(hists_in, device, dtype)
-    else:
+    hists = None if hists_in is None else _tensor(hists_in, device, dtype)
+    like_hists = None
+    if hists is None or like_weights is not None:
         with _stage("2d:histograms"):
             # uint8 rows up to 256 bins (K1's uint8 kernel), int16 past that
-            # (its wide kernels); both take integer weights as uint8
+            # (its wide kernels)
             ix_all = narrow_rows(_fine_indices(cols, binmin, fine_width, fine_bins), fine_bins)
-            w_hist = weights.to(torch.float32)
-            if int8_weights:
-                w_hist = narrow_weights(w_hist)
-            hists = pair_histograms(
-                ix_all, w_hist, pa.to(torch.int32), pb.to(torch.int32), integer_weights=int8_weights, nbins=fine_bins
-            )
-            hists = coll.psum(hists, group).to(dtype)
+
+            def pair_hists(w_hist, integer):
+                out = pair_histograms(ix_all, w_hist, pa.to(torch.int32), pb.to(torch.int32),
+                                      integer_weights=integer, nbins=fine_bins)
+                return coll.psum(out, group).to(dtype)
+
+            if hists is None:
+                w_hist = weights.to(torch.float32)
+                # integer weights go in as uint8 for every row type
+                hists = pair_hists(narrow_weights(w_hist) if int8_weights else w_hist, int8_weights)
+            if like_weights is not None:
+                # fractional like weights: K1 accumulates them in f32
+                like_hists = pair_hists(_tensor(like_weights, device, torch.float32), False)
+            del ix_all
 
     pair_neff = torch.minimum(neff[pa], neff[pb])
     if bandwidth_override is not None:
@@ -990,8 +1176,9 @@ def all_2d_densities(
     else:
         hx, hy, c, fragile = _optimized_bandwidths(
             cols, weights, pa, pb, hists, pair_neff, binmin, binmax, fine_width, fine_bins, sigma_range, max_corr,
-            enable_shear, mult_bias_order, group,
+            enable_shear, mult_bias_order, group, lim=(lim_lo | lim_hi) if has_limits else None,
         )
+    del cols
     if bandwidth_scale is not None:
         hx = hx * bandwidth_scale
         hy = hy * bandwidth_scale
@@ -1001,7 +1188,8 @@ def all_2d_densities(
     kernels = _gauss_kernel_2d(rx, ry, c, winw, support=support)
 
     # one frame covers every convolution below: 'same' convolutions of the
-    # (fine, fine) grids and 'valid' ones of the (fine + 2 winw)^2 masks
+    # (fine, fine) grids and 'valid' ones of the (fine + 2 winw)^2 masks and
+    # periodically extended grids
     pad = frame_for(fine_bins + 4 * winw + 1)
     spec = dft_conv_spectrum(kernels, pad)
 
@@ -1011,31 +1199,62 @@ def all_2d_densities(
     def conv_valid_ext(grids, sp=spec):
         return dft_conv2d(grids, *sp, fine_bins, 2 * winw, pad)
 
-    smoothed = conv_same(hists)
     ext = fine_bins + 2 * winw
     idx = torch.arange(ext, device=device)
-    no_limit = torch.zeros(k_all, dtype=torch.bool, device=device)
+    no_axis = torch.zeros(k_all, dtype=torch.bool, device=device)
+    if periodic is not None:
+        per = _tensor(periodic, device, torch.bool)
+        per_x, per_y = per[pa], per[pb]
+
+        def conv_main(grids):
+            out = conv_valid_ext(_extend_periodic(grids, per_x, per_y, winw))
+            # the wrap line duplicates its partner row / column
+            out[:, -1, :] = torch.where(per_y[:, None], out[:, 0, :], out[:, -1, :])
+            out[:, :, -1] = torch.where(per_x[:, None], out[:, :, 0], out[:, :, -1])
+            return out
+
+    else:
+        per_x = per_y = no_axis
+        conv_main = conv_same
+
+    smoothed = conv_main(hists)
+
+    likes = None
+    if like_hists is not None:
+        # mean-likelihood grids (reference mcsamples.py:1888-1901): smooth
+        # the like-weighted bins, one bias round, then divide by the smoothed
+        # density where it carries mass
+        bin2dlikes = conv_main(like_hists)
+        if mult_bias_order:
+            live = bin2dlikes > 0
+            flat_l = torch.where(live, like_hists / torch.where(live, bin2dlikes, 1.0), like_hists)
+            likes2 = conv_main(flat_l)
+            # the JAX package keeps likes2 where bin2dlikes <= 0; exactly, both
+            # vanish together there, but in f32 a tail value of bin2dlikes
+            # (like weights span many decades) rounds below zero while
+            # likes2 does not, and that unscaled likes2 over a 1e-4 density
+            # floor becomes the grid's peak (ROADMAP C10): scale by
+            # bin2dlikes clamped at 0
+            bin2dlikes = likes2 * torch.clamp(bin2dlikes, min=0.0)
+        above = smoothed > 1e-4 * torch.amax(smoothed, dim=(1, 2), keepdim=True)
+        bin2dlikes = torch.where(above, bin2dlikes / torch.where(above, smoothed, 1.0), 0.0)
+        likes = bin2dlikes / torch.amax(bin2dlikes, dim=(1, 2), keepdim=True)
+        del like_hists, bin2dlikes
+
     if has_limits:
-        unlimited = np.zeros(samples.shape[1], bool)
-        lim_lo = _tensor(unlimited if active_lo is None else active_lo, device, torch.bool)
-        lim_hi = _tensor(unlimited if active_hi is None else active_hi, device, torch.bool)
         lo_a, hi_a, lo_b, hi_b = lim_lo[pa], lim_hi[pa], lim_lo[pb], lim_hi[pb]
     else:
-        lo_a = hi_a = lo_b = hi_b = no_limit
+        lo_a = hi_a = lo_b = hi_b = no_axis
 
     if has_limits:
         # order-0 edge normalization (reference mcsamples.py:1921-1933): the
         # prior mask is ones beyond unbounded edges, zero beyond an active
         # limit with a half-weight limit line; a00 = conv(mask) is the
         # kernel mass inside the prior
-        def edge_mask(act_l, act_h):
-            m = torch.ones((k_all, ext), dtype=dtype, device=device)
-            lo_edge = torch.where(idx < winw, 0.0, torch.where(idx == winw, 0.5, 1.0)).to(dtype)
-            hi_edge = torch.where(idx >= ext - winw, 0.0, torch.where(idx == ext - winw - 1, 0.5, 1.0)).to(dtype)
-            m = torch.where(act_l[:, None], lo_edge[None, :] * m, m)
-            return torch.where(act_h[:, None], hi_edge[None, :] * m, m)
-
-        masks = edge_mask(lo_b, hi_b)[:, :, None] * edge_mask(lo_a, hi_a)[:, None, :]  # (K, ext, ext)
+        masks = _edge_masks(lo_a, hi_a, lo_b, hi_b, fine_bins, winw, dtype)
+        if prior_mask is not None:
+            # a non-rectangular prior support (the reference's mask_function)
+            masks = masks * _tensor(prior_mask, device, dtype)
         a00 = conv_valid_ext(masks)
         pair_limited = lo_a | hi_a | lo_b | hi_b
         good = pair_limited[:, None, None] & (a00 > 1e-12)
@@ -1067,30 +1286,35 @@ def all_2d_densities(
             safe_normed = torch.where(normed == 0, 1.0, normed)
             lifted = normed * torch.exp(torch.clamp(corrected / safe_normed, max=4) - 1)
             smoothed = torch.where(apply_ix & (denom != 0), lifted, normed)
+            del a10, a01, a20, a02, a11, x_p, y_p, denom, lin_a, lin_x, lin_y, corrected, lifted
         else:
             smoothed = normed
+        del masks
 
     a00_mb = None
     if mult_bias_order and exact_mult_bias:
         # the reference's full mask (mcsamples.py _setAllEdgeMask2D after
-        # _setEdgeMask2D): ones with zeroed winw borders, half-weight limit
-        # lines on hard-limited directions, convolved with the pair kernel
+        # _setEdgeMask2D): ones with zeroed winw borders on non-periodic
+        # axes, half-weight limit lines on hard-limited directions, convolved
+        # with the pair kernel
         border = (idx < winw) | (idx >= ext - winw)
 
-        def mb_axis_mask(act_l, act_h):
-            m = torch.where(border, 0.0, 1.0).to(dtype)[None, :].expand(k_all, ext)
-            m = torch.where(act_l[:, None] & (idx == winw)[None, :], m * 0.5, m)
-            return torch.where(act_h[:, None] & (idx == ext - winw - 1)[None, :], m * 0.5, m)
+        def mb_axis_mask(act_l, act_h, per_ax):
+            m = torch.where(~per_ax[:, None] & border[None, :], 0.0, 1.0).to(dtype)
+            m = torch.where((act_l & ~per_ax)[:, None] & (idx == winw)[None, :], m * 0.5, m)
+            return torch.where((act_h & ~per_ax)[:, None] & (idx == ext - winw - 1)[None, :], m * 0.5, m)
 
-        mb_masks = mb_axis_mask(lo_b, hi_b)[:, :, None] * mb_axis_mask(lo_a, hi_a)[:, None, :]
+        mb_masks = mb_axis_mask(lo_b, hi_b, per_y)[:, :, None] * mb_axis_mask(lo_a, hi_a, per_x)[:, None, :]
+        if prior_mask is not None:
+            mb_masks = mb_masks * _tensor(prior_mask, device, dtype)
         a00_mb = conv_valid_ext(mb_masks)
-        a00_mb = torch.where(a00_mb <= 1e-12, 1.0, a00_mb)
+        a00_mb = torch.where((per_x & per_y)[:, None, None] | (a00_mb <= 1e-12), 1.0, a00_mb)
     # multiplicative bias rounds; without limits or the exact mask the
     # reference's edge normalization is ~1 wherever there is mass
     for _ in range(mult_bias_order):
         maxes = torch.amax(smoothed, dim=(1, 2), keepdim=True)
         flat = torch.where(smoothed > maxes * 1e-8, hists / torch.where(smoothed == 0, 1.0, smoothed), hists)
-        round_conv = conv_same(flat)
+        round_conv = conv_main(flat)
         if a00_mb is not None:
             round_conv = round_conv / a00_mb
         elif has_limits:
@@ -1105,7 +1329,7 @@ def all_2d_densities(
         "ry": ry,
         "corr": c,
         "neff": pair_neff,
-        "likes": None,
+        "likes": likes,
         # pairs whose f32 correlation search sat on a knife edge
         "fragile": fragile,
         # packed host-facing diagnostics [fragile, rx, ry]
@@ -1119,12 +1343,13 @@ def all_2d_densities(
 @_stage("2d:bandwidths")
 def _optimized_bandwidths(
     cols, weights, pa, pb, hists, pair_neff, binmin, binmax, fine_width, fine_bins, sigma_range, max_corr,
-    enable_shear, mult_bias_order, group=None,
+    enable_shear, mult_bias_order, group=None, lim=None,
 ):
     """(hx, hy, c, fragile) in data units from the in-program optimizer:
     sheared spectra for correlated pairs, pure rule of thumb at extreme
     correlation, the plain optimizer otherwise. The moments are global
-    (all-reduced over ``group``), so every rank plans the same shears."""
+    (all-reduced over ``group``), so every rank plans the same shears.
+    ``lim``: (P,) bools, the parameters with an active hard limit."""
     dtype, device = cols.dtype, cols.device
     k_all = pa.shape[0]
     norm = coll.psum(torch.sum(weights), group)
@@ -1141,16 +1366,25 @@ def _optimized_bandwidths(
     c_s = corr_mat[pa, pb]
     c_cap = torch.clamp(c_s, -max_corr, max_corr)
     c_eff = torch.where(torch.abs(c_cap) < 0.1, 0.0, c_cap)
-    shear_sel = (torch.abs(c_eff) > 0.2) & (torch.abs(c_eff) <= max_corr)
-    rule_sel = torch.abs(c_s) > max_corr
-    do_corr = torch.ones(k_all, dtype=torch.bool, device=device)
+    # hard limits (reference mcsamples.py:1334-1412): no shear and the rule
+    # of thumb above 0.8 when both parameters are limited, no kernel
+    # correlation when either is, and a limited parameter goes first in the
+    # shear so that it keeps its bounds
+    if lim is None:
+        lim_a = lim_b = torch.zeros(k_all, dtype=torch.bool, device=device)
+    else:
+        lim_a, lim_b = lim[pa], lim[pb]
+    do_correlated = ~(lim_a & lim_b)
+    shear_sel = (torch.abs(c_eff) > 0.2) & (torch.abs(c_eff) <= max_corr) & do_correlated
+    rule_sel = (torch.abs(c_s) > max_corr) | (~do_correlated & (c_s > 0.8))
+    do_corr = ~(lim_a | lim_b)
     fb_t = (torch.minimum(sr_a / range_a, sr_b / range_b) / pair_neff ** (1.0 / 6)) ** 2
     shear_on, subset = _shear_subset(enable_shear, k_all)
     if shear_on:
         # the sheared spectrum feeds the optimizer only; the density
         # convolution runs on the original grid
         xc = binmin[:, None] + fine_width[:, None] * torch.arange(fine_bins, dtype=dtype, device=device)[None, :]
-        swap = torch.zeros(k_all, dtype=torch.bool, device=device)  # no limited parameter to put first
+        swap = lim_b
         r0, r1, s_mats = _shear_plan_2d(cov[pa, pa], cov[pa, pb], cov[pb, pb], swap)
         sub = torch.arange(k_all, device=device) if subset is None else torch.tensor(subset, device=device)
         sh_p, sh_r1, sh_r2 = _sheared_power(hists[sub], xc[pa[sub]], xc[pb[sub]], r0[sub], r1[sub], swap[sub])
@@ -1201,11 +1435,17 @@ def _optimized_bandwidths(
 def _triangle_program(
     samples, weights, pair_a, pair_b, contours, int8_weights, max_corr=0.95, enable_shear=True,
     bandwidth_scale_1d=None, bandwidth_scale_2d=None, group=None, n_samples=None, export_hists=False,
+    limits_lo=None, limits_hi=None, periodic=None, like_weights=None, fine_bins_2d=256,
 ):
-    """The 1D stage, then the all-pairs 2D stage on its ranges and N_eff;
-    ``group`` / ``n_samples`` shard both stages (see :func:`all_1d_densities`)."""
+    """The 1D stage, then the all-pairs 2D stage on its ranges, N_eff and
+    active limits; ``group`` / ``n_samples`` shard both stages (see
+    :func:`all_1d_densities`)."""
+    has_limits = limits_lo is not None or limits_hi is not None or periodic is not None
     with torch.no_grad():
-        d1 = all_1d_densities(samples, weights, group=group, n_samples=n_samples, bandwidth_scale=bandwidth_scale_1d)
+        d1 = all_1d_densities(
+            samples, weights, limits_lo=limits_lo, limits_hi=limits_hi, periodic=periodic, group=group,
+            n_samples=n_samples, like_weights=like_weights, bandwidth_scale=bandwidth_scale_1d,
+        )
         d2 = all_2d_densities(
             samples,
             weights,
@@ -1215,12 +1455,17 @@ def _triangle_program(
             d1["range"][0],
             d1["range"][1],
             contours,
+            fine_bins=fine_bins_2d,
+            active_lo=d1["active_lo"] if has_limits else None,
+            active_hi=d1["active_hi"] if has_limits else None,
+            periodic=periodic,
             int8_weights=int8_weights,
             bandwidth_scale=bandwidth_scale_2d,
             sigma_range=d1["sigma_range"],
             max_corr=max_corr,
             enable_shear=enable_shear,
             group=group,
+            like_weights=like_weights,
             export_hists=export_hists,
         )
     return d1, d2
@@ -1282,15 +1527,14 @@ def triangle_densities(
     (exact int32 histogram accumulation) is sniffed from numpy weights when
     None: integers in [0, 127] with a total below 2^31, the JAX package's
     rule. ``enable_shear`` is sniffed from numpy samples when None.
-    Float weights are accumulated in f32 directly (no bf16 split). Runs on
-    the card unless ``device`` names the CPU; raises without CUDA.
+    Float weights are accumulated in f32 directly (no bf16 split).
+    ``limits_lo`` / ``limits_hi``: (P,) hard prior bounds (NaN = none);
+    ``periodic``: (P,) bools; ``like_weights``: (N,) per-sample likelihood
+    weights (mean-likelihood 'likes' in both outputs); ``fine_bins_2d``:
+    the 2D grid (past 256 bins the pair histograms run on K1's wide
+    kernels). Runs on the card unless ``device`` names the CPU; raises
+    without CUDA.
     """
-    if limits_lo is not None or limits_hi is not None or periodic is not None:
-        raise _not_ported("hard limits and periodic parameters", "A2/A3")
-    if like_weights is not None:
-        raise _not_ported("like_weights", "A2/A3")
-    if fine_bins_2d != 256:
-        raise _not_ported(f"fine_bins_2d={fine_bins_2d}", "A3")
     sniffable = isinstance(weights, np.ndarray) or np.isscalar(weights) or isinstance(weights, (list, tuple))
     host_weights = np.asarray(weights) if sniffable else None
     if int8_weights is None:
@@ -1308,6 +1552,14 @@ def triangle_densities(
     if enable_shear is None:
         enable_shear = _sniff_shear(samples, max_corr, pairs=pairs, weights=host_weights)
     samples, weights = prepare_chain(samples, weights, device=device)
+    if limits_lo is not None or limits_hi is not None or periodic is not None:
+        nan = np.full(p, np.nan, np.float32)
+        limits_lo = nan if limits_lo is None else np.asarray(limits_lo, np.float32)
+        limits_hi = nan if limits_hi is None else np.asarray(limits_hi, np.float32)
+    if periodic is not None:
+        periodic = np.asarray(periodic, bool)
+    if like_weights is not None:
+        like_weights = _tensor(like_weights, device)
     return _triangle_program(
         samples,
         weights,
@@ -1319,4 +1571,9 @@ def triangle_densities(
         enable_shear,
         bandwidth_scale_1d=bandwidth_scale_1d,
         bandwidth_scale_2d=bandwidth_scale_2d,
+        limits_lo=limits_lo,
+        limits_hi=limits_hi,
+        periodic=periodic,
+        like_weights=like_weights,
+        fine_bins_2d=fine_bins_2d,
     )

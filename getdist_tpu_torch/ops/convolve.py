@@ -1,18 +1,41 @@
-"""Host (numpy) FFT convolution of the parity path's 1D densities.
+"""Host (numpy) FFT convolution of the host 1D densities.
 
-The port's own copy of ``convolveFFT_host`` from
-``getdist_tpu/ops/convolve.py``, with the same padding, slicing and
-arithmetic. It acts on grids of a few thousand bins, where numpy on the
-host is the right tool; the 2D densities go through the CUDA DFT kernels
-of :mod:`getdist_tpu_torch.ops.dft_conv` instead, and periodic parameters
-are not ported yet (ROADMAP A3).
+The port's own copies of ``convolveFFT_host``, ``convolve1D_periodic_host``
+and the dispatcher ``convolve1D_host`` from ``getdist_tpu/ops/convolve.py``,
+with the same padding, slicing and arithmetic. They act on grids of a few
+thousand bins, where numpy on the host is the right tool; the 2D densities
+go through the CUDA DFT kernels of :mod:`getdist_tpu_torch.ops.dft_conv`
+instead.
 """
 
 import numpy as np
 
 from getdist_tpu_torch.ops.fft import next_fast_len
 
-__all__ = ["convolveFFT_host"]
+__all__ = ["convolveFFT_host", "convolve1D_periodic_host", "convolve1D_host"]
+
+
+def convolve1D_host(x, y, mode, largest_size=0):
+    """1D convolution: circular for ``mode="periodic"``, else
+    :func:`convolveFFT_host` in ``mode``."""
+    if mode == "periodic":
+        return convolve1D_periodic_host(x, y)
+    return convolveFFT_host(x, y, mode, largest_size=largest_size)
+
+
+def convolve1D_periodic_host(x, y):
+    """Circular 1D convolution of ``x``, whose last bin duplicates its first
+    (the two ends of a period): fold the last bin into the first, convolve
+    circularly with the roll-centered kernel, re-append the first bin."""
+    x_circ = np.array(x[:-1], float)
+    x_circ[0] += x[-1]
+    n = x_circ.shape[0]
+    m = y.shape[0]
+    hpad = np.zeros(n, dtype=np.asarray(y).dtype)
+    hpad[:m] = y
+    hpad = np.roll(hpad, -(m // 2))
+    res = np.fft.irfft(np.fft.rfft(x_circ) * np.fft.rfft(hpad), n)
+    return np.concatenate([res, res[:1]])
 
 
 def convolveFFT_host(x, y, mode="same", largest_size=0):

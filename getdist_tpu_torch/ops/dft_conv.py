@@ -241,12 +241,12 @@ def dft_conv2d(grids, ur, ui, out_size, offset, pad=DEFAULT_PAD):
             t2[1].data_ptr(), t2_ld, out[lo:hi].data_ptr(), out_size, offset, pad,
         )
         dft_conv2d.launches += 1
-        dft_conv2d.frames[pad] = dft_conv2d.frames.get(pad, 0) + 1
+        dft_conv2d.inputs[(pad, in_size)] = dft_conv2d.inputs.get((pad, in_size), 0) + 1
     return out
 
 
-# launches, in all and by DFT frame
+# launches, in all and by DFT frame (K3: by (frame, input size))
 dft_conv_spectrum.launches = 0
 dft_conv_spectrum.frames = {}
 dft_conv2d.launches = 0
-dft_conv2d.frames = {}
+dft_conv2d.inputs = {}

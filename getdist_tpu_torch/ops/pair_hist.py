@@ -312,11 +312,13 @@ def _launch(ix, weights, pair_a, pair_b, integer_weights, nbins):
     return out, route
 
 
-def _count(entry, route, nbins):
+def _count(entry, route, nbins, integer_weights):
     """An entry's launch counters: ``launches`` (every launch),
-    ``wide_launches`` (the wide kernels') and ``wide_bins`` (the wide
-    kernels' by bin count)."""
+    ``float_launches`` (those accumulating f32 weights, without
+    ``integer_weights``), ``wide_launches`` (the wide kernels') and
+    ``wide_bins`` (the wide kernels' by bin count)."""
     entry.launches += int(route is not None)
+    entry.float_launches += int(route is not None and not integer_weights)
     if route in ("bucket", "direct"):
         entry.wide_launches += 1
         entry.wide_bins[nbins] = entry.wide_bins.get(nbins, 0) + 1
@@ -334,13 +336,14 @@ def pair_histograms(ix, weights, pair_a, pair_b, integer_weights=False, nbins=NB
     weights with atomics. CPU tensors take :func:`pair_histograms_plain`;
     CUDA tensors launch ``csrc/pair_hist.cu``: the uint8 kernel for uint8
     rows, the wide kernels (:func:`wide_plan`) for int16/int32 rows.
-    ``launches`` counts both, ``wide_launches`` the wide kernels' and
-    ``wide_bins`` theirs by bin count.
+    ``launches`` counts both, ``float_launches`` those with f32 weights,
+    ``wide_launches`` the wide kernels' and ``wide_bins`` theirs by bin
+    count.
     """
     if ix.device.type == "cpu":
         return pair_histograms_plain(ix, weights, pair_a, pair_b, integer_weights, nbins)
     out, route = _launch(ix, weights, pair_a, pair_b, integer_weights, nbins)
-    _count(pair_histograms, route, nbins)
+    _count(pair_histograms, route, nbins, integer_weights)
     return out
 
 
@@ -351,7 +354,7 @@ def pair_histograms_dynamic(ix, weights, pair_a, pair_b, integer_weights=False, 
     if ix.device.type == "cpu":
         return pair_histograms_plain(ix, weights, pair_a, pair_b, integer_weights, nbins)
     out, route = _launch(ix, weights, pair_a, pair_b, integer_weights, nbins)
-    _count(pair_histograms_dynamic, route, nbins)
+    _count(pair_histograms_dynamic, route, nbins, integer_weights)
     return out
 
 
@@ -448,9 +451,11 @@ def pair_histograms_grouped(ix, weights, grp_a, grp_b, inv_perm, int8_weights=Fa
 
 
 pair_histograms.launches = 0
+pair_histograms.float_launches = 0
 pair_histograms.wide_launches = 0
 pair_histograms.wide_bins = {}
 pair_histograms_dynamic.launches = 0
+pair_histograms_dynamic.float_launches = 0
 pair_histograms_dynamic.wide_launches = 0
 pair_histograms_dynamic.wide_bins = {}
 pair_histograms_grouped.launches = 0

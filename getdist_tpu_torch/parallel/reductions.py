@@ -187,12 +187,13 @@ def sharded_triangle_densities(
     the last blocks; see :func:`all_1d_densities`). Returns the (d1, d2)
     dicts, the same on every rank.
 
-    Hard limits, periodic parameters and ``like_weights`` raise, as on the
-    unsharded path."""
+    Hard limits, periodic parameters and ``like_weights``, which the
+    unsharded path takes, raise here (their sharded branches are ROADMAP
+    A9)."""
     if limits_lo is not None or limits_hi is not None or periodic is not None:
-        raise _not_ported("hard limits and periodic parameters", "A2/A3")
+        raise _not_ported("sharded hard limits and periodic parameters", "A9")
     if like_weights is not None:
-        raise _not_ported("like_weights", "A2/A3")
+        raise _not_ported("sharded like_weights", "A9")
     if not isinstance(samples, torch.Tensor):
         samples, weights = batched.prepare_chain(samples, weights)
     p = samples.shape[1]

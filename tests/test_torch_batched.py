@@ -335,31 +335,99 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def _branch_kwargs(samples, weights, case):
+    """The arguments of a branch that raised before it was ported: a lower
+    limit at column 0's minimum, column 1 periodic over its span, like
+    weights w exp(-chi^2 / 2), or a 128-bin 2D grid."""
+    nan = np.nan
+    if case == "limits":
+        return dict(limits_lo=[samples[:, 0].min(), nan, nan, nan])
+    if case == "periodic":
+        return dict(periodic=[False, True, False, False], limits_lo=[nan, samples[:, 1].min(), nan, nan],
+                    limits_hi=[nan, samples[:, 1].max(), nan, nan])
+    if case == "like_weights":
+        return dict(like_weights=weights * np.exp(-0.5 * np.sum(samples**2, axis=1) / 4))
+    return dict(fine_bins_2d=128)
+
+
 @pytest.mark.parametrize(
     "kwargs",
-    [
-        dict(limits_lo=[0.0, np.nan, np.nan, np.nan]),
-        dict(periodic=[False, True, False, False]),
-        dict(like_weights=np.ones(200)),
-        dict(fine_bins_2d=128),
-    ],
+    ["limits", "periodic", "like_weights", "fine_bins_2d"],
     ids=["limits", "periodic", "like_weights", "fine_bins_2d"],
 )
 def test_unported_branches_raise(chain, kwargs):
-    samples, weights = chain
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.triangle_densities(samples[:200], weights[:200], **kwargs)
+    """Branches of ``triangle_densities`` that raised until they were
+    ported (limits, periodic, like weights, a fine grid other than 256) now
+    run and match the JAX function on 5000 samples: 1D (and its like
+    curves) atol 1e-4, 2D kernels rtol 1e-3 where the JAX side did not flag
+    the pair, P within 5e-4, contours rtol 0.02. The 2D like grids are held
+    against f64 in ``tests/test_torch_bounded.py`` (the JAX side's f32 ones
+    are not reliable there); here they must lie in [0, 1] with peak 1."""
+    samples, weights = chain[0][:5000], chain[1][:5000]
+    kw = _branch_kwargs(samples, weights, kwargs)
+    with jax.enable_x64(False):
+        want = _np(jb.triangle_densities(samples, weights, use_pallas=False, **kw))
+    got = _np(tb.triangle_densities(samples, weights, device="cpu", **kw))
+    (g1, g2), (w1, w2) = got, want
+    np.testing.assert_allclose(g1["P"], w1["P"], rtol=0, atol=1e-4)
+    for key in ("active_lo", "active_hi", "periodic"):
+        np.testing.assert_array_equal(g1[key], w1[key])
+    calm = ~w2["fragile"]
+    for key in ("rx", "ry", "corr"):
+        np.testing.assert_allclose(g2[key][calm], w2[key][calm], rtol=1e-3)
+    np.testing.assert_allclose(g2["P"], w2["P"], rtol=0, atol=5e-4)
+    np.testing.assert_allclose(g2["contours"], w2["contours"], rtol=0.02)
+    fine = kw.get("fine_bins_2d", 256)
+    assert g2["P"].shape == (6, fine, fine)
+    if kwargs == "like_weights":
+        np.testing.assert_allclose(g1["likes"], w1["likes"], rtol=0, atol=1e-4)
+        assert g2["likes"].min() >= -1e-6
+        np.testing.assert_allclose(g2["likes"].max(axis=(1, 2)), 1.0, rtol=1e-6)
+    if kwargs == "periodic":
+        assert g1["P"][1, 0] == g1["P"][1, -1]
 
 
 @pytest.mark.parametrize(
     "kwargs",
-    [dict(exact_mult_bias=True), dict(periodic=[False, True, False, False]), dict(prior_mask=np.ones((1, 316, 316)))],
+    [dict(exact_mult_bias=True), dict(periodic=[False, True, False, False]), dict(prior_mask=True)],
     ids=["exact_mult_bias", "periodic", "prior_mask"],
 )
-def test_unported_2d_branches_raise(chain32, kwargs):
+def test_unported_2d_branches_raise(chain32, pair_hists, kwargs):
+    """``exact_mult_bias`` without host bandwidths still raises (ROADMAP
+    A8). The other two raised until they were ported and now run with the
+    histograms and bandwidths pinned, matching the JAX function (P within
+    5e-4): a periodic axis (the wrap line exact), and a diagonal prior
+    mask on a pair with an active limit (the histograms keep only the
+    samples inside it), held inside the prior at boundary order 0."""
     s, w = chain32
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.all_2d_densities(s, w, [0], [1], np.ones(4), np.zeros(4), np.ones(4), CONTOURS, **kwargs)
+    if "exact_mult_bias" in kwargs:
+        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+            tb.all_2d_densities(s, w, [0], [1], np.ones(4), np.zeros(4), np.ones(4), CONTOURS, **kwargs)
+        return
+    d1, pairs, hists = pair_hists
+    pa = np.array([a for a, _ in pairs], np.int32)
+    pb = np.array([b for _, b in pairs], np.int32)
+    bw = tuple(np.array(v, np.float32) for v in ([0.12, 0.3, 0.2], [0.2, 0.25, 0.3], [0.55, 0.0, -0.2]))
+    kw = dict(hists_in=hists, bandwidth_override=bw)
+    if "periodic" in kwargs:
+        kw["periodic"] = np.array(kwargs["periodic"])
+    else:
+        yy, xx = np.mgrid[0:316, 0:316]
+        prior = (xx + yy < 316 + 40).astype(np.float32)
+        kw.update(prior_mask=np.stack([prior] * 3), hists_in=hists * prior[30:-30, 30:-30], boundary_order=0,
+                  active_lo=np.array([True, False, False, False]), active_hi=np.zeros(4, bool))
+    args = (s, w, pa, pb, d1["neff"], d1["range"][0], d1["range"][1], np.array(CONTOURS, np.float32))
+    with jax.enable_x64(False):
+        jkw = {k: v if isinstance(v, int) else jax.tree.map(jnp.asarray, v) for k, v in kw.items()}
+        want = _np(jb.all_2d_densities(*(jnp.asarray(a) for a in args), **jkw))
+    got = _np(tb.all_2d_densities(_t(s), _t(w), *args[2:], **kw))
+    if "periodic" in kwargs:
+        np.testing.assert_allclose(got["P"], want["P"], rtol=0, atol=5e-4)
+        assert np.array_equal(got["P"][0][0], got["P"][0][-1])  # pair (0, 1): column 1 is its y axis
+    else:
+        inside = prior[30:-30, 30:-30] > 0
+        for g, w_ in zip(got["P"], want["P"]):
+            np.testing.assert_allclose(g[inside] / g[inside].max(), w_[inside] / w_[inside].max(), rtol=0, atol=5e-4)
 
 
 @pytest.mark.parametrize(
@@ -368,12 +436,13 @@ def test_unported_2d_branches_raise(chain32, kwargs):
     ids=["limits", "periodic", "like_weights"],
 )
 def test_sharded_unported_branches_raise(chain32, kwargs):
-    """The sharded path raises for what the unsharded one lacks, before any
-    collective (so no process group is needed here)."""
+    """The sharded path raises for the branches it has not taken over from
+    the unsharded one (ROADMAP A9), before any collective (so no process
+    group is needed here)."""
     from getdist_tpu_torch.parallel import sharded_triangle_densities
 
     s, w = chain32
-    with pytest.raises(NotImplementedError, match="ROADMAP A2/A3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         sharded_triangle_densities(None, _t(s[:200]), _t(w[:200]), **kwargs)
 
 
@@ -392,7 +461,7 @@ def _tf32_calls(chain):
     def raising_call():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tb.all_2d_densities(s32, w32, [0], [1], np.ones(4), np.zeros(4), np.ones(4), CONTOURS,
-                                prior_mask=np.ones((1, 316, 316)))
+                                exact_mult_bias=True)
 
     return {
         "triangle_densities": lambda: tb.triangle_densities(samples[:3000], weights[:3000], device="cpu"),

@@ -635,3 +635,33 @@ def test_fast_triangle_on_card_matches_cpu(cuda):
         want = c2["regrid"][key]["P"] if key in c2["regrid"] else c2["P"][k]
         assert got.shape == want.shape
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=5e-3)
+
+
+def test_bounded_entry_on_card_matches_cpu(cuda):
+    """The public fused entry with meanlikes on a 20k x 6 bounded chain
+    (every 10th sample of ``chip_smoke.bounded_chain(200k, 6)``: lower,
+    upper and two-sided limits, a periodic column, loglikes) on the card
+    against the port on the CPU: K1 ran once with f32 like weights and K3 on
+    the 316-wide extended grids; the same regrid keys; grids within the
+    zoo's 5e-3, 1D and its like curves within 1e-4, the like grids within
+    5e-3 (f32 round-off over the density floor, on both sides)."""
+    from chip_smoke import bounded_chain
+    from getdist_tpu_torch.mcsamples import MCSamples
+
+    s, w, ll, names, ranges = bounded_chain(200_000, p=6, kinds=(1, 1, 1, 1))
+    kw = dict(samples=s[::10].copy(), weights=w[::10].copy(), loglikes=ll[::10].copy(), names=names, ranges=ranges)
+    float_before = pair_hist.pair_histograms.float_launches
+    ext_before = dft_conv.dft_conv2d.inputs.get((384, 316), 0)
+    g1, g2, pairs = MCSamples(device=cuda, **kw).fastTriangleDensities(meanlikes=True)
+    assert pair_hist.pair_histograms.float_launches == float_before + 1
+    assert dft_conv.dft_conv2d.inputs.get((384, 316), 0) >= ext_before + 6
+    c1, c2, _ = MCSamples(device="cpu", **kw).fastTriangleDensities(meanlikes=True)
+    assert set(g2["regrid"]) == set(c2["regrid"])
+    torch.testing.assert_close(g1["P"].cpu(), c1["P"], rtol=0, atol=1e-4)
+    torch.testing.assert_close(g1["likes"].cpu(), c1["likes"], rtol=0, atol=1e-4)
+    torch.testing.assert_close(g2["likes"].cpu(), c2["likes"], rtol=0, atol=5e-3)
+    for k, key in enumerate(pairs):
+        got = g2["regrid"][key]["P"] if key in g2["regrid"] else g2["P"][k]
+        want = c2["regrid"][key]["P"] if key in c2["regrid"] else c2["P"][k]
+        assert got.shape == want.shape
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=5e-3)

@@ -317,14 +317,19 @@ def test_fast_chain_cache_follows_the_samples():
     [("limits", "A2/A3"), ("periodic", "A2/A3"), ("meanlikes", "A2/A3"), ("mesh", "A9"), ("parity", "A8")],
 )
 def test_unported_fast_branches_raise(case, item):
+    """``mesh=`` (ROADMAP A9) and the host parity variant (A8) raise. The
+    branches that raised naming A2/A3 until they were ported (a lower limit
+    at a column's minimum, a periodic column, meanlikes grids with
+    loglikes) run and match the JAX method: the same regrid keys, served
+    grids within the zoo's budget, 1D (and its like curves) within 1e-4."""
     samples, weights = make_chain(n=2000, p=3)
     kw = dict(samples=samples, weights=weights, names=_names(3), device="cpu")
     call = "fastTriangleDensities"
     args = {}
     if case == "limits":
-        kw["ranges"] = {"p0": [-10, None]}
+        kw["ranges"] = {"p0": [float(samples[:, 0].min()), None]}
     elif case == "periodic":
-        kw["ranges"] = {"p1": [-20, 20, True]}
+        kw["ranges"] = {"p1": [float(samples[:, 1].min()), float(samples[:, 1].max()), True]}
     elif case == "meanlikes":
         kw["loglikes"] = 0.5 * np.sum(samples**2, axis=1)
         args["meanlikes"] = True
@@ -332,5 +337,23 @@ def test_unported_fast_branches_raise(case, item):
         args["mesh"] = object()
     else:
         call, args = "fastDensities", {"parity": True}
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        getattr(MCSamples(**kw), call)(**args)
+    if case in ("mesh", "parity"):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            getattr(MCSamples(**kw), call)(**args)
+        return
+    t1, t2, pairs = MCSamples(**kw).fastTriangleDensities(**args)
+    jkw = {k: v for k, v in kw.items() if k != "device"}
+    with jax.enable_x64(False):
+        j1, j2, _ = JaxMCSamples(**jkw).fastTriangleDensities(use_pallas=False, **args)
+        jgrids = {key: np.asarray(j2["regrid"][key]["P"] if key in j2["regrid"] else j2["P"][k])
+                  for k, key in enumerate(pairs)}
+        j1 = {k: np.asarray(v) for k, v in j1.items() if v is not None and not isinstance(v, tuple)}
+    assert set(t2["regrid"]) == set(j2["regrid"])
+    np.testing.assert_allclose(_np(t1["P"]), j1["P"], rtol=0, atol=1e-4)
+    if case == "meanlikes":
+        np.testing.assert_allclose(_np(t1["likes"]), j1["likes"], rtol=0, atol=1e-4)
+    else:
+        assert bool(_np(t1["active_lo"])[0] or _np(t1["periodic"])[1])
+    for k, key in enumerate(pairs):
+        got = _np(t2["regrid"][key]["P"] if key in t2["regrid"] else t2["P"][k])
+        np.testing.assert_allclose(got, jgrids[key], rtol=0, atol=DEFAULT_TOL_2D)

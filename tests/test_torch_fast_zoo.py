@@ -1,8 +1,9 @@
 """getdist_tpu_torch's ``MCSamples.fastTriangleDensities`` on the reference
-zoo's unbounded 2D shapes, against the JAX method.
+zoo's 2D shapes, against the JAX method.
 
-The 14 shapes of ``tests/zoo.py:shapes_2d`` without hard limits, at N =
-40000 (``random_state=7``, as ``tests/test_zoo_fidelity.py`` draws them).
+All 17 shapes of ``tests/zoo.py:shapes_2d``: the 14 unbounded ones and the
+three with hard limits ("bending", "cut correlated", "flat"), at N = 40000
+(``random_state=7``, as ``tests/test_zoo_fidelity.py`` draws them).
 The JAX method runs in 32-bit mode (``jax.enable_x64(False)``, the f32
 program a device runs; its reruns then reuse the 256-bin histograms as on
 a device), the port on the CPU. Both must take the same route (single
@@ -31,15 +32,14 @@ from getdist_tpu_torch.mcsamples import MCSamples  # noqa: E402
 from test_zoo_fidelity import DEFAULT_TOL_2D, N_2D, TOL_2D, _max_grid_delta_2d  # noqa: E402
 from zoo import shapes_2d  # noqa: E402
 
-_SHAPES = {
-    label: shape for label, shape in shapes_2d().items() if all(v is None for lim in shape.lims for v in lim)
-}
+_SHAPES = shapes_2d()
+BOUNDED = {label for label, shape in _SHAPES.items() if any(v is not None for lim in shape.lims for v in lim)}
 KNIFE_EDGE = {"skew": (0, 1), "rotating": (0, 1), "trimodal WJ3": (0, 1), "quadrimodal": (0, 1)}
 
 
-def _port(samps):
+def _port(samps, lims=None):
     return MCSamples(samples=samps.samples, weights=samps.weights, names=[p.name for p in samps.paramNames.names],
-                     device="cpu")
+                     ranges=lims, device="cpu")
 
 
 def _jax_run(samps, monkeypatch):
@@ -64,15 +64,17 @@ def _jax_run(samps, monkeypatch):
 
 
 def test_zoo_covers_the_unbounded_shapes():
-    assert len(_SHAPES) == 14
-    assert set(KNIFE_EDGE) <= set(_SHAPES)
+    """All 17 shapes are covered, the three bounded ones among them."""
+    assert len(_SHAPES) == 17
+    assert BOUNDED == {"bending", "cut correlated", "flat"}
+    assert set(KNIFE_EDGE) <= set(_SHAPES) - BOUNDED
 
 
 @pytest.mark.parametrize("label", list(_SHAPES), ids=[k.replace(" ", "_") for k in _SHAPES])
 def test_fast_triangle_tracks_jax_across_unbounded_zoo(label, monkeypatch):
     samps = _SHAPES[label].MCSamples(N_2D, random_state=7)
     want, want_sizes, jax_single = _jax_run(samps, monkeypatch)
-    mc = _port(samps)
+    mc = _port(samps, _SHAPES[label].lims)
     _, d2, pairs = mc.fastTriangleDensities()
     assert ("program" in mc.fast_profile) == jax_single, "same route"
     got_sizes = {key: int(entry["P"].shape[0]) for key, entry in d2["regrid"].items()}
