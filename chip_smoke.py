@@ -32,9 +32,14 @@ CUDA kernels from ``getdist_tpu_torch/csrc``. Then three paths on
    the same device tensors, and agreement with it), then
    ``sharded_pair_hists`` over all 435 pairs through K5 (both weight
    modes, bit-exact against K1 and the plain version) and without a pair
-   plan through K4; last, 4 gloo ranks on the CPU run the sharded path on
-   a 40k x 6 chain, held against the one-rank run on the card (the only
-   run where the N_eff halo exchange and the card meet);
+   plan through K4; then 4 gloo ranks on the CPU run the sharded path on
+   a 40k x 6 chain and on a 40k x 6 bounded chain with like weights, held
+   against the one-rank run on the card (the only run where the N_eff halo
+   exchange and the card meet); last, on the 1M x 30 bounded chain (phase
+   6's), ``sharded_triangle_densities`` with its limits, periodic axes and
+   like weights beside ``triangle_densities`` on the same tensors (walls
+   in turns, launches, outputs, agreement), and the public entry with
+   ``mesh=group`` and meanlikes against the unsharded entry;
 4. the public fused entry, ``MCSamples(...).fastTriangleDensities()``: on
    the bench chain (single dispatch: cold and warm walls, launches, the
    device idle share and stage split under the profiler, outputs held
@@ -56,13 +61,24 @@ CUDA kernels from ``getdist_tpu_torch/csrc``. Then three paths on
    (launches per kernel, the idle share and stage split of one profiled
    call, checks of its outputs: limits on the grid edges, wrap lines, like
    grids in [0, 1]), ``triangle_densities`` with the same arguments, K1
-   with the f32 like weights (f32 atomics add in another order: each bin
-   within 1e-5 of itself plus 1e-5 of its pair's peak, the low tails within
-   1e-5 of their sum), K3 on the 316-wide periodically extended grids and
+   with the f32 like weights (fixed point against the plain version's f64
+   sums: each bin within 1e-6 of itself plus 1e-9 of its pair's peak, the
+   low tails within 1e-7 of their sum; two calls bitwise equal), K3 on the
+   316-wide periodically extended grids and
    edge masks, and K2 and K3 at the clamped rescue's 768 frame (its
    kernels, 256-bin grids and 508-wide edge masks), each against its plain
    version, and the entry on the card against the port on the CPU at
-   100k x 10.
+   100k x 10;
+7. parity mode on the bounded chain: device parity cold and warm (stage
+   profile, buckets, launches per kernel; every bucket's f64 K3 on its
+   periodically extended grids), f64 K3 on the largest bucket's extended
+   grids against its plain version (within 1e-12 of the largest value,
+   two calls bitwise equal, beside cuDNN's f64 conv2d and the bound); the
+   same chain with fractional importance weights (``importance_weights``):
+   device parity routed to the host variant and the host variant called
+   directly (walls, stages, equal results); parity on the card against
+   the port on the CPU at 20k x 6 with a periodic and a limited column
+   (device parity, and the host variant on importance weights).
 
 K1, K4, K5 and the wide kernels are timed with the weights their paths
 pass (integer weights as uint8, ``pair_hist.narrow_weights``), each beside
@@ -189,6 +205,32 @@ def bounded_chain(n, p=30, seed=31, kinds=BOUNDED_KINDS):
                 samples[:, col], ranges[names[col]] = np.mod(1.5 * v + np.pi, 2 * np.pi), [0.0, 2 * np.pi, True]
             col += 1
     return samples, weights, 0.5 * np.sum(z * z, axis=1), names, ranges
+
+
+def limit_arrays(names, ranges):
+    """(limits_lo, limits_hi, periodic) of a ranges dict: (P,) f32 bounds
+    (NaN: none) and bools."""
+    import numpy as np
+
+    lo = np.array([ranges.get(n, [None, None])[0] for n in names], dtype=float).astype(np.float32)
+    hi = np.array([ranges.get(n, [None, None])[1] for n in names], dtype=float).astype(np.float32)
+    return lo, hi, np.array([len(ranges.get(n, ())) == 3 for n in names])
+
+
+def like_weights_of(weights, loglikes):
+    """The mean-likelihood grids' per-sample f32 weights w exp(<-log L> -
+    (-log L)), as ``MCSamples`` makes them."""
+    import numpy as np
+
+    return (weights * np.exp(np.sum(weights * loglikes) / np.sum(weights) - loglikes)).astype(np.float32)
+
+
+def importance_weights(weights, seed):
+    """Fractional weights of an importance-reweighted chain: each weight
+    times exp(-chi2 / 2) of a chi2(1) draw from ``seed``, so in (0, w]."""
+    import numpy as np
+
+    return weights * np.exp(-0.5 * np.random.RandomState(seed).chisquare(1, len(weights)))
 
 
 def check(cond, msg):
@@ -798,18 +840,30 @@ def sharded_diffs(got, want, label):
     return report
 
 
-def cross_rank_worker(group, samples, weights):
+def cross_rank_worker(group, samples, weights, bounded=None):
     """One gloo rank of the cross-check: its block through the sharded path
-    on the CPU."""
-    from getdist_tpu_torch.parallel import shard_samples, sharded_triangle_densities
+    on the CPU; with ``bounded`` ((samples, weights, limits_lo, limits_hi,
+    periodic, like weights) of a bounded chain) that chain's run too."""
+    from getdist_tpu_torch.parallel import shard_samples, shard_values, sharded_triangle_densities
 
-    d1, d2 = sharded_triangle_densities(group, *shard_samples(group, samples, weights, device="cpu"),
-                                        n_samples=len(samples))
-    return {k: d1[k].numpy() for k in ("neff", "P")}, {k: d2[k].numpy() for k in ("P", "contours")}
+    def pick(d1, d2):
+        return ({k: d1[k].numpy() for k in ("neff", "P", "likes") if d1.get(k) is not None},
+                {k: d2[k].numpy() for k in ("P", "contours", "likes") if d2.get(k) is not None})
+
+    out = [pick(*sharded_triangle_densities(group, *shard_samples(group, samples, weights, device="cpu"),
+                                            n_samples=len(samples)))]
+    if bounded is not None:
+        bs, bw, lo, hi, per, like = bounded
+        out.append(pick(*sharded_triangle_densities(
+            group, *shard_samples(group, bs, bw, device="cpu"), limits_lo=lo, limits_hi=hi, periodic=per,
+            like_weights=shard_values(group, like, device="cpu"), n_samples=len(bs), int8_weights=True,
+        )))
+    return out
 
 
-def sharded_path(samples, weights, batched, dft_conv, pair_hist, make_chain):
-    """Phase 3: the sharded path, one NCCL rank on the card."""
+def sharded_path(samples, weights, batched, dft_conv, pair_hist, make_chain, bounded):
+    """Phase 3: the sharded path, one NCCL rank on the card (``bounded``:
+    the bounded chain's arrays)."""
     import torch.distributed as dist
 
     from getdist_tpu_torch.ops._cuda import BUILD_DIR
@@ -820,7 +874,9 @@ def sharded_path(samples, weights, batched, dft_conv, pair_hist, make_chain):
     store.unlink(missing_ok=True)
     group = init_group("nccl", rank=0, world_size=1, init_method=f"file://{store}")
     try:
-        return sharded_runs(group, samples, weights, batched, dft_conv, pair_hist, make_chain)
+        rows = sharded_runs(group, samples, weights, batched, dft_conv, pair_hist, make_chain)
+        sharded_bounded(group, bounded, batched, dft_conv, pair_hist)
+        return rows
     finally:
         dist.destroy_process_group()
         store.unlink(missing_ok=True)
@@ -830,7 +886,13 @@ def sharded_runs(group, samples, weights, batched, dft_conv, pair_hist, make_cha
     import numpy as np
     import torch
 
-    from getdist_tpu_torch.parallel import shard_samples, sharded_pair_hists, sharded_triangle_densities, spawn_ranks
+    from getdist_tpu_torch.parallel import (
+        shard_samples,
+        shard_values,
+        sharded_pair_hists,
+        sharded_triangle_densities,
+        spawn_ranks,
+    )
 
     p = samples.shape[1]
     k = p * (p - 1) // 2
@@ -928,17 +990,170 @@ def sharded_runs(group, samples, weights, batched, dft_conv, pair_hist, make_cha
     cs[:, 1] = 0.8 * base[:, 0] + 0.6 * base[:, 1]
     corr = np.corrcoef(cs.T)[0, 1]
     check(abs(corr) > 0.5, f"cross-rank chain has a correlated pair ({corr})")
+    # and a 40k x 6 bounded chain: lower, upper, two-sided and periodic
+    # columns, like weights
+    bs, bw, bll, bnames, branges = bounded_chain(40_000, p=6, kinds=(1, 1, 1, 1))
+    blo, bhi, bper = limit_arrays(bnames, branges)
+    blike = like_weights_of(bw, bll)
     t0 = time.perf_counter()
-    ranks = spawn_ranks(cross_rank_worker, 4, "gloo", args=(cs, cw), timeout_s=600)
+    ranks = spawn_ranks(cross_rank_worker, 4, "gloo", args=(cs, cw, (bs, bw, blo, bhi, bper, blike)), timeout_s=600)
     spawn_s = time.perf_counter() - t0
     for rank, got in enumerate(ranks[1:], start=1):
-        for mine, first in zip(got, ranks[0]):
-            check(all(np.array_equal(mine[key], first[key]) for key in first), f"rank {rank} bitwise equal to rank 0")
+        for run, first_run in zip(got, ranks[0]):
+            for mine, first in zip(run, first_run):
+                check(all(np.array_equal(mine[key], first[key]) for key in first),
+                      f"rank {rank} bitwise equal to rank 0")
     card = sharded_triangle_densities(group, *shard_samples(group, cs, cw, device="cuda"), n_samples=len(cs))
-    report = sharded_diffs(ranks[0], card, "4 gloo ranks vs one NCCL rank")
-    print(f"cross-rank 40k x 6 (|corr| {abs(corr):.2f}): 4 gloo ranks on the CPU ({spawn_s:.1f} s, bitwise equal "
-          f"across ranks) vs one NCCL rank on the card, max abs diffs: {json.dumps(report)}")
+    report = sharded_diffs(ranks[0][0], card, "4 gloo ranks vs one NCCL rank")
+    card_b = sharded_triangle_densities(group, *shard_samples(group, bs, bw, device="cuda"), limits_lo=blo,
+                                        limits_hi=bhi, periodic=bper, like_weights=shard_values(group, blike, "cuda"),
+                                        n_samples=len(bs), int8_weights=True)
+    report_b = sharded_diffs(ranks[0][1], card_b, "4 gloo ranks vs one NCCL rank, bounded")
+    likes_b, bad = like_diffs(ranks[0][1], card_b, "4 gloo ranks vs one NCCL rank, bounded",
+                              tol_2d=LIKES_TOL_CROSS_DEVICE_2D)
+    check(not bad, "; ".join(bad))
+    report_b.update(likes_b)
+    print(f"cross-rank 40k x 6 (|corr| {abs(corr):.2f}): 4 gloo ranks on the CPU ({spawn_s:.1f} s for both chains, "
+          f"bitwise equal across ranks) vs one NCCL rank on the card, max abs diffs: {json.dumps(report)}; bounded "
+          f"40k x 6 (limits, periodic, like weights): {json.dumps(report_b)}")
     return [result]
+
+
+# like grids of one device against another order of the same sums (f32
+# like weights over many decades), and of the card against the CPU (2D: f32
+# round-off of the convolutions over the density floor, the zoo's 5e-3, as
+# bounded_cross_device holds them)
+LIKES_TOL = 1e-4
+LIKES_TOL_CROSS_DEVICE_2D = 5e-3
+# K1 adds fractional (like) weights in fixed point, order independent: on
+# one device the same program gives the same like grids bit for bit, so a
+# call against itself and a one-rank group against no group are held equal
+# (LIKES_SAME = 0) over the whole grid (ROADMAP C13).
+LIKES_SAME = 0.0
+
+
+def like_diffs(got, want, label, tol_1d=LIKES_TOL, tol_2d=LIKES_TOL):
+    """(report, failures) of the 1D and 2D like grids of (d1, d2) against
+    (d1, d2), over the whole grids: max differences, and those past
+    ``tol_1d`` in 1D and ``tol_2d`` in 2D."""
+    import numpy as np
+
+    def host(x):
+        return np.asarray(x.cpu() if hasattr(x, "cpu") else x, np.float64)
+
+    report, failures = {}, []
+    for name, g, w, tol in (("1D likes", got[0]["likes"], want[0]["likes"], tol_1d),
+                            ("2D likes", got[1]["likes"], want[1]["likes"], tol_2d)):
+        report[name] = float(np.abs(host(g) - host(w)).max())
+        if report[name] > tol:
+            failures.append(f"{label} {name}: max abs diff {report[name]} (tolerance {tol})")
+    return report, failures
+
+
+def bitwise(got, want):
+    """Whether two (d1, d2) results are equal bit for bit on every tensor
+    both hold."""
+    import torch
+
+    return all(
+        torch.equal(a[key], b[key])
+        for a, b in zip(got, want)
+        for key in a
+        if isinstance(a[key], torch.Tensor) and isinstance(b.get(key), torch.Tensor)
+    )
+
+
+def sharded_bounded(group, bounded, batched, dft_conv, pair_hist):
+    """Phase 3 on the bounded chain (30 x 1M: limits, periodic axes, like
+    weights), in the one-rank NCCL group: ``sharded_triangle_densities``
+    beside ``triangle_densities`` with the same arguments on the same device
+    tensors (walls in turns, launches, outputs; equal within
+    tests/test_parallel.py's tolerances, the like curves and grids equal
+    over the whole grids; and whether bitwise), and the latter against
+    itself (like grids equal), then
+    ``MCSamples.fastTriangleDensities(mesh=group)`` with meanlikes against
+    the unsharded entry (the same regrid keys, served grids within 2e-5,
+    tests/test_parallel.py's public-path tolerance; like grids equal)."""
+    import torch
+
+    from getdist_tpu_torch.mcsamples import MCSamples
+    from getdist_tpu_torch.parallel import shard_samples, shard_values, sharded_triangle_densities
+
+    samples, weights, loglikes, names, ranges = bounded
+    lo, hi, per = limit_arrays(names, ranges)
+    local = shard_samples(group, samples, weights, device="cuda")
+    like = shard_values(group, like_weights_of(weights, loglikes), device="cuda")
+    kw = dict(limits_lo=lo, limits_hi=hi, periodic=per, like_weights=like, int8_weights=True, enable_shear=True)
+
+    def run():
+        return sharded_triangle_densities(group, *local, n_samples=len(samples), **kw)
+
+    def run_fused():
+        return batched.triangle_densities(*local, device="cuda", **kw)
+
+    label = "sharded, bounded chain 30 x 1M (one-rank NCCL group)"
+    cold_s, _ = wall_s(run)
+    counters = (pair_hist.pair_histograms, dft_conv.dft_conv_spectrum, dft_conv.dft_conv2d)
+    for fn in counters:
+        fn.launches = 0
+    pair_hist.pair_histograms.float_launches = 0
+    _, (d1, d2) = wall_s(run)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    launches["float"] = pair_hist.pair_histograms.float_launches
+    check(launches["pair_histograms"] == 2 and launches["float"] == 1 and launches["dft_conv_spectrum"] >= 1
+          and launches["dft_conv2d"] >= 2, f"{label}: K1 (integer and like weights), K2 and K3 launched ({launches})")
+    pairs = [(a, b) for a in range(len(names)) for b in range(a + 1, len(names))]
+    check_bounded_outputs(d1, dict(d2, regrid={}), pairs, BOUNDED_KINDS, label)
+    walls = {"sharded": [], "triangle_densities": []}
+    fns = {"sharded": run, "triangle_densities": run_fused}
+    for name in ("sharded", "triangle_densities", "triangle_densities", "sharded"):
+        walls[name].append(wall_s(fns[name])[0])
+    fused = run_fused()
+    report = sharded_diffs((d1, d2), fused, f"{label} vs triangle_densities")
+    likes, bad = like_diffs((d1, d2), fused, f"{label} vs triangle_densities", LIKES_SAME, LIKES_SAME)
+    report.update(likes)
+    repeat, bad_repeat = like_diffs(fused, run_fused(), "triangle_densities against itself", LIKES_SAME, LIKES_SAME)
+    bad += bad_repeat
+    print(f"{label}: first call {cold_s * 1e3:.1f} ms, warm {min(walls['sharded']) * 1e3:.1f} ms (min of 2), "
+          f"triangle_densities on the same tensors warm {min(walls['triangle_densities']) * 1e3:.1f} ms; walls in "
+          f"turns (ms): {json.dumps({k: [round(x * 1e3, 1) for x in v] for k, v in walls.items()})}; launches of one "
+          f"run: {json.dumps(launches)}; vs triangle_densities: bitwise {bitwise((d1, d2), fused)}, max abs diffs "
+          f"{json.dumps(report)}; triangle_densities against itself, like grids: {json.dumps(repeat)}")
+    check(not bad, "; ".join(bad))
+    del d1, d2, fused
+
+    mc = MCSamples(samples=samples, weights=weights, loglikes=loglikes, names=names, ranges=ranges, device="cuda")
+    entry = lambda **k: mc.fastTriangleDensities(meanlikes=True, **k)  # noqa: E731
+    cold_s, _ = wall_s(lambda: entry(mesh=group))
+    for fn in counters:
+        fn.launches = 0
+    warm_s, (g1, g2, pairs) = wall_s(lambda: entry(mesh=group))
+    launches = {fn.__name__: fn.launches for fn in counters}
+    check(all(v >= 1 for v in launches.values()), f"mesh entry: K1, K2 and K3 launched ({launches})")
+    stages = dict(mc.fast_profile)
+    groups = [(g["fine"], len(g["pairs"]), g["bandwidths"]) for g in mc.fast_regrid_groups]
+    u_warm = [wall_s(entry)[0] for _ in range(2)]
+    u1, u2, _ = entry()
+    u_groups = [(g["fine"], len(g["pairs"]), g["bandwidths"]) for g in mc.fast_regrid_groups]
+    check(set(g2["regrid"]) == set(u2["regrid"]) and groups == u_groups, "mesh entry: the unsharded regrid keys")
+    err2 = 0.0
+    for k, key in enumerate(pairs):
+        got = g2["regrid"][key]["P"] if key in g2["regrid"] else g2["P"][k]
+        want = u2["regrid"][key]["P"] if key in u2["regrid"] else u2["P"][k]
+        err2 = max(err2, float((got - want).abs().max()))
+    err1 = float((g1["P"] - u1["P"]).abs().max())
+    neff = float(((g1["neff"] - u1["neff"]).abs() / u1["neff"]).max())
+    check(err1 <= 2e-5 and err2 <= 2e-5 and neff <= 1e-3,
+          f"mesh entry vs unsharded: 1D {err1}, served 2D {err2}, neff {neff}")
+    likes, bad = like_diffs((g1, g2), (u1, u2), "mesh entry vs unsharded", LIKES_SAME, LIKES_SAME)
+    print(f"public entry, bounded chain, mesh=group (one NCCL rank), meanlikes: first call {cold_s * 1e3:.1f} ms, "
+          f"warm {warm_s * 1e3:.1f} ms; unsharded warm {min(u_warm) * 1e3:.1f} ms (min of 2); launches "
+          f"{json.dumps(launches)}; stages (s): " + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
+          + f"; regrid groups {groups}; vs unsharded: 1D {err1:.3g}, served 2D {err2:.3g}, neff (rel) {neff:.3g}, "
+          f"{json.dumps(likes)}, {len(u2['regrid'])} regrid keys equal")
+    check(not bad, "; ".join(bad))
+    del mc, g1, g2, u1, u2
+    torch.cuda.empty_cache()
 
 
 STAGE_PREFIXES = ("fast:", "1d:", "2d:")
@@ -1502,7 +1717,7 @@ def conv_row(name, kernels, grids, out_size, offset, pad, launches):
     return row
 
 
-def bounded_phase(batched, dft_conv, pair_hist):
+def bounded_phase(bounded, batched, dft_conv, pair_hist):
     """Phase 6: the public entry on ``bounded_chain(1M)`` (30 x 1M with
     lower, upper and two-sided limits and periodic columns, loglikes):
     cold and warm walls with meanlikes off and on, launches per kernel, the
@@ -1511,17 +1726,13 @@ def bounded_phase(batched, dft_conv, pair_hist):
     weights; kernel rows of K1 with the f32 like weights, of K3 on the
     periodically extended grids and on the edge-mask stack (the input
     fine + 2 winw wide), and of K2 and K3 at the clamped rescue's frame on
-    its own pairs; the entry on the card against the CPU at 100k x 10."""
-    import numpy as np
+    its own pairs; the entry on the card against the CPU at 100k x 10.
+    ``bounded``: the chain's arrays."""
     import torch
 
     from getdist_tpu_torch.mcsamples import MCSamples
 
-    t0 = time.perf_counter()
-    samples, weights, loglikes, names, ranges = bounded_chain(1_000_000)
-    p = samples.shape[1]
-    print(f"bounded chain 1,000,000 x {p} made in {time.perf_counter() - t0:.1f} s "
-          f"(kinds lower/upper/two-sided/periodic {BOUNDED_KINDS}, the rest unbounded)")
+    samples, weights, loglikes, names, ranges = bounded
     counters = (pair_hist.pair_histograms, dft_conv.dft_conv_spectrum, dft_conv.dft_conv2d)
     hist = pair_hist.pair_histograms
 
@@ -1571,10 +1782,7 @@ def bounded_phase(batched, dft_conv, pair_hist):
 
     # the fused program alone, with the same limits, periodic flags and like weights
     st = mc._fast_chain_state()
-    # None (no limit) becomes NaN
-    lo = np.array([ranges.get(n, [None, None])[0] for n in names], dtype=float).astype(np.float32)
-    hi = np.array([ranges.get(n, [None, None])[1] for n in names], dtype=float).astype(np.float32)
-    per = np.array([len(ranges.get(n, ())) == 3 for n in names])
+    lo, hi, per = limit_arrays(names, ranges)
 
     def program():
         return batched.triangle_densities(st["samples"], st["weights"], limits_lo=lo, limits_hi=hi, periodic=per,
@@ -1596,21 +1804,24 @@ def bounded_phase(batched, dft_conv, pair_hist):
     got = hist(ix, lw, pa, pb, integer_weights=False)
     ref = pair_hist.pair_histograms_plain(ix, lw, pa, pb, integer_weights=False)
     err_l = float((got - ref).abs().max())
-    # f32 atomics add in another order than the plain version's f64 sums:
-    # each bin within 1e-5 of itself plus 1e-5 of its pair's peak bin, and
+    # fixed point (each weight rounded to a multiple of 2^-62 of max |w| *
+    # N) against the plain version's f64 sums, each rounded to f32 once:
+    # each bin within 1e-6 of itself plus 1e-9 of its pair's peak bin, and
     # the bins below 1e-3 of the peak (the low-likelihood tails, where the
-    # like weights are smallest) within 1e-5 of their pair's tail sum
+    # like weights are smallest) within 1e-7 of their pair's tail sum
     peak = ref.amax(dim=(1, 2), keepdim=True)
     diff = (got - ref).abs()
-    worst = float((diff / (1e-5 * ref.abs() + 1e-5 * peak)).max())
-    check(worst <= 1.0, f"K1 with f32 like weights per bin within 1e-5 (+1e-5 of the pair's peak): {worst}")
+    worst = float((diff / (1e-6 * ref.abs() + 1e-9 * peak)).max())
+    check(worst <= 1.0, f"K1 with f32 like weights per bin within 1e-6 (+1e-9 of the pair's peak): {worst}")
     tail = ref < 1e-3 * peak
     tail_sum = torch.where(tail, ref, 0.0).double().sum(dim=(1, 2))
     tail_err = torch.where(tail, diff, 0.0).double().sum(dim=(1, 2))
     tail_rel = float((tail_err / tail_sum.clamp_min(1e-30)).max())
-    check(tail_rel <= 1e-5, f"K1 with f32 like weights: tail bins within 1e-5 of each pair's tail sum ({tail_rel})")
+    check(tail_rel <= 1e-7, f"K1 with f32 like weights: tail bins within 1e-7 of each pair's tail sum ({tail_rel})")
+    same = torch.equal(got, hist(ix, lw, pa, pb, integer_weights=False))
+    check(same, "K1 with f32 like weights: two calls bitwise equal")
     print(f"K1, f32 like weights: max abs diff {err_l:.3g}, at most {worst:.3g} of the per-bin tolerance, tails "
-          f"{tail_rel:.3g} of their sum ({int(tail.sum())} tail bins)")
+          f"{tail_rel:.3g} of their sum ({int(tail.sum())} tail bins), two calls bitwise equal: {same}")
     del got, ref, diff, tail
     b_l, by_l = hist_bound(ix, lw, k, 256)
     rows = [
@@ -1674,6 +1885,192 @@ def bounded_phase(batched, dft_conv, pair_hist):
     return rows
 
 
+def parity_periodic_cross_device(MCSamples):
+    """Parity on the card against the port on the CPU at 20k x 6 (a
+    periodic, a limited and an unbounded column, a pair at corr 0.9):
+    device parity with the chain's integer weights, and the host variant
+    with importance weights; 2D within 1e-5 of the peak, 1D within 1e-10."""
+    import numpy as np
+
+    rng = np.random.RandomState(37)
+    n = 20_000
+    z = rng.standard_normal((n, 6))
+    samples = z.copy()
+    samples[:, 1] = 0.9 * z[:, 0] + np.sqrt(1 - 0.81) * z[:, 1]
+    samples[:, 2] = np.abs(z[:, 2])
+    samples[:, 3] = np.mod(1.5 * z[:, 3] + np.pi, 2 * np.pi)
+    samples[:, 4] = 0.4 * z[:, 0] + z[:, 4]
+    weights = rng.randint(1, 5, n).astype(np.float64)
+    base = dict(samples=samples, names=[f"q{i}" for i in range(6)], ranges={"q2": [0, None], "q3": [0, 2 * np.pi, True]})
+    report = {}
+    for label, w, device_mode in (("device parity", weights, True),
+                                  ("host variant", importance_weights(weights, 38), False)):
+        g1, g2 = MCSamples(device="cuda", weights=w, **base).fastParityDensities(device=device_mode)
+        c1, c2 = MCSamples(device="cpu", weights=w, **base).fastParityDensities(device=device_mode)
+        check(set(g2) == set(c2) and set(g1) == set(c1), f"{label} cross-device keys")
+        d1 = max(float(np.abs(g1[key].P - c1[key].P).max()) for key in c1)
+        d2 = max(float(np.abs(g2[key].P / g2[key].P.max() - c2[key].P / c2[key].P.max()).max()) for key in c2)
+        dc = max(float(np.abs(np.asarray(g2[key].contours) - np.asarray(c2[key].contours)).max()) for key in c2)
+        check(d1 <= 1e-10 and d2 <= 1e-5 and dc <= 1e-5, f"{label} cross-device 1D {d1}, 2D {d2}, contours {dc}")
+        report[label] = {"1D P": d1, "2D P / peak": d2, "2D contours": dc,
+                         "fine grids": sorted({d.P.shape[0] for d in c2.values()})}
+    return report
+
+
+def periodic_conv_row(name, mc, bucket, launches, pair_hist, dft_conv, batched):
+    """A row of f64 K3 on ``bucket``'s periodically extended grids: the
+    bucket's pair count of K1 histograms at parity's grid edges, periodic
+    pairs first, extended by ``_extend_periodic`` to (fine + 2 winw)^2,
+    with kernels at its window; within 1e-12 of the largest value of its
+    plain version, two calls bitwise equal, beside cuDNN's f64 conv2d."""
+    import torch
+
+    from getdist_tpu_torch.ops import parity_device as pdev
+
+    p = mc.n
+    kb, winw, fine = bucket["pairs"], bucket["winw"], bucket["fine"]
+    infos = [mc._initParamRanges(j) for j in range(p)]
+    binmin, binmax = mc._parity_grid_edges(infos)
+    st = mc._parity_chain()
+    ix = pdev.bin_indices(st["samples"], binmin, (binmax - binmin) / (fine - 1))
+    ix = pair_hist.narrow_rows(ix, fine)
+    per = [bool(info.periodic) for info in infos]
+    pairs = sorted(((a, b) for a in range(p) for b in range(a + 1, p)), key=lambda ab: not (per[ab[0]] or per[ab[1]]))
+    pa = torch.tensor([a for a, _ in pairs[:kb]], dtype=torch.int32, device="cuda")
+    pb = torch.tensor([b for _, b in pairs[:kb]], dtype=torch.int32, device="cuda")
+    w_hist = st["hist_weights"] if st["integer"] else st["weights"].to(torch.float32)
+    hists = pair_hist.pair_histograms(ix, w_hist, pa, pb, integer_weights=st["integer"], nbins=fine).double()
+    per_t = torch.tensor(per, device="cuda")
+    grids = batched._extend_periodic(hists, per_t[pa.long()], per_t[pb.long()], winw)
+    ext = fine + 2 * winw
+    check(tuple(grids.shape) == (kb, ext, ext), f"{name}: the extended input")
+    widths = torch.linspace(0.8, winw / 2.5, kb, dtype=torch.float64, device="cuda")
+    kernels = batched._gauss_kernel_2d(widths, widths.flip(0), torch.full_like(widths, 0.3), winw)
+    pad = dft_conv.frame_for(fine + 4 * winw + 1)
+    ur, ui = dft_conv.dft_conv_spectrum(kernels, pad)
+    ur0, ui0 = dft_conv.dft_conv_spectrum_plain(kernels, pad)
+    conv = dft_conv.dft_conv2d(grids, ur, ui, fine, 2 * winw, pad)
+    conv0 = dft_conv.dft_conv2d_plain(grids, ur0, ui0, fine, 2 * winw, pad)
+    err = float((conv - conv0).abs().max())
+    check(err <= 1e-12 * float(conv0.abs().max()), f"{name}: f64 K3 within 1e-12 max|ref| ({err})")
+    dft_checks(kernels, grids, ur, ui, conv, fine, 2 * winw, pad, f"K3 f64, {name}")
+    b, by = conv_bound(grids, pad, fine)
+    row = {
+        "name": name,
+        "route": "cuda",
+        "source": "getdist_tpu_torch/csrc/dft_conv.cu",
+        "replaces": "getdist_tpu/ops/dft_conv.py:190",
+        "launches": launches["conv_inputs"].get(f"{pad}:{ext}", 0),
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: dft_conv.dft_conv2d(grids, ur, ui, fine, 2 * winw, pad), 3),
+        "plain_ms": cuda_ms(lambda: dft_conv.dft_conv2d_plain(grids, ur0, ui0, fine, 2 * winw, pad), 3),
+        "bound_ms": b,
+        "bound_by": by,
+        "library_ms": library_conv_ms(grids, kernels, fine, 2 * winw, 1),
+    }
+    print(f"{name}: {kb} pairs ({sum(per[a] or per[b] for a, b in pairs[:kb])} with a periodic axis), window "
+          f"{winw}, input {ext}^2, frame {pad}; K3 launches on {ext}-wide inputs in the run: {row['launches']}")
+    dft_report(f"K3 f64 {name}", row, conv_work(grids, pad, fine), FP64_FLOPS)
+    return row
+
+
+def parity_bounded_phase(bounded, batched, dft_conv, pair_hist):
+    """Phase 7: parity mode on ``bounded_chain(1M)`` (30 x 1M, two periodic
+    columns): device parity cold and warm (stage profile, buckets, launches
+    per kernel, outputs), a row of f64 K3 on its largest bucket's
+    periodically extended grids; the same chain with importance weights
+    (``importance_weights``, fractional): device parity routed to the host
+    variant and the host variant called directly (walls, stages, equal
+    results), a row of f64 K3 on the host variant's largest bucket when its
+    shape differs; parity card against CPU at 20k x 6."""
+    import logging
+
+    import numpy as np
+    import torch
+
+    from getdist_tpu_torch.mcsamples import MCSamples
+
+    samples, weights, loglikes, names, ranges = bounded
+    p = samples.shape[1]
+    k = p * (p - 1) // 2
+    counters = (pair_hist.pair_histograms, pair_hist.pair_histograms_dynamic, dft_conv.dft_conv_spectrum,
+                dft_conv.dft_conv2d)
+
+    def reset():
+        for fn in counters:
+            fn.launches = 0
+        dft_conv.dft_conv2d.inputs.clear()
+
+    def read():
+        out = {fn.__name__: fn.launches for fn in counters}
+        out["conv_inputs"] = {f"{pad}:{size}": n for (pad, size), n in dft_conv.dft_conv2d.inputs.items()}
+        return out
+
+    def fresh(w):
+        return MCSamples(samples=samples, weights=w, names=names, ranges=ranges, device="cuda")
+
+    label = "parity, bounded chain 30 x 1M"
+    cold_s, _ = wall_s(lambda: fresh(weights).fastParityDensities(device=True))
+    mc = fresh(weights)
+    reset()
+    warm_s, (dens1, dens2) = wall_s(lambda: mc.fastParityDensities(device=True))
+    launches = read()
+    check(all(launches[fn.__name__] >= 1 for fn in counters), f"{label}: K1, K4, K2 and K3 launched ({launches})")
+    check_parity_outputs(dens1, dens2, p, k)
+    buckets = list(mc.parity_buckets)
+    ext_ran = [b for b in buckets if any(key.endswith(f":{b['fine'] + 2 * b['winw']}") for key in launches["conv_inputs"])]
+    check(len(ext_ran) == len(buckets), f"{label}: every bucket's K3 ran on its periodically extended grids")
+    print(f"{label}: first call {cold_s:.2f} s, warm {warm_s:.2f} s; launches of the warm run: {json.dumps(launches)}; "
+          "stages (s): " + ", ".join(f"{key} {sec:.3f}" for key, sec in mc.parity_profile.items())
+          + f"; buckets {json.dumps(buckets)}")
+    bucket = max((b for b in buckets if b["fine"] == 256), key=lambda b: b["pairs"])
+    rows = [periodic_conv_row(f"dft_conv2d_f64_periodic_ext{256 + 2 * bucket['winw']}", mc, bucket, launches,
+                              pair_hist, dft_conv, batched)]
+    del mc, dens1, dens2
+    torch.cuda.empty_cache()
+
+    frac = importance_weights(weights, 32)
+    h_label = "host variant, bounded chain with importance weights, 30 x 1M"
+    check(not np.all(frac == np.round(frac)), "the importance weights are fractional")
+    mc = fresh(frac)
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    logging.getLogger().addHandler(handler)
+    reset()
+    try:
+        routed_s, (r1, r2) = wall_s(lambda: mc.fastParityDensities(device=True))
+    finally:
+        logging.getLogger().removeHandler(handler)
+    launches_h = read()
+    check(any("host parity variant" in rec.getMessage() for rec in records), f"{h_label}: device mode warned")
+    check("hists_bandwidths" in mc.parity_profile, f"{h_label}: device mode routed to the host variant")
+    check(launches_h["dft_conv_spectrum"] >= 1 and launches_h["dft_conv2d"] >= 1
+          and launches_h["pair_histograms"] == launches_h["pair_histograms_dynamic"] == 0,
+          f"{h_label}: K2 and K3 launched, no device histogram ({launches_h})")
+    check_parity_outputs(r1, r2, p, k)
+    routed_profile, h_buckets = dict(mc.parity_profile), list(mc.parity_buckets)
+    mc = fresh(frac)
+    direct_s, (h1, h2) = wall_s(lambda: mc.fastParityDensities(device=False))
+    same = all(np.array_equal(r1[key].P, h1[key].P) for key in h1) and all(
+        np.array_equal(r2[key].P, h2[key].P) for key in h2)
+    check(same, f"{h_label}: the routed call equals the direct one")
+    print(f"{h_label}: fastParityDensities(device=True) routed {routed_s:.2f} s, device=False {direct_s:.2f} s "
+          "(equal results); launches of the routed run: " + json.dumps(launches_h) + "; stages of the routed run "
+          "(s): " + ", ".join(f"{key} {sec:.3f}" for key, sec in routed_profile.items()) + "; of the direct run: "
+          + ", ".join(f"{key} {sec:.3f}" for key, sec in mc.parity_profile.items()) + f"; buckets {json.dumps(h_buckets)}")
+    h_bucket = max((b for b in h_buckets if b["fine"] == 256), key=lambda b: b["pairs"])
+    if (h_bucket["winw"], h_bucket["pairs"]) != (bucket["winw"], bucket["pairs"]):
+        rows.append(periodic_conv_row(f"dft_conv2d_f64_host_periodic_ext{256 + 2 * h_bucket['winw']}", mc, h_bucket,
+                                      launches_h, pair_hist, dft_conv, batched))
+    del mc, r1, r2, h1, h2
+    torch.cuda.empty_cache()
+    report = parity_periodic_cross_device(MCSamples)
+    print(f"parity cross-device 20k x 6 with a periodic and a limited column (cuda vs cpu), max abs diffs: "
+          f"{json.dumps(report)}")
+    return rows
+
+
 def main():
     import torch
 
@@ -1704,12 +2101,18 @@ def main():
     samples, weights = make_chain(1_000_000, 30)
     print(f"chain 1,000,000 x 30 made in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    bounded = bounded_chain(1_000_000)
+    print(f"bounded chain 1,000,000 x {bounded[0].shape[1]} made in {time.perf_counter() - t0:.1f} s "
+          f"(kinds lower/upper/two-sided/periodic {BOUNDED_KINDS}, the rest unbounded)")
+
     results = fused_path(samples, weights, batched, dft_conv, pair_hist, make_chain)
     results += parity_path(samples, weights, batched, dft_conv, pair_hist)
-    results += sharded_path(samples, weights, batched, dft_conv, pair_hist, make_chain)
+    results += sharded_path(samples, weights, batched, dft_conv, pair_hist, make_chain, bounded)
     results += public_entry(samples, weights, batched, dft_conv, pair_hist)
     results += degenerate_phase(pair_hist, batched)
-    results += bounded_phase(batched, dft_conv, pair_hist)
+    results += bounded_phase(bounded, batched, dft_conv, pair_hist)
+    results += parity_bounded_phase(bounded, batched, dft_conv, pair_hist)
     for r in results:
         # a bound is a least time: no measured way of computing the function may beat it
         measured = [t for t in (r["ms"], r["plain_ms"], r["library_ms"]) if t is not None]

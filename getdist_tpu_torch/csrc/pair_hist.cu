@@ -8,8 +8,11 @@
 // stacks and contracted them on the MXU; on Hopper that is ~7.7 GB of one-hot
 // traffic at 30 params x 1M samples and 256 bins, so these kernels bin
 // directly with shared-memory atomics.  Integer weights accumulate in int32
-// (bit-exact, order independent); float weights in f32 (the atomic order
-// varies from run to run).
+// (bit-exact, order independent).  Fractional weights: in 64-bit fixed point
+// on the uint8 kernel (each weight rounded once to a multiple of 2^-62 of
+// max |w| * N, then integer adds: order independent, so every call and both
+// of its routes give the same bits, within f32 rounding of an f64 sum); in
+// f32 on the wide kernels (the atomic order varies from run to run).
 //
 // pair_hist_uint8_kernel: uint8 index rows, nbins <= 256.  Replaces
 // pair_histograms_tiled (K1, pallas_kernels.py:309, the static all-pairs
@@ -21,11 +24,13 @@
 // x 1M uint8 = 30 MB < 50 MB); K4's sheared stack (139 rows x 1M, 112 pairs
 // whose a rows repeat) does not, and comes once from HBM (139 MB).
 // Two blocks per pair (and sample chunk), each owning half of the pair's
-// rows: [0, R) or [R, nbins), R = ceil(nbins / 2), 128 KB of int32 or f32 at
-// 256 bins, the most one block's shared memory holds.  Each block reads a, b
-// and w of every sample and adds those whose b lies in its rows.  What
-// bounds it: those reads, from L2 (each sample is read once per half: 5.2 GB
-// at 30 x 1M, 435 pairs with f32 weights, 2.6 GB with uint8), ahead of its
+// rows: [0, R) or [R, nbins), R = ceil(nbins / 2), 128 KB of int32 at 256
+// bins, the most one block's shared memory holds; four blocks of a quarter
+// each with fixed-point (8-byte) bins.  Each block reads a, b and w of every
+// sample and adds those whose b lies in its rows.  What
+// bounds it: those reads, from L2 (each sample is read once per part: 2.6 GB
+// at 30 x 1M, 435 pairs with uint8 weights, 5.2 GB with f32 integer ones,
+// 10.4 GB with fractional ones in four parts), ahead of its
 // one shared-memory atomic per sample and pair (435 M).  The design against
 // both:
 // - a scan built for L2 bandwidth and latency: each thread reads 16 samples
@@ -143,11 +148,52 @@ struct Uint8Args {
   long long n;
   long long chunk;  // samples per chunk, a multiple of kVec
   int nbins;
+  const float* wmax;  // fixed point: max |w| (the scale's source), on the card
   void* out;  // (K, nbins, nbins): f32 written (one chunk), else Acc accumulated
 };
 
 template <typename Acc>
 __device__ __forceinline__ Acc to_acc(float w);
+
+// The uint8 kernel's fixed-point bins: a fractional weight w adds
+// round(w * scale), scale = 2^(62 - e) with max |w| * N < 2^e, so no sum of
+// at most N of them leaves int64, whatever the order (two's complement in
+// unsigned adds).  Bins read back as sum / scale, rounded to f32 once.
+using Fixed = unsigned long long;
+
+template <typename Acc>
+constexpr int kParts = sizeof(Acc) == 8 ? 4 : 2;  // blocks sharing one pair's rows
+
+__device__ __forceinline__ double fixed_scale(const float* wmax, long long n) {
+  int e;
+  frexp(static_cast<double>(__ldg(wmax)) * static_cast<double>(n), &e);
+  return ldexp(1.0, 62 - e);
+}
+
+// A weight as a bin's addend: an f32 weight rounded (int32 bins) or scaled
+// and rounded (fixed point); a uint8 weight as it is.
+template <typename Acc>
+__device__ __forceinline__ Acc acc_of(float w, double scale);
+
+template <typename Acc>
+__device__ __forceinline__ Acc acc_of(int w, double) {
+  return Acc(w);
+}
+
+template <>
+__device__ __forceinline__ int acc_of<int>(float w, double) {
+  return __float2int_rn(w);
+}
+
+template <>
+__device__ __forceinline__ Fixed acc_of<Fixed>(float w, double scale) {
+  return static_cast<Fixed>(__double2ll_rn(static_cast<double>(w) * scale));
+}
+
+__device__ __forceinline__ float out_value(int v, double) { return __int2float_rn(v); }
+__device__ __forceinline__ float out_value(Fixed v, double inv_scale) {
+  return __double2float_rn(__ll2double_rn(static_cast<long long>(v)) * inv_scale);
+}
 
 template <>
 __device__ __forceinline__ int to_acc<int>(float w) {
@@ -215,14 +261,12 @@ struct Weights16<float> {
 #pragma unroll
     for (int j = 0; j < 4; ++j) v[j] = __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(w) + i) + j);
   }
-  template <typename Acc>
-  __device__ __forceinline__ Acc at(int u) const {
+  __device__ __forceinline__ float at(int u) const {
     const float4& q = v[u >> 2];
-    return to_acc<Acc>((u & 3) == 0 ? q.x : (u & 3) == 1 ? q.y : (u & 3) == 2 ? q.z : q.w);
+    return (u & 3) == 0 ? q.x : (u & 3) == 1 ? q.y : (u & 3) == 2 ? q.z : q.w;
   }
-  template <typename Acc>
-  __device__ __forceinline__ static Acc scalar(const void* w, long long i) {
-    return to_acc<Acc>(static_cast<const float*>(w)[i]);
+  __device__ __forceinline__ static float scalar(const void* w, long long i) {
+    return static_cast<const float*>(w)[i];
   }
 };
 
@@ -232,13 +276,9 @@ struct Weights16<uint8_t> {
   __device__ __forceinline__ void load(const void* w, long long i) {
     v = __ldg(reinterpret_cast<const uint4*>(static_cast<const uint8_t*>(w) + i));
   }
-  template <typename Acc>
-  __device__ __forceinline__ Acc at(int u) const {
-    return Acc(byte_of(v, u));
-  }
-  template <typename Acc>
-  __device__ __forceinline__ static Acc scalar(const void* w, long long i) {
-    return Acc(static_cast<const uint8_t*>(w)[i]);
+  __device__ __forceinline__ int at(int u) const { return byte_of(v, u); }
+  __device__ __forceinline__ static int scalar(const void* w, long long i) {
+    return static_cast<const uint8_t*>(w)[i];
   }
 };
 
@@ -249,13 +289,16 @@ struct Adder {
   int row0;
   int rows;
   int nbins;
+  double scale;  // fixed point's (1 for int32 bins)
 
-  __device__ __forceinline__ void operator()(int a, int b, Acc v) const {
+  // w: the sample's f32 or uint8 weight, converted only where it is added
+  template <typename Raw>
+  __device__ __forceinline__ void operator()(int a, int b, Raw w) const {
     const int bins = kFixedBins ? kFixedBins : nbins;
     const int row = b - row0;
     // at 256 bins a uint8 index is always in range
     if (static_cast<unsigned>(row) >= static_cast<unsigned>(rows) || (!kFixedBins && a >= bins)) return;
-    atomicAdd(&tile[row * bins + a], v);
+    atomicAdd(&tile[row * bins + a], acc_of<Acc>(w, scale));
   }
 };
 
@@ -270,33 +313,38 @@ __device__ __forceinline__ void scan(const Adder<Acc, kFixedBins>& add, const Co
     Weights16<W> wv;
     wv.load(w, i);
 #pragma unroll
-    for (int u = 0; u < kVec; ++u) add(byte_of(av, u), byte_of(bv, u), wv.template at<Acc>(u));
+    for (int u = 0; u < kVec; ++u) add(byte_of(av, u), byte_of(bv, u), wv.at(u));
   }
   for (long long i = body_end + threadIdx.x; i < stop; i += kThreads)
-    add(static_cast<int>(col_a[i]), static_cast<int>(col_b[i]), Weights16<W>::template scalar<Acc>(w, i));
+    add(static_cast<int>(col_a[i]), static_cast<int>(col_b[i]), Weights16<W>::scalar(w, i));
 }
 
-// One block per (pair, half of its rows, sample chunk): blockIdx.y the pair,
-// blockIdx.x & 1 the half (rows [0, R) or [R, nbins), R = ceil(nbins / 2)),
-// blockIdx.x >> 1 the chunk (kSplit: more than one chunk per pair).
+// One block per (pair, part of its rows, sample chunk): blockIdx.y the pair,
+// blockIdx.x % kParts the part (rows [part * R, (part + 1) * R), R =
+// ceil(nbins / kParts)), blockIdx.x / kParts the chunk (kSplit: more than
+// one chunk per pair).  Acc: int (integer weights) or Fixed.
 template <typename Acc, typename W, int kFixedBins, bool kSplit>
 __global__ void __launch_bounds__(kThreads, 1) pair_hist_uint8_kernel(const Uint8Args args) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Acc* tile = reinterpret_cast<Acc*>(smem_raw);
+  constexpr int parts = kParts<Acc>;
   const int nbins = kFixedBins ? kFixedBins : args.nbins;
-  const int half = (nbins + 1) / 2;
+  const int span = (nbins + parts - 1) / parts;
   const int k = blockIdx.y;
   Adder<Acc, kFixedBins> add;
   add.tile = tile;
-  add.row0 = (blockIdx.x & 1) * half;
-  add.rows = min(half, nbins - add.row0);
+  add.row0 = static_cast<int>(blockIdx.x % parts) * span;
+  add.rows = max(0, min(span, nbins - add.row0));
   add.nbins = nbins;
+  add.scale = 1.0;
+  if constexpr (std::is_same<Acc, Fixed>::value) add.scale = fixed_scale(args.wmax, args.n);
 
   const int count = add.rows * nbins;
-  for (int j = threadIdx.x; j < (count + 3) / 4; j += kThreads) reinterpret_cast<int4*>(tile)[j] = make_int4(0, 0, 0, 0);
+  const int words = (count * static_cast<int>(sizeof(Acc)) + 15) / 16;
+  for (int j = threadIdx.x; j < words; j += kThreads) reinterpret_cast<int4*>(tile)[j] = make_int4(0, 0, 0, 0);
   __syncthreads();
 
-  const long long start = static_cast<long long>(blockIdx.x >> 1) * args.chunk;
+  const long long start = static_cast<long long>(blockIdx.x / parts) * args.chunk;
   const long long stop = min(start + args.chunk, args.n);
   int a_row = args.pa[k], b_row = args.pb[k];
   if (args.inv) {  // K5's work list: the slot its plan picks for pair k
@@ -328,27 +376,36 @@ __global__ void __launch_bounds__(kThreads, 1) pair_hist_uint8_kernel(const Uint
   } else {
     // the block owns its rows: f32 straight out, streaming past L2
     float* dst = static_cast<float*>(args.out) + offset;
+    const double inv_scale = 1.0 / add.scale;
     if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0 && (count & 3) == 0) {
-      using Vec4 = typename std::conditional<std::is_same<Acc, int>::value, int4, float4>::type;
-      const Vec4* src = reinterpret_cast<const Vec4*>(tile);
       for (int j = threadIdx.x; j < count / 4; j += kThreads) {
-        const Vec4 v = src[j];
-        __stcs(reinterpret_cast<float4*>(dst) + j, make_float4(to_f32(v.x), to_f32(v.y), to_f32(v.z), to_f32(v.w)));
+        const Acc* v = tile + 4 * j;
+        __stcs(reinterpret_cast<float4*>(dst) + j, make_float4(out_value(v[0], inv_scale), out_value(v[1], inv_scale),
+                                                               out_value(v[2], inv_scale), out_value(v[3], inv_scale)));
       }
     } else {
-      for (int j = threadIdx.x; j < count; j += kThreads) __stcs(dst + j, to_f32(tile[j]));
+      for (int j = threadIdx.x; j < count; j += kThreads) __stcs(dst + j, out_value(tile[j], inv_scale));
     }
   }
+}
+
+// The split route's fixed-point sums (K, nbins, nbins) as f32.
+__global__ void pair_hist_fixed_convert_kernel(const Fixed* acc, float* out, long long count, const float* wmax,
+                                               long long n) {
+  const double inv_scale = 1.0 / fixed_scale(wmax, n);
+  for (long long q = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; q < count;
+       q += static_cast<long long>(gridDim.x) * blockDim.x)
+    out[q] = out_value(acc[q], inv_scale);
 }
 
 template <typename Acc, typename W, int kFixedBins, bool kSplit>
 cudaError_t launch_uint8(const Uint8Args& args, int n_pairs, int n_split, cudaStream_t stream) {
   auto* kernel = pair_hist_uint8_kernel<Acc, W, kFixedBins, kSplit>;
-  const int half = (args.nbins + 1) / 2;
-  const int bytes = (half * args.nbins + 3) / 4 * 16;
+  const int span = (args.nbins + kParts<Acc> - 1) / kParts<Acc>;
+  const int bytes = (span * args.nbins * static_cast<int>(sizeof(Acc)) + 15) / 16 * 16;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(2 * n_split, n_pairs), kThreads, bytes, stream>>>(args);
+  kernel<<<dim3(kParts<Acc> * n_split, n_pairs), kThreads, bytes, stream>>>(args);
   return cudaGetLastError();
 }
 
@@ -937,16 +994,20 @@ cudaError_t launch_wide_weights(const WideArgs& args, int weight_bytes, int inte
 // ix (P, N) uint8, w (N,) 16-byte aligned: uint8 (integer weights) or f32
 // (weight_bytes 1 / 4), pa/pb (K,) int32; or, with inv (K,) non-null, a
 // K5 plan: pa (slots,) = grp_a, pb (slots / 8,) = grp_b, pair k the slot
-// inv[k] (rows and slots clamped into range).  1 <= nbins <= 256.  n_split == 1: out (K, nbins, nbins) f32, every
-// element written.  n_split > 1: each pair's samples split over n_split
-// chunks, which add into out, zeroed: int32 when integer_weights (f32
-// weights rounded to int) else f32.
+// inv[k] (rows and slots clamped into range).  1 <= nbins <= 256.
+// integer_weights (uint8 weights, or f32 ones rounded to int): int32 bins;
+// else fixed point, wmax a device pointer to max |w| (f32).  n_split == 1:
+// out (K, nbins, nbins) f32, every element written.  n_split > 1: each
+// pair's samples split over n_split chunks, which add into an accumulator,
+// zeroed: out itself (int32) with integer weights; else acc, (K, nbins,
+// nbins) 8-byte words, which a second kernel then writes into out as f32.
 extern "C" int pair_hist_uint8_launch(int device, const void* ix, int p, const void* w, int weight_bytes,
                                       const void* pa, const void* pb, const void* inv, int slots, long long n,
-                                      int n_pairs, int nbins, int n_split, int integer_weights, void* out,
-                                      void* stream) {
+                                      int n_pairs, int nbins, int n_split, int integer_weights, const void* wmax,
+                                      void* acc, void* out, void* stream) {
   if (p < 1 || (inv && slots < 1) || nbins < 1 || nbins > 256 || n_split < 1 || (reinterpret_cast<uintptr_t>(w) & 15) != 0 ||
-      (weight_bytes == 1 && !integer_weights) || (weight_bytes != 1 && weight_bytes != 4))
+      (weight_bytes == 1 && !integer_weights) || (weight_bytes != 1 && weight_bytes != 4) ||
+      (!integer_weights && (!wmax || (n_split > 1 && !acc))))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -961,15 +1022,19 @@ extern "C" int pair_hist_uint8_launch(int device, const void* ix, int p, const v
   args.n = n;
   args.chunk = ((n + n_split - 1) / n_split + kVec - 1) / kVec * kVec;
   args.nbins = nbins;
-  args.out = out;
+  args.wmax = static_cast<const float*>(wmax);
+  args.out = integer_weights || n_split == 1 ? out : acc;
   auto s = static_cast<cudaStream_t>(stream);
   if (weight_bytes == 1)
-    err = launch_uint8_bins<int, uint8_t>(args, n_pairs, n_split, s);
-  else if (integer_weights)
-    err = launch_uint8_bins<int, float>(args, n_pairs, n_split, s);
-  else
-    err = launch_uint8_bins<float, float>(args, n_pairs, n_split, s);
-  return static_cast<int>(err);
+    return static_cast<int>(launch_uint8_bins<int, uint8_t>(args, n_pairs, n_split, s));
+  if (integer_weights) return static_cast<int>(launch_uint8_bins<int, float>(args, n_pairs, n_split, s));
+  err = launch_uint8_bins<Fixed, float>(args, n_pairs, n_split, s);
+  if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
+  const long long count = static_cast<long long>(n_pairs) * nbins * nbins;
+  const int blocks = static_cast<int>(std::min<long long>((count + 255) / 256, 4096));
+  pair_hist_fixed_convert_kernel<<<blocks, 256, 0, s>>>(static_cast<const Fixed*>(acc), static_cast<float*>(out), count,
+                                                        args.wmax, n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ix (P, N) int16 / int32 (index_bytes 2 / 4), w (N,) 16-byte aligned: uint8

@@ -3,14 +3,16 @@ parity paths.
 
 The port's own, jax-free copy of the parts of ``getdist_tpu/mcsamples.py``
 that the public fused entry (``fastTriangleDensities`` / ``fastDensities``,
-with hard limits, periodic parameters, ``meanlikes`` grids and its host
-rescues) and device parity mode
-(``fastParityDensities(device=True)``) run: the constructor from arrays and
-analysis settings, parameter ranges, the host 1D densities (binning, ISJ
-bandwidth, FFT smoothing, boundary and multiplicative bias corrections),
-the host-exact 2D bandwidths, and both pipelines themselves, whose O(N) passes and
-2D convolutions run on a torch device (the card by default) through
-:mod:`getdist_tpu_torch.ops`.
+with hard limits, periodic parameters, ``meanlikes`` grids, its host
+rescues, and ``mesh=`` a process group) and parity mode
+(``fastParityDensities``: the device variant, and the host variant that
+serves any weights) run: the constructor from arrays and analysis
+settings, parameter ranges, the host 1D densities (binning, ISJ bandwidth,
+FFT smoothing, boundary and multiplicative bias corrections), the
+host-exact 2D bandwidths, and the pipelines themselves, whose O(N) passes
+(on the device, or on the host with the native pair-histogram pass of
+:mod:`getdist_tpu_torch._native`) and 2D convolutions run on a torch device
+(the card by default) through :mod:`getdist_tpu_torch.ops`.
 
 Host statistics (means, covariance, correlation lengths, N_eff) are numpy,
 as the JAX package's parity modes pin them (``_pin_host_stats``): the
@@ -18,11 +20,9 @@ scipy bandwidth optimizers move by up to ~1e-4 under a 1-ulp input wobble,
 so their inputs are kept identical to the JAX package's wherever the
 arithmetic allows.
 
-Not ported here: loading chains from files and the plots/CLI layers
-(ROADMAP A10), the fused entry on a device mesh (A9), the host parity
-variant ``fastParityDensities(device=False)`` and chains with fractional
-weights (A8), periodic parameters in parity mode (A3), and the 2D
-effective-sample estimate (``use_effective_samples_2D``).
+Not ported here: loading chains from files, the plots/CLI layers and the
+2D effective-sample estimate (``getEffectiveSamplesGaussianKDE_2d``),
+ROADMAP A10.
 """
 
 import copy
@@ -30,12 +30,14 @@ import logging
 import os
 import time
 from collections.abc import Mapping
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from getdist_tpu_torch import _native
 from getdist_tpu_torch import kde_bandwidth as kde
-from getdist_tpu_torch.chains import Chains, ParamError, WeightedSampleError
+from getdist_tpu_torch.chains import Chains, ParamError, WeightedSampleError, _not_ported
 from getdist_tpu_torch.densities import Density1D, Density2D
 from getdist_tpu_torch.inifile import IniFile
 from getdist_tpu_torch.ops import parity_device as pdev
@@ -49,6 +51,7 @@ from getdist_tpu_torch.ops.batched import (
 )
 from getdist_tpu_torch.ops.convolve import convolve1D_host as convolve1D
 from getdist_tpu_torch.ops.pair_hist import narrow_weights
+from getdist_tpu_torch.parallel.mesh import shard_samples, shard_values
 from getdist_tpu_torch.parampriors import ParamBounds
 
 __all__ = ["MCSamples", "MCSamplesError", "SettingError", "BandwidthError", "default_getdist_settings"]
@@ -76,10 +79,6 @@ class SettingError(MCSamplesError):
 
 class BandwidthError(MCSamplesError):
     """KDE bandwidth determination failure."""
-
-
-def _not_ported(what, item):
-    return NotImplementedError(f"{what} is not ported to getdist_tpu_torch yet (ROADMAP {item})")
 
 
 def _host(x):
@@ -584,44 +583,28 @@ class MCSamples(Chains):
         samples so the pair decorrelates (keeping a bounded axis untouched as
         the first coordinate), optimize an axis-aligned kernel on the sheared
         histogram, and map the kernel covariance back through the shear
-        (reference ``mcsamples.py:1347-1391``)."""
-        lead_par, other = (pary, paramx) if pary.has_limits else (parx, paramy)
-        lead = paramy if pary.has_limits else paramx
-        bound_lo = lead_par.range_min if lead_par.has_limits_bot else None
-        bound_hi = lead_par.range_max if lead_par.has_limits_top else None
-
-        pair_cov = self.getCov(pars=[lead, other])
-        root = np.linalg.cholesky(pair_cov)
-        # second coordinate = residual of `other` against `lead`, rescaled to
-        # the lead's sigma; unshear maps unit-lead coords back to parameters
-        unshear = root / root[0, 0]
-        sheared = (root[0, 0] * self.samples[:, other] - root[1, 0] * self.samples[:, lead]) / root[1, 1]
-
-        lead_ix, lead_scale = kde.bin_samples(
-            self.samples[:, lead], nbins=nbins, range_min=bound_lo, range_max=bound_hi
-        )
-        resid_ix, resid_scale = kde.bin_samples(sheared, nbins=nbins)
-        hist, _ = self._make2Dhist(lead_ix, resid_ix, nbins, nbins)
-        opt = kde.KernelOptimizer2D(hist, N_eff, 0, do_correlation=not (parx.has_limits or pary.has_limits))
-        h1, h2, c12 = opt.get_h()
-        h1 *= lead_scale
-        h2 *= resid_scale
-        kernel_cov = unshear @ np.array([[h1 * h1, h1 * h2 * c12], [h1 * h2 * c12, h2 * h2]]) @ unshear.T
-        widths = np.sqrt(kernel_cov.diagonal())
-        c = kernel_cov[0, 1] / (widths[0] * widths[1])
-        if pary.has_limits:
-            return widths[1], widths[0], c
-        return widths[0], widths[1], c
+        (reference ``mcsamples.py:1347-1391``). One pair of
+        :meth:`_sheared_bandwidths_batch`; raises its ``ValueError``."""
+        result = self._sheared_bandwidths_batch([(parx, pary, paramx, paramy, N_eff)], nbins)[(paramx, paramy)]
+        if isinstance(result, ValueError):
+            raise result
+        return result
 
     def getAutoBandwidth2D(self, bins, parx, pary, paramx, paramy, corr, rangex, rangey, base_fine_bins_2D,
-                           mult_bias_correction_order=None, min_corr=0.2, N_eff=None, sheared_result=None):
+                           mult_bias_correction_order=None, min_corr=0.2, N_eff=None, use_2D_Neff=False,
+                           sheared_result=None):
         """Bandwidth matrix (hx, hy, c) in parameter units via 2D ISJ in
         (optionally Cholesky-sheared) coordinates (reference
         ``mcsamples.py:1285-1419``). The sheared branch takes its result
-        from parity mode's batched device pass (``sheared_result``), or
-        computes it for this pair on the host
-        (:meth:`_optimize_bandwidth_sheared`)."""
+        from parity mode's batched pass (``sheared_result``), or computes
+        it for this pair on the host (:meth:`_optimize_bandwidth_sheared`).
+        Without ``N_eff`` the pair's is the smaller 1D one; ``use_2D_Neff``
+        (None: the ``use_effective_samples_2D`` setting) asks for the 2D
+        estimate instead, which is not ported (ROADMAP A10) and raises."""
         if N_eff is None:
+            want_2d = use_2D_Neff if use_2D_Neff is not None else self.use_effective_samples_2D
+            if want_2d and abs(corr) < 0.999:
+                raise _not_ported("the 2D effective-sample estimate (getEffectiveSamplesGaussianKDE_2d)", "A10")
             N_eff = min(self._get1DNeff(parx, paramx), self._get1DNeff(pary, paramy))
         plugin_width = N_eff ** (-1.0 / 6)
         clipped_corr = np.clip(corr, -self.max_corr_2D, self.max_corr_2D)
@@ -686,7 +669,7 @@ class MCSamples(Chains):
         With ``cache_1d`` the 1D results populate the ``density1D`` cache.
         Fast-path KDE conventions (see :meth:`fastTriangleDensities`), or
         reference-exact ones with ``parity=True`` (see
-        :meth:`fastParityDensities`, whose host variant is not ported).
+        :meth:`fastParityDensities`; its host variant).
         """
         if parity:
             dens1, dens2 = self.fastParityDensities(params=params, contours=contours)
@@ -725,13 +708,15 @@ class MCSamples(Chains):
             self.density1D.update(dens1)
         return dens1, dens2
 
-    def _fast_chain_state(self):
-        """The fused path's chain on ``self.device``, cached until the
-        samples change (``chains._weightsChanged``): f32 samples and weights
-        (``prepare_chain``), whether every weight is an integer in [0, 127]
-        with a total below 2^31 (the histogram kernel then accumulates
-        exactly), and the pair cumulant score and the f32 likelihood
-        weights (:meth:`_likelihood_weights`) once computed.
+    def _fast_chain_state(self, whole=True):
+        """The fused path's chain state, cached until the samples change
+        (``chains._weightsChanged``): whether every weight is an integer in
+        [0, 127] with a total below 2^31 (the histogram kernel then
+        accumulates exactly), the pair cumulant score and the f32
+        likelihood weights (:meth:`_likelihood_weights`) once computed, the
+        last sharded block (:meth:`_fast_device_view`), and with ``whole``
+        the f32 samples and weights on ``self.device``
+        (``prepare_chain``), uploaded at the first call that asks for them.
 
         The JAX package's x64 'native' copies and its bf16 'exact' weight
         sniff are TPU/x64 artefacts: the reruns use this f32 copy, as a
@@ -746,9 +731,11 @@ class MCSamples(Chains):
                 and w.max() <= 127
                 and w.size * float(w.max()) < 2**31
             )
-            dev_s, dev_w = prepare_chain(self.samples, w, device=self.device)
-            st = {"samples": dev_s, "weights": dev_w, "int8": int8, "cum_score": None, "like_weights": None}
+            st = {"samples": None, "weights": None, "int8": int8, "cum_score": None, "like_weights": None,
+                  "block": None}
             self._fast_chain_cache = st
+        if whole and st["samples"] is None:
+            st["samples"], st["weights"] = prepare_chain(self.samples, self.weights, device=self.device)
         return st
 
     def _likelihood_weights(self):
@@ -756,23 +743,38 @@ class MCSamples(Chains):
         (-log L)), with the chain's weighted mean of ``loglikes``."""
         return self.weights * np.exp(self.mean_loglike - self.loglikes)
 
-    def _fast_cum_score(self):
+    def _fast_cum_score(self, mesh=None):
         """|k31| + |k13| + |k22| standardized joint cumulants per pair (host
         (P, P) array) — the gate separating genuinely non-Gaussian pairs
         (hard zoo shapes measure 0.4-3.4) from Gaussian ones (<= 0.11).
-        Computed on the device from the cached chain and cached with it."""
-        st = self._fast_chain_state()
+        Computed on the device from the cached chain, or with ``mesh`` from
+        this rank's block with its sums all-reduced, and cached."""
+        st = self._fast_chain_state(whole=False)
         if st["cum_score"] is None:
-            st["cum_score"] = _host(pair_cumulant_score(st["samples"], st["weights"]))
+            s, w = self._fast_device_view(range(self.n), mesh)
+            st["cum_score"] = _host(pair_cumulant_score(s, w, group=mesh))
         return st["cum_score"]
 
-    def _fast_device_view(self, idx):
-        """Cached device chain restricted to the given parameter columns."""
-        st = self._fast_chain_state()
-        s, w = st["samples"], st["weights"]
-        if list(idx) != list(range(self.n)):
-            s = s[:, torch.as_tensor(idx, device=s.device)]
-        return s, w
+    def _fast_device_view(self, idx, mesh=None):
+        """Cached device chain restricted to the given parameter columns;
+        with ``mesh`` (a process group) this rank's block of them
+        (:func:`~getdist_tpu_torch.parallel.mesh.shard_samples`), cut from
+        the host chain: with a mesh no card holds the whole chain. The last
+        block is cached."""
+        idx = list(idx)
+        if mesh is None:
+            st = self._fast_chain_state()
+            s = st["samples"]
+            if idx != list(range(self.n)):
+                s = s[:, torch.as_tensor(idx, device=s.device)]
+            return s, st["weights"]
+        st = self._fast_chain_state(whole=False)
+        block = st["block"]
+        if block is None or block[0] is not mesh or block[1] != idx:
+            cols = self.samples if idx == list(range(self.n)) else self.samples[:, idx]
+            s, w = shard_samples(mesh, cols, self.weights, device=self.device)
+            block = st["block"] = (mesh, idx, s, w)
+        return block[2], block[3]
 
     def fastTriangleDensities(self, params=None, contours=(0.68, 0.95), meanlikes=False, mesh=None):
         """All 1D and all-pairs 2D densities via the fused device pipeline
@@ -813,12 +815,17 @@ class MCSamples(Chains):
         sheared; "fragile": host ``getAutoBandwidth2D``; "clamped": the
         saturated-window rescue).
 
-        ``mesh`` (ROADMAP A9) raises ``NotImplementedError``. There is no
+        ``mesh``: a ``torch.distributed`` process group
+        (:mod:`getdist_tpu_torch.parallel`; start the ranks with
+        ``init_group`` or ``spawn_ranks``). Every rank calls this method on
+        the whole chain, so the host statistics and plans are the same on
+        each; every device program (programs A and B and each rerun) runs
+        on this rank's block of the samples, weights and like weights, its
+        sample reductions all-reduced over the group, and each rank returns
+        the same result. It takes the two-program route. There is no
         ``use_pallas`` switch: on the card the kernels always run, and a
         chain on the CPU takes their plain versions.
         """
-        if mesh is not None:
-            raise _not_ported("fastTriangleDensities on a device mesh (mesh=)", "A9")
         if self.needs_update:
             self.updateBaseStatistics()
         if params is None:
@@ -848,32 +855,39 @@ class MCSamples(Chains):
         self.fast_regrid_groups = []
         stage("chain_state")
         try:
-            out = self._fast_triangle(idx, contours, meanlikes, stage)
+            out = self._fast_triangle(idx, contours, meanlikes, stage, mesh)
         finally:
             stage(None)
             self.fast_profile = profile
         return out
 
-    def _fast_triangle(self, idx, contours, meanlikes, stage):
+    def _fast_triangle(self, idx, contours, meanlikes, stage, mesh=None):
         """The routes of :meth:`fastTriangleDensities`; ``stage(label)``
-        marks the start of each stage."""
+        marks the start of each stage, ``mesh`` shards the device
+        programs."""
         pars = [self.paramNames.names[j] for j in idx]
         lo = np.array([p.limmin if p.has_limits_bot else np.nan for p in pars], np.float32)
         hi = np.array([p.limmax if p.has_limits_top else np.nan for p in pars], np.float32)
         per = np.array([bool(getattr(p, "periodic", False)) for p in pars])
         has = bool(np.isfinite(lo).any() or np.isfinite(hi).any() or per.any())
-        st = self._fast_chain_state()
+        st = self._fast_chain_state(whole=mesh is None)
         like_w = None
         if meanlikes and self.loglikes is not None:
-            if st["like_weights"] is None:
-                st["like_weights"] = torch.from_numpy(self._likelihood_weights().astype(np.float32)).to(self.device)
-            like_w = st["like_weights"]
+            if mesh is not None:
+                like_w = shard_values(mesh, self._likelihood_weights(), device=self.device)
+            else:
+                if st["like_weights"] is None:
+                    st["like_weights"] = torch.from_numpy(self._likelihood_weights().astype(np.float32)).to(
+                        self.device)
+                like_w = st["like_weights"]
         # reference smooth_scale = -scale convention: auto bandwidth x scale
         scale_1d = -float(self.smooth_scale_1D) if float(self.smooth_scale_1D) < 0 else 1.0
         scale_2d = -float(self.smooth_scale_2D) if float(self.smooth_scale_2D) < 0 else 1.0
         bs1 = None if scale_1d == 1.0 else scale_1d
         bs2 = None if scale_2d == 1.0 else scale_2d
-        dev_s, dev_w = self._fast_device_view(idx)
+        dev_s, dev_w = self._fast_device_view(idx, mesh)
+        # a sharded 1D stage needs the chain's length (padding moves no N_eff)
+        shard_1d = {} if mesh is None else dict(group=mesh, n_samples=self.samples.shape[0])
         p = len(idx)
         pairs = [(a, b) for a in range(p) for b in range(a + 1, p)]
         pairs_arr = np.array(pairs, np.int64).reshape(-1, 2)
@@ -896,7 +910,7 @@ class MCSamples(Chains):
         abs_corr = np.abs(np.asarray(corr, float))
         np.fill_diagonal(abs_corr, 0.0)
         max_corr_val = float(abs_corr.max(initial=0.0))
-        single = not has and like_w is None and max_corr_val < 0.866
+        single = mesh is None and not has and like_w is None and max_corr_val < 0.866
         if single and max_corr_val >= 0.5:
             stage("cum_score")
             cum = self._fast_cum_score()[np.ix_(idx, idx)]
@@ -928,13 +942,14 @@ class MCSamples(Chains):
             # the plan's cumulant gate reads this score back: computed before
             # program B is queued, its readback does not wait for B
             stage("cum_score")
-            self._fast_cum_score()
+            self._fast_cum_score(mesh)
         # program A: all 1D densities, and one readback of the packed
         # planning fields before program B is queued (the same stream), so
         # it waits for program A only
         stage("program_a")
         with torch.no_grad():
-            d1 = all_1d_densities(dev_s, dev_w, periodic=per_arg, like_weights=like_w, bandwidth_scale=bs1, **limits)
+            d1 = all_1d_densities(dev_s, dev_w, periodic=per_arg, like_weights=like_w, bandwidth_scale=bs1, **limits,
+                                  **shard_1d)
         packed = _host(d1["host_pack"])
         d1h = {
             "neff": packed[:p],
@@ -952,32 +967,32 @@ class MCSamples(Chains):
                 dev_s, dev_w, pairs_arr[:, 0], pairs_arr[:, 1], d1["neff"], d1["range"][0], d1["range"][1],
                 contours_np, active_lo=d1["active_lo"] if has else None, active_hi=d1["active_hi"] if has else None,
                 periodic=per_arg, int8_weights=st["int8"], bandwidth_scale=bs2, sigma_range=d1["sigma_range"],
-                max_corr=max_corr, enable_shear=enable_shear, like_weights=like_w, export_hists=True,
+                max_corr=max_corr, enable_shear=enable_shear, like_weights=like_w, export_hists=True, group=mesh,
             )
         d2 = dict(d2)
         hists = d2.pop("hists", None)
         stage("plan")
-        plan = self._fast_regrid_plan(idx, pairs, d1, fragile=None, d1_host=d1h)
+        plan = self._fast_regrid_plan(idx, pairs, d1, fragile=None, d1_host=d1h, mesh=mesh)
         if has:
             stage("wide_bounded_1d")
             d1 = self._fast_rescue_wide_bounded_1d(idx, d1, lo, hi, d1_host=d1h)
         stage("regrid")
         regrid = self._fast_regrid_exec(plan, idx, pairs, d1, contours, scale_2d, hists=hists, bounded=has,
-                                        per=per_arg)
+                                        per=per_arg, mesh=mesh)
         # program B's packed diagnostics (fragile flags + kernel widths in
         # bin units): the route's one readback of program B
         stage("diag")
         diag = _host(d2["diag"])
         frag = diag[:k_pairs] > 0.5
         stage("fragile_regrid")
-        plan = self._fast_regrid_plan(idx, pairs, d1, fragile=frag, fragile_only=True, d1_host=d1h)
+        plan = self._fast_regrid_plan(idx, pairs, d1, fragile=frag, fragile_only=True, d1_host=d1h, mesh=mesh)
         regrid.update(self._fast_regrid_exec(plan, idx, pairs, d1, contours, scale_2d, hists=hists, bounded=has,
-                                             per=per_arg))
+                                             per=per_arg, mesh=mesh))
         d2["regrid"] = regrid
         stage("clamped_rescue")
         self._fast_rescue_clamped_pairs(
             idx, pairs, d1, d2, contours, scale_2d, rx_host=diag[k_pairs : 2 * k_pairs],
-            ry_host=diag[2 * k_pairs : 3 * k_pairs], bounded=has, per=per_arg,
+            ry_host=diag[2 * k_pairs : 3 * k_pairs], bounded=has, per=per_arg, mesh=mesh,
         )
         return d1, d2, pairs
 
@@ -1016,14 +1031,15 @@ class MCSamples(Chains):
         return d1
 
     def _fast_rescue_clamped_pairs(self, idx, pairs, d1, d2, contours, scale_2d=1.0, rx_host=None, ry_host=None,
-                                   bounded=False, per=None):
+                                   bounded=False, per=None, mesh=None):
         """Re-run pairs whose kernel width saturated the fused program's
         fixed convolution window (rx/ry at winw/2.5 bins) with a near-half-
         grid window (winw = 126 at 256 bins, a 768 DFT frame), and serve its
         results in ``d2["regrid"]``. The reference sizes its window from the
         bandwidth with no cap (``mcsamples.py:1884`` winw = 2.5 width).
         ``bounded``: the chain's active limits (``d1``) apply; ``per``: (P,)
-        periodic flags or None."""
+        periodic flags or None; ``mesh``: the process group of a sharded
+        call."""
         regrid = d2.get("regrid", {})
         base_cap = 30 / 2.5
 
@@ -1048,15 +1064,15 @@ class MCSamples(Chains):
         if not saturated:
             return
         fine = 256
-        dev_samples, dev_weights = self._fast_device_view(idx)
+        dev_samples, dev_weights = self._fast_device_view(idx, mesh)
         with torch.no_grad():
             d2w = all_2d_densities(
                 dev_samples, dev_weights, np.array([a for a, _ in saturated]), np.array([b for _, b in saturated]),
                 d1["neff"], d1["range"][0], d1["range"][1], np.array(contours, np.float32), fine_bins=fine,
-                int8_weights=self._fast_chain_state()["int8"], bandwidth_scale=None if scale_2d == 1.0 else scale_2d,
+                int8_weights=self._fast_chain_state(whole=False)["int8"], bandwidth_scale=None if scale_2d == 1.0 else scale_2d,
                 sigma_range=d1["sigma_range"], max_corr=float(self.max_corr_2D), winw=fine // 2 - 2,
                 active_lo=d1["active_lo"] if bounded else None, active_hi=d1["active_hi"] if bounded else None,
-                periodic=per,
+                periodic=per, group=mesh,
             )
         for i, key in enumerate(saturated):
             regrid[key] = {name: d2w[name][i] for name in _REGRID_KEYS}
@@ -1065,7 +1081,7 @@ class MCSamples(Chains):
             {"fine": fine, "winw": fine // 2 - 2, "pairs": saturated, "bandwidths": "clamped"}
         )
 
-    def _fast_regrid_plan(self, idx, pairs, d1, fragile=None, fragile_only=False, d1_host=None):
+    def _fast_regrid_plan(self, idx, pairs, d1, fragile=None, fragile_only=False, d1_host=None, mesh=None):
         """Host half of the regrid rescue: pick the pairs to re-run at the
         reference's corr-adaptive fine grid (``mcsamples.py:1812-1819``
         scales fine_bins_2D by the degeneracy angle) and compute their f64
@@ -1080,7 +1096,8 @@ class MCSamples(Chains):
         (:meth:`_optimize_bandwidth_sheared`). ``fragile`` (per-pair bools
         from the fused program): pairs whose f32 AMISE correlation search
         sat on a knife edge get theirs from :meth:`getAutoBandwidth2D` at
-        256 bins, when the cumulant gate passes too."""
+        256 bins, when the cumulant gate passes too. ``mesh``: the score
+        comes from the ranks' blocks (every rank plans alike)."""
         max_corr = float(self.max_corr_2D)
         corr = np.asarray(self.getCorrelationMatrix())[np.ix_(idx, idx)]
         infos = [self.paramNames.names[j] for j in idx]
@@ -1092,7 +1109,7 @@ class MCSamples(Chains):
 
         def cum_gate(a, b):
             if cum_cache[0] is None:
-                cum_cache[0] = self._fast_cum_score()[np.ix_(idx, idx)]
+                cum_cache[0] = self._fast_cum_score(mesh)[np.ix_(idx, idx)]
             return cum_cache[0][a, b] > 0.25
 
         if fragile is not None and fragile.any():
@@ -1172,20 +1189,22 @@ class MCSamples(Chains):
             mult_bias_correction_order=self.mult_bias_correction_order, N_eff=pair_neff,
         )
 
-    def _fast_regrid_exec(self, plan, idx, pairs, d1, contours, scale_2d=1.0, hists=None, bounded=False, per=None):
+    def _fast_regrid_exec(self, plan, idx, pairs, d1, contours, scale_2d=1.0, hists=None, bounded=False, per=None,
+                          mesh=None):
         """Device half of the regrid rescue: re-run each planned group
         through :func:`all_2d_densities` with its bandwidth override and a
         window of max(30, fine / 9) bins. ``hists`` (program B's exported
         256-bin histograms) lets fine = 256 groups skip the re-binning; past
         256 bins the rerun bins in-program (K1's wide kernels on int16 rows).
         ``bounded``: the chain's active limits (``d1``) apply; ``per``: (P,)
-        periodic flags or None."""
+        periodic flags or None; ``mesh``: the process group of a sharded
+        call (the exported histograms are global)."""
         regrid = {}
         if not plan:
             return regrid
         pair_pos = {key: k for k, key in enumerate(pairs)}
-        dev_samples, dev_weights = self._fast_device_view(idx)
-        int8 = self._fast_chain_state()["int8"]
+        dev_samples, dev_weights = self._fast_device_view(idx, mesh)
+        int8 = self._fast_chain_state(whole=False)["int8"]
         for fine, plist, override, kind in plan:
             winw = max(30, int(round(fine / 9.0)))
             hin = None
@@ -1198,7 +1217,7 @@ class MCSamples(Chains):
                     int8_weights=int8, bandwidth_scale=None if scale_2d == 1.0 else scale_2d,
                     bandwidth_override=override, sigma_range=d1["sigma_range"], max_corr=float(self.max_corr_2D),
                     winw=winw, hists_in=hin, active_lo=d1["active_lo"] if bounded else None,
-                    active_hi=d1["active_hi"] if bounded else None, periodic=per,
+                    active_hi=d1["active_hi"] if bounded else None, periodic=per, group=mesh,
                 )
             for i, key in enumerate(plist):
                 regrid[key] = {name: d2x[name][i] for name in _REGRID_KEYS}
@@ -1230,8 +1249,9 @@ class MCSamples(Chains):
 
     def _parity_pairs(self, idx, infos):
         """Each pair's corr-adaptive fine size, grouped: ({fine: [(a, b,
-        corr)]}, the (a, b) positions that take getAutoBandwidth2D's
-        sheared branch)."""
+        corr)]}, the (a, b) positions whose sheared branch of
+        getAutoBandwidth2D is batched; with ``use_effective_samples_2D``
+        none is, and each takes the branch's per-pair host pass)."""
         pair_fine = {}
         sheared_jobs = []
         for a in range(len(idx)):
@@ -1240,7 +1260,7 @@ class MCSamples(Chains):
                 fine, _nbin2d = self._degeneracy_adapted_bins(corr, self.fine_bins_2D)
                 pair_fine.setdefault(fine, []).append((a, b, actual_corr))
                 both_limited = infos[a].has_limits and infos[b].has_limits
-                if 0.2 < abs(actual_corr) <= self.max_corr_2D and not both_limited:
+                if 0.2 < abs(actual_corr) <= self.max_corr_2D and not both_limited and not self.use_effective_samples_2D:
                     sheared_jobs.append((a, b))
         return pair_fine, sheared_jobs
 
@@ -1299,27 +1319,302 @@ class MCSamples(Chains):
             "rwidth": rwidth,
         }
 
+
     def fastParityDensities(self, params=None, contours=None, device=False, materialize=True):
         """Reference-exact triangle densities: exact host ranges, N_eff
-        values and bandwidth matrices feed batched 2D convolution programs
-        on the chain's torch device.
+        values and bandwidth matrices feed batched f64 2D convolution
+        programs on the chain's torch device.
 
-        Only ``device=True`` is ported (:meth:`_parity_densities_device`):
-        every O(N) pass (binning, exact pair histograms, sheared residuals,
-        autocorrelation lengths, N_eff lag sums) and the 2D convolutions run
-        on ``self.device``, and only compact per-pair histograms return to
-        the host-exact bandwidth optimizers. With ``materialize=False`` the
-        2D grids stay on the device and the return is ``(dens1, groups)``.
+        ``device=True`` (:meth:`_parity_densities_device`): every O(N) pass
+        (binning, exact pair histograms, sheared residuals, autocorrelation
+        lengths, N_eff lag sums) and the 2D convolutions run on
+        ``self.device``, and only compact per-pair histograms return to the
+        host-exact bandwidth optimizers. With ``materialize=False`` the 2D
+        grids stay on the device and the return is ``(dens1, groups)``.
+        Chains whose weights the device histograms cannot sum exactly go to
+        the host variant.
+
+        ``device=False`` (:meth:`_parity_densities_host`): the O(N) passes
+        on the host (numpy and the native pair-histogram pass), the
+        convolutions on ``self.device``; it takes any weights, and
+        ``materialize`` does not apply.
 
         :return: ({name: Density1D}, {(name_a, name_b): Density2D})
         """
         if not device:
-            raise _not_ported("the host parity variant fastParityDensities(device=False)", "A8")
+            return self._parity_densities_host(params, contours)
         return self._parity_densities_device(params, contours, materialize=materialize)
+
+    @staticmethod
+    def _parity_grid_edges(infos):
+        """(binmin, binmax) per parameter: the reference ``_binSamples``
+        range (a hard limit, periodic or not, is its grid's edge)."""
+
+        def grid_edge(par):
+            pad = (par.range_max - par.range_min) * 0.1
+            bmin = min(par.param_min, par.range_min) - (0 if par.has_limits_bot else pad)
+            bmax = max(par.param_max, par.range_max) + (0 if par.has_limits_top else pad)
+            return bmin, bmax
+
+        edges = np.array([grid_edge(info) for info in infos])
+        return edges[:, 0], edges[:, 1]
+
+    def _parity_mark(self, profile):
+        """A ``mark(label)`` that records the seconds since the previous
+        mark under ``label`` (the card synchronized first)."""
+        clock = [time.perf_counter()]
+
+        def mark(label):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            now = time.perf_counter()
+            profile[label] = now - clock[0]
+            clock[0] = now
+
+        return mark
+
+    def _parity_bandwidth_entry(self, hist, infos, idx, a, b, actual_corr, binmin, binmax, fine, sheared_result, k):
+        """One pair's (a, b, hx, hy, c, winw, k) from
+        :meth:`getAutoBandwidth2D`: host-exact bandwidths, and the
+        reference's kernel window 2.5 widths wide in the pair's fine bins."""
+        scale_2d = abs(float(self.smooth_scale_2D))
+        hx, hy, c = self.getAutoBandwidth2D(
+            hist, infos[a], infos[b], idx[a], idx[b], actual_corr, binmax[a] - binmin[a], binmax[b] - binmin[b],
+            self.fine_bins_2D, mult_bias_correction_order=self.mult_bias_correction_order,
+            sheared_result=sheared_result,
+        )
+        rx = hx * scale_2d / ((binmax[a] - binmin[a]) / (fine - 1))
+        ry = hy * scale_2d / ((binmax[b] - binmin[b]) / (fine - 1))
+        return a, b, hx, hy, c, max(1, int(round(2.5 * max(rx, ry)))), k
+
+    def _parity_convolve(self, infos, groups, binmin, binmax, neff, contours, samples, weights, pair_hists,
+                         materialize=True):
+        """The f64 2D programs of both parity variants: each fine group's
+        pairs (``groups``: {fine: [(a, b, hx, hy, c, winw, k)]}) bucketed by
+        window level (:meth:`_parity_winw_level`), one
+        :func:`all_2d_densities` per bucket with the host-exact bandwidths,
+        the reference's kernel supports, the exact mult-bias mask, and the
+        chain's active limits and periodic axes (``samples`` (N, P) and
+        ``weights`` on the programs' device; they read neither, as the
+        histograms come in). ``pair_hists(fine, rows)``: the bucket's
+        (K, fine, fine) f64 histograms on that device, rows k of the fine
+        group. Returns {(name_a, name_b): Density2D}, or the device groups
+        with ``materialize=False``; the buckets go to
+        ``self.parity_buckets``."""
+        names = [info.name for info in infos]
+        scale_2d = abs(float(self.smooth_scale_2D))
+        active_lo = np.array([info.has_limits_bot for info in infos])
+        active_hi = np.array([info.has_limits_top for info in infos])
+        per = np.array([bool(getattr(info, "periodic", False)) for info in infos])
+        bounded = active_lo.any() or active_hi.any()
+        sigma = np.array([info.sigma_range for info in infos])
+
+        bucketed = []
+        for fine, plist_all in groups.items():
+            by_level = {}
+            for entry in plist_all:
+                by_level.setdefault(self._parity_winw_level(entry[5], fine), []).append(entry)
+            bucketed.extend((fine, winw, plist) for winw, plist in by_level.items())
+        self.parity_buckets = [{"fine": fine, "winw": winw, "pairs": len(plist)} for fine, winw, plist in bucketed]
+
+        dens2 = {}
+        out_groups = []
+        for fine, winw, plist in bucketed:
+            with torch.no_grad():
+                d2 = all_2d_densities(
+                    samples,
+                    weights,
+                    np.array([entry[0] for entry in plist]),
+                    np.array([entry[1] for entry in plist]),
+                    neff,
+                    binmin,
+                    binmax,
+                    contours,
+                    fine_bins=fine,
+                    winw=winw,
+                    bandwidth_scale=None if scale_2d == 1.0 else scale_2d,
+                    bandwidth_override=tuple(np.array([entry[i] for entry in plist]) for i in (2, 3, 4)),
+                    kernel_support=np.array([float(entry[5]) for entry in plist]),
+                    active_lo=active_lo if bounded else None,
+                    active_hi=active_hi if bounded else None,
+                    periodic=per if per.any() else None,
+                    sigma_range=sigma,
+                    max_corr=float(self.max_corr_2D),
+                    enable_shear=False,  # bandwidths are host-exact overrides
+                    exact_mult_bias=True,
+                    hists_in=pair_hists(fine, [entry[6] for entry in plist]),
+                )
+            if not materialize:
+                out_groups.append(
+                    {
+                        "pairs": [(names[entry[0]], names[entry[1]]) for entry in plist],
+                        "P": d2["P"],
+                        "contours": d2["contours"],
+                        "ranges": [
+                            ((binmin[entry[0]], binmax[entry[0]]), (binmin[entry[1]], binmax[entry[1]]))
+                            for entry in plist
+                        ],
+                        "fine": fine,
+                    }
+                )
+                continue
+            grids = d2["P"].cpu().numpy()
+            for k, (a, b, *_rest) in enumerate(plist):
+                density = Density2D(
+                    np.linspace(binmin[a], binmax[a], fine),
+                    np.linspace(binmin[b], binmax[b], fine),
+                    grids[k],
+                    view_ranges=[(infos[a].range_min, infos[a].range_max), (infos[b].range_min, infos[b].range_max)],
+                )
+                # host water levels on the final grid (byte-exact convention)
+                density.contours = density.getContourLevels(contours)
+                density.likes = None
+                dens2[(names[a], names[b])] = density
+        return dens2 if materialize else out_groups
+
+    def _sheared_bandwidths_batch(self, jobs, nbins):
+        """The sheared 2D bandwidths of many pairs (the JAX package's
+        method of the same name, ``mcsamples.py:3429-3505``; one pair is
+        :meth:`_optimize_bandwidth_sheared`): per pair, the Cholesky shear
+        of (lead, other), the lead's and the residual's ``kde.bin_samples``
+        binning (the residual rows vectorized across pairs), their 2D
+        histogram from the native pass
+        (:func:`getdist_tpu_torch._native.pair_histograms`, bit-identical to
+        ``_make2Dhist``), ``KernelOptimizer2D`` and the unshear. ``jobs``:
+        list of (parx, pary, paramx, paramy, N_eff). Returns ``{(paramx, paramy): (hx, hy, c) | ValueError}``;
+        a failure carries the exception so the caller applies the
+        reference's fallback."""
+        out = {}
+        lead_cache = {}
+        chunk_size = 24  # (24, N) f64 residual rows at a time
+        n = self.samples.shape[0]
+        for start in range(0, len(jobs), chunk_size):
+            chunk = jobs[start : start + chunk_size]
+            metas = []
+            resid_rows = np.empty((len(chunk), n), np.float64)
+            for i, (parx, pary, paramx, paramy, n_eff) in enumerate(chunk):
+                lead_par, other = (pary, paramx) if pary.has_limits else (parx, paramy)
+                lead = paramy if pary.has_limits else paramx
+                root = np.linalg.cholesky(self.getCov(pars=[lead, other]))
+                resid_rows[i] = (root[0, 0] * self.samples[:, other] - root[1, 0] * self.samples[:, lead]) / root[1, 1]
+                if lead not in lead_cache:
+                    lead_cache[lead] = kde.bin_samples(
+                        self.samples[:, lead], nbins=nbins,
+                        range_min=lead_par.range_min if lead_par.has_limits_bot else None,
+                        range_max=lead_par.range_max if lead_par.has_limits_top else None,
+                    )
+                metas.append((parx, pary, paramx, paramy, n_eff, lead, root / root[0, 0]))
+            # kde.bin_samples per row, vectorized: the same elementwise
+            # arithmetic (extent, 10% pad, (x - lo) / dx truncated)
+            lo = resid_rows.min(axis=1)
+            hi = resid_rows.max(axis=1)
+            pad = (hi - lo) * 0.1
+            rmin = lo - pad
+            width = (hi + pad) - rmin
+            dx = width / (nbins - 1)
+            resid_ix = ((resid_rows - rmin[:, None]) / dx[:, None]).astype(int)
+            leads = sorted({m[5] for m in metas})
+            lead_pos = {lead: i for i, lead in enumerate(leads)}
+            ix_rows = np.concatenate([np.stack([lead_cache[lead][0] for lead in leads]), resid_ix], axis=0)
+            hists = _native.pair_histograms(
+                ix_rows, self.weights, [(lead_pos[m[5]], len(leads) + i) for i, m in enumerate(metas)], nbins
+            )
+            for i, (parx, pary, paramx, paramy, n_eff, lead, unshear) in enumerate(metas):
+                try:
+                    opt = kde.KernelOptimizer2D(hists[i], n_eff, 0, do_correlation=not (parx.has_limits or pary.has_limits))
+                    h1, h2, c12 = opt.get_h()
+                except ValueError as e:
+                    out[(paramx, paramy)] = e
+                    continue
+                h1 *= lead_cache[lead][1]
+                h2 *= width[i]
+                kernel_cov = unshear @ np.array([[h1 * h1, h1 * h2 * c12], [h1 * h2 * c12, h2 * h2]]) @ unshear.T
+                widths = np.sqrt(kernel_cov.diagonal())
+                c = kernel_cov[0, 1] / (widths[0] * widths[1])
+                out[(paramx, paramy)] = (widths[1], widths[0], c) if pary.has_limits else (widths[0], widths[1], c)
+        return out
+
+    def _parity_densities_host(self, params=None, contours=None):
+        """The host parity variant (counterpart of the JAX package's
+        ``fastParityDensities(device=False)``, ``mcsamples.py:1349-1542``),
+        for any weights (fractional, negative, or summing past 2^24, as
+        nested samplers and importance reweighting write them): the N_eff
+        caches warmed by a thread pool, the host 1D densities, per-pair
+        corr-adaptive fine grids with their pair histograms from the native
+        pass (one call per fine group, bit-identical to ``np.bincount``),
+        the sheared branch batched (:meth:`_sheared_bandwidths_batch`), the
+        host-exact :meth:`getAutoBandwidth2D`, then the ``winw_level``
+        buckets of f64 convolution programs (:meth:`_parity_convolve`).
+
+        The JAX package runs those programs on its x64 CPU backend, since a
+        TPU has no native f64; the card has (DMMA), so the port keeps the
+        algorithm and runs them on ``self.device``: f64 K2/K3 on the card,
+        their plain versions for a CPU chain. Stage times of the last call
+        are kept in ``self.parity_profile``."""
+        if float(self.smooth_scale_2D) >= 0 or float(self.smooth_scale_1D) >= 0:
+            raise SettingError("parity mode supports the auto-bandwidth smooth_scale settings only")
+        if self.needs_update:
+            self.updateBaseStatistics()
+        idx = list(range(self.n)) if params is None else [self._parAndNumber(q)[0] for q in params]
+        contours = np.asarray(self.contours if contours is None else contours, float)
+        profile = {}
+        mark = self._parity_mark(profile)
+        infos = [self._initParamRanges(j) for j in idx]
+        mark("ranges")
+
+        # warm the per-parameter N_eff caches concurrently (numpy releases
+        # the GIL; each parameter's own arithmetic is unchanged), then the
+        # host 1D densities reuse them
+        self.get_norm()
+        workers = max(1, min(8, os.cpu_count() or 1))
+        if workers > 1 and len(idx) > 1:
+            with ThreadPoolExecutor(max_workers=workers) as pool:
+                list(pool.map(lambda ji: self._get1DNeff(ji[1], ji[0]), zip(idx, infos)))
+        neff = np.array([self._get1DNeff(info, j) for j, info in zip(idx, infos)])
+        mark("neff")
+        dens1 = {info.name: self.get1DDensityGridData(j) for j, info in zip(idx, infos)}
+        mark("1d_host")
+
+        binmin, binmax = self._parity_grid_edges(infos)
+        pair_fine, sheared_pairs = self._parity_pairs(idx, infos)
+        jobs = [(infos[a], infos[b], idx[a], idx[b], float(min(neff[a], neff[b]))) for a, b in sheared_pairs]
+        sheared_results = self._sheared_bandwidths_batch(jobs, self.fine_bins_2D) if jobs else {}
+        mark("sheared")
+
+        groups, hists = {}, {}
+        for fine, members in pair_fine.items():
+            params_in = sorted({k for a, b, _ in members for k in (a, b)})
+            local = {k: i for i, k in enumerate(params_in)}
+            ix_rows = np.stack([self._binSamples(self.samples[:, idx[k]], infos[k], fine)[0] for k in params_in])
+            hists[fine] = _native.pair_histograms(ix_rows, self.weights, [(local[a], local[b]) for a, b, _ in members],
+                                                  fine)
+            groups[fine] = [
+                self._parity_bandwidth_entry(hists[fine][k], infos, idx, a, b, actual_corr, binmin, binmax, fine,
+                                             sheared_results.get((idx[a], idx[b])), k)
+                for k, (a, b, actual_corr) in enumerate(members)
+            ]
+        mark("hists_bandwidths")
+
+        # the programs read the histograms and the host bandwidths only: a
+        # (0, P) chain stands in for the samples, which stay on the host
+        empty = torch.zeros((0, len(idx)), dtype=torch.float64, device=self.device)
+        dens2 = self._parity_convolve(
+            infos, groups, binmin, binmax, neff, contours, empty, empty[:, 0],
+            lambda fine, rows: torch.from_numpy(hists[fine][rows]).to(self.device),
+        )
+        mark("conv_materialize")
+        self.parity_profile = profile
+        return dens1, dens2
 
     def _parity_densities_device(self, params=None, contours=None, materialize=True):
         """Device parity mode (counterpart of the JAX package's method of
         the same name, ``mcsamples.py:1580-2108``).
+
+        Its device histograms are exact only for integral, f32-representable,
+        non-negative weights with a total below 2^24 (the JAX package's
+        bound); any other chain goes to :meth:`_parity_densities_host` with
+        a warning, and raises with ``materialize=False``. Periodic
+        parameters take the 2D programs' periodic fold and extension.
 
         TPU workarounds of the JAX method not carried over: the uint16
         ``_compact_readback`` and the two readback threads (built for a
@@ -1331,69 +1626,50 @@ class MCSamples(Chains):
 
         Stage times of the last call are kept in ``self.parity_profile``
         (seconds, in order), and its convolution buckets (fine grid, window
-        half-width, pair count) in ``self.parity_buckets``. With ``materialize=False`` each group of the
-        return is a dict with keys ``pairs`` (list of name tuples), ``P``
-        ((K, fine, fine) device grids), ``contours`` ((K, C) device water
-        levels), ``ranges`` (per-pair ((xmin, xmax), (ymin, ymax))) and
-        ``fine``.
+        half-width, pair count) in ``self.parity_buckets``. With
+        ``materialize=False`` each group of the return is a dict with keys
+        ``pairs`` (list of name tuples), ``P`` ((K, fine, fine) device
+        grids), ``contours`` ((K, C) device water levels), ``ranges``
+        (per-pair ((xmin, xmax), (ymin, ymax))) and ``fine``.
         """
         if float(self.smooth_scale_2D) >= 0 or float(self.smooth_scale_1D) >= 0:
             raise SettingError("parity mode supports the auto-bandwidth smooth_scale settings only")
-        if self.use_effective_samples_2D:
-            raise _not_ported("use_effective_samples_2D in parity mode", "A8")
-        # the device histograms are exact only for integral, f32-representable
-        # weights with bin sums below 2**24; the JAX package falls back to its
-        # host pipeline for other chains, which the port does not have yet
         w_all = np.asarray(self.weights)
-        if w_all.size and not (np.all(np.float32(w_all) == w_all) and np.all(w_all == np.round(w_all))):
-            problem = "fractional or not f32-representable"
-        elif w_all.size and w_all.min() < 0:
-            problem = "negative"
-        elif w_all.size and float(w_all.sum()) >= 2**24:
-            problem = f"integral, but their total {float(w_all.sum()):.0f} reaches 2**24"
-        else:
-            problem = None
-        if problem:
-            raise MCSamplesError(
-                "parity device mode needs integral f32-representable weights with a total below 2**24 for exact "
-                f"device histograms; this chain's weights are {problem}, and the host parity variant that serves "
-                "them is not ported yet (ROADMAP A8)"
+        weights_device_exact = bool(
+            w_all.size == 0
+            or (
+                np.all(np.float32(w_all) == w_all)
+                and np.all(w_all == np.round(w_all))
+                and w_all.min() >= 0
+                and float(w_all.sum()) < 2**24
             )
+        )
+        if not weights_device_exact:
+            if not materialize:
+                raise MCSamplesError(
+                    "parity device mode with materialize=False needs integral f32-representable weights (sum < 2**24) "
+                    "for exact device histograms; this chain's weights are fractional, negative or f32-lossy, or sum "
+                    "past 2**24: use materialize=True (host variant) or fastParityDensities(device=False)"
+                )
+            logging.warning(
+                "parity device mode: weights are fractional, negative or not exactly f32-representable, or sum past "
+                "2**24; device histograms would not be host-exact, so the host parity variant serves this chain"
+            )
+            return self._parity_densities_host(params, contours)
         if self.needs_update:
             self.updateBaseStatistics()
         idx = list(range(self.n)) if params is None else [self._parAndNumber(q)[0] for q in params]
-        if any(self.paramNames.names[j].periodic for j in idx):
-            raise _not_ported("parity mode with periodic parameters", "A3")
         contours = np.asarray(self.contours if contours is None else contours, float)
 
         profile = {}
-        clock = [time.perf_counter()]
-
-        def mark(label):
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            now = time.perf_counter()
-            profile[label] = now - clock[0]
-            clock[0] = now
-
+        mark = self._parity_mark(profile)
         infos = [self._initParamRanges(j) for j in idx]
-        names = [info.name for info in infos]
         mark("ranges")
         st = self._parity_chain()
         dev_s64, dev_w64, dev_hist_w = st["samples"], st["weights"], st["hist_weights"]
         mark("chain_state")
 
-        # per-param fine ranges (the reference _binSamples convention)
-        def grid_edge(par):
-            pad = (par.range_max - par.range_min) * 0.1
-            bmin = min(par.param_min, par.range_min) - (0 if par.has_limits_bot else pad)
-            bmax = max(par.param_max, par.range_max) + (0 if par.has_limits_top else pad)
-            return bmin, bmax
-
-        edges = np.array([grid_edge(info) for info in infos])
-        binmin, binmax = edges[:, 0], edges[:, 1]
-
-        scale_2d = abs(float(self.smooth_scale_2D))
+        binmin, binmax = self._parity_grid_edges(infos)
         pair_fine, sheared_jobs = self._parity_pairs(idx, infos)
 
         # -- device binning + exact pair histograms per fine group -----------
@@ -1514,94 +1790,19 @@ class MCSamples(Chains):
             if rows_plain:
                 plain = group_hists[fine][torch.as_tensor(rows_plain, device=self.device)]
                 host = dict(zip(rows_plain, plain.to(torch.float64).cpu().numpy()))
-            fw = (binmax - binmin) / (fine - 1)
-            for k, (a, b, actual_corr) in enumerate(members):
-                hx, hy, c = self.getAutoBandwidth2D(
-                    host.get(k),
-                    infos[a],
-                    infos[b],
-                    idx[a],
-                    idx[b],
-                    actual_corr,
-                    binmax[a] - binmin[a],
-                    binmax[b] - binmin[b],
-                    self.fine_bins_2D,
-                    mult_bias_correction_order=self.mult_bias_correction_order,
-                    sheared_result=sheared_results.get((idx[a], idx[b])),
-                )
-                rx = hx * scale_2d / fw[a]
-                ry = hy * scale_2d / fw[b]
-                winw = max(1, int(round(2.5 * max(rx, ry))))
-                groups.setdefault(fine, []).append((a, b, hx, hy, c, winw, k))
+            groups[fine] = [
+                self._parity_bandwidth_entry(host.get(k), infos, idx, a, b, actual_corr, binmin, binmax, fine,
+                                             sheared_results.get((idx[a], idx[b])), k)
+                for k, (a, b, actual_corr) in enumerate(members)
+            ]
         mark("bandwidths")
 
         # -- f64 convolution programs with host-bandwidth overrides ------------
-        active_lo = np.array([info.has_limits_bot for info in infos])
-        active_hi = np.array([info.has_limits_top for info in infos])
-        bounded = active_lo.any() or active_hi.any()
-        sigma = np.array([info.sigma_range for info in infos])
-
-        bucketed = []
-        for fine, plist_all in groups.items():
-            by_level = {}
-            for entry in plist_all:
-                by_level.setdefault(self._parity_winw_level(entry[5], fine), []).append(entry)
-            bucketed.extend((fine, winw, plist) for winw, plist in by_level.items())
-        self.parity_buckets = [{"fine": fine, "winw": winw, "pairs": len(plist)} for fine, winw, plist in bucketed]
-
-        dens2 = {}
-        out_groups = []
-        for fine, winw, plist in bucketed:
-            hists_in = group_hists[fine][torch.as_tensor([entry[6] for entry in plist], device=self.device)]
-            with torch.no_grad():
-                d2 = all_2d_densities(
-                    sub64,
-                    dev_w64,
-                    np.array([entry[0] for entry in plist]),
-                    np.array([entry[1] for entry in plist]),
-                    neff,
-                    binmin,
-                    binmax,
-                    contours,
-                    fine_bins=fine,
-                    winw=winw,
-                    bandwidth_scale=None if scale_2d == 1.0 else scale_2d,
-                    bandwidth_override=tuple(np.array([entry[i] for entry in plist]) for i in (2, 3, 4)),
-                    kernel_support=np.array([float(entry[5]) for entry in plist]),
-                    active_lo=active_lo if bounded else None,
-                    active_hi=active_hi if bounded else None,
-                    sigma_range=sigma,
-                    max_corr=float(self.max_corr_2D),
-                    enable_shear=False,  # bandwidths are host-exact overrides
-                    exact_mult_bias=True,
-                    hists_in=hists_in.to(torch.float64),
-                )
-            if not materialize:
-                out_groups.append(
-                    {
-                        "pairs": [(names[entry[0]], names[entry[1]]) for entry in plist],
-                        "P": d2["P"],
-                        "contours": d2["contours"],
-                        "ranges": [
-                            ((binmin[entry[0]], binmax[entry[0]]), (binmin[entry[1]], binmax[entry[1]]))
-                            for entry in plist
-                        ],
-                        "fine": fine,
-                    }
-                )
-                continue
-            grids = d2["P"].cpu().numpy()
-            for k, (a, b, *_rest) in enumerate(plist):
-                density = Density2D(
-                    np.linspace(binmin[a], binmax[a], fine),
-                    np.linspace(binmin[b], binmax[b], fine),
-                    grids[k],
-                    view_ranges=[(infos[a].range_min, infos[a].range_max), (infos[b].range_min, infos[b].range_max)],
-                )
-                # host water levels on the final grid (byte-exact convention)
-                density.contours = density.getContourLevels(contours)
-                density.likes = None
-                dens2[(names[a], names[b])] = density
+        out = self._parity_convolve(
+            infos, groups, binmin, binmax, neff, contours, sub64, dev_w64,
+            lambda fine, rows: group_hists[fine][torch.as_tensor(rows, device=self.device)].to(torch.float64),
+            materialize=materialize,
+        )
         mark("conv_dispatch" if not materialize else "conv_materialize")
         self.parity_profile = profile
-        return (dens1, dens2) if materialize else (dens1, out_groups)
+        return dens1, out

@@ -3,7 +3,8 @@
 The sources are compiled at first use with ``nvcc`` for ``sm_90a`` (one
 ``nvcc`` per source, run in parallel) and linked into one shared library
 with a plain C interface, cached under
-``getdist_tpu_torch/_build`` by a hash of the sources, and loaded with
+``getdist_tpu_torch/_build`` by a hash of the sources
+(:func:`getdist_tpu_torch._compile.build_once`), and loaded with
 ``ctypes``.  Nothing here runs at import time: machines without ``nvcc``
 (and the CPU tests) import the package and never build.
 """
@@ -13,15 +14,14 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
-import hashlib
 import os
 import shutil
-import subprocess
-import time
 from dataclasses import dataclass
 from pathlib import Path
 
 import torch
+
+from getdist_tpu_torch._compile import build_once
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -39,8 +39,8 @@ _SIGNATURES = {
         _I, _P, _I, _I, _P, _I, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, ctypes.c_longlong, ctypes.c_longlong,
         _I, _P, _P, _P, _P, _P,
     ),
-    # ix, P, w, weight bytes, pa, pb, inv, slots, n, K, nbins, n_split, integer_weights, out
-    "pair_hist_uint8_launch": (_I, _P, _I, _P, _I, _P, _P, _P, _I, ctypes.c_longlong, _I, _I, _I, _I, _P, _P),
+    # ix, P, w, weight bytes, pa, pb, inv, slots, n, K, nbins, n_split, integer_weights, wmax, acc, out
+    "pair_hist_uint8_launch": (_I, _P, _I, _P, _I, _P, _P, _P, _I, ctypes.c_longlong, _I, _I, _I, _I, _P, _P, _P, _P),
     # kernels, K, m, Fr, Fi, scratch T (re, im, ld), spectra (re, im), P
     "dft_spectrum_launch": (_I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P),
     # grids, K, I, Fr, Fi, Br, Bi, spectra (re, im), scratch T (re, im, ld), E (re, im),
@@ -70,35 +70,16 @@ def _nvcc():
 def library() -> KernelLibrary:
     """The kernels' shared library, built on first call."""
     sources = sorted(CSRC.glob("*.cu"))
-    digest = hashlib.sha256(b"".join(p.read_bytes() for p in sources) + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    path = BUILD_DIR / f"libgetdist_kernels_{digest[:16]}.so"
-    seconds, log = 0.0, ""
-    if not path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        t0 = time.perf_counter()
+
+    def steps(out, tag):
         # one nvcc per source, all started together, then one link
-        objects = [BUILD_DIR / f"{src.stem}_{digest[:16]}.{os.getpid()}.o" for src in sources]
-        procs = [
-            subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            )
-            for src, obj in zip(sources, objects)
-        ]
-        logs = [proc.communicate()[0] for proc in procs]
-        failed = [(src.name, proc.returncode, log) for src, proc, log in zip(sources, procs, logs) if proc.returncode]
-        if failed:
-            raise RuntimeError("nvcc failed:\n" + "\n".join(f"{name} ({rc}):\n{log}" for name, rc, log in failed))
-        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        link = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]
-        proc = subprocess.run(link, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-        for obj in objects:
-            obj.unlink()
-        os.replace(tmp, path)
-        seconds = time.perf_counter() - t0
-        log = "\n".join(logs)
+        objects = [BUILD_DIR / f"{src.stem}_{tag}.o" for src in sources]
+        nvcc = _nvcc()
+        compiles = [[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(sources, objects)]
+        return [compiles, [[nvcc, *NVCC_FLAGS, "-shared", "-o", str(out), *map(str, objects)]]], objects
+
+    path, seconds, log = build_once("getdist_kernels", sources, NVCC_FLAGS, BUILD_DIR, steps)
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

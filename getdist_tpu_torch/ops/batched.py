@@ -13,11 +13,10 @@ The fused path's branches are ported: hard limits, periodic parameters,
 like weights (mean-likelihood grids) and prior masks in both stages,
 in-program pair histograms at any fine grid up to 1024 bins (the regrid
 reruns of ``MCSamples.fastTriangleDensities``), the 2D stage's
-parity-mode branches (``exact_mult_bias`` with host bandwidths,
-``hists_in`` at any fine grid, f64), and the sharded hooks (``group=``, a
-``torch.distributed`` process group, used by
-:mod:`getdist_tpu_torch.parallel`). ``exact_mult_bias`` without host
-bandwidths raises ``NotImplementedError`` naming its ROADMAP item. The TPU workarounds are
+parity-mode branches (``exact_mult_bias``, ``hists_in`` at any fine
+grid, f64), and the sharded hooks (``group=``, a ``torch.distributed``
+process group, used by :mod:`getdist_tpu_torch.parallel`, with every
+branch above). The TPU workarounds are
 not carried over: there is no bf16 weight split (the histogram kernel
 accumulates int32 or f32 weights directly), no chunked inverse FFT, no
 x64 toggling and no VMEM/HBM sizing of histogram tiles.
@@ -76,10 +75,6 @@ _W_LO, _W_HI = 1e-3, 0.3
 _MAX_BISECT = 200
 
 
-def _not_ported(what, item):
-    return NotImplementedError(f"{what} is not ported to getdist_tpu_torch yet (ROADMAP {item})")
-
-
 def _tensor(x, device, dtype=torch.float32):
     """A numpy array, list or tensor as a contiguous tensor on ``device``."""
     if isinstance(x, torch.Tensor):
@@ -108,21 +103,23 @@ def prepare_chain(samples, weights, device="cuda", dtype=torch.float32):
 
 
 @full_fp32_matmuls()
-def pair_cumulant_score(samples, weights):
+def pair_cumulant_score(samples, weights, group=None):
     """|k31| + |k13| + |k22| standardized joint cumulants for every param
     pair, as a (P, P) tensor on the samples' device. These vanish for
     jointly-Gaussian pairs, so the host uses them to gate the fragile-
     bandwidth f64 assist (``MCSamples._fast_regrid_plan``): genuinely
     non-Gaussian zoo shapes measure 0.4-3.4 where Gaussian chains stay
-    below ~0.11. The products run in full FP32 (no TF32)."""
-    wn = weights / torch.sum(weights)
-    zc = samples - torch.matmul(wn, samples)
-    zc = zc / torch.sqrt(torch.matmul(wn, zc * zc))
+    below ~0.11. The products run in full FP32 (no TF32). With ``group``,
+    ``samples`` / ``weights`` are this rank's block and every sum over
+    samples is all-reduced: each rank returns the same score."""
+    wn = weights / coll.psum(torch.sum(weights), group)
+    zc = samples - coll.psum(torch.matmul(wn, samples), group)
+    zc = zc / torch.sqrt(coll.psum(torch.matmul(wn, zc * zc), group))
     z2 = zc * zc
     zw = zc * wn[:, None]
-    rho = torch.matmul(zw.T, zc)
-    k31 = torch.matmul((z2 * zw).T, zc) - 3 * rho
-    k22 = torch.matmul((z2 * wn[:, None]).T, z2) - 1 - 2 * rho * rho
+    rho = coll.psum(torch.matmul(zw.T, zc), group)
+    k31 = coll.psum(torch.matmul((z2 * zw).T, zc), group) - 3 * rho
+    k22 = coll.psum(torch.matmul((z2 * wn[:, None]).T, z2), group) - 1 - 2 * rho * rho
     return torch.abs(k31) + torch.abs(k31).T + torch.abs(k22)
 
 
@@ -1122,13 +1119,10 @@ def all_2d_densities(
     the extended grid), then duplicate the wrap line. ``like_weights`` (N,)
     f32: the like-weighted pair histograms (K1 with f32 weights), smoothed,
     flattened by one bias round and divided by the smoothed density, as
-    'likes'. ``exact_mult_bias`` (parity mode, with ``bandwidth_override``
-    only): the reference's full edge mask in the multiplicative bias round.
+    'likes'. ``exact_mult_bias`` (parity mode): the reference's full edge
+    mask in the multiplicative bias round.
     The DFT frame is sized to the largest convolution (a multiple of 128).
     """
-    if bandwidth_override is None and exact_mult_bias:
-        # the parity branch runs with host-exact bandwidths
-        raise _not_ported("exact_mult_bias with the in-program 2D optimizer", "A8")
     if boundary_order not in (0, 1):
         raise ValueError(f"boundary_order must be 0 or 1, got {boundary_order}")
     dtype, device = samples.dtype, samples.device
@@ -1471,6 +1465,17 @@ def _triangle_program(
     return d1, d2
 
 
+def _limit_arrays(p, limits_lo, limits_hi, periodic):
+    """The fused program's (limits_lo, limits_hi, periodic) of caller
+    arguments: (P,) f32 bounds with NaN for none, both set when any of the
+    three is given, and (P,) bools or None."""
+    if limits_lo is not None or limits_hi is not None or periodic is not None:
+        nan = np.full(p, np.nan, np.float32)
+        limits_lo = nan if limits_lo is None else np.asarray(limits_lo, np.float32)
+        limits_hi = nan if limits_hi is None else np.asarray(limits_hi, np.float32)
+    return limits_lo, limits_hi, None if periodic is None else np.asarray(periodic, bool)
+
+
 def _sniff_shear(samples, max_corr, pairs=None, weights=None):
     """Host pre-check: which pairs may want bandwidth shearing (0.2 < |corr|)?
 
@@ -1552,12 +1557,7 @@ def triangle_densities(
     if enable_shear is None:
         enable_shear = _sniff_shear(samples, max_corr, pairs=pairs, weights=host_weights)
     samples, weights = prepare_chain(samples, weights, device=device)
-    if limits_lo is not None or limits_hi is not None or periodic is not None:
-        nan = np.full(p, np.nan, np.float32)
-        limits_lo = nan if limits_lo is None else np.asarray(limits_lo, np.float32)
-        limits_hi = nan if limits_hi is None else np.asarray(limits_hi, np.float32)
-    if periodic is not None:
-        periodic = np.asarray(periodic, bool)
+    limits_lo, limits_hi, periodic = _limit_arrays(p, limits_lo, limits_hi, periodic)
     if like_weights is not None:
         like_weights = _tensor(like_weights, device)
     return _triangle_program(

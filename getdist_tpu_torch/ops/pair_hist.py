@@ -20,10 +20,13 @@ own launch counter.
 * On uint8 rows (at most 256 bins, the three paths' case) all three launch
   the uint8 kernel of ``csrc/pair_hist.cu``: two blocks per pair, each
   owning half of its rows (128 KB of shared memory at 256 bins) and writing
-  them as f32 (no zero fill, no flush, no conversion pass). Each block reads
-  a, b and w of every sample as 16-byte vectors; callers that know their
-  weights are integers pass them as uint8 where they fit
-  (:func:`narrow_weights`), a quarter of the f32 stream. Few pairs take the
+  them as f32 (no zero fill, no flush, no conversion pass); four blocks of
+  a quarter each for fractional weights, which add in 64-bit fixed point
+  (a multiple of 2^-62 of max |w| * N, then integer adds: the same bits on
+  every call and both routes, where f32 atomics would vary with the
+  order). Each block reads a, b and w of every sample as 16-byte vectors;
+  callers that know their weights are integers pass them as uint8 where
+  they fit (:func:`narrow_weights`), a quarter of the f32 stream. Few pairs take the
   split route (:func:`split_plan`). K1's rows (30 MB at 30 x 1M) stay in
   L2; K4's sheared stack (139 MB at 1M) does not. K5 runs the kernel on
   :func:`grouped_work_list`: its padding slots are never scanned, and the
@@ -110,15 +113,16 @@ def pair_histograms_plain(ix, weights, pair_a, pair_b, integer_weights=False, nb
     return out
 
 
-def split_plan(k, n, sms):
-    """Sample chunks per pair of the uint8 kernel: 1 (each of a pair's two
-    blocks owns half of its histogram and writes it) when the pairs' blocks
-    fill the card's ``sms`` multiprocessors, else enough to fill it, each
-    of at least :data:`SPLIT_MIN_SAMPLES` samples (the split route, which
-    flushes with global atomics)."""
-    if 2 * k >= sms:
+def split_plan(k, n, sms, parts=2):
+    """Sample chunks per pair of the uint8 kernel: 1 (each of a pair's
+    ``parts`` blocks, 2 with int32 bins and 4 with fixed-point ones, owns
+    its part of the histogram and writes it) when the pairs' blocks fill
+    the card's ``sms`` multiprocessors, else enough to fill it, each of at
+    least :data:`SPLIT_MIN_SAMPLES` samples (the split route, which flushes
+    with global atomics)."""
+    if parts * k >= sms:
         return 1
-    return max(1, min(-(-sms // (2 * k)), n // SPLIT_MIN_SAMPLES))
+    return max(1, min(-(-sms // (parts * k)), n // SPLIT_MIN_SAMPLES))
 
 
 class WidePlan(NamedTuple):
@@ -235,7 +239,9 @@ def _sms(index):
 
 def _launch_uint8(ix, weights, pair_a, pair_b, integer_weights, nbins, inv_perm=None):
     """Launch the uint8 kernel of ``csrc/pair_hist.cu`` on checked uint8
-    rows; (K, nbins, nbins) f32. uint8 weights are integer weights. With
+    rows; (K, nbins, nbins) f32. uint8 weights are integer weights (int32
+    bins); fractional ones go into 64-bit fixed point bins, order
+    independent, so every call gives the same bits. With
     ``inv_perm``, ``pair_a`` / ``pair_b`` are a K5 plan's grp_a / grp_b and
     the kernel builds :func:`grouped_work_list` itself."""
     p, n = ix.shape
@@ -243,15 +249,22 @@ def _launch_uint8(ix, weights, pair_a, pair_b, integer_weights, nbins, inv_perm=
     integer = bool(integer_weights) or weights.dtype == torch.uint8
     if weights.data_ptr() % 16:
         weights = weights.clone()  # the kernel reads the weights as 16-byte vectors
-    n_split = split_plan(k, n, _sms(ix.device.index))
-    if n_split == 1:
-        out = torch.empty((k, nbins, nbins), dtype=torch.float32, device=ix.device)
+    n_split = split_plan(k, n, _sms(ix.device.index), parts=2 if integer else 4)
+    shape = (k, nbins, nbins)
+    acc = wmax = None
+    if not integer:  # fixed point, scaled by max |w|
+        wmax = torch.amax(torch.abs(weights))
+        if n_split > 1:
+            acc = torch.zeros(shape, dtype=torch.int64, device=ix.device)
+    if n_split == 1 or not integer:
+        out = torch.empty(shape, dtype=torch.float32, device=ix.device)
     else:
-        out = torch.zeros((k, nbins, nbins), dtype=torch.int32 if integer else torch.float32, device=ix.device)
+        out = torch.zeros(shape, dtype=torch.int32, device=ix.device)
     inv, slots = (0, 0) if inv_perm is None else (inv_perm.data_ptr(), pair_a.numel())
     _cuda.call(
         "pair_hist_uint8_launch", ix.device, ix.data_ptr(), p, weights.data_ptr(), weights.element_size(),
-        pair_a.data_ptr(), pair_b.data_ptr(), inv, slots, n, k, nbins, n_split, int(integer), out.data_ptr(),
+        pair_a.data_ptr(), pair_b.data_ptr(), inv, slots, n, k, nbins, n_split, int(integer),
+        0 if wmax is None else wmax.data_ptr(), 0 if acc is None else acc.data_ptr(), out.data_ptr(),
     )
     return out.to(torch.float32)
 
@@ -333,7 +346,8 @@ def pair_histograms(ix, weights, pair_a, pair_b, integer_weights=False, nbins=NB
     pair_b: (K,) int32 parameter indices. With ``integer_weights`` (every
     weight an integer and the total below 2^31) the CUDA kernel accumulates
     in int32 and the result is bit-exact; otherwise it accumulates f32
-    weights with atomics. CPU tensors take :func:`pair_histograms_plain`;
+    weights in fixed point on uint8 rows (the same bits on every call) and
+    with f32 atomics on wider ones. CPU tensors take :func:`pair_histograms_plain`;
     CUDA tensors launch ``csrc/pair_hist.cu``: the uint8 kernel for uint8
     rows, the wide kernels (:func:`wide_plan`) for int16/int32 rows.
     ``launches`` counts both, ``float_launches`` those with f32 weights,
@@ -408,7 +422,7 @@ def pair_histograms_grouped(ix, weights, grp_a, grp_b, inv_perm, int8_weights=Fa
     (Kg, 8), grp_b (Kg,), inv_perm (K,) int32 with distinct entries. Plans
     of groups of :data:`GROUP` = 8 pairs only; other widths raise, on every
     device. ``int8_weights`` (every weight an integer, the total below
-    2^31): int32 accumulation, bit-exact; otherwise f32 atomics. CPU
+    2^31): int32 accumulation, bit-exact; otherwise fixed point. CPU
     tensors take :func:`pair_histograms_grouped_plain`; CUDA tensors launch
     K1's uint8 kernel, which builds :func:`grouped_work_list` itself (one
     pair per picked slot, so the a = b padding slots are neither scanned

@@ -9,7 +9,7 @@ KDE work is grid-local and runs on every rank. NCCL joins CUDA cards,
 gloo joins CPU processes.
 """
 
-from getdist_tpu_torch.parallel.mesh import init_group, shard_samples, spawn_ranks
+from getdist_tpu_torch.parallel.mesh import init_group, shard_samples, shard_values, spawn_ranks
 from getdist_tpu_torch.parallel.reductions import (
     sharded_all_1d_densities,
     sharded_all_2d_densities,
@@ -23,6 +23,7 @@ from getdist_tpu_torch.parallel.reductions import (
 __all__ = [
     "init_group",
     "shard_samples",
+    "shard_values",
     "spawn_ranks",
     "sharded_moments",
     "sharded_hist_1d",

@@ -31,7 +31,7 @@ import torch.distributed as dist
 from getdist_tpu_torch.ops._cuda import resolve_device
 from getdist_tpu_torch.ops.batched import _tensor
 
-__all__ = ["init_group", "shard_samples", "spawn_ranks"]
+__all__ = ["init_group", "shard_samples", "shard_values", "spawn_ranks"]
 
 
 def init_group(
@@ -54,6 +54,27 @@ def init_group(
     return dist.group.WORLD
 
 
+def _block_bounds(group, n_total):
+    """(lo, hi, block length) of this rank's block of ``n_total`` samples."""
+    rank = 0 if group is None else dist.get_rank(group)
+    world = 1 if group is None else dist.get_world_size(group)
+    n = -(-n_total // world)
+    return min(rank * n, n_total), min((rank + 1) * n, n_total), n
+
+
+def shard_values(group, values, device="cuda", dtype=torch.float32):
+    """This rank's block of a per-sample (N,) array (weights, likelihood
+    weights), as a ``dtype`` tensor on ``device``, cut as
+    :func:`shard_samples` cuts the chain: ceil(N / W) values, the last
+    ranks padded with zeros."""
+    device = resolve_device(device)
+    lo, hi, n = _block_bounds(group, values.shape[0])
+    block = _tensor(values[lo:hi], device, dtype)
+    if n > hi - lo:
+        block = torch.cat([block, torch.zeros(n - (hi - lo), dtype=dtype, device=device)])
+    return block
+
+
 def shard_samples(group, samples, weights, device="cuda", dtype=torch.float32):
     """This rank's block of a (N, P) chain and its (N,) weights, as
     ``dtype`` tensors on ``device``.
@@ -62,22 +83,16 @@ def shard_samples(group, samples, weights, device="cuda", dtype=torch.float32):
     zero-weight samples that repeat the chain's last sample, so no moment,
     histogram or range moves (the JAX package trims up to W - 1 samples
     instead). ``group=None`` returns the whole chain."""
-    rank = 0 if group is None else dist.get_rank(group)
-    world = 1 if group is None else dist.get_world_size(group)
     device = resolve_device(device)
     n_total = samples.shape[0]
     if n_total == 0 or weights.shape[0] != n_total:
         raise ValueError(f"need a non-empty chain with one weight per sample, got {n_total} and {weights.shape[0]}")
-    n = -(-n_total // world)
-    lo, hi = min(rank * n, n_total), min((rank + 1) * n, n_total)
+    lo, hi, n = _block_bounds(group, n_total)
     block = _tensor(samples[lo:hi], device, dtype)
-    block_w = _tensor(weights[lo:hi], device, dtype)
-    pad = n - (hi - lo)
-    if pad:
+    if n > hi - lo:
         last = _tensor(samples[n_total - 1 :], device, dtype)
-        block = torch.cat([block, last.expand(pad, -1)])
-        block_w = torch.cat([block_w, torch.zeros(pad, dtype=dtype, device=device)])
-    return block, block_w
+        block = torch.cat([block, last.expand(n - (hi - lo), -1)])
+    return block, shard_values(group, weights, device, dtype)
 
 
 def _rank_main(fn, rank, world_size, backend, init_method, args, results):

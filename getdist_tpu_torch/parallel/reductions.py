@@ -24,7 +24,7 @@ import torch
 
 from getdist_tpu_torch.ops import batched
 from getdist_tpu_torch.ops import collectives as coll
-from getdist_tpu_torch.ops.batched import _gauss_kernel_2d, _hist_rows, _not_ported, _tensor
+from getdist_tpu_torch.ops.batched import _gauss_kernel_2d, _hist_rows, _tensor
 from getdist_tpu_torch.ops.pair_hist import (
     NBINS,
     group_pairs,
@@ -53,14 +53,17 @@ def _present(kwargs):
 def sharded_all_1d_densities(group, samples, weights, **kwargs):
     """:func:`getdist_tpu_torch.ops.batched.all_1d_densities` of a sharded
     chain, same keywords and result (on every rank); ``n_samples`` (the
-    chain's length) is required."""
+    chain's length) is required. ``like_weights`` is this rank's block,
+    sharded with the samples; every other array is the whole (replicated)
+    one."""
     return batched.all_1d_densities(samples, weights, group=group, **_present(kwargs))
 
 
 def sharded_all_2d_densities(group, samples, weights, pair_a, pair_b, neff, binmin, binmax, contours, **kwargs):
     """:func:`getdist_tpu_torch.ops.batched.all_2d_densities` of a sharded
     chain, same keywords and result (on every rank): each rank bins its
-    block (K1) and the pair histograms are all-reduced."""
+    block (K1) and the pair histograms, like-weighted ones included
+    (``like_weights`` is this rank's block), are all-reduced."""
     return batched.all_2d_densities(
         samples, weights, pair_a, pair_b, neff, binmin, binmax, contours, group=group, **_present(kwargs)
     )
@@ -187,16 +190,18 @@ def sharded_triangle_densities(
     the last blocks; see :func:`all_1d_densities`). Returns the (d1, d2)
     dicts, the same on every rank.
 
-    Hard limits, periodic parameters and ``like_weights``, which the
-    unsharded path takes, raise here (their sharded branches are ROADMAP
-    A9)."""
-    if limits_lo is not None or limits_hi is not None or periodic is not None:
-        raise _not_ported("sharded hard limits and periodic parameters", "A9")
-    if like_weights is not None:
-        raise _not_ported("sharded like_weights", "A9")
+    ``limits_lo`` / ``limits_hi`` ((P,) hard prior bounds, NaN = none) and
+    ``periodic`` ((P,) bools) are the whole chain's; ``like_weights``
+    ((N_local,) per-sample likelihood weights) is this rank's block, as
+    :func:`shard_samples` cuts the samples (a padding sample's like weight
+    is 0). Their ranges (global min / max), active limits, histograms and
+    moments are all-reduced before any grid-local stage reads them."""
     if not isinstance(samples, torch.Tensor):
         samples, weights = batched.prepare_chain(samples, weights)
     p = samples.shape[1]
+    limits_lo, limits_hi, periodic = batched._limit_arrays(p, limits_lo, limits_hi, periodic)
+    if like_weights is not None:
+        like_weights = _tensor(like_weights, samples.device)
     pairs = np.array([(i, j) for i in range(p) for j in range(i + 1, p)], np.int64).reshape(-1, 2)
     return batched._triangle_program(
         samples,
@@ -212,4 +217,8 @@ def sharded_triangle_densities(
         group=group,
         n_samples=n_samples,
         export_hists=export_hists,
+        limits_lo=limits_lo,
+        limits_hi=limits_hi,
+        periodic=periodic,
+        like_weights=like_weights,
     )

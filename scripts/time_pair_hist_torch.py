@@ -80,7 +80,7 @@ def forced_split(n_split, fn):
 
     def run():
         saved = pair_hist.split_plan
-        pair_hist.split_plan = lambda k, n, sms: n_split
+        pair_hist.split_plan = lambda k, n, sms, parts=2: n_split
         try:
             return fn()
         finally:
@@ -98,7 +98,7 @@ def kernel_alone(ix, w, pa, pb):
     def run():
         _cuda.call(
             "pair_hist_uint8_launch", ix.device, ix.data_ptr(), ix.shape[0], w.data_ptr(), w.element_size(),
-            pa.data_ptr(), pb.data_ptr(), 0, 0, ix.shape[1], pa.shape[0], 256, 1, 1, out.data_ptr(),
+            pa.data_ptr(), pb.data_ptr(), 0, 0, ix.shape[1], pa.shape[0], 256, 1, 1, 0, 0, out.data_ptr(),
         )
         return out
 

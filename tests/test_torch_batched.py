@@ -17,6 +17,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_cpu_threads import torch_threads_per_worker  # noqa: E402,F401 (module fixture)
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -393,20 +395,33 @@ def test_unported_branches_raise(chain, kwargs):
     ids=["exact_mult_bias", "periodic", "prior_mask"],
 )
 def test_unported_2d_branches_raise(chain32, pair_hists, kwargs):
-    """``exact_mult_bias`` without host bandwidths still raises (ROADMAP
-    A8). The other two raised until they were ported and now run with the
-    histograms and bandwidths pinned, matching the JAX function (P within
-    5e-4): a periodic axis (the wrap line exact), and a diagonal prior
-    mask on a pair with an active limit (the histograms keep only the
+    """Three branches that raised until they were ported, each held against
+    the JAX function on pinned histograms (P within 5e-4):
+    ``exact_mult_bias`` with the in-program optimizer (the bandwidths at
+    the optimizer's rtol on the pairs the JAX side did not flag FRAGILE), a
+    periodic axis (bandwidths pinned; the wrap line exact), and a diagonal
+    prior mask on a pair with an active limit (the histograms keep only the
     samples inside it), held inside the prior at boundary order 0."""
     s, w = chain32
-    if "exact_mult_bias" in kwargs:
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            tb.all_2d_densities(s, w, [0], [1], np.ones(4), np.zeros(4), np.ones(4), CONTOURS, **kwargs)
-        return
     d1, pairs, hists = pair_hists
     pa = np.array([a for a, _ in pairs], np.int32)
     pb = np.array([b for _, b in pairs], np.int32)
+    if "exact_mult_bias" in kwargs:
+        args = (s, w, pa, pb, d1["neff"], d1["range"][0], d1["range"][1], np.array(CONTOURS, np.float32))
+        kw = dict(hists_in=hists, exact_mult_bias=True, sigma_range=d1["sigma_range"])
+        with jax.enable_x64(False):
+            want = _np(jb.all_2d_densities(*(jnp.asarray(a) for a in args),
+                                           **{k: v if isinstance(v, bool) else jnp.asarray(v) for k, v in kw.items()}))
+        got = _np(tb.all_2d_densities(_t(s), _t(w), *args[2:], **kw))
+        calm = ~want["fragile"]
+        assert calm.any()
+        for key in ("rx", "ry", "corr"):
+            np.testing.assert_allclose(got[key][calm], want[key][calm], rtol=OPTIMIZER_RTOL)
+        np.testing.assert_allclose(got["P"][calm], want["P"][calm], rtol=0, atol=5e-4)
+        # the exact mask changed the grids
+        plain = _np(tb.all_2d_densities(_t(s), _t(w), *args[2:], **dict(kw, exact_mult_bias=False)))
+        assert np.abs(plain["P"] - got["P"]).max() > 1e-6
+        return
     bw = tuple(np.array(v, np.float32) for v in ([0.12, 0.3, 0.2], [0.2, 0.25, 0.3], [0.55, 0.0, -0.2]))
     kw = dict(hists_in=hists, bandwidth_override=bw)
     if "periodic" in kwargs:
@@ -436,14 +451,22 @@ def test_unported_2d_branches_raise(chain32, pair_hists, kwargs):
     ids=["limits", "periodic", "like_weights"],
 )
 def test_sharded_unported_branches_raise(chain32, kwargs):
-    """The sharded path raises for the branches it has not taken over from
-    the unsharded one (ROADMAP A9), before any collective (so no process
-    group is needed here)."""
+    """The sharded path's limit, periodic and like-weight branches, which
+    raised until they were ported: without a process group the sharded
+    entry is the fused program, and returns ``triangle_densities``' bits
+    for each (the 4-rank runs: tests/test_torch_parallel_bounded.py)."""
     from getdist_tpu_torch.parallel import sharded_triangle_densities
 
     s, w = chain32
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        sharded_triangle_densities(None, _t(s[:200]), _t(w[:200]), **kwargs)
+    s, w = s[:3000], w[:3000]
+    if "like_weights" in kwargs:
+        kwargs = dict(like_weights=np.exp(-0.5 * np.sum(s.astype(np.float64) ** 2, axis=1)).astype(np.float32))
+    got = _np(sharded_triangle_densities(None, _t(s), _t(w), **kwargs))
+    want = _np(tb.triangle_densities(s, w, int8_weights=False, enable_shear=True, device="cpu", **kwargs))
+    for g, w_ in zip(got, want):
+        assert set(g) == set(w_)
+        for key in g:
+            np.testing.assert_array_equal(np.asarray(g[key]), np.asarray(w_[key]), err_msg=key)
 
 
 def _tf32_calls(chain):
@@ -459,9 +482,8 @@ def _tf32_calls(chain):
         dft_conv.dft_conv2d(grids, ur, ui, 40, 4, 64)
 
     def raising_call():
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tb.all_2d_densities(s32, w32, [0], [1], np.ones(4), np.zeros(4), np.ones(4), CONTOURS,
-                                exact_mult_bias=True)
+        with pytest.raises(ValueError, match="boundary_order"):
+            tb.all_2d_densities(s32, w32, [0], [1], np.ones(4), np.zeros(4), np.ones(4), CONTOURS, boundary_order=2)
 
     return {
         "triangle_densities": lambda: tb.triangle_densities(samples[:3000], weights[:3000], device="cpu"),

@@ -48,7 +48,8 @@ def test_pair_histograms_integer_weights_bit_exact(cuda):
 
 
 def test_pair_histograms_float_weights(cuda):
-    """f32 atomics sum in a varying order: equal to f32 rounding."""
+    """Fractional weights in fixed point: equal to f32 rounding of the
+    plain version's f64 sums, and the same bits on a second call."""
     p, n = 5, 50_000
     ix = torch.from_numpy(_indices(p, n, seed=3)).to(cuda)
     w = torch.from_numpy(np.random.default_rng(4).random(n).astype(np.float32)).to(cuda)
@@ -56,6 +57,35 @@ def test_pair_histograms_float_weights(cuda):
     got = pair_hist.pair_histograms(ix, w, pa, pb)
     want = pair_hist.pair_histograms_plain(ix, w, pa, pb)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, pair_hist.pair_histograms(ix, w, pa, pb))
+
+
+@pytest.mark.parametrize("weights", ["fractional", "negative", "many-decades"])
+@pytest.mark.parametrize("nbins", [256, 200])
+def test_fractional_weights_same_bits_on_both_routes(cuda, monkeypatch, nbins, weights):
+    """The uint8 kernel's fixed-point bins are order independent: one chunk
+    a pair and the split route (forced), and two calls, give the same
+    bits; each bin within 1e-6 of the plain version's f64 sum (rounded to
+    f32 once) plus 1e-9 of its pair's peak. "many-decades": like weights
+    exp(-chi2/2) over 30 decades."""
+    p, n = 6, 300_001
+    rng = np.random.default_rng(nbins)
+    ix = torch.from_numpy(_spread_indices(p, n, seed=nbins + 1)).to(cuda)
+    w = {
+        "fractional": rng.random(n),
+        "negative": rng.normal(0.5, 1.0, n),
+        "many-decades": np.exp(-0.5 * rng.uniform(0, 140, n)),
+    }[weights]
+    w = torch.from_numpy(w.astype(np.float32)).to(cuda)
+    pa, pb = _pairs(p, cuda)
+    whole = pair_hist.pair_histograms(ix, w, pa, pb, nbins=nbins)
+    assert torch.equal(whole, pair_hist.pair_histograms(ix, w, pa, pb, nbins=nbins))
+    monkeypatch.setattr(pair_hist, "split_plan", lambda k, n, sms, parts=2: 5)
+    split = pair_hist.pair_histograms(ix, w, pa, pb, nbins=nbins)
+    assert torch.equal(whole, split)
+    want = pair_hist.pair_histograms_plain(ix, w, pa, pb, nbins=nbins)
+    peak = want.abs().amax(dim=(1, 2), keepdim=True)
+    assert bool(((whole - want).abs() <= 1e-6 * want.abs() + 1e-9 * peak).all())
 
 
 # K1's uint8 kernel: (P, N, nbins, route). "whole": the two blocks of a
@@ -279,9 +309,8 @@ def _k4_stack(k, n, seed, device):
 def test_dynamic_pairs_uint8_rows(cuda, k, n, weights):
     """K4 on uint8 rows (the uint8 kernel) against the plain version: split
     route (k < 66) and one chunk a pair, columns off and on 16-byte
-    boundaries, each weight type. Integer weights bit-exact; fractional ones to 1e-5 (f32
-    atomics add in an order that varies from run to run, the plain version
-    sums in f64 and rounds once)."""
+    boundaries, each weight type. Integer weights bit-exact; fractional ones to 1e-5 (fixed
+    point against the plain version's f64 sums, each rounded once)."""
     ix, w, pa, pb = _k4_stack(k, n, seed=k, device=cuda)
     integer = weights != "f32-fractional"
     w_in = {"uint8": pair_hist.narrow_weights(w), "f32-integer": w, "f32-fractional": w * 0.37}[weights]
@@ -665,3 +694,100 @@ def test_bounded_entry_on_card_matches_cpu(cuda):
         want = c2["regrid"][key]["P"] if key in c2["regrid"] else c2["P"][k]
         assert got.shape == want.shape
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=5e-3)
+
+
+# -- parity with periodic parameters, the host variant, sharded limits -------
+
+
+def _periodic_parity_chain(n, weights):
+    """A correlated pair, a column limited at 0 and two periodic ones; integer
+    or fractional (importance) weights."""
+    rng = np.random.RandomState(21)
+    z = rng.standard_normal((n, 5))
+    s = z.copy()
+    s[:, 1] = 0.7 * z[:, 0] + 0.71 * z[:, 1]
+    s[:, 2] = np.abs(z[:, 2])
+    s[:, 3] = np.mod(1.2 * z[:, 3] + np.pi, 2 * np.pi)
+    s[:, 4] = np.mod(0.5 * z[:, 4] + 0.4 * z[:, 3], 2.0)
+    w = rng.randint(1, 4, n).astype(np.float64) if weights == "integer" else np.exp(-0.5 * rng.uniform(0, 3, n))
+    return dict(samples=s, weights=w, names=list("abcde"),
+                ranges={"c": [0, None], "d": [0, 2 * np.pi, True], "e": [0, 2.0, True]})
+
+
+@pytest.mark.parametrize("device_mode", [True, False], ids=["device", "host"])
+def test_periodic_parity_on_card_matches_cpu(cuda, device_mode):
+    """Device parity with periodic parameters (integer weights) and the host
+    variant (fractional weights) on the card against the port on the CPU:
+    f64 K3 ran on the periodically extended (256 + 2 winw)^2 grids; 2D
+    within 1e-5 of the peak, 1D within 1e-10."""
+    from getdist_tpu_torch.mcsamples import MCSamples
+
+    kwargs = _periodic_parity_chain(20_000, "integer" if device_mode else "fractional")
+    before = dict(dft_conv.dft_conv2d.inputs)
+    mc = MCSamples(device=cuda, **kwargs)
+    g1, g2 = mc.fastParityDensities(device=device_mode)
+    extended = {256 + 2 * b["winw"] for b in mc.parity_buckets}
+    ran = {size for (_pad, size), count in dft_conv.dft_conv2d.inputs.items() if count > before.get((_pad, size), 0)}
+    assert extended & ran, (extended, ran)
+    c1, c2 = MCSamples(device="cpu", **kwargs).fastParityDensities(device=device_mode)
+    assert set(g2) == set(c2) and set(g1) == set(c1)
+    for key in c1:
+        assert np.abs(g1[key].P - c1[key].P).max() <= 1e-10, key
+    for key in c2:
+        got, want = g2[key].P, c2[key].P
+        assert np.abs(got / got.max() - want / want.max()).max() <= 1e-5, key
+
+
+@pytest.mark.parametrize("winw", [34, 66, 126])
+def test_dft_conv_f64_on_periodic_extension_matches_plain(cuda, winw):
+    """f64 K3 'valid' on (256 + 2 winw)^2 periodically extended histograms
+    (parity's periodic buckets) within 1e-12 of the largest value, two
+    calls bitwise equal."""
+    rng = np.random.RandomState(winw)
+    k = 4
+    hists = torch.from_numpy(rng.poisson(20.0, (k, 256, 256)).astype(np.float64)).to(cuda)
+    per = torch.tensor([True, False, True, True], device=cuda)
+    ext = batched._extend_periodic(hists, per, per.roll(1), winw)
+    assert tuple(ext.shape) == (k, 256 + 2 * winw, 256 + 2 * winw)
+    widths = torch.linspace(0.8, winw / 2.5, k, dtype=torch.float64, device=cuda)
+    kernels = batched._gauss_kernel_2d(widths, widths.flip(0), torch.full_like(widths, 0.3), winw)
+    pad = dft_conv.frame_for(256 + 4 * winw + 1)
+    _check_dft_conv(ext, kernels, 256, 2 * winw, pad, 1e-12)
+    ur, ui = dft_conv.dft_conv_spectrum(kernels, pad)
+    assert torch.equal(dft_conv.dft_conv2d(ext, ur, ui, 256, 2 * winw, pad),
+                       dft_conv.dft_conv2d(ext, ur, ui, 256, 2 * winw, pad))
+
+
+def test_one_rank_nccl_bounded_sharded_matches_fused(cuda, tmp_path):
+    """``sharded_triangle_densities`` with limits, periodic axes and like
+    weights in a one-rank NCCL group against ``triangle_densities`` on the
+    same device tensors, at tests/test_parallel.py's tolerances; the like
+    curves within 1e-4, the 2D like grids equal."""
+    import torch.distributed as dist
+
+    from chip_smoke import bounded_chain, like_weights_of, limit_arrays
+    from getdist_tpu_torch.parallel import init_group, shard_samples, shard_values, sharded_triangle_densities
+
+    s, w, ll, names, ranges = bounded_chain(200_000, p=6, kinds=(1, 1, 1, 1))
+    lo, hi, per = limit_arrays(names, ranges)
+    like = like_weights_of(w, ll)
+    kw = dict(limits_lo=lo, limits_hi=hi, periodic=per, int8_weights=True, enable_shear=True)
+    group = init_group("nccl", 0, 1, init_method=f"file://{tmp_path}/store")
+    try:
+        local = shard_samples(group, s, w, device=cuda)
+        g1, g2 = sharded_triangle_densities(group, *local, like_weights=shard_values(group, like, cuda),
+                                            n_samples=len(s), **kw)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    u1, u2 = batched.triangle_densities(*local, like_weights=like, device=cuda, **kw)
+    torch.testing.assert_close(g1["neff"], u1["neff"], rtol=1e-3, atol=0)
+    torch.testing.assert_close(g1["P"], u1["P"], rtol=0, atol=1e-5)
+    torch.testing.assert_close(g2["P"], u2["P"], rtol=0, atol=3e-5)
+    torch.testing.assert_close(g2["contours"], u2["contours"], rtol=1e-3, atol=0)
+    torch.testing.assert_close(g1["likes"], u1["likes"], rtol=0, atol=1e-4)
+    # K1 adds the like weights in fixed point, order independent, and a
+    # one-rank group's all-reduce is the identity: the like grids are equal
+    # bit for bit over the whole grid (ROADMAP C13)
+    assert torch.equal(g2["likes"], u2["likes"])
+    assert torch.equal(g1["active_lo"], u1["active_lo"]) and torch.equal(g1["periodic"], u1["periodic"])

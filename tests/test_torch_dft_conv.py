@@ -11,6 +11,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_cpu_threads import torch_threads_per_worker  # noqa: E402,F401 (module fixture)
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 

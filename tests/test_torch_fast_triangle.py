@@ -316,15 +316,18 @@ def test_fast_chain_cache_follows_the_samples():
     "case,item",
     [("limits", "A2/A3"), ("periodic", "A2/A3"), ("meanlikes", "A2/A3"), ("mesh", "A9"), ("parity", "A8")],
 )
-def test_unported_fast_branches_raise(case, item):
-    """``mesh=`` (ROADMAP A9) and the host parity variant (A8) raise. The
-    branches that raised naming A2/A3 until they were ported (a lower limit
-    at a column's minimum, a periodic column, meanlikes grids with
-    loglikes) run and match the JAX method: the same regrid keys, served
-    grids within the zoo's budget, 1D (and its like curves) within 1e-4."""
+def test_unported_fast_branches_raise(case, item, tmp_path):
+    """The branches that raised naming their ROADMAP item until they were
+    ported run. A lower limit at a column's minimum, a periodic column and
+    meanlikes grids with loglikes (A2/A3) match the JAX method: the same
+    regrid keys, served grids within the zoo's budget, 1D (and its like
+    curves) within 1e-4. ``mesh=`` a one-rank gloo group (A9; four ranks:
+    tests/test_torch_parallel_bounded.py) returns the unsharded entry's
+    grids within tests/test_parallel.py's 2e-5, and ``fastDensities(parity=
+    True)`` (the host parity variant, A8) the JAX method's within the parity
+    bar (2D 1e-5 of the peak, 1D 1e-10)."""
     samples, weights = make_chain(n=2000, p=3)
     kw = dict(samples=samples, weights=weights, names=_names(3), device="cpu")
-    call = "fastTriangleDensities"
     args = {}
     if case == "limits":
         kw["ranges"] = {"p0": [float(samples[:, 0].min()), None]}
@@ -334,12 +337,32 @@ def test_unported_fast_branches_raise(case, item):
         kw["loglikes"] = 0.5 * np.sum(samples**2, axis=1)
         args["meanlikes"] = True
     elif case == "mesh":
-        args["mesh"] = object()
-    else:
-        call, args = "fastDensities", {"parity": True}
-    if case in ("mesh", "parity"):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            getattr(MCSamples(**kw), call)(**args)
+        import torch.distributed as dist
+
+        from getdist_tpu_torch.parallel import init_group
+
+        group = init_group("gloo", 0, 1, init_method=f"file://{tmp_path / 'store'}", device="cpu")
+        try:
+            g1, g2, _ = MCSamples(**kw).fastTriangleDensities(mesh=group)
+        finally:
+            dist.destroy_process_group()
+        u1, u2, pairs = MCSamples(**kw).fastTriangleDensities()
+        assert set(g2["regrid"]) == set(u2["regrid"])
+        np.testing.assert_allclose(_np(g1["P"]), _np(u1["P"]), rtol=0, atol=2e-5)
+        for k, key in enumerate(pairs):
+            got = g2["regrid"][key]["P"] if key in g2["regrid"] else g2["P"][k]
+            want = u2["regrid"][key]["P"] if key in u2["regrid"] else u2["P"][k]
+            np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=2e-5)
+        return
+    if case == "parity":
+        d1, d2 = MCSamples(**kw).fastDensities(parity=True)
+        w1, w2 = JaxMCSamples(**{k: v for k, v in kw.items() if k != "device"}).fastDensities(parity=True)
+        assert set(d1) == set(w1) and set(d2) == set(w2)
+        for key in w1:
+            assert np.abs(d1[key].P - w1[key].P).max() <= 1e-10, key
+        for key in w2:
+            got, want = d2[key].P, w2[key].P
+            assert np.abs(got / got.max() - want / want.max()).max() <= 1e-5, key
         return
     t1, t2, pairs = MCSamples(**kw).fastTriangleDensities(**args)
     jkw = {k: v for k, v in kw.items() if k != "device"}

@@ -14,6 +14,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_cpu_threads import torch_threads_per_worker  # noqa: E402,F401 (module fixture)
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -195,6 +197,21 @@ def test_grouped_wrapper_refuses_non_cuda_devices():
 )
 def test_split_plan(k, n, sms, want):
     assert pair_hist.split_plan(k, n, sms) == want
+
+
+@pytest.mark.parametrize(
+    "k,n,sms,want",
+    [
+        (435, 1_000_000, 132, 1),  # fixed-point bins: four blocks a pair, each a quarter of its rows
+        (33, 1_000_000, 132, 1),  # exactly one wave
+        (66, 1_000_000, 132, 1),  # one chunk a pair where int32 bins also need one
+        (15, 200_003, 132, 3),  # 60 blocks a chunk: three chunks
+        (20, 1_000_000, 132, 2),  # 80 blocks a chunk: two fill the card
+        (1, 10**8, 132, 33),
+    ],
+)
+def test_split_plan_fixed_point(k, n, sms, want):
+    assert pair_hist.split_plan(k, n, sms, parts=4) == want
 
 
 @pytest.mark.parametrize(

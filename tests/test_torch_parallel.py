@@ -14,6 +14,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_cpu_threads import torch_threads_per_worker  # noqa: E402,F401 (module fixture)
+
 import torch.distributed as dist  # noqa: E402
 
 from getdist_tpu_torch.ops import batched as tb  # noqa: E402

@@ -13,6 +13,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_cpu_threads import torch_threads_per_worker  # noqa: E402,F401 (module fixture)
+
 import jax.numpy as jnp  # noqa: E402
 
 from getdist_tpu.ops import batched as jb  # noqa: E402

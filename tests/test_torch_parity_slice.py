@@ -18,6 +18,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_cpu_threads import torch_threads_per_worker  # noqa: E402,F401 (module fixture)
+
 import bench  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import zoo  # noqa: E402
@@ -189,25 +191,56 @@ def test_chain_with_loglikes_matches(settings):
     [(np.random.RandomState(8).uniform(0.5, 2.0, 3000), "fractional"), (np.full(3000, 6000.0), "reaches 2\\*\\*24")],
     ids=["fractional", "total-past-2^24"],
 )
-def test_inexact_weights_raise(weights, reason):
+def test_inexact_weights_raise(weights, reason, caplog):
+    """Weights the device histograms cannot sum exactly (fractional, or a
+    total past 2^24), which raised until the host variant was ported: device
+    mode serves them from the host variant with a warning, identical to
+    calling it, and raises only with ``materialize=False``."""
+    import logging
+
     xy = np.random.RandomState(7).standard_normal((3000, 2))
-    mc = MCSamples(samples=xy, weights=weights, names=["x", "y"], device="cpu")
-    with pytest.raises(MCSamplesError, match=f"{reason}.*A8"):
-        mc.fastParityDensities(device=True)
+    kwargs = dict(samples=xy, weights=weights, names=["x", "y"], device="cpu")
+    with caplog.at_level(logging.WARNING):
+        d1, d2 = MCSamples(**kwargs).fastParityDensities(device=True)
+    assert any("host parity variant" in rec.getMessage() for rec in caplog.records)
+    h1, h2 = MCSamples(**kwargs).fastParityDensities(device=False)
+    assert set(d1) == set(h1) and set(d2) == set(h2)
+    for got, want in [(d1[k], h1[k]) for k in h1] + [(d2[k], h2[k]) for k in h2]:
+        np.testing.assert_array_equal(got.P, want.P)
+    with pytest.raises(MCSamplesError, match="integral"):
+        MCSamples(**kwargs).fastParityDensities(device=True, materialize=False)
 
 
 def test_periodic_parameter_raises():
+    """A periodic parameter, which raised until it was ported: device parity
+    against the JAX method at the parity bar."""
     rng = np.random.RandomState(7)
     xy = rng.uniform(-1, 1, (3000, 2))
-    mc = MCSamples(samples=xy, names=["x", "y"], ranges={"x": [-1, 1, True]}, device="cpu")
-    with pytest.raises(NotImplementedError, match="A3"):
-        mc.fastParityDensities(device=True)
+    kwargs = dict(samples=xy, names=["x", "y"], ranges={"x": [-1, 1, True]})
+    d1, d2 = MCSamples(device="cpu", **kwargs).fastParityDensities(device=True)
+    w1, w2 = JaxMCSamples(**kwargs).fastParityDensities(device=True)
+    assert set(d1) == set(w1) and set(d2) == set(w2)
+    for key in w1:
+        assert np.abs(d1[key].P - w1[key].P).max() <= 1e-10, key
+    for key in w2:
+        got, want = d2[key].P, w2[key].P
+        assert np.abs(got / got.max() - want / want.max()).max() <= 1e-5, key
 
 
 def test_host_variant_raises():
-    mc = MCSamples(**_bounded_chain(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        mc.fastParityDensities()
+    """The host variant, which raised until it was ported, on the bounded
+    3-parameter chain against the JAX method's (and ``fastDensities(parity=
+    True)``, which takes it): 2D within 1e-5 of the peak, 1D within 1e-10."""
+    kwargs = _bounded_chain()
+    d1, d2 = MCSamples(**kwargs, device="cpu").fastParityDensities()
+    w1, w2 = JaxMCSamples(**kwargs).fastParityDensities()
+    assert set(d1) == set(w1) and set(d2) == set(w2)
+    for key in w1:
+        assert np.abs(d1[key].P - w1[key].P).max() <= 1e-10, key
+    for key in w2:
+        got, want = d2[key].P, w2[key].P
+        assert np.abs(got / got.max() - want / want.max()).max() <= 1e-5, key
+        assert np.abs(np.asarray(d2[key].contours) - np.asarray(w2[key].contours)).max() <= 1e-5, key
 
 
 @pytest.mark.parametrize(
