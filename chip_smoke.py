@@ -31,15 +31,19 @@ CUDA kernels from ``getdist_tpu_torch/csrc``. Then three paths on
    memory and launch counts of one run, beside ``triangle_densities`` on
    the same device tensors, and agreement with it), then
    ``sharded_pair_hists`` over all 435 pairs through K5 (both weight
-   modes, bit-exact against K1 and the plain version) and without a pair
-   plan through K4; then 4 gloo ranks on the CPU run the sharded path on
+   modes, bit-exact against K1 and the plain version; the f32-weight call
+   bins raw 64-bit fixed-point sums on the group's scale, a row of its
+   own) and without a pair plan through K4; then 4 gloo ranks on the CPU run the sharded path on
    a 40k x 6 chain and on a 40k x 6 bounded chain with like weights, held
    against the one-rank run on the card (the only run where the N_eff halo
    exchange and the card meet); last, on the 1M x 30 bounded chain (phase
    6's), ``sharded_triangle_densities`` with its limits, periodic axes and
    like weights beside ``triangle_densities`` on the same tensors (walls
-   in turns, launches, outputs, agreement), and the public entry with
-   ``mesh=group`` and meanlikes against the unsharded entry;
+   in turns, launches, outputs, agreement), the rows of its like
+   histograms' group route (K1 binning raw sums on the group's scale, and
+   ``fixed_to_f32``, the one conversion of the all-reduced sums: together
+   one card's bits), and the public entry with ``mesh=group`` and
+   meanlikes against the unsharded entry;
 4. the public fused entry, ``MCSamples(...).fastTriangleDensities()``: on
    the bench chain (single dispatch: cold and warm walls, launches, the
    device idle share and stage split under the profiler, outputs held
@@ -54,16 +58,21 @@ CUDA kernels from ``getdist_tpu_torch/csrc``. Then three paths on
    bins): the public entry (cold and warm walls) and parity mode (one
    call), each with its wide-kernel launches, and a kernel row per fine
    group of each path (its rows, pairs and weights), bit-exact against
-   the plain version, beside ``torch.bincount`` and the bound;
+   the plain version, beside ``torch.bincount`` and the bound; then the
+   entry on the same chain with importance weights, whose regrids bin
+   fractional weights past 256 bins in 64-bit fixed point (a row at its
+   widest fine group: bit-exact against the plain version, two calls
+   bitwise equal, within one f32 rounding of the f64 sums);
 6. hard limits, periodic axes and meanlikes on a 1M x 30 bounded chain
    (``bounded_chain``: lower, upper, two-sided and periodic columns,
    loglikes): the public entry cold and warm with meanlikes off and on
    (launches per kernel, the idle share and stage split of one profiled
    call, checks of its outputs: limits on the grid edges, wrap lines, like
    grids in [0, 1]), ``triangle_densities`` with the same arguments, K1
-   with the f32 like weights (fixed point against the plain version's f64
-   sums: each bin within 1e-6 of itself plus 1e-9 of its pair's peak, the
-   low tails within 1e-7 of their sum; two calls bitwise equal), K3 on the
+   with the f32 like weights (fixed point, bit-exact against the plain
+   version, and against the f64 sums: each bin within 1e-6 of itself plus
+   1e-9 of its pair's peak, the low tails within 1e-7 of their sum; two
+   calls bitwise equal), K3 on the
    316-wide periodically extended grids and
    edge masks, and K2 and K3 at the clamped rescue's 768 frame (its
    kernels, 256-bin grids and 508-wide edge masks), each against its plain
@@ -78,7 +87,15 @@ CUDA kernels from ``getdist_tpu_torch/csrc``. Then three paths on
    device parity routed to the host variant and the host variant called
    directly (walls, stages, equal results); parity on the card against
    the port on the CPU at 20k x 6 with a periodic and a limited column
-   (device parity, and the host variant on importance weights).
+   (device parity, and the host variant on importance weights);
+8. chain files: the bounded chain written as a 4-chain root (``root_1.txt``
+   ... ``root_4.txt`` of 250k rows, ``.paramnames``, ``.ranges`` with ``N``
+   bounds and periodic flags) in a temporary directory, deleted after;
+   each file parsed by the port's native loader bitwise equal to
+   ``np.loadtxt``; ``loadMCSamples`` cold and from its pickle cache (walls);
+   ``fastTriangleDensities(meanlikes=True)`` on the loaded object cold and
+   warm (walls, K1/K2/K3 launches), bitwise equal to the entry on the same
+   arrays in memory and to the entry on the cache hit.
 
 K1, K4, K5 and the wide kernels are timed with the weights their paths
 pass (integer weights as uint8, ``pair_hist.narrow_weights``), each beside
@@ -301,6 +318,40 @@ def library_hist_ms(ix, weights, pa, pb, nbins, reps):
     del pair, keys, repeated
     torch.cuda.empty_cache()
     return ms
+
+
+def exact_pair_sums(ix, weights, pa, pb, nbins, chunk=32):
+    """(K, nbins, nbins) f64 sums of ``weights`` by (b, a) bin per pair, by
+    ``torch.bincount`` in f64 over chunks of pairs: the exact sums that
+    fixed-point histograms are held against."""
+    import torch
+
+    w64 = weights.to(torch.float64)
+    out = []
+    for c0 in range(0, pa.shape[0], chunk):
+        a, b = pa[c0 : c0 + chunk].long(), pb[c0 : c0 + chunk].long()
+        keys = (torch.arange(a.shape[0], device=ix.device)[:, None] * (nbins * nbins) + ix[b].long() * nbins
+                + ix[a].long()).reshape(-1)
+        out.append(torch.bincount(keys, weights=w64.repeat(a.shape[0]), minlength=a.shape[0] * nbins * nbins)
+                   .view(-1, nbins, nbins))
+    return torch.cat(out)
+
+
+def fixed_point_error(got, ix, weights, pa, pb, nbins):
+    """The largest ratio, over every bin, of |got - exact sum| to what
+    64-bit fixed point allows: half an ulp of the f32 of the exact sum (the
+    one conversion, after the sum's rounding to f64: 2^-53 of it) plus the
+    weights' own rounding, at most 2^-62 * max |w| * N a sample in the bin.
+    At most 1 when the bins are right (sums of two f32 weights of one
+    magnitude sit on f32 midpoints: the ratio then comes near 1)."""
+    import numpy as np
+    import torch
+
+    exact = exact_pair_sums(ix, weights, pa, pb, nbins)
+    counts = exact_pair_sums(ix, torch.ones_like(weights), pa, pb, nbins)
+    ulp = torch.from_numpy(np.spacing(exact.abs().float().cpu().numpy())).to(exact.device).double()
+    allowed = 0.5 * ulp + 2.0**-53 * exact.abs() + counts * 2.0**-62 * float(weights.abs().max()) * ix.shape[1]
+    return float(((got.double() - exact).abs() / allowed.clamp_min(1e-300)).max())
 
 
 def ptxas_lines(log, name):
@@ -875,7 +926,7 @@ def sharded_path(samples, weights, batched, dft_conv, pair_hist, make_chain, bou
     group = init_group("nccl", rank=0, world_size=1, init_method=f"file://{store}")
     try:
         rows = sharded_runs(group, samples, weights, batched, dft_conv, pair_hist, make_chain)
-        sharded_bounded(group, bounded, batched, dft_conv, pair_hist)
+        rows += sharded_bounded(group, bounded, batched, dft_conv, pair_hist)
         return rows
     finally:
         dist.destroy_process_group()
@@ -943,16 +994,25 @@ def sharded_runs(group, samples, weights, batched, dft_conv, pair_hist, make_cha
     pairs = [(i, j) for i in range(p) for j in range(i + 1, p)]
     pa = torch.tensor([a for a, _ in pairs], dtype=torch.int32, device="cuda")
     pb = torch.tensor([b for _, b in pairs], dtype=torch.int32, device="cuda")
-    counters = (pair_hist.pair_histograms_grouped, pair_hist.pair_histograms_dynamic)
+    counters = (pair_hist.pair_histograms_grouped, pair_hist.pair_histograms_dynamic, pair_hist.fixed_to_f32)
+    grouped, k5_launches = {}, {}
+    for mode in (True, False):  # the int32 call, then the f32 one (raw fixed point on the group's scale)
+        for fn in counters:
+            fn.launches = 0
+        grouped[mode] = sharded_pair_hists(group, ix, w_dev, pa, pb, static_pairs=pairs, int8_weights=mode)
+        torch.cuda.synchronize()
+        k5_launches[mode] = {fn.__name__: fn.launches for fn in counters}
     for fn in counters:
         fn.launches = 0
-    grouped = {mode: sharded_pair_hists(group, ix, w_dev, pa, pb, static_pairs=pairs, int8_weights=mode)
-               for mode in (True, False)}
     dynamic = sharded_pair_hists(group, ix, w_dev, pa, pb)
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counters}
-    print(f"launches in the sharded pair-histogram calls: {launches}")
-    check(launches == {"pair_histograms_grouped": 2, "pair_histograms_dynamic": 1}, "K5/K4 launch counts")
+    print(f"launches in the sharded pair-histogram calls: K5 int32 {k5_launches[True]}, K5 f32 {k5_launches[False]}, "
+          f"K4 {launches}")
+    check(k5_launches[True] == {"pair_histograms_grouped": 1, "pair_histograms_dynamic": 0, "fixed_to_f32": 0}
+          and k5_launches[False] == {"pair_histograms_grouped": 1, "pair_histograms_dynamic": 0, "fixed_to_f32": 1}
+          and launches == {"pair_histograms_grouped": 0, "pair_histograms_dynamic": 1, "fixed_to_f32": 1},
+          "K5/K4 launch counts")
     plan = [torch.from_numpy(x).cuda() for x in pair_hist.group_pairs(pairs)]
     err5 = 0.0
     for mode, hists in grouped.items():
@@ -970,19 +1030,38 @@ def sharded_runs(group, samples, weights, batched, dft_conv, pair_hist, make_cha
     print(f"K5 on 30 x 1M, 435 pairs in {plan[0].shape[0]} groups of {plan[0].shape[1]}: int32 {t5[True]:.3f} ms, "
           f"f32 {t5[False]:.3f} ms; K1 on the same rows, int32 {t1:.3f} ms (K5 / K1 {t5[True] / t1:.3f})")
     b5, by5 = hist_bound(ix, w_in[True], k, 256)
+    library5 = library_hist_ms(ix, w_dev, pa, pb, 256, 3)
     result = {
         "name": "pair_histograms_grouped",
         "route": "cuda",
         "source": "getdist_tpu_torch/csrc/pair_hist.cu",
         "replaces": "getdist_tpu/ops/pallas_kernels.py:170",
-        "launches": launches["pair_histograms_grouped"],
+        "launches": k5_launches[True]["pair_histograms_grouped"],
         "max_abs_err": err5,
         "ms": t5[True],
         "plain_ms": cuda_ms(lambda: pair_hist.pair_histograms_grouped_plain(ix, w_dev, *plan, int8_weights=True), 2),
         "bound_ms": b5,
         "bound_by": by5,
-        "library_ms": library_hist_ms(ix, w_dev, pa, pb, 256, 3),
+        "library_ms": library5,
     }
+    # K5's f32-weight call as sharded_pair_hists makes it: raw 64-bit sums on
+    # the group's scale (ROADMAP C13 (a)), 8-byte bins written
+    scale = pair_hist.group_scale(w_dev, len(samples), group)
+    raw5 = pair_hist.pair_histograms_grouped(ix, w_dev, *plan, False, scale=scale, raw=True)
+    ref5 = pair_hist.pair_histograms_grouped_plain(ix, w_dev, *plan, False, scale=scale, raw=True)
+    check(raw5.dtype == torch.int64 and torch.equal(raw5, ref5), "K5 f32 raw sums bit-exact vs plain")
+    check(torch.equal(pair_hist.fixed_to_f32(raw5, scale), grouped[False]), "K5 f32 raw sums convert to the call's")
+    del raw5, ref5
+    b5f, by5f = bound(ix.numel() + 4 * w_dev.numel() + 8 * k * 256 * 256, k * ix.shape[1], FP32_FLOPS)
+    t5f = cuda_ms(lambda: pair_hist.pair_histograms_grouped(ix, w_dev, *plan, False, scale=scale, raw=True), 10)
+    result_f32 = dict(
+        result, name="pair_histograms_grouped_f32", launches=k5_launches[False]["pair_histograms_grouped"],
+        max_abs_err=0.0, ms=t5f, bound_ms=b5f, bound_by=by5f,
+        plain_ms=cuda_ms(lambda: pair_hist.pair_histograms_grouped_plain(ix, w_dev, *plan, False, scale=scale,
+                                                                         raw=True), 2),
+    )
+    print(f"K5 f32-weight call (raw fixed point, group scale): {t5f:.3f} ms, {b5f / t5f:.1%} of its bound "
+          f"{b5f:.4f} ms ({by5f}); plain {result_f32['plain_ms']:.3f} ms; torch.bincount {library5:.3f} ms")
 
     # 4 gloo ranks on the CPU against the one-rank run on the card
     base, cw = make_chain(40_000, 6, seed=19)
@@ -1016,7 +1095,7 @@ def sharded_runs(group, samples, weights, batched, dft_conv, pair_hist, make_cha
     print(f"cross-rank 40k x 6 (|corr| {abs(corr):.2f}): 4 gloo ranks on the CPU ({spawn_s:.1f} s for both chains, "
           f"bitwise equal across ranks) vs one NCCL rank on the card, max abs diffs: {json.dumps(report)}; bounded "
           f"40k x 6 (limits, periodic, like weights): {json.dumps(report_b)}")
-    return [result]
+    return [result, result_f32]
 
 
 # like grids of one device against another order of the same sums (f32
@@ -1093,7 +1172,7 @@ def sharded_bounded(group, bounded, batched, dft_conv, pair_hist):
 
     label = "sharded, bounded chain 30 x 1M (one-rank NCCL group)"
     cold_s, _ = wall_s(run)
-    counters = (pair_hist.pair_histograms, dft_conv.dft_conv_spectrum, dft_conv.dft_conv2d)
+    counters = (pair_hist.pair_histograms, dft_conv.dft_conv_spectrum, dft_conv.dft_conv2d, pair_hist.fixed_to_f32)
     for fn in counters:
         fn.launches = 0
     pair_hist.pair_histograms.float_launches = 0
@@ -1101,7 +1180,10 @@ def sharded_bounded(group, bounded, batched, dft_conv, pair_hist):
     launches = {fn.__name__: fn.launches for fn in counters}
     launches["float"] = pair_hist.pair_histograms.float_launches
     check(launches["pair_histograms"] == 2 and launches["float"] == 1 and launches["dft_conv_spectrum"] >= 1
-          and launches["dft_conv2d"] >= 2, f"{label}: K1 (integer and like weights), K2 and K3 launched ({launches})")
+          and launches["dft_conv2d"] >= 2 and launches["fixed_to_f32"] == 1,
+          f"{label}: K1 (integer and like weights, the latter raw on the group's scale, converted once), K2 and K3 "
+          f"launched ({launches})")
+    rows = group_like_rows(group, local[0], like, d1["range"], len(samples), launches, batched, pair_hist)
     pairs = [(a, b) for a in range(len(names)) for b in range(a + 1, len(names))]
     check_bounded_outputs(d1, dict(d2, regrid={}), pairs, BOUNDED_KINDS, label)
     walls = {"sharded": [], "triangle_densities": []}
@@ -1154,6 +1236,72 @@ def sharded_bounded(group, bounded, batched, dft_conv, pair_hist):
     check(not bad, "; ".join(bad))
     del mc, g1, g2, u1, u2
     torch.cuda.empty_cache()
+    return rows
+
+
+def group_like_rows(group, s_dev, like, ranges, n, launches, batched, pair_hist):
+    """Kernel rows of the sharded like histograms (ROADMAP C13 (a)), on the
+    bounded chain's rows and like weights in the group: K1 binning raw
+    64-bit sums on the group's scale (max |w| over the ranks, the chain's
+    length), and the one conversion of the all-reduced sums to f32
+    (``fixed_to_f32``). Each bit-exact against its plain version; together
+    they give one card's like histograms bit for bit."""
+    import torch
+
+    binmin, binmax = ranges
+    ix = batched._fine_indices(s_dev.T.contiguous(), binmin, (binmax - binmin) / 255, 256).to(torch.uint8)
+    p = ix.shape[0]
+    pairs = [(a, b) for a in range(p) for b in range(a + 1, p)]
+    pa = torch.tensor([a for a, _ in pairs], dtype=torch.int32, device="cuda")
+    pb = torch.tensor([b for _, b in pairs], dtype=torch.int32, device="cuda")
+    k = len(pairs)
+    scale = pair_hist.group_scale(like, n, group)
+    raw = pair_hist.pair_histograms(ix, like, pa, pb, scale=scale, raw=True)
+    check(raw.dtype == torch.int64 and torch.equal(raw, pair_hist.pair_histograms_plain(ix, like, pa, pb, scale=scale,
+                                                                                        raw=True)),
+          "K1 like, raw sums on the group's scale: bit-exact vs plain")
+    converted = pair_hist.fixed_to_f32(raw, scale)
+    check(torch.equal(converted, pair_hist._fixed_to_f32_plain(raw, scale)), "fixed_to_f32: bit-exact vs its twin")
+    check(torch.equal(converted, pair_hist.pair_histograms(ix, like, pa, pb)),
+          "K1 like: the group route's histograms are one card's bits")
+    library = library_hist_ms(ix, like, pa, pb, 256, 3)
+    b_raw, by_raw = bound(ix.numel() + 4 * like.numel() + 8 * k * 256 * 256, k * ix.shape[1], FP32_FLOPS)
+    b_cvt, by_cvt = bound(12 * raw.numel(), raw.numel(), FP64_FLOPS)
+    rows = [
+        {
+            "name": "pair_histograms_like_group",
+            "route": "cuda",
+            "source": "getdist_tpu_torch/csrc/pair_hist.cu",
+            "replaces": "getdist_tpu/ops/pallas_kernels.py:309",
+            "launches": launches["float"],
+            "max_abs_err": 0.0,
+            "ms": cuda_ms(lambda: pair_hist.pair_histograms(ix, like, pa, pb, scale=scale, raw=True), 10),
+            "plain_ms": cuda_ms(lambda: pair_hist.pair_histograms_plain(ix, like, pa, pb, scale=scale, raw=True), 2),
+            "bound_ms": b_raw,
+            "bound_by": by_raw,
+            "library_ms": library,
+        },
+        {
+            "name": "fixed_to_f32",
+            "route": "cuda",
+            "source": "getdist_tpu_torch/csrc/pair_hist.cu",
+            # an auxiliary kernel of K1's fixed point: no Pallas counterpart
+            "replaces": None,
+            "launches": launches["fixed_to_f32"],
+            "max_abs_err": 0.0,
+            "ms": cuda_ms(lambda: pair_hist.fixed_to_f32(raw, scale), 10),
+            "plain_ms": cuda_ms(lambda: pair_hist._fixed_to_f32_plain(raw, scale), 10),
+            "bound_ms": b_cvt,
+            "bound_by": by_cvt,
+            "library_ms": None,
+        },
+    ]
+    for r in rows:
+        print(f"{r['name']} (sharded like histograms, 30 x 1M, {k} pairs): kernel {r['ms']:.3f} ms, "
+              f"{r['bound_ms'] / r['ms']:.1%} of its bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+              f"{r['plain_ms']:.3f} ms, library {r['library_ms']}, launches {r['launches']}")
+    del raw, converted
+    return rows
 
 
 STAGE_PREFIXES = ("fast:", "1d:", "2d:")
@@ -1275,7 +1423,13 @@ def wide_row(name, entry, ix, w, pa, pb, fine, integer, launches, pair_hist):
     got = entry(ix, w, pa, pb, integer_weights=integer, nbins=fine)
     ref = pair_hist.pair_histograms_plain(ix, w, pa, pb, integer_weights=integer, nbins=fine)
     err = float((got - ref).abs().max())
-    check(err == 0.0 if integer else err <= 1e-5 * float(ref.max()), f"{name}: against the plain version ({err})")
+    check(err == 0.0, f"{name}: bit-exact against the plain version ({err})")
+    if not integer:  # fractional weights: 64-bit fixed point (ROADMAP C13 (b))
+        check(torch.equal(got, entry(ix, w, pa, pb, nbins=fine)), f"{name}: two calls bitwise equal")
+        worst = fixed_point_error(got, ix, w, pa, pb, fine)
+        check(worst <= 1.0, f"{name}: within one f32 rounding of the f64 sums ({worst})")
+        print(f"{name}: fractional weights, two calls bitwise equal, at most {worst:.3g} of one f32 rounding of "
+              "the f64 sums")
     del got, ref
     b, by = hist_bound(ix, w, k, fine)
     row = {
@@ -1291,7 +1445,8 @@ def wide_row(name, entry, ix, w, pa, pb, fine, integer, launches, pair_hist):
         "bound_by": by,
         "library_ms": library_hist_ms(ix, w, pa, pb, fine, 3),
     }
-    plan = pair_hist.wide_plan(k, n, fine, torch.cuda.get_device_properties(0).multi_processor_count)
+    plan = pair_hist.wide_plan(k, n, fine, torch.cuda.get_device_properties(0).multi_processor_count,
+                               4 if integer or w.dtype == torch.uint8 else 8)
     verdict = "faster" if row["ms"] <= row["library_ms"] else "SLOWER"
     print(f"{name}: {k} pair(s) of {ix.shape[0]} int16 rows x {n} at {fine} bins, {w.dtype} weights, {plan.route} "
           f"route: kernel {row['ms']:.3f} ms, {b / row['ms']:.1%} of its bound {b:.4f} ms ({by}); plain "
@@ -1534,6 +1689,31 @@ def degenerate_phase(pair_hist, batched):
     del mc, d1, d2, st, w_path
     torch.cuda.empty_cache()
 
+    # fractional weights past 256 bins (ROADMAP C13 (b)): no path sends like
+    # weights there (the regrid reruns take none), but an importance-weighted
+    # chain's regrids bin its fractional weights with the wide kernels
+    label = "degenerate chain, importance weights, public entry"
+    mc = MCSamples(**dict(kw, weights=importance_weights(weights, seed=30)))
+    wall_s(lambda: mc.fastTriangleDensities())
+    reset()
+    pair_hist.pair_histograms.float_launches = 0
+    warm_s, (d1, d2, pairs) = wall_s(lambda: mc.fastTriangleDensities())
+    launches = read()
+    floats = pair_hist.pair_histograms.float_launches
+    check_entry_outputs(d1, d2, pairs, p, label)
+    st = mc._fast_chain_state()
+    groups = sorted((g for g in mc.fast_regrid_groups if g["fine"] > 256), key=lambda g: -g["fine"])
+    check(not st["int8"] and groups and launches["pair_histograms"]["wide"] >= 1 and floats >= 1,
+          f"{label}: fractional weights through the wide kernels ({launches}, f32 launches {floats})")
+    print(f"{label}: warm {warm_s * 1e3:.1f} ms; launches {json.dumps(launches)}, with f32 weights {floats}")
+    g = groups[0]
+    ix, pa, pb, _ = entry_group_rows(st["samples"], d1["range"], g, pair_hist, batched)
+    rows.append(wide_row(f"pair_histograms_wide_fractional_{g['fine']}bins", pair_hist.pair_histograms, ix,
+                         st["weights"], pa, pb, g["fine"], False,
+                         launches["pair_histograms"]["wide_bins"].get(g["fine"], 0), pair_hist))
+    del mc, d1, d2, st, ix
+    torch.cuda.empty_cache()
+
     # parity mode
     mc = MCSamples(**kw)
     reset()
@@ -1658,16 +1838,21 @@ def bounded_cross_device(MCSamples):
 
 def spectrum_row(name, kernels, pad, launches):
     """A K2 row at ``pad`` on ``kernels``, held within 1e-5 of max|ref| of
-    its plain version."""
+    its plain version in f32, 1e-12 in f64 (two f64 calls bitwise equal)."""
     import torch
 
     from getdist_tpu_torch.ops import dft_conv
 
+    f64 = kernels.dtype == torch.float64
+    tol = 1e-12 if f64 else 1e-5
     ur, ui = dft_conv.dft_conv_spectrum(kernels, pad)
     ur0, ui0 = dft_conv.dft_conv_spectrum_plain(kernels, pad)
     scale = float(torch.maximum(ur0.abs().max(), ui0.abs().max()))
     err = max(float((ur - ur0).abs().max()), float((ui - ui0).abs().max()))
-    check(err <= 1e-5 * scale, f"{name}: K2 within 1e-5 max|ref| ({err} vs {scale})")
+    check(err <= tol * scale, f"{name}: K2 within {tol} max|ref| ({err} vs {scale})")
+    if f64:
+        again = dft_conv.dft_conv_spectrum(kernels, pad)
+        check(torch.equal(again[0], ur) and torch.equal(again[1], ui), f"{name}: two f64 K2 calls bitwise equal")
     b, by = spectrum_bound(kernels, pad)
     row = {
         "name": name,
@@ -1682,7 +1867,8 @@ def spectrum_row(name, kernels, pad, launches):
         "bound_by": by,
         "library_ms": library_spectrum_ms(kernels, pad, 5),
     }
-    dft_report(f"K2 f32 {name}", row, spectrum_work(kernels, pad), TF32X3_FLOPS)
+    dft_report(f"K2 {'f64' if f64 else 'f32'} {name}", row, spectrum_work(kernels, pad),
+               _dft_rate(kernels.element_size()))
     return row
 
 
@@ -1802,13 +1988,16 @@ def bounded_phase(bounded, batched, dft_conv, pair_hist):
     pb = torch.tensor([b for _, b in pairs], dtype=torch.int32, device="cuda")
     k = len(pairs)
     got = hist(ix, lw, pa, pb, integer_weights=False)
-    ref = pair_hist.pair_histograms_plain(ix, lw, pa, pb, integer_weights=False)
-    err_l = float((got - ref).abs().max())
+    plain = pair_hist.pair_histograms_plain(ix, lw, pa, pb, integer_weights=False)
+    err_l = float((got - plain).abs().max())
+    check(err_l == 0.0, f"K1 with f32 like weights: bit-exact against the plain version (fixed point too): {err_l}")
+    del plain
     # fixed point (each weight rounded to a multiple of 2^-62 of max |w| *
-    # N) against the plain version's f64 sums, each rounded to f32 once:
-    # each bin within 1e-6 of itself plus 1e-9 of its pair's peak bin, and
-    # the bins below 1e-3 of the peak (the low-likelihood tails, where the
-    # like weights are smallest) within 1e-7 of their pair's tail sum
+    # N) against the f64 sums, each rounded to f32 once: each bin within
+    # 1e-6 of itself plus 1e-9 of its pair's peak bin, and the bins below
+    # 1e-3 of the peak (the low-likelihood tails, where the like weights are
+    # smallest) within 1e-7 of their pair's tail sum
+    ref = exact_pair_sums(ix, lw, pa, pb, 256).float()
     peak = ref.amax(dim=(1, 2), keepdim=True)
     diff = (got - ref).abs()
     worst = float((diff / (1e-6 * ref.abs() + 1e-9 * peak)).max())
@@ -1820,7 +2009,8 @@ def bounded_phase(bounded, batched, dft_conv, pair_hist):
     check(tail_rel <= 1e-7, f"K1 with f32 like weights: tail bins within 1e-7 of each pair's tail sum ({tail_rel})")
     same = torch.equal(got, hist(ix, lw, pa, pb, integer_weights=False))
     check(same, "K1 with f32 like weights: two calls bitwise equal")
-    print(f"K1, f32 like weights: max abs diff {err_l:.3g}, at most {worst:.3g} of the per-bin tolerance, tails "
+    print(f"K1, f32 like weights: max abs diff to plain {err_l:.3g}, to the f64 sums at most {worst:.3g} of the "
+          f"per-bin tolerance, tails "
           f"{tail_rel:.3g} of their sum ({int(tail.sum())} tail bins), two calls bitwise equal: {same}")
     del got, ref, diff, tail
     b_l, by_l = hist_bound(ix, lw, k, 256)
@@ -2000,10 +2190,12 @@ def parity_bounded_phase(bounded, batched, dft_conv, pair_hist):
         for fn in counters:
             fn.launches = 0
         dft_conv.dft_conv2d.inputs.clear()
+        dft_conv.dft_conv_spectrum.kernels.clear()
 
     def read():
         out = {fn.__name__: fn.launches for fn in counters}
         out["conv_inputs"] = {f"{pad}:{size}": n for (pad, size), n in dft_conv.dft_conv2d.inputs.items()}
+        out["spectrum_kernels"] = {f"{pad}:{m}": n for (pad, m), n in dft_conv.dft_conv_spectrum.kernels.items()}
         return out
 
     def fresh(w):
@@ -2026,6 +2218,20 @@ def parity_bounded_phase(bounded, batched, dft_conv, pair_hist):
     bucket = max((b for b in buckets if b["fine"] == 256), key=lambda b: b["pairs"])
     rows = [periodic_conv_row(f"dft_conv2d_f64_periodic_ext{256 + 2 * bucket['winw']}", mc, bucket, launches,
                               pair_hist, dft_conv, batched)]
+    # f64 K2 at each bucket's shape: its pairs' kernels, (2 winw + 1)^2, at
+    # the bucket's frame, with the run's launches at that (frame, size)
+    for b in sorted(buckets, key=lambda b: (b["winw"], b["fine"])):
+        winw, m = b["winw"], 2 * b["winw"] + 1
+        pad = dft_conv.frame_for(b["fine"] + 4 * winw + 1)
+        widths = torch.linspace(0.8, winw / 2.5, b["pairs"], dtype=torch.float64, device="cuda")
+        kernels = batched._gauss_kernel_2d(widths, widths.flip(0), torch.full_like(widths, 0.3), winw)
+        check(tuple(kernels.shape) == (b["pairs"], m, m), f"bounded parity K2 rows: bucket {b}'s kernels")
+        rows.append(spectrum_row(f"dft_conv_spectrum_f64_w{winw}_frame{pad}", kernels, pad,
+                                 launches["spectrum_kernels"].get(f"{pad}:{m}", 0)))
+        print(f"K2 f64, bounded parity bucket fine {b['fine']} winw {winw} ({b['pairs']} pairs, {m}^2 kernels, "
+              f"frame {pad}): launches at this shape in the warm run {rows[-1]['launches']}")
+    check(sum(launches["spectrum_kernels"].values()) == launches["dft_conv_spectrum"],
+          f"bounded parity: K2 launches by shape add up ({launches['spectrum_kernels']})")
     del mc, dens1, dens2
     torch.cuda.empty_cache()
 
@@ -2071,6 +2277,144 @@ def parity_bounded_phase(bounded, batched, dft_conv, pair_hist):
     return rows
 
 
+def write_chain_text(path, table):
+    """One chain file: rows of weight, -log(like) and the parameters, every
+    f64 in full (%.17g). Module level: the files phase writes its four
+    files in four processes."""
+    import numpy as np
+
+    np.savetxt(path, table, fmt="%.17g")
+
+
+def entries_bitwise(got, want):
+    """Whether two results of the public entry ((d1, d2, pairs)) are equal
+    bit for bit: every tensor of d1 and d2, the pairs, and every rerun's
+    grid, contours and kernel."""
+    import torch
+
+    if got[2] != want[2] or set(got[1]["regrid"]) != set(want[1]["regrid"]):
+        return False
+    reruns = all(torch.equal(torch.as_tensor(got[1]["regrid"][key][name]), torch.as_tensor(value))
+                 for key, entry in want[1]["regrid"].items() for name, value in entry.items())
+    return reruns and bitwise(got[:2], want[:2])
+
+
+def files_phase(bounded, card, pair_hist, dft_conv):
+    """Phase 8: a chain root on disk through ``loadMCSamples`` into the
+    public entry. ``bounded_chain(1M)`` (``bounded``) is written as a
+    4-chain root of 250k rows each (``weight -loglike p1 ... p30``, with
+    ``.paramnames`` and a ``.ranges`` of ``N`` bounds and periodic flags) in
+    a temporary directory, deleted after. Each file parsed by the port's
+    native loader is held bitwise against ``np.loadtxt``; the root loads
+    cold (the loader) and warm (the pickle cache, in the same directory);
+    ``fastTriangleDensities(meanlikes=True)`` runs cold and warm on the
+    loaded object, with K1, K2 and K3 launched, its grids bitwise equal to
+    the entry on an ``MCSamples`` built in memory from the loaded arrays and
+    to the entry on the cache hit. Walls (host clock to
+    ``torch.cuda.synchronize()``) beside ``card``."""
+    import multiprocessing
+    import shutil
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    import torch
+
+    import getdist_tpu_torch
+    from getdist_tpu_torch import _native
+    from getdist_tpu_torch import mcsamples as tmc
+
+    samples, weights, loglikes, names, ranges = bounded
+    folder = tempfile.mkdtemp(prefix="chip_smoke_files_")
+    saved_cache, saved_read = getdist_tpu_torch.cache_dir, tmc.MCSamples.readChains
+    try:
+        root = os.path.join(folder, "bounded")
+        t0 = time.perf_counter()
+        blocks = np.array_split(np.column_stack([weights, loglikes, samples]), 4)
+        paths = [f"{root}_{i + 1}.txt" for i in range(4)]
+        with ProcessPoolExecutor(4, mp_context=multiprocessing.get_context("spawn")) as pool:
+            list(pool.map(write_chain_text, paths, blocks))
+        with open(root + ".paramnames", "w", encoding="utf-8") as handle:
+            handle.writelines(f"{name}\tb_{{{i}}}\n" for i, name in enumerate(names))
+        with open(root + ".ranges", "w", encoding="utf-8") as handle:
+            for name, window in ranges.items():
+                lo, hi = ("N" if v is None else repr(float(v)) for v in window[:2])
+                handle.write(f"{name} {lo} {hi}" + (" periodic" if len(window) > 2 and window[2] else "") + "\n")
+        write_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(path) for path in paths)
+        print(f"files: bounded chain {len(samples):,} x {samples.shape[1]} written as a 4-chain root "
+              f"({size / 1e9:.2f} GB of text) in {write_s:.1f} s (set-up, not a metric)")
+
+        t0 = time.perf_counter()
+        for path, block in zip(paths, blocks):
+            got = _native.load_chain_text(path)
+            check(got.shape == block.shape and np.array_equal(got, np.loadtxt(path)),
+                  f"{os.path.basename(path)}: the port's loader bitwise equal to np.loadtxt")
+            check(np.array_equal(got, block), f"{os.path.basename(path)}: the written values come back exactly")
+        print(f"files: 4 files x ~{len(samples) // 4:,} rows parsed by the native loader bitwise equal to np.loadtxt "
+              f"({time.perf_counter() - t0:.1f} s with np.loadtxt)")
+        del got, blocks
+
+        getdist_tpu_torch.cache_dir = os.path.join(folder, "cache")
+        reads = []
+
+        def counted(self, *a, **k):
+            reads.append(1)
+            return saved_read(self, *a, **k)
+
+        tmc.MCSamples.readChains = counted
+        load = lambda: getdist_tpu_torch.loadMCSamples(root, settings={"ignore_rows": 0}, no_cache=False,  # noqa: E731
+                                                       device="cuda")
+        cold_load_s, mc = wall_s(load)
+        hit_load_s, mc_hit = wall_s(load)
+        check(len(reads) == 1 and mc_hit is not mc and os.path.exists(tmc._cache_path(root)),
+              f"files: the second load is a cache hit ({len(reads)} chain reads)")
+        for obj, tag in ((mc, "cold load"), (mc_hit, "cache hit")):
+            check(np.array_equal(obj.samples, samples) and np.array_equal(obj.weights, weights)
+                  and np.array_equal(obj.loglikes, loglikes) and obj.paramNames.list() == list(names)
+                  and obj.device == torch.device("cuda"), f"files: {tag} holds the chain's arrays and names")
+            check(obj.ranges.periodic == {n for n, w in ranges.items() if len(w) > 2 and w[2]}
+                  and all(obj.ranges.getLower(n) == w[0] and obj.ranges.getUpper(n) == w[1]
+                          for n, w in ranges.items()), f"files: {tag} holds the chain's ranges")
+
+        counters = (pair_hist.pair_histograms, dft_conv.dft_conv_spectrum, dft_conv.dft_conv2d)
+        entry = lambda obj: obj.fastTriangleDensities(meanlikes=True)  # noqa: E731
+        cold_entry_s, _ = wall_s(lambda: entry(mc))
+        for fn in counters:
+            fn.launches = 0
+        pair_hist.pair_histograms.float_launches = 0
+        first_s, got = wall_s(lambda: entry(mc))
+        launches = {fn.__name__: fn.launches for fn in counters}
+        launches["float"] = pair_hist.pair_histograms.float_launches
+        check(launches["pair_histograms"] >= 2 and launches["float"] == 1 and launches["dft_conv_spectrum"] >= 1
+              and launches["dft_conv2d"] >= 2,
+              f"files: the entry on the loaded root launched K1, K2 and K3 ({launches})")
+        warm_entry_s = min([first_s] + [wall_s(lambda: entry(mc))[0] for _ in range(2)])
+        pairs = [(a, b) for a in range(len(names)) for b in range(a + 1, len(names))]
+        check_bounded_outputs(got[0], got[1], pairs, BOUNDED_KINDS, "files: entry on the loaded root")
+        memory = tmc.MCSamples(samples=mc.samples, weights=mc.weights, loglikes=mc.loglikes,
+                               names=mc.paramNames.list(), ranges=mc.ranges, device="cuda")
+        same_memory = entries_bitwise(got, entry(memory))
+        del memory
+        hit_cold_s, hit = wall_s(lambda: entry(mc_hit))
+        same_hit = entries_bitwise(got, hit)
+        check(same_memory, "files: the entry on the loaded root bitwise equals the entry on the same arrays in memory")
+        check(same_hit, "files: the entry on the cache hit bitwise equals the cold load's")
+        print(f"files, bounded chain {len(samples):,} x {samples.shape[1]} as a 4-file root ({card}): "
+              f"loadMCSamples cold (native loader) {cold_load_s * 1e3:.1f} ms, cache hit {hit_load_s * 1e3:.1f} ms; "
+              f"fastTriangleDensities(meanlikes=True) on the loaded object cold {cold_entry_s * 1e3:.1f} ms, warm "
+              f"{warm_entry_s * 1e3:.1f} ms (min of 3), on the cache hit's first call {hit_cold_s * 1e3:.1f} ms; "
+              f"launches {json.dumps(launches)}; bitwise equal to the in-memory entry {same_memory} and the cache "
+              f"hit's {same_hit}; regrid groups "
+              + json.dumps([dict(g, pairs=len(g["pairs"])) for g in mc.fast_regrid_groups]))
+        del mc, mc_hit, got, hit
+        torch.cuda.empty_cache()
+    finally:
+        getdist_tpu_torch.cache_dir = saved_cache
+        tmc.MCSamples.readChains = saved_read
+        shutil.rmtree(folder, ignore_errors=True)
+
+
 def main():
     import torch
 
@@ -2113,6 +2457,7 @@ def main():
     results += degenerate_phase(pair_hist, batched)
     results += bounded_phase(bounded, batched, dft_conv, pair_hist)
     results += parity_bounded_phase(bounded, batched, dft_conv, pair_hist)
+    files_phase(bounded, card, pair_hist, dft_conv)
     for r in results:
         # a bound is a least time: no measured way of computing the function may beat it
         measured = [t for t in (r["ms"], r["plain_ms"], r["library_ms"]) if t is not None]

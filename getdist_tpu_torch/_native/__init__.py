@@ -1,10 +1,12 @@
 """Host C++ passes of the port, built with ``g++`` at first use and called
 through ``ctypes``.
 
-One pass so far: the exact f64 pair histograms of the host parity variant
-(``pairhist.cpp``; counterpart of ``getdist_tpu/_native``'s
-``pair_histograms``). The library is compiled with ``g++ -O3 -std=c++17
--shared -fPIC -pthread`` on the first call into
+Two passes, each the port's own copy of one of ``getdist_tpu/_native``'s:
+the multi-threaded chain text loader of ``loadMCSamples``
+(``fastloader.cpp``, :func:`load_chain_text`) and the exact f64 pair
+histograms of the host parity variant (``pairhist.cpp``,
+:func:`pair_histograms`). Each library is compiled with ``g++ -O3
+-std=c++17 -shared -fPIC -pthread`` on its first call into
 ``getdist_tpu_torch/_build``, keyed by a hash of the source and the
 flags, and nothing is built at import. A failed build, or a non-zero
 return code, raises: there is no fallback to numpy.
@@ -21,9 +23,10 @@ import numpy as np
 
 from getdist_tpu_torch._compile import build_once
 
-__all__ = ["pair_histograms", "pair_histograms_plain"]
+__all__ = ["load_chain_text", "pair_histograms", "pair_histograms_plain"]
 
 SOURCE = Path(__file__).resolve().parent / "pairhist.cpp"
+LOADER_SOURCE = Path(__file__).resolve().parent / "fastloader.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
@@ -54,6 +57,45 @@ def library():
         ctypes.c_int64, _F64P, ctypes.c_int,
     ]
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def loader_library():
+    """The chain text loader's library, built on first call."""
+    lib = ctypes.CDLL(str(build(LOADER_SOURCE, BUILD_DIR)))
+    lib.gdt_parse_chain.restype = ctypes.c_int
+    lib.gdt_parse_chain.argtypes = [
+        ctypes.c_char_p, ctypes.c_long, ctypes.POINTER(_F64P), ctypes.POINTER(ctypes.c_long),
+        ctypes.POINTER(ctypes.c_long), ctypes.c_char_p, ctypes.c_long,
+    ]
+    lib.gdt_free.restype = None
+    lib.gdt_free.argtypes = [_F64P]
+    return lib
+
+
+def load_chain_text(fname, skiprows=0):
+    """(rows, cols) f64 array of a whitespace-separated numeric text file,
+    its first ``skiprows`` lines skipped; ``#`` comments and blank lines
+    ignored. Bit for bit ``np.loadtxt(fname, skiprows=skiprows)`` (numbers
+    parsed with correctly rounded ``std::from_chars``); an empty file gives
+    a (0, 0) array. Ragged rows or a bad number raise ``ValueError`` naming
+    the file, an unreadable file ``OSError``."""
+    lib = loader_library()
+    data = _F64P()
+    rows, cols = ctypes.c_long(), ctypes.c_long()
+    err = ctypes.create_string_buffer(256)
+    rc = lib.gdt_parse_chain(os.fsencode(fname), int(skiprows or 0), ctypes.byref(data), ctypes.byref(rows),
+                             ctypes.byref(cols), err, 256)
+    if rc == 1:
+        raise ValueError(f"{fname}: {err.value.decode()}")
+    if rc != 0:
+        raise OSError(f"{fname}: {err.value.decode()}")
+    if rows.value == 0 or cols.value == 0:
+        return np.empty((0, 0))
+    try:
+        return np.array(np.ctypeslib.as_array(data, shape=(rows.value, cols.value)))  # an owning copy
+    finally:
+        lib.gdt_free(data)
 
 
 def _n_threads():

@@ -1,26 +1,37 @@
-"""Weighted sample containers built from arrays (host numpy).
+"""Weighted sample containers (host numpy), from arrays or chain files.
 
-The port's own copy of the parts of ``getdist_tpu/chains.py`` that parity
-mode needs: :class:`WeightedSamples` (weights, burn-in, min-weight filter,
-fixed-parameter removal) and :class:`Chains` (parameter names, several
-arrays combined into one), with the host statistics in the same
+The port's own copy of the parts of ``getdist_tpu/chains.py`` that
+loading chains and parity mode need: :class:`WeightedSamples` (a chain
+file or arrays; weights, burn-in, min-weight filter, fixed-parameter
+removal) and :class:`Chains` (a chain root with its ``.paramnames``,
+parameter names and renames, several files or arrays combined into one,
+pickling), the module's chain-file helpers (:func:`chainFiles`,
+:func:`findChainFileRoot`, :func:`loadNumpyTxt`, the native loader of
+:mod:`getdist_tpu_torch._native`), and the host statistics in the same
 arithmetic as the JAX package's numpy branches: means, variances,
 covariance and correlation, the FFT autocorrelation length and the
 Gaussian-KDE effective sample number.
 
-Not ported here: loading chains or parameter names from files and
-renames (ROADMAP A10), the device statistics branches (the JAX package's
-``ops.stats``; ROADMAP A7), covariance and correlation of parameter
-subsets, thinning, Gelman-Rubin and text output.
+Not ported here: grid job items and Cobaya yaml roots (ROADMAP A10 slice
+4), the device statistics branches (the JAX package's ``ops.stats``;
+ROADMAP A7), covariance and correlation of parameter subsets, thinning,
+Gelman-Rubin and text output of samples (A10 slice 2).
 """
 
+import os
+import pickle
+import re
 from copy import deepcopy
+from warnings import warn
 
 import numpy as np
 
 from getdist_tpu_torch import samplemath as smath
 from getdist_tpu_torch.paramnames import ParamInfo, ParamNames
 from getdist_tpu_torch.samplemath import ParamConfidenceData
+
+# Whether to print chain names and burn-in details when loading from file.
+print_load_details = True
 
 _int_types = (int, np.integer)
 _seq_types = (list, tuple)
@@ -73,18 +84,46 @@ class WeightedSamples:
         loglikes=None,
         name_tag=None,
         label=None,
+        files_are_chains=True,
         min_weight_ratio=1e-30,
     ):
+        """
+        :param filename: plain text chain file to load
+        :param ignore_rows: int >= 1 rows, or float < 1 fraction, to skip as burn-in
+        :param samples: (N, n) array (or list of vectors) of parameter values
+        :param weights: (N,) weights (default all 1)
+        :param loglikes: (N,) -log(posterior)
+        :param name_tag: name for this sample set
+        :param label: latex label
+        :param files_are_chains: False if the file has no weight/loglike columns
+        :param min_weight_ratio: drop samples below this ratio of the max weight
+        """
         self.min_weight_ratio = min_weight_ratio
         if filename:
-            raise _not_ported("loading chains from files", "A10")
-        self.name_tag = name_tag
-        trimmed = (slice_or_none(arr, ignore_rows) for arr in (samples, weights, loglikes))
-        self.setSamples(*trimmed)
+            self.name_tag = name_tag if name_tag else os.path.basename(filename)
+            table = loadNumpyTxt(filename, skiprows=ignore_rows)
+            if not len(table):
+                raise WeightedSampleError(f"chain file {filename} contains no samples")
+            self.setColData(table, are_chains=files_are_chains)
+        else:
+            self.name_tag = name_tag
+            if samples is not None and int(ignore_rows) > 0:
+                print_load_line(f"Removed {ignore_rows} lines as burn in")
+            trimmed = (slice_or_none(arr, ignore_rows) for arr in (samples, weights, loglikes))
+            self.setSamples(*trimmed)
         self.needs_update = True
         self.label = label
 
     # -- setup ---------------------------------------------------------------
+    def setColData(self, coldata, are_chains=True):
+        """Set samples from a file-loaded array; first two columns are
+        weight and -log(like) unless are_chains=False."""
+        if not are_chains:
+            self.setSamples(coldata)
+            return
+        w, nll, values = coldata[:, 0], coldata[:, 1], coldata[:, 2:]
+        self.setSamples(values, w, nll)
+
     @staticmethod
     def _as_sample_matrix(samples):
         """Coerce vectors / vector lists / arrays to a contiguous (N, n) f64."""
@@ -330,35 +369,82 @@ class WeightedSamples:
 
 
 class Chains(WeightedSamples):
-    """Weighted samples with named parameters, from one array or several
-    arrays combined into one."""
+    """One or more chains of weighted samples with named parameters, from
+    chain files (a root) or arrays, combined into one."""
 
     paramNames = None
     jobItem = None
 
-    def __init__(self, root=None, jobItem=None, names=None, labels=None, sampler=None, **kwargs):
-        if root or jobItem is not None:
-            raise _not_ported("chain roots and grid job items", "A10")
+    def __init__(
+        self,
+        root=None,
+        jobItem=None,
+        paramNamesFile=None,
+        names=None,
+        labels=None,
+        renames=None,
+        sampler=None,
+        **kwargs,
+    ):
+        """
+        :param root: optional file root (its ``.paramnames`` names the parameters)
+        :param jobItem: a grid jobItem: not ported (ROADMAP A10 slice 4), raises
+        :param paramNamesFile: .paramnames file for names
+        :param names: list of name strings
+        :param labels: list of latex labels
+        :param renames: dict of parameter aliases
+        :param sampler: 'mcmc' (default), 'nested' or 'uncorrelated'
+        :param kwargs: passed to :class:`WeightedSamples`
+        """
+        if jobItem is not None:
+            raise _not_ported("grid job items", "A10 slice 4")
         self.jobItem = jobItem
         self.root = root
         self.chains = None
         self.chain_offsets = None
         super().__init__(**kwargs)
         self.ignore_lines = float(kwargs.get("ignore_rows") or 0)
-        self.setParamNames(names)
+        name_source = paramNamesFile or self._sidecar_names(root) or names
+        self.setParamNames(name_source)
         if labels is not None:
             self.paramNames.setLabels(labels)
+        if renames is not None:
+            self.updateRenames(renames)
         self.sampler = "mcmc"
         if isinstance(sampler, str):
-            sampler = sampler.lower()
-            self.sampler = sampler if sampler in ("mcmc", "nested", "uncorrelated") else "mcmc"
+            self.setSampler(sampler)
+
+    @staticmethod
+    def _sidecar_names(root):
+        """The ``.paramnames`` file next to the chain files, if any. A root
+        that has only a Cobaya yaml raises: loading yaml is not ported."""
+        if not root:
+            return None
+        candidate = root + ".paramnames"
+        if os.path.exists(candidate):
+            return candidate
+        trailing = root.endswith((os.sep, "/"))
+        for joiner, suffix in ((".", "updated.yaml"), ("__", "full.yaml")):
+            yaml_file = root + ("" if trailing else joiner) + suffix
+            if os.path.exists(yaml_file):
+                raise _not_ported(f"the Cobaya root {yaml_file}", "A10 slice 4")
+        return None
+
+    def setSampler(self, sampler):
+        """Set the sampler type ('mcmc', 'nested' or 'uncorrelated')."""
+        sampler = sampler.lower()
+        if sampler not in ("mcmc", "nested", "uncorrelated"):
+            warn(f"Sampler type '{sampler}' not recognised; treating as MCMC.")
+            sampler = "mcmc"
+        self.sampler = sampler
 
     def setParamNames(self, names=None):
-        """Set parameter names from a ParamNames or a list of name entries."""
+        """Set parameter names from a ParamNames, a ``.paramnames`` file
+        name, or a list of name entries."""
         if isinstance(names, ParamNames):
             self.paramNames = deepcopy(names)
         elif isinstance(names, str):
-            raise _not_ported("parameter names from files", "A10")
+            self.paramNames = ParamNames(names)
         elif names is None:
             self.paramNames = ParamNames(default=self.n) if self.samples is not None else None
         else:
@@ -366,6 +452,18 @@ class Chains(WeightedSamples):
         if self.paramNames:
             self._getParamIndices()
         self.needs_update = True
+
+    def getParamNames(self):
+        """The :class:`~.paramnames.ParamNames` for these samples."""
+        return self.paramNames
+
+    def getRenames(self):
+        """Dict of renames known to each parameter."""
+        return self.paramNames.getRenames()
+
+    def updateRenames(self, renames):
+        """Merge a rename dict into the parameter aliases."""
+        self.paramNames.updateRenames(renames)
 
     def _getParamIndices(self):
         declared = len(self.paramNames.names)
@@ -424,40 +522,65 @@ class Chains(WeightedSamples):
                 return depth
 
     def loadChains(self, root, files_or_samples, weights=None, loglikes=None, ignore_lines=None):
-        """Load one sample array or a list of arrays; returns True if
-        anything was loaded."""
+        """Load chains from a list of files, a single array, or a list of
+        arrays; returns True if anything was loaded."""
         self.chains = []
         self.samples = self.weights = self.loglikes = None
         if ignore_lines is None:
             ignore_lines = self.ignore_lines
         if files_or_samples is None or (hasattr(files_or_samples, "__len__") and not len(files_or_samples)):
             raise ValueError("loadChains got nothing to load")
-        if isinstance(files_or_samples, str) or isinstance(files_or_samples[0], str):
-            raise _not_ported("loading chains from files", "A10")
-        depth = self._nesting_depth(files_or_samples)
+        from_files = isinstance(files_or_samples, str) or isinstance(files_or_samples[0], str)
+        if from_files:
+            if weights is not None or loglikes is not None:
+                raise ValueError("weights/loglikes arguments only apply to in-memory arrays")
+            count = self._chains_from_files(root, files_or_samples, ignore_lines)
+        else:
+            count = self._chains_from_arrays(files_or_samples, weights, loglikes, ignore_lines)
+        self._weightsChanged()
+        return count > 0
+
+    def _chains_from_files(self, root, files, ignore_lines):
+        if isinstance(files, str):
+            files = [files]
+        if not self.name_tag:
+            self.name_tag = os.path.basename(root)
+        for fname in files:
+            print_load_line(fname)
+            try:
+                self.chains.append(
+                    WeightedSamples(fname, ignore_rows=ignore_lines, min_weight_ratio=self.min_weight_ratio)
+                )
+            except WeightedSampleError:
+                print_load_line(f"Ignored file {fname} (likely empty)")
+        if not self.chains:
+            raise WeightedSampleError(f"no chains found for root {root}")
+        return len(self.chains)
+
+    def _chains_from_arrays(self, arrays, weights, loglikes, ignore_lines):
+        depth = self._nesting_depth(arrays)
         if depth in (1, 2):
             self.chains = None
-            trimmed = (slice_or_none(block, ignore_lines) for block in (files_or_samples, weights, loglikes))
+            trimmed = (slice_or_none(block, ignore_lines) for block in (arrays, weights, loglikes))
             self.setSamples(*trimmed, self.min_weight_ratio)
             if self.paramNames is None:
                 self.paramNames = ParamNames(default=self.n)
-        elif depth == 3:
-            for i, block in enumerate(files_or_samples):
-                self.chains.append(
-                    WeightedSamples(
-                        samples=block,
-                        loglikes=None if loglikes is None else loglikes[i],
-                        weights=None if weights is None else weights[i],
-                        ignore_rows=ignore_lines,
-                        min_weight_ratio=self.min_weight_ratio,
-                    )
+            return 1
+        if depth != 3:
+            raise ValueError("expected a sample array, or a list of sample arrays or file names")
+        for i, block in enumerate(arrays):
+            self.chains.append(
+                WeightedSamples(
+                    samples=block,
+                    loglikes=None if loglikes is None else loglikes[i],
+                    weights=None if weights is None else weights[i],
+                    ignore_rows=ignore_lines,
+                    min_weight_ratio=self.min_weight_ratio,
                 )
-            if self.paramNames is None:
-                self.paramNames = ParamNames(default=self.chains[0].n)
-        else:
-            raise ValueError("expected a sample array, or a list of sample arrays")
-        self._weightsChanged()
-        return True
+            )
+        if self.paramNames is None:
+            self.paramNames = ParamNames(default=self.chains[0].n)
+        return len(self.chains)
 
     def makeSingle(self):
         """Concatenate separate chains into one array, recording offsets."""
@@ -502,3 +625,73 @@ class Chains(WeightedSamples):
                 bounds.setFixed(self.paramNames.names[ix].name, value)
         self.paramNames.deleteIndices(fixed)
         self._getParamIndices()
+
+    # -- output -----------------------------------------------------------------
+    def saveTextMetadata(self, root):
+        """Save metadata (.paramnames) alongside chain text files."""
+        self.paramNames.saveAsText(root + ".paramnames")
+
+    def __getstate__(self):
+        """Pickle without the device-resident caches: the parity and fused
+        paths' chain copies on the card, the cumulant score, a ``mesh=``
+        block and its process group. They rebuild at the next call, on the
+        device of the object that unpickles."""
+        state = self.__dict__.copy()
+        state["_parity_chain_cache"] = None
+        state["_fast_chain_cache"] = None
+        state["_param_range_cache"] = {}
+        return state
+
+    def savePickle(self, filename):
+        """Pickle this object to a file."""
+        with open(filename, "wb") as stream:
+            pickle.dump(self, stream, protocol=pickle.HIGHEST_PROTOCOL)
+
+
+# -- module-level chain-file helpers ------------------------------------------
+
+
+def print_load_line(message):
+    if print_load_details:
+        print(message)
+
+
+def last_modified(files):
+    """Latest modification time among the files that exist."""
+    stamps = (os.path.getmtime(fname) for fname in files if os.path.exists(fname))
+    return max(stamps)
+
+
+def chainFiles(root, chain_indices=None, ext=".txt", separator="_", first_chain=0, last_chain=-1, chain_exclude=None):
+    """List chain sample files for a root name, applying index filters."""
+    return smath.match_chain_files(root, chain_indices, ext, separator, first_chain, last_chain, chain_exclude)
+
+
+def hasChainFiles(file_root, ext=".txt"):
+    found = (chainFiles(file_root, ext=ext, separator=sep, last_chain=1) for sep in "_.")
+    return any(found)
+
+
+def findChainFileRoot(chain_dir, root, search_subdirectories=True):
+    """Find a chain root under a directory tree; returns full path root or None."""
+    root = re.sub(r"[/\\]", re.escape(os.sep), root)
+    direct = os.path.join(chain_dir, root)
+    if hasChainFiles(direct):
+        return direct
+    if search_subdirectories:
+        for base, dirs, _files in os.walk(chain_dir):
+            for subdir in dirs:
+                candidate = os.path.join(base, subdir, root)
+                if hasChainFiles(candidate):
+                    return candidate
+    return None
+
+
+def loadNumpyTxt(fname, skiprows=None):
+    """A (rows, cols) f64 array of a whitespace-separated text file, parsed
+    by the port's native loader (:func:`getdist_tpu_torch._native.
+    load_chain_text`: bit for bit ``np.loadtxt``). A malformed file raises
+    ``ValueError`` naming it; there is no fallback parser."""
+    from getdist_tpu_torch import _native
+
+    return np.atleast_2d(_native.load_chain_text(fname, skiprows or 0))

@@ -8,11 +8,13 @@
 // stacks and contracted them on the MXU; on Hopper that is ~7.7 GB of one-hot
 // traffic at 30 params x 1M samples and 256 bins, so these kernels bin
 // directly with shared-memory atomics.  Integer weights accumulate in int32
-// (bit-exact, order independent).  Fractional weights: in 64-bit fixed point
-// on the uint8 kernel (each weight rounded once to a multiple of 2^-62 of
-// max |w| * N, then integer adds: order independent, so every call and both
-// of its routes give the same bits, within f32 rounding of an f64 sum); in
-// f32 on the wide kernels (the atomic order varies from run to run).
+// (bit-exact, order independent).  Fractional weights, on every kernel: in
+// 64-bit fixed point (each weight rounded once to a multiple of 2^-62 of
+// max |w| * N, then integer adds: order independent, so every call and every
+// route give the same bits, within f32 rounding of an f64 sum).  The scale's
+// max |w| and N may be a whole group's (max |w| over every rank, the chain's
+// length): then each rank can return its raw fixed-point bins, which the
+// ranks sum exactly as int64, and one conversion gives one card's bits.
 //
 // pair_hist_uint8_kernel: uint8 index rows, nbins <= 256.  Replaces
 // pair_histograms_tiled (K1, pallas_kernels.py:309, the static all-pairs
@@ -78,8 +80,9 @@
 // getdist_tpu/ops/parity_device.py:119 _hists_one_part.
 //
 // A full histogram (3.7 MB at 960 bins) does not fit a block's shared
-// memory, so a block can own only a slab of R rows (R * nbins * 4 bytes of
-// int32 or f32, at most 232,000 of the 232,448 a block may opt in to).  A
+// memory, so a block can own only a slab of R rows (R * nbins bins of 4
+// bytes, int32, or 8, fixed point: at most 232,000 of the 232,448 bytes a
+// block may opt in to, so fixed point halves R).  A
 // block that scans all of a pair's samples and keeps those of its slab reads
 // the pair's data once per slab (16 times at 960 bins).  Two designs
 // instead, each held bit-exact against the plain version:
@@ -90,7 +93,8 @@
 //     ceil(entries / part) for a long segment);
 //   * scatter: each sample once into its range, as a 16-bit in-slab key
 //     (b - row0) * nbins + a (R * nbins <= 58,000) with its weight (4 bytes
-//     with uint8 weights, 8 with f32); a shared-memory atomic gives each
+//     with uint8 weights, 8 with f32: the f32 weight itself for fixed point,
+//     scaled and rounded where the bin kernel adds it); a shared-memory atomic gives each
 //     sample its place, so the samples of one slab in a warp take
 //     consecutive places and the writes coalesce;
 //   * bin: one block per slab bins its segment in shared memory (16-byte
@@ -106,8 +110,8 @@
 //   measured fastest.  What bounds it: the entry traffic (8 bytes a sample
 //   and pair with uint8 weights) and the bin blocks' tiles, written once.
 // - direct (pair_hist_wide_direct_kernel): one global atomic per sample
-//   into a zeroed (K, nbins, nbins) accumulator, then (integer weights) an
-//   in-place int32 -> f32 pass.  Bound by the L2's atomic rate; no fixed
+//   into a zeroed (K, nbins, nbins) accumulator, then an int32 -> f32 pass
+//   in place (integer weights) or a fixed-point -> f32 one.  Bound by the L2's atomic rate; no fixed
 //   cost beyond three launches, so it wins for few pair samples.  Merging
 //   equal keys in a warp first (__match_any_sync) bought nothing and was
 //   removed: a warp's 32 samples of a chain in random order rarely share a
@@ -149,7 +153,9 @@ struct Uint8Args {
   long long chunk;  // samples per chunk, a multiple of kVec
   int nbins;
   const float* wmax;  // fixed point: max |w| (the scale's source), on the card
-  void* out;  // (K, nbins, nbins): f32 written (one chunk), else Acc accumulated
+  long long n_scale;  // fixed point: the sample count of the scale
+  int raw;            // fixed point: out takes the raw 64-bit sums
+  void* out;  // (K, nbins, nbins): f32 (or raw Fixed) written (one chunk), else Acc accumulated
 };
 
 template <typename Acc>
@@ -191,6 +197,9 @@ __device__ __forceinline__ Fixed acc_of<Fixed>(float w, double scale) {
 }
 
 __device__ __forceinline__ float out_value(int v, double) { return __int2float_rn(v); }
+// the one conversion of a fixed-point sum to f32, on every route
+// (pair_hist.py:fixed_to_f32 is its torch twin, bit for bit): the sum rounded
+// to f64, scaled by an exact power of two, then rounded to f32 once
 __device__ __forceinline__ float out_value(Fixed v, double inv_scale) {
   return __double2float_rn(__ll2double_rn(static_cast<long long>(v)) * inv_scale);
 }
@@ -206,7 +215,6 @@ __device__ __forceinline__ float to_acc<float>(float w) {
 }
 
 __device__ __forceinline__ float to_f32(int v) { return __int2float_rn(v); }
-__device__ __forceinline__ float to_f32(float v) { return v; }
 
 // A column of uint8 values whose first byte lies `shift` bytes past a
 // 16-byte boundary: `base` is that boundary.
@@ -337,7 +345,7 @@ __global__ void __launch_bounds__(kThreads, 1) pair_hist_uint8_kernel(const Uint
   add.rows = max(0, min(span, nbins - add.row0));
   add.nbins = nbins;
   add.scale = 1.0;
-  if constexpr (std::is_same<Acc, Fixed>::value) add.scale = fixed_scale(args.wmax, args.n);
+  if constexpr (std::is_same<Acc, Fixed>::value) add.scale = fixed_scale(args.wmax, args.n_scale);
 
   const int count = add.rows * nbins;
   const int words = (count * static_cast<int>(sizeof(Acc)) + 15) / 16;
@@ -374,6 +382,13 @@ __global__ void __launch_bounds__(kThreads, 1) pair_hist_uint8_kernel(const Uint
       if (v != Acc(0)) atomicAdd(&dst[j], v);
     }
   } else {
+    if constexpr (std::is_same<Acc, Fixed>::value) {
+      if (args.raw) {  // the raw sums, for the caller's all-reduce
+        Fixed* dst = static_cast<Fixed*>(args.out) + offset;
+        for (int j = threadIdx.x; j < count; j += kThreads) dst[j] = tile[j];
+        return;
+      }
+    }
     // the block owns its rows: f32 straight out, streaming past L2
     float* dst = static_cast<float*>(args.out) + offset;
     const double inv_scale = 1.0 / add.scale;
@@ -389,7 +404,8 @@ __global__ void __launch_bounds__(kThreads, 1) pair_hist_uint8_kernel(const Uint
   }
 }
 
-// The split route's fixed-point sums (K, nbins, nbins) as f32.
+// Fixed-point sums as f32: the split and direct routes' accumulators, and a
+// group's all-reduced raw bins (pair_hist_fixed_convert).
 __global__ void pair_hist_fixed_convert_kernel(const Fixed* acc, float* out, long long count, const float* wmax,
                                                long long n) {
   const double inv_scale = 1.0 / fixed_scale(wmax, n);
@@ -446,7 +462,11 @@ struct WideArgs {
   int slabs;  // S = ceil(nbins / R)
   unsigned long long slab_magic;  // ceil(2^32 / R): b / R == (b * slab_magic) >> 32 for b < 2^32 / R
   long long part;  // most entries one block of the bin kernel takes from a segment
-  void* out;       // (K, nbins, nbins) f32 (the direct route accumulates in it first)
+  void* out;       // (K, nbins, nbins) f32 (the direct route's int32 sums accumulate in it first), or raw Fixed
+  const float* wmax;  // fixed point: max |w|, on the card
+  long long n_scale;  // fixed point: the sample count of the scale
+  int raw;            // fixed point: out takes the raw 64-bit sums
+  void* acc;          // fixed point, direct route: (K, nbins, nbins) Fixed, zeroed here (out itself when raw)
   // the bucket route's workspace: 8 * K * S * (C + 1) + 4 * (4 * K * S + 2) bytes
   long long* seg;          // (K * S,) first entry of each slab's segment
   long long* block_first;  // (K, S, C) entries of each count block per slab, then the offset of its first
@@ -458,6 +478,37 @@ struct WideArgs {
   void* entries;   // (K * n,) uint32 (uint8 weights) or uint2 entries
   void* split;     // accumulator slabs, R * nbins Acc each
 };
+
+// A lane's weight: Acc, but the f32 weight itself for fixed point (scaled
+// and rounded where it is added, so the bucket route's entries keep 8 bytes)
+template <typename Acc>
+struct LaneWeight {
+  using type = Acc;
+};
+
+template <>
+struct LaneWeight<Fixed> {
+  using type = float;
+};
+
+// a lane's weight as a bin's addend
+template <typename Acc>
+__device__ __forceinline__ Acc addend(typename LaneWeight<Acc>::type w, double scale) {
+  if constexpr (std::is_same<Acc, Fixed>::value) {
+    return acc_of<Fixed>(w, scale);
+  } else {
+    return w;
+  }
+}
+
+template <typename Acc>
+__device__ __forceinline__ double wide_scale(const WideArgs& args) {
+  if constexpr (std::is_same<Acc, Fixed>::value) {
+    return fixed_scale(args.wmax, args.n_scale);
+  } else {
+    return 1.0;
+  }
+}
 
 template <typename Idx>
 constexpr int kLanes = 16 / static_cast<int>(sizeof(Idx));  // samples of a 16-byte vector
@@ -477,14 +528,14 @@ __device__ __forceinline__ int elem<int32_t>(const uint4& v, int u) {
   return static_cast<int>(u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w);
 }
 
-template <typename Acc>
-__device__ __forceinline__ Acc weight_as(float w) {
-  return to_acc<Acc>(w);
+template <typename T>
+__device__ __forceinline__ T weight_as(float w) {
+  return to_acc<T>(w);
 }
 
-template <typename Acc>
-__device__ __forceinline__ Acc weight_as(int w) {
-  return Acc(w);
+template <typename T>
+__device__ __forceinline__ T weight_as(int w) {
+  return T(w);
 }
 
 // U weights of samples [i, i + U), i a multiple of U
@@ -557,7 +608,7 @@ struct Lane {
   static constexpr int U = kLanes<Idx>;
   int a[U];
   int b[U];  // -1 past the block's samples
-  Acc w[U];
+  typename LaneWeight<Acc>::type w[U];
 };
 
 template <bool kShifted>
@@ -574,6 +625,7 @@ __device__ __forceinline__ void load_lane(const PairCols<Idx>& c, const void* w,
                                           long long n, Lane<Idx, Acc>& s) {
   constexpr int U = kLanes<Idx>;
   constexpr int E = static_cast<int>(sizeof(Idx));
+  using T = typename LaneWeight<Acc>::type;
   if (i0 + U <= stop && (!c.shifted || i0 + 2 * U <= n)) {
     const long long byte = i0 * E;
     const uint4 bv = c.shifted ? load_vec<true>(c.cb, byte) : load_vec<false>(c.cb, byte);
@@ -588,7 +640,7 @@ __device__ __forceinline__ void load_lane(const PairCols<Idx>& c, const void* w,
       s.b[u] = elem<Idx>(bv, u);
       if constexpr (kFull) {
         s.a[u] = elem<Idx>(av, u);
-        s.w[u] = weight_as<Acc>(wv.at(u));
+        s.w[u] = weight_as<T>(wv.at(u));
       }
     }
   } else {
@@ -598,14 +650,15 @@ __device__ __forceinline__ void load_lane(const PairCols<Idx>& c, const void* w,
       s.b[u] = i < stop ? static_cast<int>(c.b[i]) : -1;
       if constexpr (kFull) {
         s.a[u] = i < stop ? static_cast<int>(c.a[i]) : -1;
-        s.w[u] = i < stop ? weight_as<Acc>(WideWeights<W, U>::scalar(w, i)) : Acc(0);
+        s.w[u] = i < stop ? weight_as<T>(WideWeights<W, U>::scalar(w, i)) : T(0);
       }
     }
   }
 }
 
 // An entry of a slab's segment: the in-slab key and the weight.  add(tile,
-// v) adds the entries of a 16-byte vector (4 or 2 of them) to a tile.
+// v, scale) adds the entries of a 16-byte vector (4 or 2 of them) to a tile
+// (scale: fixed point's).
 template <typename W, typename Acc>
 struct Entry;
 
@@ -613,35 +666,37 @@ template <>
 struct Entry<uint8_t, int> {  // key | weight << 16
   using T = uint32_t;
   __device__ __forceinline__ static T make(unsigned key, int w) { return key | (static_cast<unsigned>(w) << 16); }
-  __device__ __forceinline__ static void add(int* tile, T e) {
+  __device__ __forceinline__ static void add(int* tile, T e, double) {
     if ((e & 0xffffu) != kDropped) atomicAdd(&tile[e & 0xffffu], static_cast<int>(e >> 16));
   }
-  __device__ __forceinline__ static void add(int* tile, const uint4& v) {
-    add(tile, v.x);
-    add(tile, v.y);
-    add(tile, v.z);
-    add(tile, v.w);
+  __device__ __forceinline__ static void add(int* tile, const uint4& v, double scale) {
+    add(tile, v.x, scale);
+    add(tile, v.y, scale);
+    add(tile, v.z, scale);
+    add(tile, v.w, scale);
   }
 };
 
 template <typename Acc>
-struct Entry<float, Acc> {  // {key, the weight's bits}
+struct Entry<float, Acc> {  // {key, the weight's bits}: an int32 weight, or the f32 one for fixed point
   using T = uint2;
-  __device__ __forceinline__ static T make(unsigned key, Acc w) { return make_uint2(key, bits(w)); }
-  __device__ __forceinline__ static void add(Acc* tile, T e) {
-    if (e.x != kDropped) atomicAdd(&tile[e.x], from_bits(e.y));
+  __device__ __forceinline__ static T make(unsigned key, typename LaneWeight<Acc>::type w) {
+    return make_uint2(key, bits(w));
   }
-  __device__ __forceinline__ static void add(Acc* tile, const uint4& v) {
-    add(tile, make_uint2(v.x, v.y));
-    add(tile, make_uint2(v.z, v.w));
+  __device__ __forceinline__ static void add(Acc* tile, T e, double scale) {
+    if (e.x != kDropped) atomicAdd(&tile[e.x], from_bits(e.y, scale));
+  }
+  __device__ __forceinline__ static void add(Acc* tile, const uint4& v, double scale) {
+    add(tile, make_uint2(v.x, v.y), scale);
+    add(tile, make_uint2(v.z, v.w), scale);
   }
   __device__ __forceinline__ static unsigned bits(int w) { return static_cast<unsigned>(w); }
   __device__ __forceinline__ static unsigned bits(float w) { return __float_as_uint(w); }
-  __device__ __forceinline__ static Acc from_bits(unsigned u) {
+  __device__ __forceinline__ static Acc from_bits(unsigned u, double scale) {
     if constexpr (std::is_same<Acc, int>::value) {
       return static_cast<int>(u);
     } else {
-      return __uint_as_float(u);
+      return acc_of<Fixed>(__uint_as_float(u), scale);
     }
   }
 };
@@ -817,18 +872,31 @@ __global__ void __launch_bounds__(kWideThreads) pair_hist_wide_scatter_kernel(co
   }
 }
 
-// f32 rows of a tile to global memory, streaming past L2
+// A tile's rows to out at element ``offset``: f32, streaming past L2, or
+// (fixed point with args.raw) the raw 64-bit sums
 template <typename Acc>
-__device__ __forceinline__ void write_rows(const Acc* tile, float* dst, int count) {
-  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0 && (count & 3) == 0) {
-    using Vec4 = typename std::conditional<std::is_same<Acc, int>::value, int4, float4>::type;
-    const Vec4* src = reinterpret_cast<const Vec4*>(tile);
-    for (int j = threadIdx.x; j < count / 4; j += blockDim.x) {
-      const Vec4 v = src[j];
-      __stcs(reinterpret_cast<float4*>(dst) + j, make_float4(to_f32(v.x), to_f32(v.y), to_f32(v.z), to_f32(v.w)));
+__device__ __forceinline__ void write_rows(const Acc* tile, const WideArgs& args, long long offset, int count,
+                                           double scale) {
+  if constexpr (std::is_same<Acc, Fixed>::value) {
+    if (args.raw) {
+      Fixed* dst = static_cast<Fixed*>(args.out) + offset;
+      for (int j = threadIdx.x; j < count; j += blockDim.x) dst[j] = tile[j];
+      return;
     }
+    float* dst = static_cast<float*>(args.out) + offset;
+    const double inv_scale = 1.0 / scale;
+    for (int j = threadIdx.x; j < count; j += blockDim.x) __stcs(dst + j, out_value(tile[j], inv_scale));
   } else {
-    for (int j = threadIdx.x; j < count; j += blockDim.x) __stcs(dst + j, to_f32(tile[j]));
+    float* dst = static_cast<float*>(args.out) + offset;
+    if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0 && (count & 3) == 0) {
+      const int4* src = reinterpret_cast<const int4*>(tile);
+      for (int j = threadIdx.x; j < count / 4; j += blockDim.x) {
+        const int4 v = src[j];
+        __stcs(reinterpret_cast<float4*>(dst) + j, make_float4(to_f32(v.x), to_f32(v.y), to_f32(v.z), to_f32(v.w)));
+      }
+    } else {
+      for (int j = threadIdx.x; j < count; j += blockDim.x) __stcs(dst + j, to_f32(tile[j]));
+    }
   }
 }
 
@@ -859,7 +927,9 @@ __global__ void __launch_bounds__(kThreads, 1) pair_hist_wide_bin_kernel(const W
   const long long first = args.seg[j] + c * part / parts, end = args.seg[j] + c * (part + 1) / parts;
   const int row0 = s * args.rows;
   const int count = min(args.rows, args.nbins - row0) * args.nbins;
-  for (int q = threadIdx.x; q < (count + 3) / 4; q += blockDim.x) reinterpret_cast<int4*>(tile)[q] = make_int4(0, 0, 0, 0);
+  const double scale = wide_scale<Acc>(args);
+  const int words = (count * static_cast<int>(sizeof(Acc)) + 15) / 16;
+  for (int q = threadIdx.x; q < words; q += blockDim.x) reinterpret_cast<int4*>(tile)[q] = make_int4(0, 0, 0, 0);
   __syncthreads();
 
   // the segment's 16-byte vectors (4 or 2 entries each), 4 in flight a
@@ -868,8 +938,8 @@ __global__ void __launch_bounds__(kThreads, 1) pair_hist_wide_bin_kernel(const W
   constexpr int V = 16 / static_cast<int>(sizeof(T));
   const T* entries = static_cast<const T*>(args.entries);
   const long long body = min(end, (first + V - 1) / V * V), body_end = max(body, end / V * V);
-  if (threadIdx.x < body - first) E::add(tile, __ldcs(entries + first + threadIdx.x));
-  if (threadIdx.x < end - body_end) E::add(tile, __ldcs(entries + body_end + threadIdx.x));
+  if (threadIdx.x < body - first) E::add(tile, __ldcs(entries + first + threadIdx.x), scale);
+  if (threadIdx.x < end - body_end) E::add(tile, __ldcs(entries + body_end + threadIdx.x), scale);
   const uint4* vec = reinterpret_cast<const uint4*>(entries + body);
   const long long n_vec = (body_end - body) / V;
   for (long long q = threadIdx.x; q < n_vec; q += 4LL * blockDim.x) {
@@ -879,14 +949,14 @@ __global__ void __launch_bounds__(kThreads, 1) pair_hist_wide_bin_kernel(const W
       if (q + static_cast<long long>(r) * blockDim.x < n_vec) v[r] = __ldcs(vec + q + r * blockDim.x);
 #pragma unroll
     for (int r = 0; r < 4; ++r)
-      if (q + static_cast<long long>(r) * blockDim.x < n_vec) E::add(tile, v[r]);
+      if (q + static_cast<long long>(r) * blockDim.x < n_vec) E::add(tile, v[r], scale);
   }
   __syncthreads();
 
-  float* dst = static_cast<float*>(args.out) + static_cast<long long>(k) * args.nbins * args.nbins +
-               static_cast<long long>(row0) * args.nbins;
+  const long long offset =
+      static_cast<long long>(k) * args.nbins * args.nbins + static_cast<long long>(row0) * args.nbins;
   if (parts == 1) {
-    write_rows(tile, dst, count);
+    write_rows(tile, args, offset, count, scale);
     return;
   }
   // a split slab: flush the nonzero sums into its accumulator slab; the
@@ -913,11 +983,11 @@ __global__ void __launch_bounds__(kThreads, 1) pair_hist_wide_bin_kernel(const W
       if (q + r * static_cast<int>(blockDim.x) < count) tile[q + r * blockDim.x] = v[r];
   }
   __syncthreads();
-  write_rows(tile, dst, count);
+  write_rows(tile, args, offset, count, scale);
 }
 
-// The direct route: one global atomic per sample into out, zeroed, as Acc.
-// Grid (chunks, K).
+// The direct route: one global atomic per sample into a zeroed accumulator
+// of Acc: out itself (int32), or args.acc (fixed point).  Grid (chunks, K).
 template <typename Idx, typename W, typename Acc>
 __global__ void __launch_bounds__(kWideThreads) pair_hist_wide_direct_kernel(const WideArgs args) {
   constexpr int U = kLanes<Idx>;
@@ -925,7 +995,9 @@ __global__ void __launch_bounds__(kWideThreads) pair_hist_wide_direct_kernel(con
   const PairCols<Idx> c = pair_cols<Idx>(args, k);
   const long long start = static_cast<long long>(blockIdx.x) * args.chunk;
   const long long stop = min(start + args.chunk, args.n);
-  Acc* acc = static_cast<Acc*>(args.out) + static_cast<long long>(k) * args.nbins * args.nbins;
+  const double scale = wide_scale<Acc>(args);
+  Acc* acc = static_cast<Acc*>(std::is_same<Acc, Fixed>::value ? args.acc : args.out) +
+             static_cast<long long>(k) * args.nbins * args.nbins;
   for (long long i0 = start + static_cast<long long>(U) * threadIdx.x; i0 < stop;
        i0 += static_cast<long long>(U) * kWideThreads) {
     Lane<Idx, Acc> v;
@@ -934,7 +1006,7 @@ __global__ void __launch_bounds__(kWideThreads) pair_hist_wide_direct_kernel(con
     for (int u = 0; u < U; ++u)
       if (static_cast<unsigned>(v.a[u]) < static_cast<unsigned>(args.nbins) &&
           static_cast<unsigned>(v.b[u]) < static_cast<unsigned>(args.nbins))
-        atomicAdd(&acc[v.b[u] * args.nbins + v.a[u]], v.w[u]);
+        atomicAdd(&acc[v.b[u] * args.nbins + v.a[u]], addend<Acc>(v.w[u], scale));
   }
 }
 
@@ -955,13 +1027,21 @@ cudaError_t launch_wide(const WideArgs& args, int route, int n_chunks, cudaStrea
   const long long cells = static_cast<long long>(args.n_pairs) * args.nbins * args.nbins;
   cudaError_t err;
   if (route == 0) {  // direct
-    err = cudaMemsetAsync(args.out, 0, cells * 4, stream);
+    constexpr bool kFixed = std::is_same<Acc, Fixed>::value;
+    err = cudaMemsetAsync(kFixed ? args.acc : args.out, 0, cells * sizeof(Acc), stream);
     if (err != cudaSuccess) return err;
     pair_hist_wide_direct_kernel<Idx, W, Acc><<<grid, kWideThreads, 0, stream>>>(args);
     err = cudaGetLastError();
-    if (err != cudaSuccess || !std::is_same<Acc, int>::value) return err;
-    const int blocks = static_cast<int>(std::min((cells / 4 + 255) / 256 + 1, 4096LL));
-    pair_hist_wide_convert_kernel<<<blocks, 256, 0, stream>>>(static_cast<int*>(args.out), cells);
+    if (err != cudaSuccess || (kFixed && args.raw)) return err;
+    if constexpr (kFixed) {
+      const int blocks = static_cast<int>(std::min<long long>((cells + 255) / 256, 4096));
+      pair_hist_fixed_convert_kernel<<<blocks, 256, 0, stream>>>(static_cast<const Fixed*>(args.acc),
+                                                                 static_cast<float*>(args.out), cells, args.wmax,
+                                                                 args.n_scale);
+    } else {
+      const int blocks = static_cast<int>(std::min((cells / 4 + 255) / 256 + 1, 4096LL));
+      pair_hist_wide_convert_kernel<<<blocks, 256, 0, stream>>>(static_cast<int*>(args.out), cells);
+    }
     return cudaGetLastError();
   }
   const int ks = args.n_pairs * args.slabs;
@@ -973,7 +1053,7 @@ cudaError_t launch_wide(const WideArgs& args, int route, int n_chunks, cudaStrea
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   auto* bin = pair_hist_wide_bin_kernel<W, Acc>;
-  const int bytes = (args.rows * args.nbins + 3) / 4 * 16;
+  const int bytes = (args.rows * args.nbins * static_cast<int>(sizeof(Acc)) + 15) / 16 * 16;
   err = cudaFuncSetAttribute(bin, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   // a slab of c > part entries takes ceil(c / part) blocks: at most K * N / part more than one a slab
@@ -987,7 +1067,7 @@ cudaError_t launch_wide_weights(const WideArgs& args, int weight_bytes, int inte
                                 cudaStream_t stream) {
   if (weight_bytes == 1) return launch_wide<Idx, uint8_t, int>(args, route, n_chunks, stream);
   if (integer_weights) return launch_wide<Idx, float, int>(args, route, n_chunks, stream);
-  return launch_wide<Idx, float, float>(args, route, n_chunks, stream);
+  return launch_wide<Idx, float, Fixed>(args, route, n_chunks, stream);
 }
 }  // namespace
 
@@ -996,18 +1076,20 @@ cudaError_t launch_wide_weights(const WideArgs& args, int weight_bytes, int inte
 // K5 plan: pa (slots,) = grp_a, pb (slots / 8,) = grp_b, pair k the slot
 // inv[k] (rows and slots clamped into range).  1 <= nbins <= 256.
 // integer_weights (uint8 weights, or f32 ones rounded to int): int32 bins;
-// else fixed point, wmax a device pointer to max |w| (f32).  n_split == 1:
-// out (K, nbins, nbins) f32, every element written.  n_split > 1: each
-// pair's samples split over n_split chunks, which add into an accumulator,
-// zeroed: out itself (int32) with integer weights; else acc, (K, nbins,
-// nbins) 8-byte words, which a second kernel then writes into out as f32.
+// else fixed point, scaled by wmax (a device pointer to max |w|, f32) and
+// n_scale (the sample count; both may be a group's).  n_split == 1: out (K,
+// nbins, nbins) f32, every element written, or with raw the 64-bit sums.
+// n_split > 1: each pair's samples split over n_split chunks, which add into
+// an accumulator, zeroed: out itself (int32) with integer weights; else acc,
+// (K, nbins, nbins) 8-byte words, which a second kernel then writes into out
+// as f32 (with raw, acc is the result and out is not written).
 extern "C" int pair_hist_uint8_launch(int device, const void* ix, int p, const void* w, int weight_bytes,
                                       const void* pa, const void* pb, const void* inv, int slots, long long n,
                                       int n_pairs, int nbins, int n_split, int integer_weights, const void* wmax,
-                                      void* acc, void* out, void* stream) {
+                                      long long n_scale, int raw, void* acc, void* out, void* stream) {
   if (p < 1 || (inv && slots < 1) || nbins < 1 || nbins > 256 || n_split < 1 || (reinterpret_cast<uintptr_t>(w) & 15) != 0 ||
       (weight_bytes == 1 && !integer_weights) || (weight_bytes != 1 && weight_bytes != 4) ||
-      (!integer_weights && (!wmax || (n_split > 1 && !acc))))
+      (!integer_weights && (!wmax || n_scale < 1 || (n_split > 1 && !acc))) || (raw && integer_weights))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1023,42 +1105,65 @@ extern "C" int pair_hist_uint8_launch(int device, const void* ix, int p, const v
   args.chunk = ((n + n_split - 1) / n_split + kVec - 1) / kVec * kVec;
   args.nbins = nbins;
   args.wmax = static_cast<const float*>(wmax);
+  args.n_scale = n_scale;
+  args.raw = raw;
   args.out = integer_weights || n_split == 1 ? out : acc;
   auto s = static_cast<cudaStream_t>(stream);
   if (weight_bytes == 1)
     return static_cast<int>(launch_uint8_bins<int, uint8_t>(args, n_pairs, n_split, s));
   if (integer_weights) return static_cast<int>(launch_uint8_bins<int, float>(args, n_pairs, n_split, s));
   err = launch_uint8_bins<Fixed, float>(args, n_pairs, n_split, s);
-  if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
+  if (err != cudaSuccess || n_split == 1 || raw) return static_cast<int>(err);
   const long long count = static_cast<long long>(n_pairs) * nbins * nbins;
   const int blocks = static_cast<int>(std::min<long long>((count + 255) / 256, 4096));
   pair_hist_fixed_convert_kernel<<<blocks, 256, 0, s>>>(static_cast<const Fixed*>(acc), static_cast<float*>(out), count,
-                                                        args.wmax, n);
+                                                        args.wmax, n_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// acc (count,) 64-bit fixed-point sums of the scale (wmax, n_scale) as f32
+// in out: a group's all-reduced raw bins.
+extern "C" int pair_hist_fixed_convert(int device, const void* acc, void* out, long long count, const void* wmax,
+                                       long long n_scale, void* stream) {
+  if (count < 0 || !wmax || n_scale < 1) return cudaErrorInvalidValue;
+  if (count == 0) return cudaSuccess;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = static_cast<int>(std::min<long long>((count + 255) / 256, 4096));
+  pair_hist_fixed_convert_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const Fixed*>(acc), static_cast<float*>(out), count, static_cast<const float*>(wmax), n_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ix (P, N) int16 / int32 (index_bytes 2 / 4), w (N,) 16-byte aligned: uint8
 // (integer weights) or f32 (weight_bytes 1 / 4), pa/pb (K,) int32 (rows
-// clamped into [0, P)), 1 <= nbins <= 1024, rows * nbins <= 58000, at most
-// 64 slabs.  out (K, nbins, nbins) f32, every element written.  route 0:
+// clamped into [0, P)), 1 <= nbins <= 1024, rows * nbins * (4 or 8 bytes a
+// bin) <= 4 * 58000, at most 64 slabs.  out (K, nbins, nbins) f32, every
+// element written, or (fixed point with raw) the raw 64-bit sums.  route 0:
 // direct; 1: bucket, with
 // workspace (8 * K * S * (C + 1) + 4 * (4 * K * S + 2) bytes, C =
 // n_chunks), entries (K * N entries of 4
 // bytes with uint8 weights, else 8) and split (n_split_max accumulator
-// slabs of rows * nbins 4-byte words; n_split_max >= min(K * S, K * N /
-// part), the most slabs that can hold more than `part` entries).
-// integer_weights: f32 weights rounded to int, int32 accumulation.
+// slabs of rows * nbins bins of 4 or 8 bytes; n_split_max >= min(K * S, K *
+// N / part), the most slabs that can hold more than `part` entries).
+// integer_weights: f32 weights rounded to int, int32 accumulation; else
+// 64-bit fixed point scaled by wmax (device pointer to max |w|) and n_scale,
+// the direct route accumulating in acc ((K, nbins, nbins) 8-byte words; out
+// itself with raw).
 extern "C" int pair_hist_wide_launch(int device, const void* ix, int index_bytes, int p, const void* w,
                                      int weight_bytes, const void* pa, const void* pb, long long n, int n_pairs,
                                      int nbins, int route, int rows, int n_chunks, long long part,
-                                     long long n_split_max, int integer_weights, void* out, void* workspace,
-                                     void* entries, void* split, void* stream) {
+                                     long long n_split_max, int integer_weights, const void* wmax, long long n_scale,
+                                     int raw, void* acc, void* out, void* workspace, void* entries, void* split,
+                                     void* stream) {
   const int slabs = rows > 0 ? (nbins + rows - 1) / rows : 0;
+  const int bin_bytes = integer_weights ? 4 : 8;
   if (p < 1 || n < 1 || n_pairs < 1 || n_pairs > 65535 || nbins < 1 || nbins > 1024 || rows < 1 ||
-      rows * nbins > kTileWords || slabs > kMaxSlabs || n_chunks < 1 || part < 1 || n_split_max < 0 ||
-      route < 0 || route > 1 || (index_bytes != 2 && index_bytes != 4) ||
+      rows * nbins * bin_bytes > 4 * kTileWords || slabs > kMaxSlabs || n_chunks < 1 || part < 1 ||
+      n_split_max < 0 || route < 0 || route > 1 || (index_bytes != 2 && index_bytes != 4) ||
       (reinterpret_cast<uintptr_t>(w) & 15) != 0 || (weight_bytes == 1 && !integer_weights) ||
-      (weight_bytes != 1 && weight_bytes != 4))
+      (weight_bytes != 1 && weight_bytes != 4) || (raw && integer_weights) ||
+      (!integer_weights && (!wmax || n_scale < 1 || (route == 0 && !acc))))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1078,6 +1183,10 @@ extern "C" int pair_hist_wide_launch(int device, const void* ix, int index_bytes
   args.slab_magic = ((1ULL << 32) + rows - 1) / rows;
   args.part = part;
   args.out = out;
+  args.wmax = static_cast<const float*>(wmax);
+  args.n_scale = n_scale;
+  args.raw = raw;
+  args.acc = acc;
   const long long ks = static_cast<long long>(n_pairs) * slabs;
   args.seg = static_cast<long long*>(workspace);
   args.block_first = args.seg + ks;

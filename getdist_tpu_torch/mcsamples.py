@@ -20,14 +20,22 @@ scipy bandwidth optimizers move by up to ~1e-4 under a 1-ulp input wobble,
 so their inputs are kept identical to the JAX package's wherever the
 arithmetic allows.
 
-Not ported here: loading chains from files, the plots/CLI layers and the
-2D effective-sample estimate (``getEffectiveSamplesGaussianKDE_2d``),
-ROADMAP A10.
+Chains on disk load through :func:`loadMCSamples` (a chain root: its
+chain files parsed by the port's native loader, ``.paramnames``,
+``.ranges`` and ``.properties.ini`` sidecars, a pickle cache in the
+package's cache directory) or ``MCSamples(root, ...).readChains(files)``.
+
+Not ported here: the host density API, the plots/CLI layers and the 2D
+effective-sample estimate (``getEffectiveSamplesGaussianKDE_2d``), ROADMAP
+A10 slices 2-3; grid job items and Cobaya yaml roots, A10 slice 4.
 """
 
 import copy
+import glob
+import hashlib
 import logging
 import os
+import pickle
 import time
 from collections.abc import Mapping
 from concurrent.futures import ThreadPoolExecutor
@@ -35,9 +43,11 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+import getdist_tpu_torch
 from getdist_tpu_torch import _native
+from getdist_tpu_torch import chains
 from getdist_tpu_torch import kde_bandwidth as kde
-from getdist_tpu_torch.chains import Chains, ParamError, WeightedSampleError, _not_ported
+from getdist_tpu_torch.chains import Chains, ParamError, WeightedSampleError, _not_ported, chainFiles, last_modified
 from getdist_tpu_torch.densities import Density1D, Density2D
 from getdist_tpu_torch.inifile import IniFile
 from getdist_tpu_torch.ops import parity_device as pdev
@@ -54,9 +64,23 @@ from getdist_tpu_torch.ops.pair_hist import narrow_weights
 from getdist_tpu_torch.parallel.mesh import shard_samples, shard_values
 from getdist_tpu_torch.parampriors import ParamBounds
 
-__all__ = ["MCSamples", "MCSamplesError", "SettingError", "BandwidthError", "default_getdist_settings"]
+__all__ = [
+    "MCSamples",
+    "MCSamplesError",
+    "SettingError",
+    "BandwidthError",
+    "default_getdist_settings",
+    "getRootFileName",
+    "loadMCSamples",
+]
 
-default_getdist_settings = os.path.join(os.path.dirname(os.path.abspath(__file__)), "analysis_defaults.ini")
+default_getdist_settings = getdist_tpu_torch.default_getdist_settings
+
+# the pickle cache's format: a cached object of another version is not used
+pickle_version = 1
+# the cache files' extension (the JAX package's are ".py_mcsamples", whose
+# unpickling would import it)
+CACHE_EXT = ".torch_mcsamples"
 
 
 class LikeStats:
@@ -84,6 +108,95 @@ class BandwidthError(MCSamplesError):
 def _host(x):
     """A tensor's values as a numpy array (a readback from the card)."""
     return x.detach().cpu().numpy()
+
+
+def loadMCSamples(file_root, ini=None, jobItem=None, no_cache=False, settings=None, chain_exclude=None,
+                  device="cuda"):
+    """Load samples from chain text files, with pickle caching.
+
+    Chain files are ``file_root.txt`` or ``file_root_1.txt`` etc (or
+    ``file_root.1.txt``; ``N.txt`` in a directory root ending in ``/``),
+    with sidecar ``.paramnames`` / ``.ranges`` / ``.properties.ini`` files.
+    The analyzed object is cached in the package's cache directory
+    (:func:`getdist_tpu_torch.make_cache_dir`), invalidated by the sources'
+    modification times and the burn-in and weight-filter settings
+    (reference ``mcsamples.py:47-126``).
+
+    :param file_root: root name (no extension)
+    :param ini: .ini filename or IniFile with analysis settings
+    :param jobItem: a grid jobItem: not ported (ROADMAP A10 slice 4), raises
+    :param no_cache: delete/ignore any pickle cache
+    :param settings: dict of analysis setting overrides
+    :param chain_exclude: chain indices to exclude
+    :param device: the torch device of the returned object's device passes
+        (a cached object too, whatever device it was pickled on): the card
+        unless the caller names the CPU
+    """
+    if chain_exclude:
+        no_cache = True
+    for separator in ("_", "."):
+        files = chainFiles(file_root, separator=separator, chain_exclude=chain_exclude)
+        if files:
+            break
+    cachefile = _cache_path(file_root)
+    samples = MCSamples(file_root, jobItem=jobItem, ini=ini, settings=settings, device=device)
+    if not no_cache:
+        cached = _load_valid_cache(cachefile, _source_files(file_root, files), samples, ini, settings)
+        if cached is not None:
+            return cached
+    if not files:
+        raise OSError(f"no chain files found for root {file_root}")
+    samples.readChains(files)
+    if no_cache:
+        if os.path.exists(cachefile):
+            os.remove(cachefile)
+    else:
+        samples.savePickle(cachefile)
+    return samples
+
+
+def _cache_path(file_root):
+    """Pickle-cache filename: in the package cache dir keyed by a path hash,
+    or next to the chains when no cache dir is configured."""
+    folder, name = os.path.split(file_root)
+    cache_dir = getdist_tpu_torch.make_cache_dir()
+    if cache_dir:
+        name += "_" + hashlib.md5(os.path.abspath(folder).encode("utf-8")).hexdigest()[:10]
+        folder = cache_dir
+    if not os.path.exists(folder):
+        os.mkdir(folder)
+    return os.path.join(folder, name) + CACHE_EXT
+
+
+def _source_files(file_root, files):
+    """Chain files plus the metadata sidecars whose mtimes gate the cache."""
+    return files + [file_root + ext for ext in (".ranges", ".paramnames", ".properties.ini")]
+
+
+def _load_valid_cache(cachefile, source_files, samples, ini, settings):
+    """The cached analyzed object, when newer than every source and built
+    with the same version/burn/weight-filter settings, on ``samples``'s
+    device; else None. A contour-set change refreshes settings on the
+    cached object in place."""
+    if not os.path.exists(cachefile) or last_modified(source_files) >= os.path.getmtime(cachefile):
+        return None
+    try:
+        with open(cachefile, "rb") as handle:
+            cache = pickle.load(handle)
+    except (OSError, EOFError, pickle.UnpicklingError, AttributeError, ImportError):
+        return None  # a stale, truncated or foreign pickle: reload
+    same_build = (
+        isinstance(cache, MCSamples)
+        and cache.version == pickle_version
+        and cache.ignore_rows == samples.ignore_rows
+        and cache.min_weight_ratio == samples.min_weight_ratio
+    )
+    if not same_build:
+        return None
+    cache.device = samples.device
+    contours_changed = list(np.ravel(samples.contours)) != list(np.ravel(cache.contours))
+    cache.updateSettings(ini=ini, settings=settings, doUpdate=contours_changed)
+    return cache
 
 
 # the regrid rescue's keys of an all_2d_densities result
@@ -126,8 +239,12 @@ class MCSamples(Chains):
     of the JAX package's MCSamples, on a torch device."""
 
     def __init__(self, root=None, jobItem=None, ini=None, settings=None, ranges=None, samples=None, weights=None,
-                 loglikes=None, device="cuda", **kwargs):
+                 loglikes=None, temperature=None, device="cuda", **kwargs):
         """
+        :param root: file root to load from (its ``.paramnames``,
+            ``.ranges`` and ``.properties.ini`` are read here; the chain
+            files by :meth:`readChains`, or :func:`loadMCSamples`)
+        :param jobItem: a grid jobItem: not ported (ROADMAP A10 slice 4), raises
         :param ini: .ini file (or IniFile) of analysis settings
         :param settings: dict of setting overrides
         :param ranges: dict/list of hard prior bounds per parameter; a
@@ -137,13 +254,17 @@ class MCSamples(Chains):
         :param loglikes: -log(posterior) array(s)
         :param device: torch device of the parity path's device passes, the
             card unless the caller names the CPU (raises without CUDA)
-        :param kwargs: names/labels/ignore_rows/label/name_tag/sampler
-            passed to the inherited classes
+        :param temperature: sampling temperature (default from the
+            ``.properties.ini``, or 1)
+        :param kwargs: paramNamesFile/names/labels/renames/ignore_rows/
+            label/name_tag/sampler passed to the inherited classes
         """
         self.device = resolve_device(device)
         super().__init__(root, jobItem=jobItem, **kwargs)
-        self.ini = ini
-        self.ranges = ParamBounds()
+        self.version = pickle_version
+        self.markers, self.ini = {}, ini
+        self.batch_path = ""
+        self._readRanges()
         if ranges is not None:
             self.setRanges(ranges)
         for key, value in _BASE_ANALYSIS_SETTINGS.items():
@@ -152,6 +273,7 @@ class MCSamples(Chains):
         self.likeStats, self.no_warning_params, self.density1D = None, [], {}
         self.parity_profile, self.parity_buckets = {}, []
         self.fast_profile, self.fast_regrid_groups = {}, []
+        self.rootname = os.path.basename(root) if root else ""
         if "ignore_rows" in kwargs:
             settings = dict(settings or {})
             settings["ignore_rows"] = kwargs["ignore_rows"]
@@ -159,17 +281,55 @@ class MCSamples(Chains):
         if not np.isclose(self.ignore_rows, 0) and self.sampler == "nested":
             raise ValueError("nested-sampler samples have no burn-in phase to remove")
         self.updateSettings(ini=ini, settings=settings)
+        sidecar = root + ".properties.ini" if root else None
+        if sidecar and os.path.exists(sidecar):
+            self._adopt_properties_ini(root, kwargs)
+        else:
+            self._adopt_cobaya_properties(temperature)
+        if self.ignore_frac or self.ignore_rows:
+            self.properties.params["burn_removed"] = True
         if samples is not None:
             self.readChains(samples, weights, loglikes)
+
+    def _mark_burn_removed(self):
+        self.ignore_frac = 0.0
+        self.ignore_lines = 0
+
+    def _adopt_properties_ini(self, root, kwargs):
+        """Per-chain .properties.ini overrides the generic settings."""
+        self.properties = IniFile(root + ".properties.ini")
+        self._setBurnOptions(self.properties)
+        if self.properties.bool("burn_removed", False):
+            self._mark_burn_removed()
+        if not self.label:
+            self.label = self.properties.params.get("label")
+        if "sampler" not in kwargs:
+            self.setSampler(self.properties.string("sampler", self.sampler))
+
+    def _adopt_cobaya_properties(self, temperature):
+        """Chain properties without a .properties.ini: the branch of a root
+        without a Cobaya yaml (whose info is not ported, ROADMAP A10 slice
+        4) keeps only the sampling temperature."""
+        self.properties = IniFile()
+        if temperature not in (None, 1):
+            self.properties.params["temperature"] = temperature
+
+    def _readRanges(self):
+        """Bounds from the root's ``.ranges`` sidecar, if any."""
+        sidecar = self.root + ".ranges" if self.root else None
+        self.ranges = ParamBounds(sidecar) if sidecar and os.path.isfile(sidecar) else ParamBounds()
 
     # -- settings and chains ------------------------------------------------------------
 
     def readChains(self, files_or_samples, weights=None, loglikes=None):
-        """Load sample arrays, remove burn-in, delete fixed parameters, and
-        combine into a single samples array."""
+        """Load samples (chain files or arrays), remove burn-in, delete
+        fixed parameters, and combine into a single samples array."""
         self.loadChains(self.root, files_or_samples, weights=weights, loglikes=loglikes)
         if self.ignore_frac:
             self.removeBurnFraction(self.ignore_frac)
+            chains.print_load_line(f"Removed {self.ignore_frac} as burn in")
+        elif not int(self.ignore_rows):
+            chains.print_load_line("Removed no burn in")
         self.deleteFixedParams()
         if self.chains is not None:
             self.makeSingle()
@@ -193,10 +353,7 @@ class MCSamples(Chains):
 
     def initParameters(self, ini):
         """Read the analysis settings from an IniFile onto this object."""
-        ini.setAttr("ignore_rows", self)
-        self.ignore_lines = int(self.ignore_rows)
-        self.ignore_frac = self.ignore_rows if not self.ignore_lines else 0
-        ini.setAttr("min_weight_ratio", self)
+        self._setBurnOptions(ini)
         for name in ("range_ND_contour", "range_confidence", "num_bins", "fine_bins", "num_bins_2D", "fine_bins_2D",
                      "smooth_scale_1D", "smooth_scale_2D"):
             ini.setAttr(name, self)
@@ -210,6 +367,13 @@ class MCSamples(Chains):
             self.contours = np.array([ini.float("contour" + str(i + 1)) for i in range(n_levels)])
         for name, default in (("no_warning_params", []), ("no_warning_chi2_params", True)):
             ini.setAttr(name, self, default)
+        self.batch_path = ini.string("batch_path", default=self.batch_path, allowEmpty=False)
+
+    def _setBurnOptions(self, ini):
+        ini.setAttr("ignore_rows", self)
+        self.ignore_lines = int(self.ignore_rows)
+        self.ignore_frac = self.ignore_rows if not self.ignore_lines else 0
+        ini.setAttr("min_weight_ratio", self)
 
     def setRanges(self, ranges):
         """Set hard prior bounds from a list/array/dict/ParamBounds; a
@@ -230,6 +394,7 @@ class MCSamples(Chains):
 
     def _initLimits(self, ini=None):
         shared_spec = ini.string("all_limits", "") if ini else ""
+        self.markers = {}
         for par in self.paramNames.names:
             spec = shared_spec
             if ini and not spec:
@@ -241,6 +406,11 @@ class MCSamples(Chains):
             par.has_limits_bot = par.limmin is not None
             par.has_limits_top = par.limmax is not None
             par.periodic = par.name in self.ranges.periodic
+            marker_key = "marker[%s]" % par.name
+            if ini and marker_key in ini.params:
+                spec = ini.string(marker_key)
+                if spec:
+                    self.markers[par.name] = float(spec)
 
     def updateBaseStatistics(self):
         """Refresh basic statistics, limits and the per-parameter caches."""
@@ -600,11 +770,12 @@ class MCSamples(Chains):
         it for this pair on the host (:meth:`_optimize_bandwidth_sheared`).
         Without ``N_eff`` the pair's is the smaller 1D one; ``use_2D_Neff``
         (None: the ``use_effective_samples_2D`` setting) asks for the 2D
-        estimate instead, which is not ported (ROADMAP A10) and raises."""
+        estimate instead, which is not ported (ROADMAP A10 slice 2) and raises."""
         if N_eff is None:
             want_2d = use_2D_Neff if use_2D_Neff is not None else self.use_effective_samples_2D
             if want_2d and abs(corr) < 0.999:
-                raise _not_ported("the 2D effective-sample estimate (getEffectiveSamplesGaussianKDE_2d)", "A10")
+                raise _not_ported("the 2D effective-sample estimate (getEffectiveSamplesGaussianKDE_2d)",
+                                  "A10 slice 2")
             N_eff = min(self._get1DNeff(parx, paramx), self._get1DNeff(pary, paramy))
         plugin_width = N_eff ** (-1.0 / 6)
         clipped_corr = np.clip(corr, -self.max_corr_2D, self.max_corr_2D)
@@ -755,6 +926,11 @@ class MCSamples(Chains):
             st["cum_score"] = _host(pair_cumulant_score(s, w, group=mesh))
         return st["cum_score"]
 
+    def _fast_shard(self, mesh):
+        """The fused programs' sharding keywords: none, or ``mesh`` and the
+        chain's length."""
+        return {} if mesh is None else dict(group=mesh, n_samples=self.samples.shape[0])
+
     def _fast_device_view(self, idx, mesh=None):
         """Cached device chain restricted to the given parameter columns;
         with ``mesh`` (a process group) this rank's block of them
@@ -887,7 +1063,7 @@ class MCSamples(Chains):
         bs2 = None if scale_2d == 1.0 else scale_2d
         dev_s, dev_w = self._fast_device_view(idx, mesh)
         # a sharded 1D stage needs the chain's length (padding moves no N_eff)
-        shard_1d = {} if mesh is None else dict(group=mesh, n_samples=self.samples.shape[0])
+        shard_1d = self._fast_shard(mesh)
         p = len(idx)
         pairs = [(a, b) for a in range(p) for b in range(a + 1, p)]
         pairs_arr = np.array(pairs, np.int64).reshape(-1, 2)
@@ -967,7 +1143,7 @@ class MCSamples(Chains):
                 dev_s, dev_w, pairs_arr[:, 0], pairs_arr[:, 1], d1["neff"], d1["range"][0], d1["range"][1],
                 contours_np, active_lo=d1["active_lo"] if has else None, active_hi=d1["active_hi"] if has else None,
                 periodic=per_arg, int8_weights=st["int8"], bandwidth_scale=bs2, sigma_range=d1["sigma_range"],
-                max_corr=max_corr, enable_shear=enable_shear, like_weights=like_w, export_hists=True, group=mesh,
+                max_corr=max_corr, enable_shear=enable_shear, like_weights=like_w, export_hists=True, **shard_1d,
             )
         d2 = dict(d2)
         hists = d2.pop("hists", None)
@@ -1072,7 +1248,7 @@ class MCSamples(Chains):
                 int8_weights=self._fast_chain_state(whole=False)["int8"], bandwidth_scale=None if scale_2d == 1.0 else scale_2d,
                 sigma_range=d1["sigma_range"], max_corr=float(self.max_corr_2D), winw=fine // 2 - 2,
                 active_lo=d1["active_lo"] if bounded else None, active_hi=d1["active_hi"] if bounded else None,
-                periodic=per, group=mesh,
+                periodic=per, **self._fast_shard(mesh),
             )
         for i, key in enumerate(saturated):
             regrid[key] = {name: d2w[name][i] for name in _REGRID_KEYS}
@@ -1217,7 +1393,7 @@ class MCSamples(Chains):
                     int8_weights=int8, bandwidth_scale=None if scale_2d == 1.0 else scale_2d,
                     bandwidth_override=override, sigma_range=d1["sigma_range"], max_corr=float(self.max_corr_2D),
                     winw=winw, hists_in=hin, active_lo=d1["active_lo"] if bounded else None,
-                    active_hi=d1["active_hi"] if bounded else None, periodic=per, group=mesh,
+                    active_hi=d1["active_hi"] if bounded else None, periodic=per, **self._fast_shard(mesh),
                 )
             for i, key in enumerate(plist):
                 regrid[key] = {name: d2x[name][i] for name in _REGRID_KEYS}
@@ -1806,3 +1982,16 @@ class MCSamples(Chains):
         mark("conv_dispatch" if not materialize else "conv_materialize")
         self.parity_profile = profile
         return dens1, out
+
+
+def getRootFileName(rootdir):
+    """Root name of the chain files found in a directory."""
+    root_file_name = ""
+    for sep in ("_", "."):
+        chain_files = glob.glob(os.path.join(rootdir, "*" + sep + "*.txt"))
+        if chain_files:
+            chain_file0 = chain_files[0]
+            rindex = chain_file0.rindex(sep)
+            root_file_name = chain_file0[:rindex]
+            break
+    return root_file_name

@@ -34,13 +34,18 @@ _SIGNATURES = {
     # pa, pb, K, host (pinned, 2 K int32), event
     "pair_hist_readback": (_I, _P, _P, _I, _P, _P, _P),
     # ix, index bytes, P, w, weight bytes, pa, pb, n, K, nbins, route, rows, chunks, part, split slots,
-    # integer_weights, out, workspace, entries, split
+    # integer_weights, wmax, n_scale, raw, acc, out, workspace, entries, split
     "pair_hist_wide_launch": (
         _I, _P, _I, _I, _P, _I, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, ctypes.c_longlong, ctypes.c_longlong,
-        _I, _P, _P, _P, _P, _P,
+        _I, _P, ctypes.c_longlong, _I, _P, _P, _P, _P, _P, _P,
     ),
-    # ix, P, w, weight bytes, pa, pb, inv, slots, n, K, nbins, n_split, integer_weights, wmax, acc, out
-    "pair_hist_uint8_launch": (_I, _P, _I, _P, _I, _P, _P, _P, _I, ctypes.c_longlong, _I, _I, _I, _I, _P, _P, _P, _P),
+    # ix, P, w, weight bytes, pa, pb, inv, slots, n, K, nbins, n_split, integer_weights, wmax, n_scale, raw,
+    # acc, out
+    "pair_hist_uint8_launch": (
+        _I, _P, _I, _P, _I, _P, _P, _P, _I, ctypes.c_longlong, _I, _I, _I, _I, _P, ctypes.c_longlong, _I, _P, _P, _P,
+    ),
+    # acc, out, count, wmax, n_scale
+    "pair_hist_fixed_convert": (_I, _P, _P, ctypes.c_longlong, _P, ctypes.c_longlong, _P),
     # kernels, K, m, Fr, Fi, scratch T (re, im, ld), spectra (re, im), P
     "dft_spectrum_launch": (_I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P),
     # grids, K, I, Fr, Fi, Br, Bi, spectra (re, im), scratch T (re, im, ld), E (re, im),

@@ -33,7 +33,7 @@ from getdist_tpu_torch.ops import collectives as coll
 from getdist_tpu_torch.ops._cuda import full_fp32_matmuls, resolve_device
 from getdist_tpu_torch.ops.dft_conv import dft_conv2d, dft_conv_spectrum, frame_for
 from getdist_tpu_torch.ops.fft import dct
-from getdist_tpu_torch.ops.pair_hist import narrow_rows, narrow_weights, pair_histograms
+from getdist_tpu_torch.ops.pair_hist import fixed_to_f32, group_scale, narrow_rows, narrow_weights, pair_histograms
 
 # profiler ranges of the stages ("1d:...", "2d:..."); microseconds each while no profiler runs
 _stage = torch.profiler.record_function
@@ -1064,6 +1064,7 @@ def all_2d_densities(
     active_hi=None,
     periodic=None,
     group=None,
+    n_samples=None,
     int8_weights=False,
     bandwidth_scale=None,
     sigma_range=None,
@@ -1104,7 +1105,11 @@ def all_2d_densities(
     ``axis_name``): the samples are this rank's block; the pair histograms
     of each block and the optimizer's moments (norm, means, covariance) are
     all-reduced, so every grid-local stage sees the same global inputs on
-    every rank and every rank returns the same result.
+    every rank and every rank returns the same result. Fractional weights
+    (the chain's, and ``like_weights``) bin in 64-bit fixed point on the
+    group's scale (max |w| over the ranks and ``n_samples``, the chain's
+    length; without it the ranks' samples, padding included): the ranks'
+    integer sums add exactly, so the histograms are one card's bits.
 
     Hard limits, ``active_lo`` / ``active_hi`` (P,) from
     :func:`all_1d_densities` (``getdist_tpu/ops/batched.py:1756-1895``):
@@ -1150,16 +1155,24 @@ def all_2d_densities(
             ix_all = narrow_rows(_fine_indices(cols, binmin, fine_width, fine_bins), fine_bins)
 
             def pair_hists(w_hist, integer):
-                out = pair_histograms(ix_all, w_hist, pa.to(torch.int32), pb.to(torch.int32),
-                                      integer_weights=integer, nbins=fine_bins)
-                return coll.psum(out, group).to(dtype)
+                args = (ix_all, w_hist, pa.to(torch.int32), pb.to(torch.int32))
+                if integer or group is None:
+                    # int32 bins (f32 sums of integers below 2^24 add exactly
+                    # across ranks), or one card's fixed point
+                    out = pair_histograms(*args, integer_weights=integer, nbins=fine_bins)
+                    return coll.psum_(out, group).to(dtype)
+                # fixed point in the group's scale: the ranks' int64 sums add
+                # exactly, so W ranks give one card's bits
+                scale = group_scale(w_hist, _scale_count(samples.shape[0], group, n_samples, device), group)
+                raw = pair_histograms(*args, nbins=fine_bins, scale=scale, raw=True)
+                return fixed_to_f32(coll.psum_(raw, group), scale).to(dtype)
 
             if hists is None:
                 w_hist = weights.to(torch.float32)
                 # integer weights go in as uint8 for every row type
                 hists = pair_hists(narrow_weights(w_hist) if int8_weights else w_hist, int8_weights)
             if like_weights is not None:
-                # fractional like weights: K1 accumulates them in f32
+                # fractional like weights: K1 adds them in 64-bit fixed point
                 like_hists = pair_hists(_tensor(like_weights, device, torch.float32), False)
             del ix_all
 
@@ -1422,6 +1435,17 @@ def _optimized_bandwidths(
 
 # ---------------------------------------------------------------------------
 # the fused program
+def _scale_count(n, group, n_samples, device):
+    """The sample count of a group's fixed-point scale
+    (:func:`~getdist_tpu_torch.ops.pair_hist.group_scale`): the chain's
+    length ``n_samples`` where given (checked as by :func:`_chain_length`),
+    else the ranks' blocks of ``n`` summed, padding included (one card's
+    count only where no rank pads)."""
+    if n_samples is not None or group is None:
+        return _chain_length(n, group, n_samples)
+    return int(coll.psum_(torch.tensor([n], dtype=torch.int64, device=device), group).item())
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -1459,6 +1483,7 @@ def _triangle_program(
             max_corr=max_corr,
             enable_shear=enable_shear,
             group=group,
+            n_samples=n_samples,
             like_weights=like_weights,
             export_hists=export_hists,
         )

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-__all__ = ["size", "psum", "pmin", "pmax", "ppermute"]
+__all__ = ["size", "psum", "psum_", "pmin", "pmax", "ppermute"]
 
 
 def size(group):
@@ -33,6 +33,15 @@ def _all_reduce(x, group, op):
 def psum(x, group):
     """Sum of ``x`` over the ranks (``dist.all_reduce(SUM)``)."""
     return _all_reduce(x, group, dist.ReduceOp.SUM)
+
+
+def psum_(x, group):
+    """:func:`psum` in place: ``x`` (contiguous) becomes the sum and is
+    returned, with no copy; for a caller that no longer needs its own
+    value."""
+    if group is not None:
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x
 
 
 def pmin(x, group):

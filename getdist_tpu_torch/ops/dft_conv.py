@@ -200,6 +200,7 @@ def dft_conv_spectrum(kernels, pad=DEFAULT_PAD):
         )
         dft_conv_spectrum.launches += 1
         dft_conv_spectrum.frames[pad] = dft_conv_spectrum.frames.get(pad, 0) + 1
+        dft_conv_spectrum.kernels[(pad, m)] = dft_conv_spectrum.kernels.get((pad, m), 0) + 1
     return ur, ui
 
 
@@ -245,8 +246,10 @@ def dft_conv2d(grids, ur, ui, out_size, offset, pad=DEFAULT_PAD):
     return out
 
 
-# launches, in all and by DFT frame (K3: by (frame, input size))
+# launches, in all and by DFT frame (K2 also by (frame, kernel size); K3 by
+# (frame, input size))
 dft_conv_spectrum.launches = 0
 dft_conv_spectrum.frames = {}
+dft_conv_spectrum.kernels = {}
 dft_conv2d.launches = 0
 dft_conv2d.inputs = {}

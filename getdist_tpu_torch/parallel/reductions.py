@@ -27,7 +27,9 @@ from getdist_tpu_torch.ops import collectives as coll
 from getdist_tpu_torch.ops.batched import _gauss_kernel_2d, _hist_rows, _tensor
 from getdist_tpu_torch.ops.pair_hist import (
     NBINS,
+    fixed_to_f32,
     group_pairs,
+    group_scale,
     narrow_rows,
     narrow_weights,
     pair_histograms,
@@ -92,20 +94,29 @@ def sharded_pair_hists(group, ix, weights, pair_a, pair_b, static_pairs=None, in
     (:func:`group_pairs` plans the groups on the host); without, with the
     dynamic pair-list kernel K4 (rows narrowed by :func:`narrow_rows`).
     ``int8_weights``: every weight an integer (int32 accumulation,
-    bit-exact), passed to the kernels as uint8 where they fit. One
-    all-reduce combines the ranks."""
+    bit-exact), passed to the kernels as uint8 where they fit. Otherwise
+    each rank bins in 64-bit fixed point on the group's scale (max |w| over
+    the ranks and the ranks' samples, padding included) and returns the raw
+    sums; one all-reduce, in place, combines the ranks (exactly: one card's
+    bits) and one conversion gives f32."""
     device = ix.device
     weights = weights.to(torch.float32).contiguous()
+    scale = None
+    if not int8_weights:
+        scale = group_scale(weights, batched._scale_count(ix.shape[1], group, None, device), group)
     if static_pairs is not None:
         grp_a, grp_b, inv = (_tensor(x, device, torch.int32) for x in group_pairs(static_pairs))
         w_hist = narrow_weights(weights) if int8_weights else weights
-        hists = pair_histograms_grouped(ix.to(torch.uint8).contiguous(), w_hist, grp_a, grp_b, inv, int8_weights)
+        hists = pair_histograms_grouped(ix.to(torch.uint8).contiguous(), w_hist, grp_a, grp_b, inv, int8_weights,
+                                        scale=scale, raw=not int8_weights)
     else:
         pa, pb = (_tensor(x, device, torch.int32) for x in (pair_a, pair_b))
         index = narrow_rows(ix, NBINS)
         w_hist = narrow_weights(weights) if int8_weights and index.dtype == torch.uint8 else weights
-        hists = pair_histograms_dynamic(index, w_hist, pa, pb, integer_weights=int8_weights)
-    return coll.psum(hists, group)
+        hists = pair_histograms_dynamic(index, w_hist, pa, pb, integer_weights=int8_weights, scale=scale,
+                                        raw=not int8_weights)
+    hists = coll.psum_(hists, group)
+    return hists if int8_weights else fixed_to_f32(hists, scale)
 
 
 def _conv2d_same_batch(grids, kernels, pad):

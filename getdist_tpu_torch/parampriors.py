@@ -1,12 +1,14 @@
 """Hard prior bounds (host-side metadata).
 
-The port's own copy of the parts of ``getdist_tpu/parampriors.py`` that an
-``MCSamples`` built from arrays uses: lower/upper bounds and the periodic
-flag per parameter name, set from (lower, upper[, periodic]) values, where
-``N``/None/inf mean unbounded (reference ``getdist/parampriors.py``).
-Loading and saving ``.ranges``/``.bounds`` or Cobaya files is not ported
-yet (ROADMAP A10).
+The port's own copy of ``getdist_tpu/parampriors.py``: the
+``.ranges``/``.bounds`` text format of the reference
+(``getdist/parampriors.py``), one line per parameter, ``name lower upper
+[periodic]`` where ``N`` means unbounded, read and written. Cobaya
+``.yaml`` ranges are not ported yet (ROADMAP A10 slice 4) and raise.
+Bounds feed the fused and parity paths as limits and periodic flags.
 """
+
+import os
 
 import numpy as np
 
@@ -16,16 +18,46 @@ __all__ = ["ParamBounds"]
 class ParamBounds:
     """Lower/upper limits per parameter name; None/'N' = unbounded.
 
-    :ivar names: parameter names in the order they were set
+    :ivar names: parameter names in load order
     :ivar lower: dict name -> lower bound (absent if unbounded)
     :ivar upper: dict name -> upper bound (absent if unbounded)
     :ivar periodic: set of periodic parameter names
     """
 
-    def __init__(self):
+    def __init__(self, fileName=None):
         self.names = []
         self.periodic = set()
         self.lower, self.upper = {}, {}
+        if fileName is not None:
+            self.loadFromFile(fileName)
+
+    def _read_ranges_text(self, fileName):
+        with open(fileName, encoding="utf-8-sig") as handle:
+            for line in handle:
+                fields = line.split()
+                if len(fields) in (3, 4):
+                    self.setRange(fields[0], fields[1:])
+
+    def _read_cobaya_yaml(self, fileName):
+        raise NotImplementedError(
+            f"{fileName}: Cobaya .yaml ranges are not ported to getdist_tpu_torch yet (ROADMAP A10 slice 4)"
+        )
+
+    def loadFromFile(self, fileName):
+        """Load from ``.ranges``/``.bounds`` text (a Cobaya ``.yaml`` raises)."""
+        _, tail = os.path.split(fileName)
+        self.filenameLoadedFrom = tail
+        ext = os.path.splitext(fileName)[-1]
+        readers = {
+            ".ranges": self._read_ranges_text,
+            ".bounds": self._read_ranges_text,
+            ".yaml": self._read_cobaya_yaml,
+            ".yml": self._read_cobaya_yaml,
+        }
+        reader = readers.get(ext)
+        if reader is None:
+            raise ValueError(f"ParamBounds must load from .bounds, .ranges or .yaml/.yml, not {fileName}")
+        reader(fileName)
 
     @staticmethod
     def _bound_value(token, open_marker):
@@ -75,12 +107,44 @@ class ParamBounds:
         if not isinstance(name, str):
             raise ValueError(f"parameter name must be a string, got {type(name)}: {name}")
 
+    def _bound_lookup(self, table, name):
+        self._require_name(name)
+        return table.get(name)
+
     def getLower(self, name):
         """Lower limit for name, or None."""
-        self._require_name(name)
-        return self.lower.get(name)
+        return self._bound_lookup(self.lower, name)
 
     def getUpper(self, name):
         """Upper limit for name, or None."""
-        self._require_name(name)
-        return self.upper.get(name)
+        return self._bound_lookup(self.upper, name)
+
+    def fixedValue(self, name):
+        """The fixed value if lower == upper, else None."""
+        low = self.lower.get(name)
+        if low is not None and self.upper.get(name) == low:
+            return low
+        return None
+
+    def fixedValueDict(self):
+        """Dict of all parameters pinned to a single value."""
+        pinned = ((name, self.fixedValue(name)) for name in self.names)
+        return {name: value for name, value in pinned if value is not None}
+
+    def __str__(self):
+        lines = []
+        for name in self.names:
+            low = self.lower.get(name)
+            high = self.upper.get(name)
+            lim1 = "%15.7E" % low if low is not None else "    N"
+            lim2 = "%15.7E" % high if high is not None else "    N"
+            if name in self.periodic:
+                lines.append("%22s%17s%17s%10s" % (name, lim1, lim2, "periodic"))
+            else:
+                lines.append("%22s%17s%17s" % (name, lim1, lim2))
+        return "\n".join(lines) + ("\n" if lines else "")
+
+    def saveToFile(self, fileName):
+        """Write the plain-text ranges format."""
+        with open(fileName, "w", encoding="utf-8") as handle:
+            handle.write(str(self))

@@ -1,12 +1,15 @@
 """Pure algorithms over weighted-sample arrays (host numpy).
 
 The port's own copy of the parts of ``getdist_tpu/samplemath.py`` that
-parity mode calls, with the same arithmetic: sorted-weight confidence
-queries, the FFT autocorrelation and its correlation length, and the
-Gaussian-KDE effective-sample estimator with adaptive lag stepping
-(reference semantics ``getdist/chains.py``).
+loading chains and parity mode call, with the same arithmetic: chain-file
+name matching, sorted-weight confidence queries, the FFT autocorrelation
+and its correlation length, and the Gaussian-KDE effective-sample
+estimator with adaptive lag stepping (reference semantics
+``getdist/chains.py``).
 """
 
+import os
+import re
 from collections import namedtuple
 
 import numpy as np
@@ -14,6 +17,7 @@ import numpy as np
 from getdist_tpu_torch.ops.fft import next_fast_len
 
 __all__ = [
+    "match_chain_files",
     "autocorr_fft",
     "acl_from_curve",
     "ParamConfidenceData",
@@ -25,6 +29,36 @@ __all__ = [
 ]
 
 ParamConfidenceData = namedtuple("ParamConfidenceData", ("paramVec", "norm", "indexes", "cumsum"))
+
+
+# -- file discovery ------------------------------------------------------------
+
+
+def match_chain_files(root, chain_indices, ext, separator, first_chain, last_chain, chain_exclude):
+    """Chain files for a root, under the getdist naming conventions
+    (``root.txt``, ``root_1.txt`` / ``root.1.txt``, or bare ``N.txt`` inside
+    a directory when root ends in a path separator); cf. reference
+    ``chains.py:77-108``."""
+    folder = os.path.dirname(root) or "."
+    if root.endswith((os.sep, "/")):
+        matcher = re.compile("(?P<num>[0-9]+)?" + re.escape(ext))
+    else:
+        stem = re.escape(os.path.basename(root))
+        matcher = re.compile(stem + "(" + re.escape(separator) + "(?P<num>[0-9]+))?" + re.escape(ext))
+
+    def wanted(index):
+        if index < first_chain or (0 <= last_chain < index):
+            return False
+        if chain_indices is not None and index not in chain_indices:
+            return False
+        return chain_exclude is None or index not in chain_exclude
+
+    hits = []
+    for entry in sorted(os.listdir(folder)):
+        m = matcher.fullmatch(entry)
+        if m and wanted(int(m.group("num") or 0)):
+            hits.append(os.path.join(folder, entry))
+    return hits
 
 
 # -- autocorrelation ---------------------------------------------------------

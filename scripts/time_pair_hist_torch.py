@@ -98,7 +98,7 @@ def kernel_alone(ix, w, pa, pb):
     def run():
         _cuda.call(
             "pair_hist_uint8_launch", ix.device, ix.data_ptr(), ix.shape[0], w.data_ptr(), w.element_size(),
-            pa.data_ptr(), pb.data_ptr(), 0, 0, ix.shape[1], pa.shape[0], 256, 1, 1, 0, 0, out.data_ptr(),
+            pa.data_ptr(), pb.data_ptr(), 0, 0, ix.shape[1], pa.shape[0], 256, 1, 1, 0, 0, 0, 0, out.data_ptr(),
         )
         return out
 

@@ -28,10 +28,14 @@ entry without ``mesh``) and returns the largest differences. The parent
 checks every rank's digests against rank 0's and the differences against
 tests/test_parallel.py's tolerances (neff rtol 1e-3, 1D P 1e-5, 2D P 3e-5
 and 2e-5 for the entry's served grids, contours rtol 1e-3; 1D like curves
-1e-4, 2D like grids where P > 1e-2 at 5e-3: the ranks' f32 partial sums
-are all-reduced in another order than one card's, ROADMAP C13; the whole
-grid's difference is printed beside), then prints the card line and one
-JSON line. Imports nothing of JAX.
+1e-4, 2D like grids where P > 1e-2 at 5e-3; the whole grid's difference
+is printed beside, ROADMAP C13 (c)). Last, every rank bins the bounded
+chain's like-weighted pair histograms as the like grids' route does
+(``sharded_all_2d_densities`` with the like weights as its fractional
+weights, at the sharded triangle's N_eff and ranges, histograms exported),
+and rank 0 holds them against one card's: they must be equal bit for bit,
+since the ranks all-reduce 64-bit fixed-point sums on the group's scale
+(C13 (a)). Then the card line and one JSON line. Imports nothing of JAX.
 
 ``--backend gloo --device cpu --rows 20000 --columns 10`` runs the same on
 the CPU.
@@ -57,12 +61,14 @@ from getdist_tpu_torch.ops import batched  # noqa: E402
 from getdist_tpu_torch.parallel import (  # noqa: E402
     shard_samples,
     shard_values,
+    sharded_all_2d_densities,
     sharded_triangle_densities,
     spawn_ranks,
 )
 
 TOL = {"neff": ("rtol", 1e-3), "1D P": ("atol", 1e-5), "2D P": ("atol", 3e-5), "contours": ("rtol", 1e-3),
-       "1D likes": ("atol", 1e-4), "2D likes where P > 0.01": ("atol", 5e-3), "served 2D P": ("atol", 2e-5)}
+       "1D likes": ("atol", 1e-4), "2D likes where P > 0.01": ("atol", 5e-3), "served 2D P": ("atol", 2e-5),
+       "2D like hists": ("atol", 0.0)}
 
 
 def _sync(device):
@@ -163,14 +169,24 @@ def _rank(group, rows, columns, turns, device_name):
         result["walls_ms"][name] = {"cold": cold, "warm": warm}
         result["digests"][name] = _digest(out)
         outs[name] = out
+    names_ = list(workloads)
+    # the like histograms' route: the like weights as fractional weights
+    d1 = outs[names_[1]][0]
+    pairs = torch.triu_indices(columns, columns, 1)
+    hist_args = (pairs[0], pairs[1], d1["neff"], d1["range"][0], d1["range"][1], [0.68, 0.95])
+    like_hists = sharded_all_2d_densities(group, b_local[0], b_like, *hist_args, int8_weights=False,
+                                          n_samples=rows, export_hists=True)["hists"]
     if rank == 0:
         whole = batched.prepare_chain(samples, weights, device=device)
         b_whole = batched.prepare_chain(b_samples, b_weights, device=device)
-        names_ = list(workloads)
         result["diffs"][names_[0]] = _max_diffs(
             outs[names_[0]], batched.triangle_densities(*whole, int8_weights=False, enable_shear=True, device=device))
         result["diffs"][names_[1]] = _max_diffs(outs[names_[1]], batched.triangle_densities(
             *b_whole, like_weights=like, device=device, **bounded_kw))
+        one_card = batched.all_2d_densities(b_whole[0], torch.as_tensor(like, dtype=torch.float32, device=device),
+                                            *hist_args, int8_weights=False, export_hists=True)["hists"]
+        result["diffs"]["bounded chain, like histograms (the group route against one card)"] = {
+            "2D like hists": float((like_hists.double() - one_card.double()).abs().max())}
         (u, u_served, u_keys), result["memory"]["unsharded entry"] = _memory(device, entry)
         g, g_served, g_keys = outs[names_[2]]
         result["diffs"][names_[2]] = _max_diffs(g, u, entry=list(zip(g_served, u_served)))
@@ -225,6 +241,9 @@ def main():
         print(f"{name}: cold {w['cold']:.1f} ms, warm {min(w['warm']):.1f} ms (min of {args.turns}: "
               f"{', '.join(f'{x:.1f}' for x in w['warm'])}; slowest rank per call); against the unsharded run "
               f"on rank 0's device: {json.dumps(first['diffs'][name])}")
+    for name in first["diffs"]:
+        if name not in walls:
+            print(f"{name}: {json.dumps(first['diffs'][name])}")
     memory = {name: max((r["memory"].get(name) for r in results), key=lambda m: -1 if m is None else m["peak_mb"])
               for name in first["memory"]}
     print(f"device memory (MiB, busiest card; 'unsharded entry': rank 0's): {json.dumps(memory)}")

@@ -395,23 +395,108 @@ def test_wide_kernels_bit_exact(cuda, monkeypatch, nbins, k, n, weights):
     """The wide kernels against the plain version, by both routes and by the
     route rule: K of the pairs of 2, 5 or 8 int16 columns, N odd (columns
     off 16-byte boundaries). Integer weights (uint8, or f32 with int32
-    accumulation) bit-exact; fractional f32 weights within f32 round-off
-    (atomics add in an order that varies from run to run, the plain
-    version sums in f64 and rounds once)."""
+    accumulation) and fractional f32 weights (64-bit fixed point on both
+    sides, as on the uint8 kernel) bit-exact."""
     p = {1: 2, 10: 5, 26: 8}[k]
     ix, w = _wide_stack(p, n, nbins, seed=nbins + k, device=cuda)
     pa, pb = (x[:k].contiguous() for x in _pairs(p, cuda))
     integer = weights != "f32-fractional"
     w_in = {"uint8": pair_hist.narrow_weights(w), "f32-integer": w, "f32-fractional": w * 0.37}[weights]
     want = pair_hist.pair_histograms_plain(ix, w_in, pa, pb, integer_weights=integer, nbins=nbins)
-    atol = 0 if integer else 1e-5 * float(want.max())
     for route in ("direct", "bucket", None):
         if route is None:
             got = pair_hist.pair_histograms(ix, w_in, pa, pb, integer_weights=integer, nbins=nbins)
         else:
             with _forced_route(monkeypatch, route):
                 got = pair_hist.pair_histograms(ix, w_in, pa, pb, integer_weights=integer, nbins=nbins)
-        torch.testing.assert_close(got, want, rtol=0 if integer else 1e-5, atol=atol, msg=f"route {route}")
+        torch.testing.assert_close(got, want, rtol=0, atol=0, msg=f"route {route}")
+
+
+def _f64_sums(ix, w, pa, pb, nbins):
+    """Per pair, the f64 sums of the weights by (b, a) bin, on the host."""
+    ix, w = ix.cpu().long(), w.cpu().double()
+    return torch.stack([
+        torch.bincount(ix[b] * nbins + ix[a], weights=w, minlength=nbins * nbins).view(nbins, nbins)
+        for a, b in zip(pa.tolist(), pb.tolist())
+    ])
+
+
+@pytest.mark.parametrize("route", ["direct", "bucket"])
+@pytest.mark.parametrize("nbins", [384, 960])
+def test_wide_kernels_fractional_weights_same_bits(cuda, monkeypatch, nbins, route):
+    """ROADMAP C13 (b): the wide kernels add fractional weights (like
+    weights over 26 decades) in 64-bit fixed point: two calls bitwise
+    equal, equal to the plain version bit for bit, each bin within one f32
+    rounding of the f64 sum (the sum rounded to f64 first: 2^-53 of it)
+    plus the weights' own rounding (half a multiple of 2^-62 of max |w| * N
+    each, at most 2^-62 * max |w| * N a sample in the bin)."""
+    p, n = 5, 300_001
+    ix, _ = _wide_stack(p, n, nbins, seed=nbins + 3, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(nbins)
+    like = torch.exp(-0.5 * 120 * torch.rand(n, generator=g, device=cuda))
+    pa, pb = _pairs(p, cuda)
+    with _forced_route(monkeypatch, route):
+        before = pair_hist.pair_histograms.float_launches
+        first = pair_hist.pair_histograms(ix, like, pa, pb, nbins=nbins)
+        again = pair_hist.pair_histograms(ix, like, pa, pb, nbins=nbins)
+        assert pair_hist.pair_histograms.float_launches == before + 2
+    assert torch.equal(first, again)
+    torch.testing.assert_close(first, pair_hist.pair_histograms_plain(ix, like, pa, pb, nbins=nbins), rtol=0, atol=0)
+    exact = _f64_sums(ix, like, pa, pb, nbins)
+    counts = _f64_sums(ix, torch.ones_like(like), pa, pb, nbins)
+    got = first.cpu().double()
+    ulp = torch.from_numpy(np.spacing(exact.abs().float().numpy()).astype(np.float64))
+    floor = 2.0**-53 * exact.abs() + counts * 2.0**-62 * float(like.max()) * n
+    assert bool(((got - exact).abs() <= 0.5 * ulp + floor).all())
+
+
+def test_fixed_to_f32_kernel_matches_twin(cuda):
+    """The conversion kernel of raw fixed-point sums gives its torch twin's
+    bits (the sharded paths convert all-reduced sums with it)."""
+    acc = torch.from_numpy(np.random.default_rng(6).integers(-(2**62), 2**62, 1_000_003, dtype=np.int64))
+    wmax, count = torch.tensor(2.5), 987_654
+    before = pair_hist.fixed_to_f32.launches
+    got = pair_hist.fixed_to_f32(acc.to(cuda), (wmax.to(cuda), count))
+    assert pair_hist.fixed_to_f32.launches == before + 1
+    assert torch.equal(got.cpu(), pair_hist.fixed_to_f32(acc, (wmax, count)))
+
+
+@pytest.mark.parametrize("kind", ["K1-whole", "K1-split", "K4-wide-direct", "K4-wide-bucket", "K5"])
+def test_raw_block_sums_equal_one_call(cuda, monkeypatch, kind):
+    """ROADMAP C13 (a): four blocks of a chain binned raw on the whole
+    chain's scale, summed as int64 and converted once, give the bits of one
+    call on the whole chain (what W ranks all-reduce), on every route."""
+    p, n = 6, 400_003
+    nbins = 576 if kind.startswith("K4-wide") else 256
+    if nbins == 256:
+        ix = torch.from_numpy(_spread_indices(p, n, seed=11)).to(cuda)
+    else:
+        ix, _ = _wide_stack(p, n, nbins, seed=11, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(12)
+    like = torch.exp(-0.5 * 60 * torch.rand(n, generator=g, device=cuda))
+    pa, pb = _pairs(p, cuda)
+    if kind == "K1-split":
+        monkeypatch.setattr(pair_hist, "split_plan", lambda k, n, sms, parts=2: 3)
+    wide = kind.startswith("K4-wide")
+    route = _forced_route(monkeypatch, kind.rsplit("-", 1)[1]) if wide else contextlib.nullcontext()
+    if kind == "K5":
+        plan = [torch.from_numpy(x).to(cuda) for x in pair_hist.group_pairs(list(zip(pa.tolist(), pb.tolist())))]
+
+        def run(rows, w, **kw):
+            return pair_hist.pair_histograms_grouped(rows, w, *plan, **kw)
+    else:
+        entry = pair_hist.pair_histograms_dynamic if kind.startswith("K4") else pair_hist.pair_histograms
+
+        def run(rows, w, **kw):
+            return entry(rows, w, pa, pb, nbins=nbins, **kw)
+
+    with route:
+        whole = run(ix, like)
+        scale = pair_hist.group_scale(like, n)
+        total = torch.zeros_like(whole, dtype=torch.int64)
+        for block in torch.arange(n, device=cuda).tensor_split(4):
+            total += run(ix[:, block].contiguous(), like[block].contiguous(), scale=scale, raw=True)
+    assert torch.equal(pair_hist.fixed_to_f32(total, scale), whole)
 
 
 def test_wide_kernels_check_pairs_after_the_launch(cuda, monkeypatch):

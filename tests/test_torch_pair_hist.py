@@ -294,3 +294,83 @@ def test_narrow_weights(values, narrowed):
         np.testing.assert_array_equal(got.numpy(), np.round(np.asarray(values, np.float32)))
     else:
         assert got is w
+
+
+def _f64_bincount(ix, w, pairs, nbins):
+    """Per pair, the f64 sums of the weights by (b, a) bin."""
+    ix = ix.astype(np.int64)
+    return np.stack([
+        np.bincount(ix[b] * nbins + ix[a], weights=w.astype(np.float64), minlength=nbins * nbins).reshape(nbins, nbins)
+        for a, b in pairs
+    ])
+
+
+@pytest.mark.parametrize("weights", ["fractional", "negative", "many-decades"])
+@pytest.mark.parametrize("nbins", [256, 384])
+def test_fixed_point_plain_within_one_f32_rounding(weights, nbins):
+    """The plain version adds fractional weights in the kernels' 64-bit
+    fixed point: each bin within one f32 rounding (half an ulp of the f32
+    of the exact sum, after its rounding to f64: 2^-53 of it) of the f64
+    ``bincount``, plus the weights' own
+    rounding (half a multiple of 2^-62 of max |w| * N each, at most 2^-62 *
+    max |w| * N a sample in the bin); uint8 and int16 rows alike."""
+    p, n = 4, 20_011
+    rng = np.random.default_rng(nbins + len(weights))
+    ix = np.clip(rng.standard_normal((p, n)) * nbins / 6 + nbins / 2, 0, nbins - 1)
+    ix = ix.astype(np.uint8 if nbins <= 256 else np.int16)
+    w = {
+        "fractional": rng.random(n),
+        "negative": rng.normal(0.5, 1.0, n),
+        "many-decades": np.exp(-0.5 * rng.uniform(0, 140, n)),
+    }[weights].astype(np.float32)
+    pairs = _all_pairs(p)
+    got = pair_hist.pair_histograms_plain(
+        torch.from_numpy(ix), torch.from_numpy(w), torch.from_numpy(pairs[:, 0].copy()),
+        torch.from_numpy(pairs[:, 1].copy()), nbins=nbins,
+    ).numpy()
+    exact = _f64_bincount(ix, w, pairs, nbins)
+    counts = _f64_bincount(ix, np.ones(n), pairs, nbins)
+    assert got.dtype == np.float32
+    ulp = np.spacing(np.abs(exact).astype(np.float32)).astype(np.float64)
+    floor = 2.0**-53 * np.abs(exact) + counts * 2.0**-62 * float(np.abs(w).max()) * n
+    assert np.all(np.abs(got - exact) <= 0.5 * ulp + floor)
+    assert np.all(got[exact == 0] == 0)
+
+
+def test_fixed_to_f32_twin_is_one_rounding():
+    """The conversion of int64 fixed-point sums: the sum rounded to f64,
+    scaled by 2^(e - 62), rounded to f32 once (numpy's own roundings)."""
+    rng = np.random.default_rng(5)
+    acc = rng.integers(-(2**62), 2**62, 4096, dtype=np.int64)
+    wmax, count = np.float32(3.7), 123_457
+    scale = (torch.tensor(wmax), count)
+    got = pair_hist.fixed_to_f32(torch.from_numpy(acc), scale).numpy()
+    _, e = np.frexp(np.float64(wmax) * count)
+    np.testing.assert_array_equal(got, (acc.astype(np.float64) * 2.0 ** (int(e) - 62)).astype(np.float32))
+    s, inv = pair_hist.fixed_scale(scale)
+    assert float(s) == 2.0 ** (62 - int(e)) and float(inv) * float(s) == 1.0
+
+
+@pytest.mark.parametrize("nbins,index_dtype", [(256, np.uint8), (960, np.int16)])
+def test_raw_block_sums_equal_one_call(nbins, index_dtype):
+    """Four blocks of a chain, each binned raw on the whole chain's scale
+    (:func:`group_scale`), summed as int64 and converted once, give the
+    bits of one call on the whole chain: what W ranks all-reduce."""
+    p, n = 4, 12_007
+    rng = np.random.default_rng(nbins)
+    ix = np.clip(rng.standard_normal((p, n)) * nbins / 6 + nbins / 2, 0, nbins - 1).astype(index_dtype)
+    w = np.exp(-0.5 * rng.uniform(0, 60, n)).astype(np.float32)
+    pairs = _all_pairs(p)
+    pa, pb = torch.from_numpy(pairs[:, 0].copy()), torch.from_numpy(pairs[:, 1].copy())
+    ix_t, w_t = torch.from_numpy(ix), torch.from_numpy(w)
+    whole = pair_hist.pair_histograms(ix_t, w_t, pa, pb, nbins=nbins)
+    scale = pair_hist.group_scale(w_t, n)
+    total = sum(
+        pair_hist.pair_histograms(ix_t[:, s].contiguous(), w_t[s].contiguous(), pa, pb, nbins=nbins, scale=scale,
+                                  raw=True)
+        for s in np.array_split(np.arange(n), 4)
+    )
+    assert total.dtype == torch.int64
+    np.testing.assert_array_equal(pair_hist.fixed_to_f32(total, scale).numpy(), whole.numpy())
+    with pytest.raises(ValueError, match="fractional"):
+        pair_hist.pair_histograms(ix_t, w_t, pa, pb, integer_weights=True, nbins=nbins, raw=True)

@@ -25,6 +25,7 @@ from getdist_tpu_torch.ops import batched as tb  # noqa: E402
 from getdist_tpu_torch.parallel import (  # noqa: E402
     shard_samples,
     shard_values,
+    sharded_all_2d_densities,
     sharded_triangle_densities,
     spawn_ranks,
 )
@@ -70,6 +71,14 @@ def _np(tree):
     return tree.numpy() if isinstance(tree, torch.Tensor) else tree
 
 
+def _like_hist_args(d1):
+    """(pair_a, pair_b, neff, binmin, binmax, contours) of all_2d_densities
+    over every pair, from a triangle's 1D output."""
+    p = d1["neff"].shape[0]
+    pairs = np.array([(i, j) for i in range(p) for j in range(i + 1, p)])
+    return pairs[:, 0], pairs[:, 1], d1["neff"], d1["range"][0], d1["range"][1], np.array([0.68, 0.95], np.float32)
+
+
 def _rank_work(group):
     out = {}
     for name, n in TRIANGLE_N.items():
@@ -79,6 +88,13 @@ def _rank_work(group):
             group, *local, limits_lo=lo, limits_hi=hi, periodic=per, like_weights=shard_values(group, like, "cpu"),
             enable_shear=True, n_samples=n,
         ))
+        # the like weights as the fractional weights of all_2d_densities, the
+        # route that bins the like histograms, at the triangle's N_eff and ranges
+        d1 = out[f"triangle_{name}"][0]
+        out[f"like_hists_{name}"] = _np(sharded_all_2d_densities(
+            group, local[0], shard_values(group, like, "cpu"), *_like_hist_args(d1), int8_weights=False, n_samples=n,
+            export_hists=True,
+        )["hists"])
     mc = MCSamples(device="cpu", **_entry_chain())
     d1, d2, pairs = mc.fastTriangleDensities(mesh=group, meanlikes=True)
     regrid = {key: _np(entry) for key, entry in d2.pop("regrid").items()}
@@ -167,6 +183,25 @@ def test_bounded_triangle_matches_unsharded_port(ranks, name):
     np.testing.assert_allclose(g2["likes"], u2["likes"], rtol=0, atol=1e-4)
     for i in range(2):
         np.testing.assert_allclose(g1["range"][i], u1["range"][i], rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", list(TRIANGLE_N))
+def test_like_histograms_of_ranks_equal_one_rank(ranks, name):
+    """The like-weighted pair histograms (fractional weights) of 4 ranks are
+    bitwise one rank's: each rank bins in 64-bit fixed point on the group's
+    scale (max |w| over the ranks, the chain's length) and the ranks'
+    int64 sums are all-reduced exactly (ROADMAP C13 (a)); f32 partial sums
+    all-reduced differ from one rank's in their last bits. The padded chain
+    ends in zero-weight samples on the last rank. The histograms are those
+    of all_2d_densities with the like weights as its fractional weights:
+    the like histograms' route, exported."""
+    s, _, _, _, _, like = _bounded_chain(TRIANGLE_N[name])
+    d1 = ranks[0][f"triangle_{name}"][0]
+    want = tb.all_2d_densities(torch.from_numpy(s), torch.from_numpy(like), *_like_hist_args(d1), int8_weights=False,
+                               export_hists=True)["hists"].numpy()
+    assert not np.array_equal(like, np.round(like))  # fractional like weights
+    for rank in ranks:
+        np.testing.assert_array_equal(rank[f"like_hists_{name}"], want)
 
 
 def test_public_entry_mesh_matches_unsharded(ranks):
