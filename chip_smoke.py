@@ -95,7 +95,20 @@ CUDA kernels from ``getdist_tpu_torch/csrc``. Then three paths on
    ``np.loadtxt``; ``loadMCSamples`` cold and from its pickle cache (walls);
    ``fastTriangleDensities(meanlikes=True)`` on the loaded object cold and
    warm (walls, K1/K2/K3 launches), bitwise equal to the entry on the same
-   arrays in memory and to the entry on the cache hit.
+   arrays in memory and to the entry on the cache hit;
+9. the host ``MCSamples`` analysis API on phase 8's root (``host_api_phase``):
+   routed onto the card (the default on a CUDA object), ``getMargeStats()``
+   cold and warm as one fused program launching K1, K2 and K3, then
+   ``getLikeStats()``, ``getConvergeTests()`` (all six tests),
+   ``getTable().tableTex()`` and ``getInlineLatex`` (walls); the same calls
+   on the host path (``GETDIST_TPU_TORCH_FUSED=0``), held against the routed
+   ones (means and sds bitwise, limit tags, limits within 0.02 sd,
+   ``.likestats`` and ``.converge`` byte-identical, the 1D densities within
+   6e-3 of the peak but at a one-sided limit (printed, ROADMAP C14) and 2D
+   densities within 1.5e-2; a limited x periodic pair's difference
+   printed), and routed meanlikes 2D queries (K1 with
+   like weights) on a pair of the program and a rerun pair, their like
+   grids within 1.5e-2 of the host's, none served by the host.
 
 K1, K4, K5 and the wide kernels are timed with the weights their paths
 pass (integer weights as uint8, ``pair_hist.narrow_weights``), each beside
@@ -1689,9 +1702,10 @@ def degenerate_phase(pair_hist, batched):
     del mc, d1, d2, st, w_path
     torch.cuda.empty_cache()
 
-    # fractional weights past 256 bins (ROADMAP C13 (b)): no path sends like
-    # weights there (the regrid reruns take none), but an importance-weighted
-    # chain's regrids bin its fractional weights with the wide kernels
+    # fractional weights past 256 bins (ROADMAP C13 (b)): a meanlikes run
+    # bins like weights there only where it reruns past 256 bins (the bounded
+    # chain reruns none), but an importance-weighted chain's regrids bin its
+    # fractional weights with the wide kernels
     label = "degenerate chain, importance weights, public entry"
     mc = MCSamples(**dict(kw, weights=importance_weights(weights, seed=30)))
     wall_s(lambda: mc.fastTriangleDensities())
@@ -1955,7 +1969,10 @@ def bounded_phase(bounded, batched, dft_conv, pair_hist):
         check("program_b" in mc.fast_profile, f"{tag}: two programs")
         check(launches["pair_histograms"] >= 1 + meanlikes and launches["dft_conv_spectrum"] >= 1
               and launches["dft_conv2d"] >= 2, f"{tag}: the run launched K1, K2 and K3")
-        check(launches["float"] == int(meanlikes), f"{tag}: K1 with f32 like weights once with meanlikes")
+        like_runs = int(meanlikes) * (1 + len(mc.fast_regrid_groups))
+        check(launches["float"] == like_runs,
+              f"{tag}: K1 with f32 like weights with meanlikes, once in program B and once in each rerun "
+              f"({launches['float']} of {like_runs})")
         check(launches["conv_inputs"].get("384:316", 0) >= 6, f"{tag}: K3 on the extended grids")
         wrap = check_bounded_outputs(d1, d2, pairs, BOUNDED_KINDS, tag)
         check((d1["likes"] is not None) == meanlikes and (d2["likes"] is not None) == meanlikes, f"{tag}: like grids")
@@ -2386,9 +2403,11 @@ def files_phase(bounded, card, pair_hist, dft_conv):
         first_s, got = wall_s(lambda: entry(mc))
         launches = {fn.__name__: fn.launches for fn in counters}
         launches["float"] = pair_hist.pair_histograms.float_launches
-        check(launches["pair_histograms"] >= 2 and launches["float"] == 1 and launches["dft_conv_spectrum"] >= 1
-              and launches["dft_conv2d"] >= 2,
-              f"files: the entry on the loaded root launched K1, K2 and K3 ({launches})")
+        like_runs = 1 + len(mc.fast_regrid_groups)
+        check(launches["pair_histograms"] >= 2 and launches["float"] == like_runs
+              and launches["dft_conv_spectrum"] >= 1 and launches["dft_conv2d"] >= 2,
+              f"files: the entry on the loaded root launched K1 (with like weights once in program B and once "
+              f"in each of its {like_runs - 1} reruns), K2 and K3 ({launches})")
         warm_entry_s = min([first_s] + [wall_s(lambda: entry(mc))[0] for _ in range(2)])
         pairs = [(a, b) for a in range(len(names)) for b in range(a + 1, len(names))]
         check_bounded_outputs(got[0], got[1], pairs, BOUNDED_KINDS, "files: entry on the loaded root")
@@ -2409,10 +2428,232 @@ def files_phase(bounded, card, pair_hist, dft_conv):
               + json.dumps([dict(g, pairs=len(g["pairs"])) for g in mc.fast_regrid_groups]))
         del mc, mc_hit, got, hit
         torch.cuda.empty_cache()
+        tmc.MCSamples.readChains = saved_read
+        host_api_phase(root, names, ranges, card, pair_hist, dft_conv)
     finally:
         getdist_tpu_torch.cache_dir = saved_cache
         tmc.MCSamples.readChains = saved_read
         shutil.rmtree(folder, ignore_errors=True)
+
+
+CONVERGE_TESTS = ("MeanVar", "GelmanRubin", "SplitTest", "RafteryLewis", "CorrLengths", "CorrSteps")
+# the host-API phase's bars, routed against host: limits within this
+# fraction of the parameter's sd; 2D densities within this fraction of the
+# peak where the host density is above 0.05 of it (tests/test_fused_routing.py's)
+ROUTED_LIMIT_SD = 0.02
+ROUTED_2D_PEAK = 1.5e-2
+# routed 1D densities against the host's, of the peak (tests/test_fused_routing.py)
+ROUTED_1D_PEAK = 6e-3
+# a limit's tag may differ where the 1D density at the prior edge lies this
+# close to the two-tail threshold (max_frac_twotail)
+TAG_EDGE_BAND = 1e-3
+
+
+def routed_1d_diff(got, want):
+    """Max difference of the peak-normalized 1D densities on 300 points of
+    their common range (tests/test_fused_routing.py's measure)."""
+    import numpy as np
+
+    grid = np.linspace(max(got.x[0], want.x[0]), min(got.x[-1], want.x[-1]), 300)
+    return float(np.max(np.abs(got.Prob(grid) / got.P.max() - want.Prob(grid) / want.P.max())))
+
+
+def routed_2d_diff(got, want, likes=False):
+    """Max difference of the peak-normalized 2D densities (with ``likes``,
+    of the like grids, interpolated) on 80^2 points of their common range
+    where ``want``'s density is above 0.05 of its peak."""
+    import numpy as np
+    from scipy.interpolate import RectBivariateSpline
+
+    gx = np.linspace(max(got.x[0], want.x[0]), min(got.x[-1], want.x[-1]), 80)
+    gy = np.linspace(max(got.y[0], want.y[0]), min(got.y[-1], want.y[-1]), 80)
+    x, y = (a.ravel() for a in np.meshgrid(gx, gy))
+    sel = want(x, y, grid=False) / want.P.max() > 0.05
+    if likes:
+        fg, fw = (RectBivariateSpline(d.x, d.y, d.likes.T)(gx, gy).T.ravel() for d in (got, want))
+    else:
+        fg, fw = got(x, y, grid=False) / got.P.max(), want(x, y, grid=False) / want.P.max()
+    return float(np.max(np.abs(fg[sel] - fw[sel])))
+
+
+def host_api_phase(root, names, ranges, card, pair_hist, dft_conv):
+    """Phase 9: the host ``MCSamples`` analysis API on the files phase's
+    root (loaded from its pickle cache, on the card). Routed (the default
+    on a CUDA object): ``getMargeStats()`` cold (the first object) and warm
+    (a fresh object, min of 2), each one fused program (one
+    ``_fused_cache`` entry) that launches K1, K2 and K3; ``getLikeStats()``,
+    ``getConvergeTests()`` with all six tests (integer weights 1-4),
+    ``getTable().tableTex()`` and ``getInlineLatex``, with walls. Then the
+    same calls with ``GETDIST_TPU_TORCH_FUSED=0`` on a fresh object (the
+    host path: 30 host 1D KDEs with N_eff), and routed against host: means
+    and sds bitwise, limit tags equal (except where the 1D density at a
+    prior edge lies within TAG_EDGE_BAND of ``max_frac_twotail``: listed),
+    limits within ROUTED_LIMIT_SD of the sd, ``.likestats`` and
+    ``.converge`` byte-identical, the 1D densities of the free, two-sided
+    and periodic parameters within ROUTED_1D_PEAK of the peak (those of the
+    one-sided limited ones printed with no bar: at the limit the fused
+    boundary correction departs from the host's, the JAX package's alike,
+    ROADMAP C14), ``get2DDensity`` on a free x free,
+    limited x free and periodic x free pair within ROUTED_2D_PEAK of the
+    peak; a limited x periodic pair's difference printed with no bar
+    (ROADMAP C11). Routed meanlikes ``get2DDensityGridData`` (K1 with like
+    weights) on a pair of the program and on a pair the fused run reran
+    (the rerun bins the like weights at its grid): both carry like grids,
+    no query is served by the host, and their like grids are within
+    ROUTED_2D_PEAK of the host's where its density is above 0.05 of the
+    peak."""
+    import numpy as np
+    import torch
+
+    import getdist_tpu_torch
+
+    counters = (pair_hist.pair_histograms, dft_conv.dft_conv_spectrum, dft_conv.dft_conv2d)
+    load = lambda: getdist_tpu_torch.loadMCSamples(root, device="cuda")  # noqa: E731
+    saved_flag = os.environ.pop("GETDIST_TPU_TORCH_FUSED", None)
+    try:
+        mc = load()
+        check(mc._fused_route_enabled(), "host API: a CUDA MCSamples routes its density queries")
+        for fn in counters:
+            fn.launches = 0
+        cold_s, marge = wall_s(mc.getMargeStats)
+        launches = {fn.__name__: fn.launches for fn in counters}
+        check(all(launches.values()), f"host API: the routed getMargeStats launched K1, K2 and K3 ({launches})")
+        check(list(mc._fused_cache) == [False], f"host API: one fused program ({list(mc._fused_cache)})")
+        warm, fused = [], []
+        for _ in range(2):
+            fresh = load()
+            warm.append(wall_s(fresh.getMargeStats)[0])
+            check(list(fresh._fused_cache) == [False], "host API: one fused program (warm)")
+            fused.append(sum(v for k, v in fresh.fast_profile.items() if k != "host_served"))
+        del fresh
+        walls = {"getMargeStats cold": cold_s, "getMargeStats warm": min(warm),
+                 "of which the fused run (fast_profile)": fused[warm.index(min(warm))]}
+        walls["getLikeStats"], likestats = wall_s(mc.getLikeStats)
+        walls["getConvergeTests"], converge = wall_s(lambda: mc.getConvergeTests(what=CONVERGE_TESTS))
+        walls["tableTex"], table = wall_s(lambda: mc.getTable().tableTex())
+        walls["getInlineLatex"], inline = wall_s(lambda: [mc.getInlineLatex(n) for n in names])
+        check(converge and "Raftery&Lewis" in converge and "auto-correlations" in converge,
+              "host API: the convergence report holds all six tests")
+        print(f"host API, routed, {card}: " + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in walls.items())
+              + f"; launches of the cold getMargeStats {json.dumps(launches)}; {names[0]}: {inline[0]}")
+
+        free, limited, periodic = (next(n for n in names if n not in ranges),
+                                   next(n for n, w in ranges.items() if len(w) == 2),
+                                   next(n for n, w in ranges.items() if len(w) == 3))
+        other = [n for n in names if n not in ranges][1]
+        pairs = {"free x free": (free, other), "limited x free": (limited, free),
+                 "periodic x free": (periodic, free), "limited x periodic": (limited, periodic)}
+        routed_2d = {key: mc.get2DDensity(*pair) for key, pair in pairs.items()}
+        # meanlikes queries: the first pair the fused run served from its
+        # program's grids and the first it reran, and the first of each whose
+        # like grid is held against the host's (no parameter at a one-sided
+        # limit, ROADMAP C14, and no periodic x limited pair, C11)
+        one_sided = {n for n, w in ranges.items() if len(w) == 2 and (w[0] is None) != (w[1] is None)}
+        bounded_names = {n for n, w in ranges.items() if len(w) == 2}
+        angles = {n for n, w in ranges.items() if len(w) == 3}
+
+        def held(key):
+            return not set(key) & one_sided and not (set(key) & bounded_names and set(key) & angles)
+
+        rerun = {pair for group in mc.fast_regrid_groups for pair in group["pairs"]}
+        check(bool(rerun), "host API: the fused run reran pairs (the clamped rescue)")
+        index_pairs = [(a, b) for a in range(len(names)) for b in range(a + 1, len(names))]
+        in_program = [(names[a], names[b]) for a, b in index_pairs if (a, b) not in rerun]
+        reran = [(names[a], names[b]) for a, b in sorted(rerun)]
+        queries = list(dict.fromkeys([in_program[0], next(key for key in in_program if held(key)), reran[0],
+                                      next(key for key in reran if held(key))]))
+        for fn in counters:
+            fn.launches = 0
+        pair_hist.pair_histograms.float_launches = 0
+        served = mc.fast_profile.get("host_served", 0)
+        walls_ml, _ = wall_s(lambda: mc.get2DDensityGridData(*queries[0], meanlikes=True))
+        like_launches = pair_hist.pair_histograms.float_launches
+        routed_likes = {key: mc.get2DDensityGridData(*key, meanlikes=True) for key in queries}
+        for key, grid in routed_likes.items():
+            check(grid.likes is not None and np.isfinite(grid.likes).all() and grid.likes.max() == 1.0,
+                  f"host API: the routed meanlikes query {key} carries its like grid")
+        check(mc.fast_profile.get("host_served", 0) == served and like_launches >= 2,
+              f"host API: the routed meanlikes run ran K1 with like weights for the program and its reruns "
+              f"({like_launches} like launches) and the host served no query "
+              f"({mc.fast_profile.get('host_served', 0) - served})")
+        print(f"host API, routed meanlikes get2DDensityGridData{queries[0]} {walls_ml * 1e3:.1f} ms (its own fused "
+              f"run, like launches {like_launches}); queries {queries} (reruns among them "
+              f"{[key for key in queries if key in reran]}) served from the run; fused cache "
+              f"{sorted(mc._fused_cache)}; host_served {mc.fast_profile.get('host_served', 0)} (rerun pairs "
+              f"{len(rerun)})")
+
+        os.environ["GETDIST_TPU_TORCH_FUSED"] = "0"
+        host = load()
+        check(not host._fused_route_enabled(), "host API: GETDIST_TPU_TORCH_FUSED=0 forces the host path")
+        host_walls = {}
+        host_walls["getMargeStats"], host_marge = wall_s(host.getMargeStats)
+        host_walls["getLikeStats"], host_like = wall_s(host.getLikeStats)
+        host_walls["getConvergeTests"], host_converge = wall_s(lambda: host.getConvergeTests(what=CONVERGE_TESTS))
+        host_walls["tableTex"], _ = wall_s(lambda: host.getTable().tableTex())
+        host_2d = {}
+        for key, pair in pairs.items():
+            host_walls[f"get2DDensity {key}"], host_2d[key] = wall_s(lambda pair=pair: host.get2DDensity(*pair))
+        host_likes = {}
+        for key in routed_likes:
+            host_walls[f"meanlikes get2DDensityGridData {key}"], host_likes[key] = wall_s(
+                lambda key=key: host.get2DDensityGridData(*key, meanlikes=True))
+        print(f"host API, host path (GETDIST_TPU_TORCH_FUSED=0), {card}: "
+              + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in host_walls.items()))
+
+        check(str(likestats) == str(host_like), "host API: .likestats routed and host byte-identical")
+        check(converge == host_converge, "host API: .converge routed and host byte-identical")
+        edge_cases, worst_limit = [], 0.0
+        for got, want in zip(marge.names, host_marge.names):
+            check(got.name == want.name and got.mean == want.mean and got.err == want.err,
+                  f"host API: {got.name} mean and sd bitwise routed and host")
+            for level, (lg, lw) in enumerate(zip(got.limits, want.limits)):
+                if lg.limitTag() != lw.limitTag():
+                    density = mc.density1D[got.name], host.density1D[want.name]
+                    edges = [d.P[i] for d in density for i in (0, -1)]
+                    near = any(abs(e - mc.max_frac_twotail[level]) < TAG_EDGE_BAND for e in edges)
+                    check(near, f"host API: {got.name} limit {level + 1} tag {lg.limitTag()} routed against "
+                                f"{lw.limitTag()} host, edge densities {edges} not near the two-tail threshold")
+                    edge_cases.append((got.name, level + 1, lg.limitTag(), lw.limitTag()))
+                    continue
+                diff = max(abs(lg.lower - lw.lower), abs(lg.upper - lw.upper)) / want.err
+                worst_limit = max(worst_limit, diff)
+                check(diff < ROUTED_LIMIT_SD, f"host API: {got.name} limit {level + 1} routed within "
+                                              f"{ROUTED_LIMIT_SD} sd of host ({diff:.4f})")
+        diffs_1d = {name: routed_1d_diff(mc.density1D[name], host.density1D[name]) for name in names}
+        # a one-sided hard limit where the density peaks: the fused path's
+        # boundary correction, the JAX package's too, departs from the host's
+        # at the limit (ROADMAP C14): printed with no bar
+        held_1d = {n: d for n, d in diffs_1d.items() if n not in one_sided}
+        worst_1d = max(held_1d, key=held_1d.get)
+        check(held_1d[worst_1d] < ROUTED_1D_PEAK, f"host API: every routed 1D density but the one-sided limited "
+                                                  f"ones within {ROUTED_1D_PEAK} of the peak of host (worst "
+                                                  f"{worst_1d} {held_1d[worst_1d]:.4g})")
+        c14 = {n: round(diffs_1d[n], 6) for n in names if n in one_sided}
+        diffs = {key: routed_2d_diff(routed_2d[key], host_2d[key]) for key in pairs}
+        for key, diff in diffs.items():
+            if key != "limited x periodic":
+                check(diff < ROUTED_2D_PEAK, f"host API: routed get2DDensity {key} {pairs[key]} within "
+                                             f"{ROUTED_2D_PEAK} of the peak of host ({diff:.4g})")
+        like_diffs = {key: routed_2d_diff(routed_likes[key], host_likes[key], likes=True) for key in routed_likes}
+        for key, diff in like_diffs.items():
+            if held(key):
+                check(diff < ROUTED_2D_PEAK, f"host API: routed like grid {key} within {ROUTED_2D_PEAK} of host "
+                                             f"({diff:.4g})")
+        print(f"host API, routed against host: means and sds bitwise; limits within {worst_limit:.3g} sd "
+              f"(bar {ROUTED_LIMIT_SD}); limit tags differing at the two-tail threshold {edge_cases}; "
+              f".likestats and .converge byte-identical; 1D densities of the free, two-sided and periodic "
+              f"parameters within {held_1d[worst_1d]:.4g} of the peak (worst {worst_1d}; bar {ROUTED_1D_PEAK}), of "
+              f"the one-sided limited ones {json.dumps(c14)} (no bar, ROADMAP C14); get2DDensity max diff of the peak "
+              + json.dumps({f"{k} {pairs[k]}": round(v, 6) for k, v in diffs.items()})
+              + " (limited x periodic: no bar, ROADMAP C11); meanlikes like grids max diff "
+              + json.dumps({f"{k}": round(v, 6) for k, v in like_diffs.items()}) + f" (bar {ROUTED_2D_PEAK} on "
+              f"{[k for k in like_diffs if held(k)]}; the others at a one-sided limit, ROADMAP C14, printed)")
+        del mc, host, routed_2d, host_2d, routed_likes, host_likes
+        torch.cuda.empty_cache()
+    finally:
+        os.environ.pop("GETDIST_TPU_TORCH_FUSED", None)
+        if saved_flag is not None:
+            os.environ["GETDIST_TPU_TORCH_FUSED"] = saved_flag
 
 
 def main():

@@ -86,8 +86,9 @@ _LAZY_EXPORTS = {
     "ParamNames": "getdist_tpu_torch.paramnames",
     "ParamBounds": "getdist_tpu_torch.parampriors",
     "densities": "getdist_tpu_torch.densities",
+    "types": "getdist_tpu_torch.types",
 }
-_MODULE_EXPORTS = {"chains", "densities"}
+_MODULE_EXPORTS = {"chains", "densities", "types"}
 
 
 def __getattr__(name):

@@ -1,21 +1,21 @@
 """Weighted sample containers (host numpy), from arrays or chain files.
 
-The port's own copy of the parts of ``getdist_tpu/chains.py`` that
-loading chains and parity mode need: :class:`WeightedSamples` (a chain
-file or arrays; weights, burn-in, min-weight filter, fixed-parameter
-removal) and :class:`Chains` (a chain root with its ``.paramnames``,
-parameter names and renames, several files or arrays combined into one,
-pickling), the module's chain-file helpers (:func:`chainFiles`,
-:func:`findChainFileRoot`, :func:`loadNumpyTxt`, the native loader of
-:mod:`getdist_tpu_torch._native`), and the host statistics in the same
-arithmetic as the JAX package's numpy branches: means, variances,
-covariance and correlation, the FFT autocorrelation length and the
-Gaussian-KDE effective sample number.
+The port's own copy of ``getdist_tpu/chains.py``'s host layer:
+:class:`WeightedSamples` (a chain file or arrays; weights, burn-in,
+min-weight filter, fixed-parameter removal, thinning, cooling and
+importance reweighting, text output) and :class:`Chains` (a chain root
+with its ``.paramnames``, parameter names and renames, several files or
+arrays combined into one and split again, derived parameters, the
+Gelman-Rubin diagnostic, pickling), the module's chain-file helpers
+(:func:`chainFiles`, :func:`findChainFileRoot`, :func:`loadNumpyTxt`, the
+native loader of :mod:`getdist_tpu_torch._native`), and the host
+statistics in the same arithmetic as the JAX package's numpy branches:
+means, variances, covariance and correlation, the FFT autocorrelation
+length and the 1D and 2D Gaussian-KDE effective sample numbers.
 
 Not ported here: grid job items and Cobaya yaml roots (ROADMAP A10 slice
-4), the device statistics branches (the JAX package's ``ops.stats``;
-ROADMAP A7), covariance and correlation of parameter subsets, thinning,
-Gelman-Rubin and text output of samples (A10 slice 2).
+4) and the device statistics branches (the JAX package's ``ops.stats``;
+ROADMAP A7).
 """
 
 import os
@@ -27,7 +27,7 @@ from warnings import warn
 import numpy as np
 
 from getdist_tpu_torch import samplemath as smath
-from getdist_tpu_torch.paramnames import ParamInfo, ParamNames
+from getdist_tpu_torch.paramnames import ParamInfo, ParamNames, escapeLatex
 from getdist_tpu_torch.samplemath import ParamConfidenceData
 
 # Whether to print chain names and burn-in details when loading from file.
@@ -43,6 +43,10 @@ class WeightedSampleError(Exception):
 
 class ParamError(WeightedSampleError):
     """A bad parameter was requested."""
+
+
+class ParSamples:
+    """Attribute-bundle container for named parameter sample vectors."""
 
 
 def _not_ported(what, item):
@@ -65,6 +69,15 @@ def covToCorr(cov, copy=True):
     return smath.corr_from_cov(cov, copy=copy)
 
 
+def getSignalToNoise(C, noise=None, R=None, eigs_only=False):
+    """Signal-to-noise eigen-analysis: eigenvalues (and rotation) of
+    R C R^T with R the inverse Cholesky root of the noise matrix."""
+    try:
+        return smath.sn_eigendecomp(C, noise, R, eigs_only)
+    except ValueError as e:
+        raise WeightedSampleError(str(e)) from None
+
+
 class WeightedSamples:
     """A set of weighted parameter samples held as numpy arrays.
 
@@ -74,6 +87,8 @@ class WeightedSamples:
     :ivar n: number of parameters
     :ivar numrows: number of samples
     """
+
+    precision = "%.8e"  # text output format for saveAsText
 
     def __init__(
         self,
@@ -168,6 +183,15 @@ class WeightedSamples:
         self._fast_chain_cache = None
         self._param_range_cache = {}
 
+    # -- naming ----------------------------------------------------------------
+    def getName(self):
+        """The name tag of these samples."""
+        return self.name_tag
+
+    def getLabel(self):
+        """The latex label for the samples."""
+        return self.label if self.label else escapeLatex(self.getName())
+
     # -- parameter access --------------------------------------------------------
     def _makeParamvec(self, par):
         if not isinstance(par, _int_types):
@@ -181,6 +205,9 @@ class WeightedSamples:
         if par == -2:
             return self.weights
         raise WeightedSampleError(f"no parameter with index {par}")
+
+    def __getitem__(self, item):
+        return self._makeParamvec(item)
 
     # -- moments -------------------------------------------------------------
     def setMeans(self):
@@ -204,6 +231,11 @@ class WeightedSamples:
             self.vars = self.weights @ (centered * centered) / self.norm
         self.sddev = np.sqrt(self.vars)
         return self.vars
+
+    def setDiffs(self):
+        """Cache the array of parameter differences from the means."""
+        self.diffs = self.mean_diffs()
+        return self.diffs
 
     def weighted_sum(self, paramVec, where=None):
         """sum_i w_i p_i (optionally over a sample filter)."""
@@ -236,6 +268,18 @@ class WeightedSamples:
             return vec - self.mean(vec)
         return vec[where] - self.mean(vec, where)
 
+    def mean_diffs(self, pars=None, where=None):
+        """List of p_i - mean(p_i) arrays."""
+        if pars is None:
+            pars = self.n
+        if isinstance(pars, _int_types) and pars >= 0:
+            if where is not None:
+                pars = range(pars)
+            else:
+                means = self.getMeans()
+                return [self.samples[:, i] - means[i] for i in range(pars)]
+        return [self.mean_diff(entry, where) for entry in pars]
+
     def var(self, paramVec, where=None):
         """Weighted variance of a parameter vector (or list of them)."""
         if isinstance(paramVec, _seq_types):
@@ -248,10 +292,19 @@ class WeightedSamples:
         """Weighted standard deviation."""
         return np.sqrt(self.var(paramVec, where))
 
-    def cov(self):
-        """Weighted covariance of all parameters."""
-        centered = self.samples - self.getMeans()
-        return (centered * self.weights[:, None]).T @ centered / self.norm
+    def cov(self, pars=None, where=None):
+        """Weighted covariance for the given parameter vectors/indices (all
+        parameters by default)."""
+        if pars is None and where is None:
+            centered = self.samples - self.getMeans()
+            return (centered * self.weights[:, None]).T @ centered / self.norm
+        block = np.column_stack(self.mean_diffs(pars, where))
+        w = self.weights if where is None else self.weights[where]
+        return (block * w[:, None]).T @ block / self.get_norm(where)
+
+    def corr(self, pars=None):
+        """Weighted correlation matrix."""
+        return covToCorr(self.cov(pars), copy=True)
 
     def getCov(self, nparam=None, pars=None):
         """Covariance matrix (cached full version), optionally a submatrix."""
@@ -267,6 +320,10 @@ class WeightedSamples:
         if self.correlationMatrix is None:
             self.correlationMatrix = covToCorr(self.getCov(), copy=True)
         return self.correlationMatrix
+
+    def getSignalToNoise(self, params, noise=None, R=None, eigs_only=False):
+        """Signal-to-noise eigenvalues for the given parameters."""
+        return getSignalToNoise(self.cov(params), noise=noise, R=R, eigs_only=eigs_only)
 
     # -- correlation structure --------------------------------------------------
     def getAutocorrelation(self, paramVec, maxOff=None, weight_units=True, normalized=True):
@@ -284,6 +341,11 @@ class WeightedSamples:
         if corr is None:
             corr = self.getAutocorrelation(j, maxOff=self.numrows // 10, weight_units=weight_units)
         return smath.acl_from_curve(corr, min_corr)
+
+    def getEffectiveSamples(self, j=0, min_corr=0.05):
+        """N_eff = sum(w) / correlation length for parameter j."""
+        acl = self.getCorrelationLength(j, min_corr=min_corr)
+        return self.get_norm() / acl
 
     def _independent_draws(self):
         """True when the sampler produces uncorrelated draws, making the
@@ -315,11 +377,103 @@ class WeightedSamples:
         norm = self.get_norm()
         return norm * norm / N
 
-    # -- filters and confidence limits -------------------------------------------
+    def getEffectiveSamplesGaussianKDE_2d(self, i, j, h=0.3, maxoff=None, min_corr=0.05):
+        """2D variant of the KDE effective-sample estimate (reference
+        ``chains.py:576-635``)."""
+        if self._independent_draws():
+            return self._weight_based_neff()
+        d1, d2 = self._makeParamvec(i), self._makeParamvec(j)
+        pair_cov = self.cov([d1, d2])
+        if abs(pair_cov[0, 1]) > 0.999 * np.sqrt(pair_cov[0, 0] * pair_cov[1, 1]):
+            # fully degenerate pair: the 1D estimate is the right answer
+            return self.getEffectiveSamplesGaussianKDE(i, h=h, min_corr=min_corr)
+        kernel_inv = np.linalg.inv(pair_cov) / h**2
+        if maxoff is None:
+            acl = max(self.getCorrelationLength(d, weight_units=False) for d in (d1, d2))
+            maxoff = int(acl * 1.5) + 4
+        maxoff = min(maxoff, self.numrows // 10)
+        h1, h2, hw = np.asarray(d1, float), np.asarray(d2, float), np.asarray(self.weights, float)
+
+        def pair_term(k):
+            return smath.kde_lag_term_2d(h1, h2, hw, k, kernel_inv)
+
+        N = smath.kde_pair_sum_scan(pair_term, self.weights, self.numrows, maxoff, min_corr)
+        return self.get_norm() ** 2 / N
+
+    # -- thinning ------------------------------------------------------------------
+    def thin_indices(self, factor, weights=None):
+        """Indices making unit-weight samples, assuming integer weights."""
+        return self.thin_indices_single_samples(factor, self.weights if weights is None else weights)
+
+    @staticmethod
+    def thin_indices_and_weights(factor, weights):
+        """(unique indices, new counts) for weight-preserving thinning."""
+        ix = WeightedSamples.thin_indices_single_samples(factor, weights)
+        return np.unique(ix, return_counts=True)
+
+    @staticmethod
+    def thin_indices_single_samples(factor, weights):
+        """Exact integer-weight partition thinning (see
+        :func:`getdist_tpu_torch.samplemath.thin_exact`)."""
+        try:
+            return smath.thin_exact(factor, weights)
+        except ValueError as e:
+            raise WeightedSampleError(str(e)) from None
+
+    def random_single_samples_indices(self, random_state=None, thin=None, max_samples=None):
+        """Random unit-weight sample indices drawn proportionally to weight."""
+        if max_samples is None:
+            thin = thin or 1
+        elif thin is not None:
+            raise WeightedSampleError("thin and max_samples cannot both be given")
+        else:
+            thin = max(1, self.norm / np.max(self.weights) / max_samples)
+        rng = np.random.default_rng(random_state)
+        keep_prob = self.weights / (np.max(self.weights) * thin)
+        return np.nonzero(rng.random(self.numrows) <= keep_prob)[0]
+
+    def thin(self, factor):
+        """Thin to unit-weight samples by the given integer factor."""
+        ix = self.thin_indices(factor)
+        self.setSamples(
+            self.samples[ix, :], loglikes=None if self.loglikes is None else self.loglikes[ix], min_weight_ratio=-1
+        )
+
+    def weighted_thin(self, factor):
+        """Thin preserving (integer) weights."""
+        ix, counts = self.thin_indices_and_weights(factor, self.weights)
+        self.setSamples(
+            self.samples[ix, :], loglikes=None if self.loglikes is None else self.loglikes[ix], weights=counts,
+            min_weight_ratio=-1,
+        )
+
+    # -- filters, reweighting and confidence limits ---------------------------------
     def filter(self, where):
         """Keep only samples matching the index list / boolean filter."""
         kept_loglikes = self.loglikes[where] if self.loglikes is not None else None
         self.setSamples(self.samples[where, :], self.weights[where], kept_loglikes, min_weight_ratio=-1)
+
+    def reweightAddingLogLikes(self, logLikes):
+        """Importance-reweight by adding -log(likelihood) values."""
+        offset = np.min(logLikes)
+        if self.loglikes is not None:
+            self.loglikes = self.loglikes + logLikes
+        self.weights = np.asarray(self.weights, dtype=np.float64) * np.exp(offset - logLikes)
+        self._weightsChanged()
+
+    def cool(self, cool):
+        """Multiply -log(likes) by ``cool`` and reweight accordingly."""
+        if self.loglikes is None:
+            raise WeightedSampleError("cool() needs likelihood values, which these samples lack")
+        best = np.min(self.loglikes)
+        cooled = self.loglikes * cool
+        self.weights = np.asarray(self.weights, dtype=np.float64) * np.exp((self.loglikes - cooled) - best * (1 - cool))
+        self.loglikes = cooled
+        self._weightsChanged()
+
+    def deleteZeros(self):
+        """Remove zero-weight samples."""
+        self.filter(self.weights > 0)
 
     def setMinWeightRatio(self, min_weight_ratio=1e-30):
         """Remove samples below min_weight_ratio of the maximum weight."""
@@ -352,6 +506,11 @@ class WeightedSamples:
             self.loglikes = self.loglikes[cut:]
         self.changeSamples(self.samples[cut:, :])
 
+    def twoTailLimits(self, paramVec, confidence):
+        """Two-tail equal-area confidence limits by sample counting."""
+        tail = (1 - confidence) / 2
+        return self.confidence(paramVec, np.array([tail, 1 - tail]))
+
     def initParamConfidenceData(self, paramVec, start=0, end=None, weights=None):
         """Sorted values/cumulative weights for repeated confidence queries."""
         w = self.weights if weights is None else weights
@@ -366,6 +525,19 @@ class WeightedSamples:
         else:
             table = self.initParamConfidenceData(paramVec, start, end, weights)
         return smath.tail_value(table, limfrac, upper)
+
+    # -- output -------------------------------------------------------------
+    def saveAsText(self, root, chain_index=None, make_dirs=False):
+        """Save as a getdist-format text chain file."""
+        parent = os.path.dirname(root)
+        if make_dirs and not os.path.exists(parent):
+            os.makedirs(parent)
+        if root.endswith(".txt"):
+            root = root[: -len(".txt")]
+        suffix = "" if chain_index is None else f"_{chain_index + 1}"
+        loglikes = self.loglikes if self.loglikes is not None else np.zeros(self.numrows)
+        columns = np.column_stack([self.weights, loglikes, self.samples])
+        np.savetxt(root + suffix + ".txt", columns, fmt=self.precision)
 
 
 class Chains(WeightedSamples):
@@ -485,6 +657,43 @@ class Chains(WeightedSamples):
             return name, self.paramNames.names[name]
         raise ParamError(f"Unknown parameter type {name}")
 
+    # -- named vectors --------------------------------------------------------
+    def setParams(self, obj):
+        """Attach obj.<name> sample vectors for every parameter; dotted
+        names create sub-objects (obj.aa.bb.cc)."""
+        # two passes: first grow every intermediate node, then bind values:
+        # a leaf that is also a prefix of another name gets its vector on
+        # node.value instead of clobbering the sub-object
+        paths = [info.name.split(".") for info in self.paramNames.names]
+        for path in paths:
+            node = obj
+            for part in path[:-1]:
+                if not hasattr(node, part):
+                    setattr(node, part, ParSamples())
+                node = getattr(node, part)
+        for column, path in enumerate(paths):
+            node = obj
+            for part in path[:-1]:
+                node = getattr(node, part)
+            leaf = getattr(node, path[-1], None)
+            if isinstance(leaf, ParSamples):
+                leaf.value = self.samples[:, column]
+            else:
+                setattr(node, path[-1], self.samples[:, column])
+        return obj
+
+    def getParams(self):
+        """A ParSamples bundle with a vector attribute per parameter."""
+        return self.setParams(ParSamples())
+
+    def getParamSampleDict(self, ix, want_derived=True):
+        """Dict of parameter values for one sample row."""
+        row = {"weight": self.weights[ix], "loglike": None if self.loglikes is None else self.loglikes[ix]}
+        for i, info in enumerate(self.paramNames.names):
+            if want_derived or not info.isDerived:
+                row[info.name] = self.samples[ix, i]
+        return row
+
     def _makeParamvec(self, par):
         if self.needs_update:
             self.updateBaseStatistics()
@@ -508,6 +717,17 @@ class Chains(WeightedSamples):
         self._getParamIndices()
         self.max_mult, self.mean_mult = self.weights.max(), self.norm / self.numrows
         return self
+
+    def updateChainBaseStatistics(self):
+        # legacy name
+        return self.updateBaseStatistics()
+
+    def addDerived(self, paramVec, name, **kwargs):
+        """Append a derived parameter vector with the given name."""
+        if self.paramNames.parWithName(name):
+            raise ValueError(f"Parameter with name {name} already exists")
+        self.changeSamples(np.c_[self.samples, paramVec])
+        return self.paramNames.addDerived(name, **kwargs)
 
     @staticmethod
     def _nesting_depth(obj):
@@ -599,6 +819,43 @@ class Chains(WeightedSamples):
         self.needs_update = True
         return self
 
+    def getSeparateChains(self):
+        """Per-chain WeightedSamples views (no copies when combined)."""
+        if self.chains is not None:
+            return self.chains
+        if self.chain_offsets is None:
+            raise WeightedSampleError("these samples were never combined from separate chains")
+        return [
+            WeightedSamples(
+                samples=self.samples[lo:hi],
+                weights=self.weights[lo:hi],
+                loglikes=None if self.loglikes is None else self.loglikes[lo:hi],
+            )
+            for lo, hi in zip(self.chain_offsets[:-1], self.chain_offsets[1:])
+        ]
+
+    def filter(self, where):
+        """Filter samples, fixing up chain offsets so chains stay splittable."""
+        if self.chains is not None:
+            raise ValueError("chains are still separated: makeSingle first, or filter each chain")
+        if self.chain_offsets is not None:
+            kept = [np.count_nonzero(where[lo:hi]) for lo, hi in zip(self.chain_offsets[:-1], self.chain_offsets[1:])]
+            self.chain_offsets = np.cumsum(np.array([0] + kept))
+        super().filter(where)
+
+    def weighted_thin(self, factor):
+        """Weight-preserving thin, applied per chain when chains exist."""
+        if not self.chains and self.chain_offsets is None:
+            return super().weighted_thin(factor)
+        was_split = self.chains
+        parts = self.getSeparateChains()
+        for part in parts:
+            part.weighted_thin(factor)
+        self.chains = parts
+        if not was_split:
+            self.makeSingle()
+        self.needs_update = True
+
     def removeBurnFraction(self, ignore_frac):
         """Remove burn-in fraction from combined samples or each chain."""
         if self.samples is None:
@@ -626,7 +883,29 @@ class Chains(WeightedSamples):
         self.paramNames.deleteIndices(fixed)
         self._getParamIndices()
 
+    # -- convergence ------------------------------------------------------------
+    def getGelmanRubinEigenvalues(self, nparam=None, chainlist=None):
+        """var(mean)/mean(var) eigenvalues over orthogonalized parameters
+        (Brooks & Gelman)."""
+        chainlist = chainlist if chainlist is not None else self.getSeparateChains()
+        nparam = nparam if nparam else self.paramNames.numNonDerived()
+        return smath.gelman_rubin_eigs(
+            self.getMeans()[:nparam],
+            [chain.getMeans()[:nparam] for chain in chainlist],
+            [chain.getCov(nparam) for chain in chainlist],
+        )
+
+    def getGelmanRubin(self, nparam=None, chainlist=None):
+        """Worst-eigenvalue R-1 statistic (should be << 1 when converged)."""
+        return np.max(self.getGelmanRubinEigenvalues(nparam, chainlist))
+
     # -- output -----------------------------------------------------------------
+    def saveAsText(self, root, chain_index=None, make_dirs=False):
+        """Save samples and .paramnames metadata as text."""
+        super().saveAsText(root, chain_index, make_dirs)
+        if not chain_index:
+            self.saveTextMetadata(root)
+
     def saveTextMetadata(self, root):
         """Save metadata (.paramnames) alongside chain text files."""
         self.paramNames.saveAsText(root + ".paramnames")

@@ -25,15 +25,28 @@ chain files parsed by the port's native loader, ``.paramnames``,
 ``.ranges`` and ``.properties.ini`` sidecars, a pickle cache in the
 package's cache directory) or ``MCSamples(root, ...).readChains(files)``.
 
-Not ported here: the host density API, the plots/CLI layers and the 2D
-effective-sample estimate (``getEffectiveSamplesGaussianKDE_2d``), ROADMAP
-A10 slices 2-3; grid job items and Cobaya yaml roots, A10 slice 4.
+The host analysis API: ``get1DDensity`` / ``get1DDensityGridData`` and
+``get2DDensity`` / ``get2DDensityGridData`` (with ``meanlikes``), the
+marginalized constraints (``getMargeStats``, ``getTable``, ``getLatex``,
+``getInlineLatex``), the likelihood summary (``getLikeStats``) and the
+convergence battery (``getConvergeTests``), with the result types of
+:mod:`getdist_tpu_torch.types`. On a CUDA ``MCSamples`` at the fused path's
+default settings the density queries are served from one run of the fused
+program on the card (``_fused_route_enabled``); on the CPU the host path
+answers, as the JAX package's CPU oracle does. ``GETDIST_TPU_TORCH_FUSED``
+set to ``0`` forces the host path, and to ``1`` routes a CPU object too.
+
+Not ported here: PCA, the N-D densities, the covmat, thin-data and chain
+writers and the combined / single samples (ROADMAP A10 slice 2b), the
+plots/CLI layers (A10 slice 3); grid job items and Cobaya yaml roots, A10
+slice 4.
 """
 
 import copy
 import glob
 import hashlib
 import logging
+import math
 import os
 import pickle
 import time
@@ -42,12 +55,14 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+from scipy import stats
 
 import getdist_tpu_torch
 from getdist_tpu_torch import _native
 from getdist_tpu_torch import chains
 from getdist_tpu_torch import kde_bandwidth as kde
-from getdist_tpu_torch.chains import Chains, ParamError, WeightedSampleError, _not_ported, chainFiles, last_modified
+from getdist_tpu_torch import types
+from getdist_tpu_torch.chains import Chains, ParamError, WeightedSampleError, chainFiles, last_modified
 from getdist_tpu_torch.densities import Density1D, Density2D
 from getdist_tpu_torch.inifile import IniFile
 from getdist_tpu_torch.ops import parity_device as pdev
@@ -60,8 +75,10 @@ from getdist_tpu_torch.ops.batched import (
     prepare_chain,
 )
 from getdist_tpu_torch.ops.convolve import convolve1D_host as convolve1D
+from getdist_tpu_torch.ops.convolve import convolve2D_host as convolve2D
 from getdist_tpu_torch.ops.pair_hist import narrow_weights
 from getdist_tpu_torch.parallel.mesh import shard_samples, shard_values
+from getdist_tpu_torch.paramnames import ParamInfo
 from getdist_tpu_torch.parampriors import ParamBounds
 
 __all__ = [
@@ -77,20 +94,10 @@ __all__ = [
 default_getdist_settings = getdist_tpu_torch.default_getdist_settings
 
 # the pickle cache's format: a cached object of another version is not used
-pickle_version = 1
+pickle_version = 2
 # the cache files' extension (the JAX package's are ".py_mcsamples", whose
 # unpickling would import it)
 CACHE_EXT = ".torch_mcsamples"
-
-
-class LikeStats:
-    """Likelihood statistics of a chain with loglikes: the best-fit sample's
-    -log(like) and the parameters, which carry their N-D limits
-    (``ND_limit_bot`` / ``ND_limit_top``)."""
-
-    def __init__(self, logLike_sample, names):
-        self.logLike_sample = logLike_sample
-        self.names = names
 
 
 class MCSamplesError(WeightedSampleError):
@@ -203,6 +210,13 @@ def _load_valid_cache(cachefile, source_files, samples, ini, settings):
 _REGRID_KEYS = ("P", "contours", "rx", "ry", "corr", "neff")
 
 
+def _regrid_entries(d2x, plist):
+    """{pair: rerun result} of one rerun's all_2d_densities output, with its
+    mean-likelihood grid under 'likes' when the rerun binned like weights."""
+    keys = _REGRID_KEYS + (("likes",) if d2x.get("likes") is not None else ())
+    return {key: {name: d2x[name][i] for name in keys} for i, key in enumerate(plist)}
+
+
 # defaults applied as attributes of every MCSamples before settings merge;
 # keys mirror analysis_defaults.ini (values here are the hard-coded floor,
 # and their types are the types the ini values are read as)
@@ -219,7 +233,17 @@ _BASE_ANALYSIS_SETTINGS = dict(
     mult_bias_correction_order=1,
     max_corr_2D=0.95,
     use_effective_samples_2D=False,
+    credible_interval_threshold=0.05,
+    shade_likes_is_mean_loglikes=False,
+    rootdirname="",
+    indep_thin=0,
     no_warning_chi2_params=True,
+    max_split_tests=4,
+    force_twotail=False,
+    corr_length_thin=0,
+    corr_length_steps=15,
+    converge_test_limit=0.95,
+    done_1Dbins=False,
 )
 
 
@@ -359,12 +383,24 @@ class MCSamples(Chains):
             ini.setAttr(name, self)
         for name, default in (("boundary_correction_order", 1), ("mult_bias_correction_order", 1)):
             ini.setAttr(name, self, default)
+        for name in ("credible_interval_threshold", "force_twotail"):
+            ini.setAttr(name, self)
+        if self.force_twotail:
+            logging.warning("force_twotail set: all limits treated as two-tail")
         ini.setAttr("max_corr_2D", self)
         if ini.hasKey("contours"):
             ini.setAttr("contours", self)
         elif ini.hasKey("num_contours"):
             n_levels = ini.int("num_contours", 2)
             self.contours = np.array([ini.float("contour" + str(i + 1)) for i in range(n_levels)])
+        # threshold for the edge bin to allow two-tail limits
+        self.max_frac_twotail = []
+        for i, level in enumerate(self.contours):
+            gauss_edge = np.exp(-1.0 * math.pow(stats.norm.ppf((1 - level) / 2), 2) / 2)
+            self.max_frac_twotail.append(ini.float("max_frac_twotail" + str(i + 1), gauss_edge) if ini else gauss_edge)
+        ini.setAttr("converge_test_limit", self, self.contours[-1])
+        for name in ("corr_length_thin", "corr_length_steps"):
+            ini.setAttr(name, self)
         for name, default in (("no_warning_params", []), ("no_warning_chi2_params", True)):
             ini.setAttr(name, self, default)
         self.batch_path = ini.string("batch_path", default=self.batch_path, allowEmpty=False)
@@ -424,7 +460,10 @@ class MCSamples(Chains):
         n_outliers = np.sum(self.weights > weight_ceiling)
         if n_outliers:
             logging.warning("%s of samples carry outlier weights", float(n_outliers) / self.numrows)
+        self.indep_thin = 0
+        self.done_1Dbins = False
         self.density1D = dict()
+        self._fused_cache = None
         self._param_range_cache = {}
         self._initLimits(self.ini)
         for par in self.paramNames.names:
@@ -433,27 +472,40 @@ class MCSamples(Chains):
         return self
 
     def _setLikeStats(self):
-        """For a chain with loglikes, each parameter's N-D confidence region
-        per contour (``ND_limit_bot`` / ``ND_limit_top``: the extremes of the
-        best-likelihood samples that hold the contour's mass) and
-        ``self.likeStats`` (None without loglikes), as the reference's
-        ``_setLikeStats`` sets them for ``range_ND_contour``; its likelihood
-        moments are not ported."""
+        """Compute and store the LikeStats summary: best-fit sample,
+        likelihood moments, and per-parameter ND confidence region from
+        sorting by -log(like) (reference ``mcsamples.py:2237-2278``)."""
         logl = self.loglikes
         if logl is None:
             self.likeStats = None
-            return
+            return None
+        stats = types.LikeStats()
+        bestfit_ix = np.argmin(logl)
+        maxlike = logl[bestfit_ix]
+        stats.logLike_sample = maxlike
+        spread_ok = np.max(logl) - maxlike < 30
+        stats.logMeanInvLike = np.log(self.mean(np.exp(logl - maxlike))) + maxlike if spread_ok else None
+        stats.meanLogLike = self.mean_loglike
+        stats.logMeanLike = -np.log(self.mean(np.exp(-(logl - maxlike)))) + maxlike
+        stats.complexity = 2 * (self.mean_loglike - maxlike)
+        stats.varLogLike = self.mean(logl**2) - self.mean_loglike**2
+        stats.names = self.paramNames.names
+
+        # ND confidence regions: take the best-likelihood mass up to each contour
         by_like = logl.argsort()
         mass = np.cumsum(self.weights[by_like])
-        cutoffs = np.searchsorted(mass, self.norm * self.contours)
+        ncontours = len(self.contours)
+        cutoffs = np.searchsorted(mass, self.norm * self.contours[0:ncontours])
         for j, info in enumerate(self.paramNames.names):
-            info.ND_limit_bot = np.empty(len(cutoffs))
-            info.ND_limit_top = np.empty(len(cutoffs))
+            info.ND_limit_bot = np.empty(ncontours)
+            info.ND_limit_top = np.empty(ncontours)
             for i, cut in enumerate(cutoffs):
                 region = self.samples[by_like[:cut], j]
                 info.ND_limit_bot[i] = np.min(region)
                 info.ND_limit_top[i] = np.max(region)
-        self.likeStats = LikeStats(logl[by_like[0]], self.paramNames.names)
+            info.bestfit_sample = self.samples[bestfit_ix, j]
+        self.likeStats = stats
+        return stats
 
     # -- parameter ranges ----------------------------------------------------------------
 
@@ -580,13 +632,26 @@ class MCSamples(Chains):
         # (bias-corrected) estimator's N scaling
         return h * N_eff ** (1.0 / 5 - 1.0 / (4 * m + 5))
 
-    def get1DDensityGridData(self, j, paramConfid=None, **kwargs):
-        """The marginalized 1D KDE density of a parameter, on the host
-        (reference ``mcsamples.py:1517-1686``): fine binning -> auto ISJ
-        bandwidth -> FFT convolution -> boundary kernel correction ->
-        multiplicative bias iterations -> peak-normalized Density1D."""
+    def get1DDensityGridData(self, j, paramConfid=None, meanlikes=False, **kwargs):
+        """The marginalized 1D KDE density of a parameter (reference
+        ``mcsamples.py:1517-1686``): fine binning -> auto ISJ bandwidth ->
+        FFT convolution -> boundary kernel correction -> multiplicative bias
+        iterations -> peak-normalized Density1D, on the host; with
+        ``meanlikes`` (needs loglikes) its ``likes`` hold the mean-likelihood
+        curve. With no setting overrides and the fused route on
+        (:meth:`_fused_route_enabled`) it is served from the fused
+        program's run (:meth:`_fused_1d_lookup`)."""
         if self.needs_update:
             self.updateBaseStatistics()
+        if not kwargs and self._fused_route_enabled() and (not meanlikes or self.loglikes is not None):
+            density = self._fused_1d_lookup(j, paramConfid, meanlikes=meanlikes)
+            if density is not None:
+                return density
+        return self._host_1d_density(j, paramConfid, meanlikes, **kwargs)
+
+    def _host_1d_density(self, j, paramConfid=None, meanlikes=False, **kwargs):
+        """The host path of :meth:`get1DDensityGridData` (the byte-exact
+        oracle of the reference's conventions)."""
         index = self._parAndNumber(j)[0]
         if index is None:
             return None
@@ -604,6 +669,7 @@ class MCSamples(Chains):
 
         bin_indices, fine_width, binmin, binmax = self._binSamples(self.samples[:, index], par, fine_bins)
         bins = np.bincount(bin_indices, weights=self.weights, minlength=fine_bins)
+        finebinlikes = self._fine_like_bins(bin_indices, fine_bins) if meanlikes else None
 
         if smooth_scale_1D <= 0:
             bandwidth = self.getAutoBandwidth1D(bins, par, index, mult_bias_order, boundary_order) * (binmax - binmin)
@@ -626,6 +692,7 @@ class MCSamples(Chains):
         smoothed = convolve1D(bins, kernel.Win, conv_mode)
         density1D = Density1D(np.linspace(binmin, binmax, fine_bins), P=smoothed,
                               view_ranges=[par.range_min, par.range_max])
+        uncorrected = smoothed.copy() if meanlikes else None
         if par.has_limits and not par.periodic and boundary_order >= 0:
             self._boundary_correct_1d(density1D, bins, par, kernel, winw, fine_bins, boundary_order)
         elif not par.periodic and boundary_order == 2:
@@ -635,8 +702,42 @@ class MCSamples(Chains):
         density1D.normalize("max", in_place=True)
         if not kwargs:
             self.density1D[par.name] = density1D
-        density1D.likes = None
+        if meanlikes:
+            density1D.likes = self._mean_likes_1d(density1D, finebinlikes, kernel, conv_mode, uncorrected)
+        else:
+            density1D.likes = None
         return density1D
+
+    def _fine_like_bins(self, bin_indices, fine_bins):
+        """Likelihood-weighted fine histogram for mean-like shading."""
+        if self.shade_likes_is_mean_loglikes:
+            w = self.weights * self.loglikes
+        else:
+            w = self._likelihood_weights()
+        return np.bincount(bin_indices, weights=w, minlength=fine_bins)
+
+    def _mean_likes_1d(self, density1D, finebinlikes, kernel, conv_mode, uncorrected):
+        """Smoothed mean-likelihood curve aligned with the corrected density."""
+        live = density1D.P > 0
+        finebinlikes[live] /= density1D.P[live]
+        binlikes = convolve1D(finebinlikes, kernel.Win, conv_mode)
+        binlikes[live] *= density1D.P[live] / uncorrected[live]
+        if self.shade_likes_is_mean_loglikes:
+            floor = np.min(binlikes)
+            binlikes = np.where((binlikes - floor) < 30, np.exp(-(binlikes - floor)), 0)
+            binlikes[uncorrected == 0] = 0
+        binlikes /= np.max(binlikes)
+        return binlikes
+
+    def get1DDensity(self, name, **kwargs):
+        """Cached Density1D for a named parameter."""
+        if self.needs_update:
+            self.updateBaseStatistics()
+        if not kwargs:
+            density = self.density1D.get(name)
+            if density is not None:
+                return density
+        return self.get1DDensityGridData(name, **kwargs)
 
     @staticmethod
     def _interior_order2_correct_1d(density1D, bins, kernel):
@@ -748,6 +849,271 @@ class MCSamples(Chains):
         hist = np.bincount(flatix, weights=self.weights, minlength=xsize * ysize).reshape((ysize, xsize))
         return hist, flatix
 
+    # -- host 2D densities ------------------------------------------------------------------
+
+    @staticmethod
+    def _anisotropic_window(rx, ry, corr, winw):
+        """Normalized 2D Gaussian window with covariance [[ry^2, rxy],
+        [rxy, rx^2]] over a (2 winw+1)^2 stencil."""
+        precision = np.linalg.inv(np.array([[ry**2, rx * ry * corr], [rx * ry * corr, rx**2]]))
+        gy, gx = np.mgrid[-winw : winw + 1, -winw : winw + 1]
+        quad = gy**2 * precision[0, 0] + gx**2 * precision[1, 1] + 2 * precision[1, 0] * gy * gx
+        window = np.exp(-quad / 2)
+        return window / np.sum(window)
+
+    @staticmethod
+    def _conv_mode_2d(parx, pary):
+        if parx.periodic:
+            return "periodic_both" if pary.periodic else "periodic_x"
+        return "periodic_y" if pary.periodic else "same"
+
+    def _meanlikes_fine_2d(self, flatix, xsize, ysize):
+        flat = np.bincount(flatix, weights=self._likelihood_weights(), minlength=xsize * ysize)
+        return flat.reshape((ysize, xsize))
+
+    @staticmethod
+    def _meanlikes_smooth_2d(finebinlikes, bins2D, Win, mode, convolvesize, mult_bias_order):
+        """Smoothed mean-likelihood surface, de-biased like the density and
+        divided by it where it carries weight."""
+        smoothed = convolve2D(finebinlikes, Win, mode, largest_size=convolvesize)
+        if mult_bias_order:
+            carried = smoothed > 0
+            finebinlikes[carried] /= smoothed[carried]
+            second = convolve2D(finebinlikes, Win, mode, largest_size=convolvesize)
+            second[carried] *= smoothed[carried]
+            smoothed = second
+        floor = 1e-4 * np.max(bins2D)
+        smoothed[bins2D > floor] /= bins2D[bins2D > floor]
+        smoothed[bins2D <= floor] = 0
+        return smoothed
+
+    def get2DDensityGridData(
+        self, j, j2, num_plot_contours=None, get_density=False, meanlikes=False, mask_function: callable = None,
+        **kwargs
+    ):
+        """Compute the marginalized 2D KDE density for a parameter pair.
+
+        Full reference pipeline (``mcsamples.py:1748-2010``), on the host:
+        corr-adaptive fine binning -> anisotropic auto bandwidth matrix (with
+        Cholesky shearing for correlated pairs) -> 2D FFT convolution
+        (periodic modes per axis) -> linear boundary kernel -> multiplicative
+        bias iterations -> optional mask -> contour levels. With no setting
+        overrides or mask and the fused route on
+        (:meth:`_fused_route_enabled`) it is served from the fused program's
+        run (:meth:`_fused_2d_lookup`).
+        """
+        if self.needs_update:
+            self.updateBaseStatistics()
+        if not kwargs and mask_function is None and self._fused_route_enabled():
+            if not meanlikes or self.loglikes is not None:
+                density = self._fused_2d_lookup(j, j2, num_plot_contours, meanlikes=meanlikes)
+                if density is not None:
+                    return density
+        stopwatch = time.time()
+        j, parx = self._parAndNumber(j)
+        j2, pary = self._parAndNumber(j2)
+        if None in (j, j2):
+            return None
+        for axis_index in (j, j2):
+            self._initParamRanges(axis_index)
+
+        pick = lambda name: kwargs.get(name, getattr(self, name))  # noqa: E731
+        base_fine_bins_2D = pick("fine_bins_2D")
+        boundary_order = pick("boundary_correction_order")
+        mult_bias_order = pick("mult_bias_correction_order")
+        smooth_scale_2D = float(pick("smooth_scale_2D"))
+        has_prior = bool(parx.has_limits or pary.has_limits or mask_function)
+
+        corr, actual_corr = self._pair_correlation(j, j2, parx, pary)
+        fine_bins_2D, nbin2D = self._degeneracy_adapted_bins(corr, base_fine_bins_2D)
+        xsize = ysize = fine_bins_2D
+
+        ixs, step_x, x_lo, x_hi = self._binSamples(self.samples[:, j], parx, fine_bins_2D)
+        iys, step_y, y_lo, y_hi = self._binSamples(self.samples[:, j2], pary, fine_bins_2D)
+        pair_hist, flat_cells = self._make2Dhist(ixs, iys, xsize, ysize)
+        finebinlikes = self._meanlikes_fine_2d(flat_cells, xsize, ysize) if meanlikes else None
+
+        # rx/ry are kernel widths in fine-bin units
+        if smooth_scale_2D < 0:
+            hx, hy, corr = self.getAutoBandwidth2D(
+                pair_hist, parx, pary, j, j2, actual_corr, x_hi - x_lo, y_hi - y_lo,
+                base_fine_bins_2D, mult_bias_correction_order=mult_bias_order,
+            )
+            rx = hx * abs(smooth_scale_2D) / step_x
+            ry = hy * abs(smooth_scale_2D) / step_y
+        elif smooth_scale_2D < 1.0:
+            rx = smooth_scale_2D * parx.err / step_x
+            ry = smooth_scale_2D * pary.err / step_y
+        else:
+            rx = ry = smooth_scale_2D * fine_bins_2D / nbin2D
+
+        widest = float(max(rx, ry))
+        logging.debug("kernel corr %s, fine-bin widths %s x %s", corr, rx, ry)
+        if widest < 2:
+            logging.warning("%s/%s: fine_bins_2D too coarse for the optimal 2D kernel", parx.name, pary.name)
+        winw = max(1, int(round(2.5 * widest)))
+        Win = self._anisotropic_window(rx, ry, corr, winw)
+
+        logging.debug("2D binning+bandwidth took %s s at %s bins", time.time() - stopwatch, fine_bins_2D)
+        stopwatch = time.time()
+        convolvesize = xsize + 2 * winw + Win.shape[0]  # oversized for fast fft padding choice
+        conv_mode = self._conv_mode_2d(parx, pary)
+        surface = convolve2D(pair_hist, Win, conv_mode, largest_size=convolvesize)
+
+        like_surface = None
+        if meanlikes:
+            like_surface = self._meanlikes_smooth_2d(finebinlikes, surface, Win, conv_mode, convolvesize, mult_bias_order)
+            del finebinlikes
+
+        need_mask = has_prior and boundary_order >= 0 or mult_bias_order or mask_function
+        prior_mask = masked_out = None
+        if need_mask:
+            # pad by winw so 'valid' convolutions return (ysize, xsize)
+            prior_mask = np.ones((2 * winw + ysize, 2 * winw + xsize))
+            if mask_function:
+                mask_function(
+                    x_lo - winw * step_x, y_lo - winw * step_y, step_x, step_y, prior_mask
+                )
+                masked_out = prior_mask[winw:-winw, winw:-winw] < 1e-8
+
+        fully_periodic = parx.periodic and pary.periodic
+        if has_prior and boundary_order >= 0 and not fully_periodic:
+            self._setEdgeMask2D(parx, pary, prior_mask, winw)
+            self._boundary_correct_2d(surface, pair_hist, prior_mask, Win, winw, boundary_order, conv_mode, convolvesize)
+
+        if mult_bias_order and not fully_periodic:
+            self._setAllEdgeMask2D(
+                prior_mask, winw, periodic_x=parx.periodic, periodic_y=pary.periodic
+            )
+            self._mult_bias_correct_2d(
+                surface, pair_hist, prior_mask, Win, conv_mode, convolvesize, mult_bias_order, masked_out
+            )
+
+        if mask_function:
+            surface[masked_out] = 0
+
+        views = [(parx.range_min, parx.range_max), (pary.range_min, pary.range_max)]
+        density = Density2D(
+            np.linspace(x_lo, x_hi, xsize),
+            np.linspace(y_lo, y_hi, ysize),
+            surface,
+            mask=None if not mask_function else np.asarray(masked_out),
+            view_ranges=views,
+        )
+        density.normalize("max", in_place=True)
+        if get_density:
+            return density
+
+        ncontours = len(self.contours)
+        if num_plot_contours:
+            ncontours = min(int(num_plot_contours), ncontours)
+        logging.debug("2D convolutions took %s s", time.time() - stopwatch)
+        density.contours = density.getContourLevels(self.contours[:ncontours])
+        if meanlikes:
+            like_surface /= np.max(like_surface)
+        density.likes = like_surface
+        return density
+
+    @staticmethod
+    def _mult_bias_correct_2d(surface, pair_hist, prior_mask, Win, conv_mode, convolvesize, order, masked_out):
+        """Multiplicative bias iterations in place: divide out the current
+        estimate, re-smooth, multiply back (reference ``mcsamples.py:1921-1944``)."""
+        mask_mass = convolve2D(prior_mask, Win, "valid", largest_size=convolvesize)
+        for _ in range(order):
+            flattened = pair_hist.copy()
+            significant = surface > np.max(surface) * 1e-8
+            flattened[significant] /= surface[significant]
+            surface *= convolve2D(flattened, Win, conv_mode, largest_size=convolvesize)
+            if masked_out is not None:
+                surface[~masked_out] /= mask_mass[~masked_out]
+            else:
+                surface /= mask_mass
+
+    def get2DDensity(self, x, y, normalized=False, **kwargs):
+        """Density2D for a pair of parameters (max-normalized by default)."""
+        if self.needs_update:
+            self.updateBaseStatistics()
+        density = self.get2DDensityGridData(x, y, get_density=True, **kwargs)
+        if normalized:
+            density.normalize(in_place=True)
+        return density
+
+    def _getScaleForParam(self, par):
+        # Half-width-at-50% based scale; also primes the 1D density cache.
+        density = self.get1DDensity(par)
+        mn, mx, bot_hit, top_hit = density.getLimits(0.5, accuracy_factor=1)
+        if bot_hit or top_hit:
+            return (mx - mn) / 0.675
+        return (mx - mn) / (2 * 0.675)
+
+    @staticmethod
+    def _boundary_correct_2d(bins2D, histbins, prior_mask, Win, winw, order, mode, convolvesize):
+        """Boundary-kernel correction in place: renormalize by the clipped
+        window mass (order 0), or solve the 2D linear boundary-kernel system
+        (order 1, Jones 1993 family) wherever the mask convolution carries
+        weight (reference ``mcsamples.py:1921-1961``)."""
+
+        def mask_conv(window):
+            return convolve2D(prior_mask, window, "valid", largest_size=convolvesize)
+
+        a00 = mask_conv(Win)
+        live = a00 * bins2D > np.max(bins2D) * 1e-8
+        a00 = a00[live]
+        normed = bins2D[live] / a00
+        if order == 0:
+            bins2D[live] = normed
+            return
+        if order != 1:
+            raise SettingError("2D boundary_correction_order supports only 0 and 1")
+        # window moments against the mask: m[jk] pairs x-power j with y-power k
+        dx = np.arange(-winw, winw + 1)[None, :]
+        dy = dx.reshape(-1, 1)
+        tilted_x, tilted_y = Win * dx, Win * dy
+        m = {
+            jk: mask_conv(w)[live]
+            for jk, w in (
+                ("10", tilted_x), ("01", tilted_y),
+                ("20", tilted_x * dx), ("02", tilted_y * dy), ("11", tilted_y * dx),
+            )
+        }
+        m00, m10, m01 = a00, m["10"], m["01"]
+        m20, m02, m11 = m["20"], m["02"], m["11"]
+        firstP_x = convolve2D(histbins, tilted_x, mode, largest_size=convolvesize)[live]
+        firstP_y = convolve2D(histbins, tilted_y, mode, largest_size=convolvesize)[live]
+        det = m20 * m01**2 + m10**2 * m02 - m00 * m02 * m20 + m11**2 * m00 - 2 * m01 * m10 * m11
+        corrected = (
+            bins2D[live] * (m11**2 - m02 * m20)
+            + firstP_x * (m10 * m02 - m01 * m11)
+            + firstP_y * (m01 * m20 - m10 * m11)
+        ) / det
+        # clamped log-space update keeps the correction positive and bounded
+        bins2D[live] = normed * np.exp(np.minimum(corrected / normed, 4) - 1)
+
+    def _setAllEdgeMask2D(self, prior_mask, winw, periodic_x=False, periodic_y=False):
+        if not periodic_x:
+            prior_mask[:, :winw] = 0
+            prior_mask[:, -winw:] = 0
+        if not periodic_y:
+            prior_mask[:winw:] = 0
+            prior_mask[-winw:, :] = 0
+
+    def _setEdgeMask2D(self, parx, pary, prior_mask, winw):
+        # Edge masks only on non-periodic axes (periodic axes have no edges).
+        col = np.s_[:]
+        specs = (
+            (parx, (col, winw), (col, np.s_[:winw]), (col, -(winw + 1)), (col, np.s_[-winw:])),
+            (pary, (winw, col), np.s_[:winw:], (-(winw + 1), col), (np.s_[-winw:], col)),
+        )
+        for par, bot_edge, bot_zero, top_edge, top_zero in specs:
+            if par.periodic:
+                continue
+            if par.has_limits_bot:
+                prior_mask[bot_edge] /= 2
+                prior_mask[bot_zero] = 0
+            if par.has_limits_top:
+                prior_mask[top_edge] /= 2
+                prior_mask[top_zero] = 0
+
     def _optimize_bandwidth_sheared(self, parx, pary, paramx, paramy, N_eff, nbins):
         """2D bandwidth for a correlated pair, in f64 on the host: shear the
         samples so the pair decorrelates (keeping a bounded axis untouched as
@@ -770,13 +1136,13 @@ class MCSamples(Chains):
         it for this pair on the host (:meth:`_optimize_bandwidth_sheared`).
         Without ``N_eff`` the pair's is the smaller 1D one; ``use_2D_Neff``
         (None: the ``use_effective_samples_2D`` setting) asks for the 2D
-        estimate instead, which is not ported (ROADMAP A10 slice 2) and raises."""
+        estimate (:meth:`getEffectiveSamplesGaussianKDE_2d`) instead."""
         if N_eff is None:
             want_2d = use_2D_Neff if use_2D_Neff is not None else self.use_effective_samples_2D
             if want_2d and abs(corr) < 0.999:
-                raise _not_ported("the 2D effective-sample estimate (getEffectiveSamplesGaussianKDE_2d)",
-                                  "A10 slice 2")
-            N_eff = min(self._get1DNeff(parx, paramx), self._get1DNeff(pary, paramy))
+                N_eff = self.getEffectiveSamplesGaussianKDE_2d(paramx, paramy)
+            else:
+                N_eff = min(self._get1DNeff(parx, paramx), self._get1DNeff(pary, paramy))
         plugin_width = N_eff ** (-1.0 / 6)
         clipped_corr = np.clip(corr, -self.max_corr_2D, self.max_corr_2D)
         both_limited = parx.has_limits and pary.has_limits
@@ -830,6 +1196,618 @@ class MCSamples(Chains):
                 return level
         return cap
 
+    # -- marginalized statistics and tables ---------------------------------------------------
+
+    def getParamSampleDict(self, ix, want_derived=True, want_fixed=True):
+        """Dict of parameter values for one sample row (incl. fixed)."""
+        row = super().getParamSampleDict(ix, want_derived=want_derived)
+        if want_fixed:
+            row.update(self.ranges.fixedValueDict())
+        return row
+
+    def getParamBestFitDict(self, best_sample=False, want_derived=True, want_fixed=True, max_posterior=True):
+        """Dict of parameter values at the best-fit point (from minimum
+        files, or the best sample)."""
+        if best_sample:
+            if not max_posterior:
+                raise ValueError("best_sample=True implies max_posterior=True")
+            if self.loglikes is None:
+                raise ValueError("samples carry no likelihood values")
+            best_row = int(np.argmin(self.loglikes))
+            return self.getParamSampleDict(best_row)
+        best = self.getBestFit(max_posterior=max_posterior).getParamDict(include_derived=want_derived)
+        if want_fixed:
+            best.update(self.ranges.fixedValueDict())
+        return best
+
+    def addDerived(self, paramVec, name, label="", comment="", range=None):
+        """Add a derived parameter column (optionally with hard bounds)."""
+        if range is not None:
+            self.ranges.setRange(name, range)
+        return super().addDerived(paramVec, name, label=label, comment=comment)
+
+    def getNumSampleSummaryText(self):
+        """Text summary of sample counts and effective sample sizes."""
+        out = [
+            f"using {self.numrows} rows, {self.paramNames.numParams()} parameters; "
+            f"mean weight {self.mean_mult}, tot weight {self.norm}\n"
+        ]
+        if self.indep_thin != 0:
+            out.append("Approx indep samples (N/corr length): %s\n" % round(self.norm / self.indep_thin))
+        out.append("Equiv number of single samples (sum w)/max(w): %s\n" % round(self.norm / self.max_mult))
+        n_eff_w = int(self.norm**2 / np.dot(self.weights, self.weights))
+        out.append("Effective number of weighted samples (sum w)^2/sum(w^2): %s\n" % n_eff_w)
+        return "".join(out)
+
+    def _setMargeLimits(self, par, paramConfid, max_frac_twotail=None, density1D=None):
+        """Set par.limits: one- or two-tail depending on whether the
+        density is cut off at the prior edges (reference
+        ``mcsamples.py:2460-2531``)."""
+        if max_frac_twotail is None:
+            max_frac_twotail = self.max_frac_twotail
+        par.limits = []
+        if density1D is None:
+            density1D = self.get1DDensity(par.name)
+        interpGrid = None
+        for level, contour in enumerate(self.contours):
+            # a tail counts as prior-cut when the density at that edge is
+            # still significant relative to the peak
+            edge_frac = max_frac_twotail[level]
+            force = self.force_twotail
+            cut_bot = par.has_limits_bot and not force and density1D.P[0] > edge_frac
+            cut_top = par.has_limits_top and not force and density1D.P[-1] > edge_frac
+
+            if cut_bot and cut_top:
+                window = [par.range_min, par.range_max]
+            else:
+                if not interpGrid:
+                    interpGrid = density1D.initLimitGrids()
+                lo, hi, cut_bot, cut_top = density1D.getLimits(contour, interpGrid)
+                limfrac = 1 - contour
+                eq_lo = eq_hi = None
+                if cut_bot:
+                    lo = par.range_min
+                elif cut_top:
+                    lo = self.confidence(paramConfid, limfrac, upper=False)
+                else:
+                    eq_lo = self.confidence(paramConfid, limfrac / 2, upper=False)
+                if cut_top:
+                    hi = par.range_max
+                elif cut_bot:
+                    hi = self.confidence(paramConfid, limfrac, upper=True)
+                else:
+                    eq_hi = self.confidence(paramConfid, limfrac / 2, upper=True)
+                if not cut_bot and not cut_top:
+                    # prefer equal-tail limits when the densities at the two
+                    # tails are similar
+                    if math.fabs(density1D.Prob(eq_hi) - density1D.Prob(eq_lo)) < self.credible_interval_threshold:
+                        lo, hi = eq_lo, eq_hi
+                window = [lo, hi]
+
+            tag = {(True, True): "none", (True, False): ">", (False, True): "<"}.get((cut_bot, cut_top), "two")
+            par.limits.append(types.ParamLimit(window, tag))
+
+    def _setDensitiesandMarge1D(self, max_frac_twotail=None, meanlikes=False):
+        """Compute (and cache) all 1D densities and marginalized limits."""
+        if self.done_1Dbins:
+            return
+        for j, info in enumerate(self.paramNames.names):
+            confid = self.initParamConfidenceData(self.samples[:, j])
+            self.get1DDensityGridData(j, paramConfid=confid, meanlikes=meanlikes)
+            self._setMargeLimits(info, confid, max_frac_twotail)
+        self.done_1Dbins = True
+
+    def getInlineLatex(self, param, limit=1, err_sig_figs=None):
+        r"""Inline tex like ``A=x\pm y`` (adjusts for one/two-tail limits)."""
+        names, snippets = self.getLatex([param], limit, err_sig_figs)
+        if snippets[0] is None:
+            raise ValueError(f"no parameter called {param}")
+        joiner = " " if snippets[0][0] in ("<", ">") else " = "
+        return names[0] + joiner + snippets[0]
+
+    def getLatex(self, params=None, limit=1, err_sig_figs=None):
+        """(labels, tex snippets) for constraints on a list of parameters."""
+        if isinstance(params, str):
+            return self.getInlineLatex(params, limit, err_sig_figs)
+        marge = self.getMargeStats()
+        formatter = types.NoLineTableFormatter()
+        if err_sig_figs:
+            formatter.numberFormatter.err_sf = err_sig_figs
+        labels, texs = [], []
+        for par in params if params is not None else marge.list():
+            tex = marge.texValues(formatter, par, limit=limit)
+            if tex is None:
+                labels.append(None)
+                texs.append(None)
+                continue
+            info = par if isinstance(par, ParamInfo) else marge.parWithName(par)
+            labels.append(info.getLabel())
+            texs.append(tex[0])
+        return labels, texs
+
+    def getTable(self, columns=1, include_bestfit=False, **kwargs):
+        """ResultTable of the marginalized constraints."""
+        return types.ResultTable(columns, [self.getMargeStats(include_bestfit)], **kwargs)
+
+    def getLikeStats(self):
+        """LikeStats with N-D limits and best-fit sample values."""
+        if self.likeStats:
+            return self.likeStats
+        return self._setLikeStats()
+
+    def getMargeStats(self, include_bestfit=False):
+        """MargeStats with marginalized 1D constraints for all parameters."""
+        self._setDensitiesandMarge1D()
+        m = types.MargeStats()
+        m.hasBestFit = False
+        m.limits = self.contours
+        m.names = self.paramNames.names
+        if include_bestfit:
+            m.addBestFit(self.getBestFit())
+        return m
+
+    def getBestFit(self, max_posterior=True):
+        """BestFit from the .minimum (posterior) or .bestfit (likelihood)
+        sidecar file."""
+        ext = ".minimum" if max_posterior else ".bestfit"
+        bf_file = self.root + ext
+        if os.path.exists(bf_file):
+            return types.BestFit(bf_file, max_posterior=max_posterior)
+        raise MCSamplesError(
+            f"a {ext} file next to the chains is required for best-fit values "
+            "(they cannot be derived from the samples themselves)"
+        )
+
+    def getLower(self, name):
+        """Lower hard bound for a named parameter, or None."""
+        par = self.paramNames.parWithName(name)
+        return getattr(par, "limmin", None) if par else None
+
+    def getUpper(self, name):
+        """Upper hard bound for a named parameter, or None."""
+        par = self.paramNames.parWithName(name)
+        return getattr(par, "limmax", None) if par else None
+
+    def getBounds(self):
+        """ParamBounds with only the limits that are actually active."""
+        bounds = ParamBounds()
+        bounds.names = self.paramNames.list()
+        for par in self.paramNames.names:
+            if par.has_limits_bot:
+                bounds.lower[par.name] = par.limmin
+            if par.has_limits_top:
+                bounds.upper[par.name] = par.limmax
+        return bounds
+
+    def getFractionIndices(self, weights, n):
+        """Row indices splitting total weight into n equal fractions."""
+        cumsum = np.cumsum(weights)
+        targets = np.linspace(0, 1, n, endpoint=False) * self.norm
+        return np.append(np.searchsorted(cumsum, targets), len(self.weights))
+
+    def cool(self, cool=None):
+        """Cool the samples by the given factor (default: stored
+        temperature)."""
+        stored = self.properties
+        if cool is None:
+            if not stored.hasKey("temperature"):
+                raise ValueError("no stored temperature on these samples: pass the cooling factor explicitly")
+            cool = stored.float("temperature")
+        if cool == 1:
+            return
+        if stored.float("cooled", 1) != 1:
+            logging.warning("samples were already cooled (factor %s)", stored.float("cooled"))
+        super().cool(cool)
+        stored.params["cooled"] = cool
+        if stored.hasKey("temperature"):
+            stored.params["temperature"] = stored.float("temperature") / cool
+
+    def parLabel(self, i):
+        """Latex label for a parameter index or name."""
+        info = self.paramNames.parWithName(i) if isinstance(i, str) else self.paramNames.names[i]
+        return info.label
+
+    def parName(self, i, starDerived=False):
+        """Name of the i'th parameter."""
+        return self.paramNames.name(i, starDerived)
+
+    def copy(self, label=None, settings=None) -> "MCSamples":
+        """Deep copy, optionally with a new label / modified settings."""
+        new = copy.deepcopy(self)
+        if label:
+            new.label = label
+        if settings is not None:
+            new.needs_update = True
+            new.updateSettings(settings)
+        return new
+
+    # -- convergence tests -------------------------------------------------------------------
+
+    class _RLAbort(Exception):
+        """Raftery-Lewis hit a degenerate fitted count; abort the battery."""
+
+    class _RLChainFail(Exception):
+        """This chain cannot be RL-analysed (zero transitions)."""
+
+    @staticmethod
+    def _rl_binary_transitions(values, threshold, order):
+        """Transition-count tensor of the thresholded binary chain: shape
+        (2,)*(order+1), counting order+1-grams."""
+        bits = (values < threshold).astype(int)
+        grams = 0
+        for shift in range(order + 1):
+            stop = bits.size - order + shift
+            grams = grams * 2 + bits[shift:stop]
+        return np.bincount(grams, minlength=2 ** (order + 1)).reshape((2,) * (order + 1))
+
+    @staticmethod
+    def _rl_g2_second_vs_markov(tran):
+        """2 * G^2 likelihood-ratio of a 2nd-order binary process against
+        1st-order, from the (2,2,2) trigram counts."""
+        lead = tran.sum(axis=2, keepdims=True)
+        trail = tran.sum(axis=0, keepdims=True)
+        mid = tran.sum(axis=(0, 2), keepdims=True)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            fitted = lead * trail / mid
+            pieces = np.where(tran != 0, np.log(tran / fitted) * tran, 0.0)
+        return 2 * pieces.sum()
+
+    def _rl_g2_markov_vs_indep(self, tran2, thin_rows):
+        """2 * G^2 of a Markov binary process against independence, from the
+        (2,2) bigram counts; aborts the battery on degenerate fits."""
+        expected = tran2.sum(axis=1, keepdims=True) * tran2.sum(axis=0, keepdims=True) / float(thin_rows - 1)
+        live = tran2 != 0
+        if np.any(live & ((expected <= 0) | (tran2 <= 0))):
+            raise self._RLAbort()
+        with np.errstate(divide="ignore", invalid="ignore"):
+            pieces = np.where(live, np.log(tran2 / expected) * tran2, 0.0)
+        return 2 * pieces.sum()
+
+    def _rl_analyse_chain(self, chain, limits, nparamMC, test_confidence, shared):
+        """Raftery-Lewis numbers for one chain: (markov_thin, indep_thin,
+        nburn).  ``shared`` carries the hardest (param, end) across chains.
+        Cf. reference ``mcsamples.py:1039-1181``.
+        """
+        epsilon = 0.001
+        thin_fac = int(round(np.max(chain.weights)))
+        nburn = 0
+        for j in range(nparamMC):
+            edges = self.confidence(chain.samples[:, j], limits, weights=chain.weights)
+            for endb in (0, 1):
+                # grow the thinning until 2nd-order structure is gone (BIC)
+                tran = None
+                while True:
+                    thin_ix = self.thin_indices(thin_fac, chain.weights)
+                    thin_rows = len(thin_ix)
+                    if thin_rows < 2:
+                        break
+                    tran = self._rl_binary_transitions(chain.samples[thin_ix, j], edges[endb], order=2)
+                    if self._rl_g2_second_vs_markov(tran) - math.log(float(thin_rows - 2)) * 2 < 0:
+                        break
+                    thin_fac += 1
+                # burn-in from the thinned chain's Markov transition rates
+                if tran is None or not (tran[:, 0, 1].sum() and tran[:, 1, 0].sum()):
+                    raise self._RLChainFail()
+                alpha = tran[:, 0, 1].sum() / float(tran[:, 0, 0].sum() + tran[:, 0, 1].sum())
+                beta = tran[:, 1, 0].sum() / float(tran[:, 1, 0].sum() + tran[:, 1, 1].sum())
+                switch_rate = alpha + beta
+                decay = math.log(switch_rate * epsilon / max(alpha, beta)) / math.log(abs(1.0 - switch_rate))
+                if int(decay + 1) * thin_fac > nburn:
+                    nburn = int(decay + 1) * thin_fac
+                    shared["hardest"] = j
+                    shared["hardestend"] = endb
+
+        markov_thin = thin_fac
+        # continue growing until even Markov structure is gone -> independence
+        hardest = max(shared["hardest"], 0)
+        u = self.confidence(
+            self.samples[:, hardest], (1 - test_confidence) / 2, shared["hardestend"] == 0
+        )
+        while True:
+            thin_ix = self.thin_indices(thin_fac, chain.weights)
+            thin_rows = len(thin_ix)
+            if thin_rows < 2:
+                break
+            tran2 = self._rl_binary_transitions(chain.samples[thin_ix, hardest], u, order=1)
+            if self._rl_g2_markov_vs_indep(tran2, thin_rows) - np.log(float(thin_rows - 1)) < 0:
+                break
+            thin_fac += 1
+        if thin_rows < 2:
+            thin_fac = 0
+        return markov_thin, thin_fac, nburn
+
+    def _report_corr_lengths(self, out, chainlist, parNames, parForm):
+        out.append(
+            "Parameter autocorrelation lengths (effective number of samples N_eff = tot weight/weight length)\n"
+        )
+        out.append("\n")
+        out.append(parForm % "" + "%15s %15s %15s\n" % ("Weight Length", "Sample length", "N_eff"))
+        maxoff = min(chain.weights.size // 10 for chain in chainlist)
+        form = "%15.2f" if self.mean_mult > 1 else "%15.2E"
+        longest = 0
+        for j in range(self.n):
+            curve = sum(chain.getAutocorrelation(j, maxoff, normalized=False) * chain.norm for chain in chainlist)
+            curve /= self.norm * self.vars[j]
+            cut = np.argmin(curve > 0.05 * curve[0])
+            N = curve[0] + 2 * np.sum(curve[1:cut])
+            longest = max(N, longest)
+            out.append(parNames[j] + form % N + " %15.2f %15i\n" % (N / self.mean_mult, self.norm / N))
+        self.indep_thin = longest
+        out.append("\n")
+
+    def _report_mean_var(self, out, chainlist, parNames):
+        out.append("\n")
+        out.append("mean convergence stats using remaining chains\n")
+        out.append("param sqrt(var(chain mean)/mean(chain var))\n")
+        out.append("\n")
+        between = sum((chain.means - self.means) ** 2 for chain in chainlist) / (len(chainlist) - 1)
+        within = (
+            np.array([[np.dot(chain.weights, d * d) for d in chain.diffs] for chain in chainlist]).sum(axis=0)
+            / self.norm
+        )
+        for j in range(self.n):
+            out.append(parNames[j] + f"{math.sqrt(between[j] / within[j]):10.4f}  {self.parLabel(j)}\n")
+        out.append("\n")
+
+    def _report_gelman_rubin(self, out, chainlist, feedback):
+        eigs = self.getGelmanRubinEigenvalues(chainlist=chainlist)
+        if eigs is None:
+            self.GelmanRubin = None
+            summary = "Gelman-Rubin covariance not invertible (parameter not moved?)"
+            logging.warning(summary)
+        else:
+            self.GelmanRubin = np.max(eigs)
+            out.append("var(mean)/mean(var) for eigenvalues of covariance of y of orthonormalized parameters\n")
+            out.extend("%3i%13.5f\n" % (k + 1, val) for k, val in enumerate(eigs))
+            summary = " var(mean)/mean(var), remaining chains, worst e-value: R-1 = %13.5F" % self.GelmanRubin
+        if feedback:
+            print(summary)
+        out.append("\n")
+
+    def _report_split_test(self, out, parNames, limits):
+        out.append(
+            "Split tests: rms_n([delta(upper/lower quantile)]/sd) n={2,3,4}, limit=%.0f%%:\n"
+            % (100 * self.converge_test_limit)
+        )
+        out.append("i.e. mean sample splitting change in the quantiles in units of the st. dev.\n")
+        out.append("\n")
+        n_splits = self.max_split_tests - 1
+        partitions = [self.getFractionIndices(self.weights, k + 2) for k in range(n_splits)]
+        for j in range(self.n):
+            column = self.samples[:, j]
+            whole = self.confidence(column, limits)
+            rms = np.zeros((n_splits, 2))
+            for ix, cuts in enumerate(partitions):
+                for lo, hi in zip(cuts[:-1], cuts[1:]):
+                    rms[ix] += (self.confidence(column, limits, start=lo, end=hi) - whole) ** 2
+                rms[ix] = np.sqrt(rms[ix] / (ix + 2)) / self.sddev[j]
+            for endb, tail_name in enumerate(("upper", "lower")):
+                out.append(parNames[j] + "".join("%9.4f" % rms[ix, endb] for ix in range(n_splits)) + " %s\n" % tail_name)
+        out.append("\n")
+
+    def _report_raftery_lewis(self, out, chainlist, limits, nparamMC, test_confidence, feedback):
+        num = len(chainlist)
+        markov_thin = np.zeros(num, dtype=int)
+        thin_fac = np.zeros(num, dtype=int)
+        nburn = np.zeros(num, dtype=int)
+        shared = {"hardest": -1, "hardestend": 0}
+        for ix, chain in enumerate(chainlist):
+            try:
+                markov_thin[ix], thin_fac[ix], nburn[ix] = self._rl_analyse_chain(
+                    chain, limits, nparamMC, test_confidence, shared
+                )
+            except self._RLAbort:
+                raise
+            except Exception:
+                # numerical failure on this chain -> reported as Failed
+                thin_fac[ix] = 0
+        out.append("Raftery&Lewis statistics\n")
+        out.append("\n")
+        out.append("chain  markov_thin  indep_thin    nburn\n")
+        for ix in range(num):
+            if thin_fac[ix] == 0:
+                out.append("%4i      Failed/not enough samples\n" % ix)
+            else:
+                out.append("%4i%12i%12i%12i\n" % (ix, markov_thin[ix], thin_fac[ix], nburn[ix]))
+        self.RL_indep_thin = np.max(thin_fac)
+        if feedback:
+            if not np.all(thin_fac != 0):
+                print("RL: Not enough samples to estimate convergence stats")
+            else:
+                print("RL: Thin for Markov: ", np.max(markov_thin))
+                print("RL: Thin for indep samples:  ", str(self.RL_indep_thin))
+                print(
+                    "RL: Estimated burn in steps: ",
+                    np.max(nburn),
+                    " (",
+                    int(round(np.max(nburn) / self.mean_mult)),
+                    " rows)",
+                )
+        out.append("\n")
+
+    def _report_corr_steps(self, out, chainlist, parNames, parForm):
+        out.append("Parameter auto-correlations as function of step separation\n")
+        out.append("\n")
+        if self.corr_length_thin != 0:
+            autocorr_thin = self.corr_length_thin
+        elif self.indep_thin == 0:
+            autocorr_thin = 20
+        elif self.indep_thin <= 30:
+            autocorr_thin = 5
+        else:
+            autocorr_thin = int(5 * (self.indep_thin / 30))
+
+        thin_rows = len(self.thin_indices(autocorr_thin))
+        maxoff = int(min(self.corr_length_steps, thin_rows // (2 * len(chainlist))))
+        if maxoff <= 0:
+            return
+        corrs = np.zeros([maxoff, self.n])
+        for chain in chainlist:
+            thin_ix = chain.thin_indices(autocorr_thin)
+            thin_rows = len(thin_ix)
+            maxoff = min(maxoff, thin_rows // autocorr_thin)
+            for j in range(self.n):
+                thinned = chain.diffs[j][thin_ix]
+                for off in range(1, maxoff + 1):
+                    corrs[off - 1][j] += (
+                        np.dot(thinned[off:], thinned[:-off]) / (thin_rows - off) / self.vars[j]
+                    )
+        corrs /= len(chainlist)
+        out.append(parForm % "" + "".join("%8i" % ((i + 1) * autocorr_thin) for i in range(maxoff)) + "\n")
+        for j in range(self.n):
+            out.append(parNames[j] + "".join("%8.3f" % corrs[i][j] for i in range(maxoff)) + " %s\n" % self.parLabel(j))
+
+    def getConvergeTests(
+        self, test_confidence=0.95, writeDataToFile=False,
+        what=("MeanVar", "GelmanRubin", "SplitTest", "RafteryLewis", "CorrLengths"), filename=None, feedback=False
+    ):
+        """Run the convergence-test battery and return the text report.
+
+        Tests (reference ``mcsamples.py:904-1228``): CorrLengths (weighted
+        autocorrelation lengths), MeanVar (per-parameter sqrt(var(chain
+        mean)/mean(chain var))), GelmanRubin (worst orthogonalized
+        eigenvalue R-1), SplitTest (quantile rms over 2..4 equal-weight
+        splits), RafteryLewis (binary-chain BIC thinning/burn, integer
+        weights only), CorrSteps table.  Each test is a ``_report_*``
+        method appending to the shared line list; the report text is
+        byte-compatible with the reference ``.converge`` format.
+        """
+        out = []
+        chainlist = self.getSeparateChains()
+        multi_chain = len(chainlist) > 1
+        if multi_chain and feedback:
+            print("Number of chains used = ", len(chainlist))
+        for chain in chainlist:
+            chain.setDiffs()
+        parForm = self.paramNames.parFormat()
+        parNames = [parForm % self.parName(j) for j in range(self.n)]
+        tail = (1 - test_confidence) / 2
+        limits = np.array([1 - tail, tail])
+        nparamMC = self.paramNames.numNonDerived()
+        integer_weights = np.all(np.abs(self.weights - self.weights.astype(int)) < 1e-4 / self.max_mult)
+
+        battery = (
+            ("CorrLengths", True, lambda: self._report_corr_lengths(out, chainlist, parNames, parForm)),
+            ("MeanVar", multi_chain, lambda: self._report_mean_var(out, chainlist, parNames)),
+            ("GelmanRubin", multi_chain and nparamMC > 0, lambda: self._report_gelman_rubin(out, chainlist, feedback)),
+            ("SplitTest", True, lambda: self._report_split_test(out, parNames, limits)),
+            (
+                "RafteryLewis",
+                integer_weights,
+                lambda: self._report_raftery_lewis(out, chainlist, limits, nparamMC, test_confidence, feedback),
+            ),
+            ("CorrSteps", integer_weights, lambda: self._report_corr_steps(out, chainlist, parNames, parForm)),
+        )
+        for tag, applicable, run in battery:
+            if tag in what and applicable:
+                try:
+                    run()
+                except self._RLAbort:
+                    print("Raftery and Lewis estimator had problems")
+                    return
+
+        report = "".join(out)
+        if writeDataToFile:
+            from pathlib import Path
+
+            Path(filename or self.rootdirname + ".converge").write_text(report, encoding="utf-8")
+        return report
+
+    # -- routing onto the fused program --------------------------------------------------------
+
+    def _fused_route_enabled(self):
+        """Whether the default density queries are served from one run of
+        the fused program (:meth:`_fused_densities_state`): on a CUDA
+        ``MCSamples`` at the fused path's conventions (auto bandwidths,
+        boundary and multiplicative-bias orders 1). A CPU object takes the
+        host path, the byte-exact oracle, as the JAX package does on its CPU
+        backend. ``GETDIST_TPU_TORCH_FUSED=0`` forces the host path and
+        ``=1`` routes a CPU object too (the kernels' plain versions), as the
+        tests do."""
+        flag = os.environ.get("GETDIST_TPU_TORCH_FUSED")
+        if flag == "0":
+            return False
+        if not (
+            float(self.smooth_scale_1D) < 0
+            and float(self.smooth_scale_2D) < 0
+            and int(self.boundary_correction_order) == 1
+            and int(self.mult_bias_correction_order) == 1
+        ):
+            return False
+        return flag == "1" or self.device.type == "cuda"
+
+    def _fused_densities_state(self, meanlikes=False):
+        """(dens1, dens2) dicts from ONE fused program run
+        (:meth:`fastDensities`), cached until the samples change; the routed
+        get*DensityGridData entry points serve individual queries from here,
+        so a 30-parameter ``getMargeStats`` or triangle plot costs one
+        program, not one host KDE per parameter and pair. Mean-likelihood
+        grids are a separately cached variant. An error of the run reaches
+        the caller: there is no silent host fallback. The count of queries
+        the host served by design (``fast_profile["host_served"]``) is kept
+        across the run."""
+        if self._fused_cache is None:
+            self._fused_cache = {}
+        if meanlikes not in self._fused_cache:
+            served = self.fast_profile.get("host_served", 0)
+            self._fused_cache[meanlikes] = self.fastDensities(
+                contours=tuple(np.asarray(self.contours, float)), meanlikes=meanlikes
+            )
+            self.fast_profile["host_served"] = served
+        return self._fused_cache[meanlikes]
+
+    def _host_served(self):
+        """None, counted in ``fast_profile["host_served"]``: a routed query
+        that the host path serves by design."""
+        self.fast_profile["host_served"] = self.fast_profile.get("host_served", 0) + 1
+
+    def _fused_1d_lookup(self, j, paramConfid=None, meanlikes=False):
+        """Density1D for one parameter from the fused program's run, or None
+        (counted, :meth:`_host_served`) for an unknown parameter."""
+        jx, par = self._parAndNumber(j)
+        if par is None:
+            return self._host_served()
+        dens1, _ = self._fused_densities_state(meanlikes)
+        density = dens1.get(par.name)
+        if density is None:
+            return self._host_served()
+        self._initParamRanges(jx, paramConfid)
+        density.view_ranges = [par.range_min, par.range_max]
+        self.density1D[par.name] = density
+        return density
+
+    def _fused_2d_lookup(self, j, j2, num_plot_contours=None, meanlikes=False):
+        """Density2D for a pair from the fused program's run, transposed
+        when the query order is reversed relative to the stored (a < b)
+        order; None (counted, :meth:`_host_served`) for an unknown
+        parameter, which the host path serves. Every pair of a meanlikes run
+        carries its like grid, a rerun's binned at the rerun's grid."""
+        jx, parx = self._parAndNumber(j)
+        jy, pary = self._parAndNumber(j2)
+        if parx is None or pary is None:
+            return self._host_served()
+        _, dens2 = self._fused_densities_state(meanlikes)
+        density = dens2.get((parx.name, pary.name))
+        flipped = dens2.get((pary.name, parx.name))
+        if density is None and flipped is not None:
+            density = Density2D(flipped.y, flipped.x, flipped.P.T)
+            density.contours = flipped.contours
+            density.likes = None if getattr(flipped, "likes", None) is None else flipped.likes.T
+        if density is None:
+            return self._host_served()
+        if meanlikes and getattr(density, "likes", None) is None:
+            raise RuntimeError(f"the fused run holds no mean-likelihood grid for ({parx.name}, {pary.name})")
+        self._initParamRanges(jx)
+        self._initParamRanges(jy)
+        out = Density2D(density.x, density.y, density.P,
+                        view_ranges=[(parx.range_min, parx.range_max), (pary.range_min, pary.range_max)])
+        levels = np.asarray(density.contours, float)
+        if num_plot_contours:
+            levels = levels[: min(int(num_plot_contours), len(levels))]
+        out.contours = levels
+        out.likes = getattr(density, "likes", None)
+        return out
+
     # -- fused path ------------------------------------------------------------------------------
 
     def fastDensities(self, params=None, contours=(0.68, 0.95), cache_1d=True, meanlikes=False, parity=False):
@@ -872,8 +1850,11 @@ class MCSamples(Chains):
             npts = grid_p.shape[0]
             density = Density2D(np.linspace(bmin[a], bmax[a], npts), np.linspace(bmin[b], bmax[b], npts), grid_p)
             density.contours = _host(fine["contours"]).astype(float) if fine else levels[k]
-            # a rerun's grid has no like grid (the program's is at 256 bins)
-            density.likes = likes2[k] if fine is None and likes2 is not None else None
+            if fine:
+                # a rerun bins the like weights at its own grid
+                density.likes = _host(fine["likes"]).astype(float) if "likes" in fine else None
+            else:
+                density.likes = None if likes2 is None else likes2[k]
             dens2[(names[a], names[b])] = density
         if cache_1d:
             self.density1D.update(dens1)
@@ -1154,7 +2135,7 @@ class MCSamples(Chains):
             d1 = self._fast_rescue_wide_bounded_1d(idx, d1, lo, hi, d1_host=d1h)
         stage("regrid")
         regrid = self._fast_regrid_exec(plan, idx, pairs, d1, contours, scale_2d, hists=hists, bounded=has,
-                                        per=per_arg, mesh=mesh)
+                                        per=per_arg, mesh=mesh, like_weights=like_w)
         # program B's packed diagnostics (fragile flags + kernel widths in
         # bin units): the route's one readback of program B
         stage("diag")
@@ -1163,12 +2144,12 @@ class MCSamples(Chains):
         stage("fragile_regrid")
         plan = self._fast_regrid_plan(idx, pairs, d1, fragile=frag, fragile_only=True, d1_host=d1h, mesh=mesh)
         regrid.update(self._fast_regrid_exec(plan, idx, pairs, d1, contours, scale_2d, hists=hists, bounded=has,
-                                             per=per_arg, mesh=mesh))
+                                             per=per_arg, mesh=mesh, like_weights=like_w))
         d2["regrid"] = regrid
         stage("clamped_rescue")
         self._fast_rescue_clamped_pairs(
             idx, pairs, d1, d2, contours, scale_2d, rx_host=diag[k_pairs : 2 * k_pairs],
-            ry_host=diag[2 * k_pairs : 3 * k_pairs], bounded=has, per=per_arg, mesh=mesh,
+            ry_host=diag[2 * k_pairs : 3 * k_pairs], bounded=has, per=per_arg, mesh=mesh, like_weights=like_w,
         )
         return d1, d2, pairs
 
@@ -1207,7 +2188,7 @@ class MCSamples(Chains):
         return d1
 
     def _fast_rescue_clamped_pairs(self, idx, pairs, d1, d2, contours, scale_2d=1.0, rx_host=None, ry_host=None,
-                                   bounded=False, per=None, mesh=None):
+                                   bounded=False, per=None, mesh=None, like_weights=None):
         """Re-run pairs whose kernel width saturated the fused program's
         fixed convolution window (rx/ry at winw/2.5 bins) with a near-half-
         grid window (winw = 126 at 256 bins, a 768 DFT frame), and serve its
@@ -1215,7 +2196,8 @@ class MCSamples(Chains):
         bandwidth with no cap (``mcsamples.py:1884`` winw = 2.5 width).
         ``bounded``: the chain's active limits (``d1``) apply; ``per``: (P,)
         periodic flags or None; ``mesh``: the process group of a sharded
-        call."""
+        call; ``like_weights``: the mean-likelihood weights, binned at the
+        rerun's grid (K1 with f32 weights) into its 'likes'."""
         regrid = d2.get("regrid", {})
         base_cap = 30 / 2.5
 
@@ -1248,10 +2230,9 @@ class MCSamples(Chains):
                 int8_weights=self._fast_chain_state(whole=False)["int8"], bandwidth_scale=None if scale_2d == 1.0 else scale_2d,
                 sigma_range=d1["sigma_range"], max_corr=float(self.max_corr_2D), winw=fine // 2 - 2,
                 active_lo=d1["active_lo"] if bounded else None, active_hi=d1["active_hi"] if bounded else None,
-                periodic=per, **self._fast_shard(mesh),
+                periodic=per, like_weights=like_weights, **self._fast_shard(mesh),
             )
-        for i, key in enumerate(saturated):
-            regrid[key] = {name: d2w[name][i] for name in _REGRID_KEYS}
+        regrid.update(_regrid_entries(d2w, saturated))
         d2["regrid"] = regrid
         self.fast_regrid_groups.append(
             {"fine": fine, "winw": fine // 2 - 2, "pairs": saturated, "bandwidths": "clamped"}
@@ -1366,7 +2347,7 @@ class MCSamples(Chains):
         )
 
     def _fast_regrid_exec(self, plan, idx, pairs, d1, contours, scale_2d=1.0, hists=None, bounded=False, per=None,
-                          mesh=None):
+                          mesh=None, like_weights=None):
         """Device half of the regrid rescue: re-run each planned group
         through :func:`all_2d_densities` with its bandwidth override and a
         window of max(30, fine / 9) bins. ``hists`` (program B's exported
@@ -1374,7 +2355,9 @@ class MCSamples(Chains):
         256 bins the rerun bins in-program (K1's wide kernels on int16 rows).
         ``bounded``: the chain's active limits (``d1``) apply; ``per``: (P,)
         periodic flags or None; ``mesh``: the process group of a sharded
-        call (the exported histograms are global)."""
+        call (the exported histograms are global); ``like_weights``: the
+        mean-likelihood weights, binned at the rerun's grid into its
+        'likes'."""
         regrid = {}
         if not plan:
             return regrid
@@ -1393,10 +2376,10 @@ class MCSamples(Chains):
                     int8_weights=int8, bandwidth_scale=None if scale_2d == 1.0 else scale_2d,
                     bandwidth_override=override, sigma_range=d1["sigma_range"], max_corr=float(self.max_corr_2D),
                     winw=winw, hists_in=hin, active_lo=d1["active_lo"] if bounded else None,
-                    active_hi=d1["active_hi"] if bounded else None, periodic=per, **self._fast_shard(mesh),
+                    active_hi=d1["active_hi"] if bounded else None, periodic=per, like_weights=like_weights,
+                    **self._fast_shard(mesh),
                 )
-            for i, key in enumerate(plist):
-                regrid[key] = {name: d2x[name][i] for name in _REGRID_KEYS}
+            regrid.update(_regrid_entries(d2x, plist))
             self.fast_regrid_groups.append({"fine": fine, "winw": winw, "pairs": plist, "bandwidths": kind})
         return regrid
 
@@ -1495,7 +2478,6 @@ class MCSamples(Chains):
             "rwidth": rwidth,
         }
 
-
     def fastParityDensities(self, params=None, contours=None, device=False, materialize=True):
         """Reference-exact triangle densities: exact host ranges, N_eff
         values and bandwidth matrices feed batched f64 2D convolution
@@ -1520,6 +2502,14 @@ class MCSamples(Chains):
         if not device:
             return self._parity_densities_host(params, contours)
         return self._parity_densities_device(params, contours, materialize=materialize)
+
+    def _parity_densities_1d(self, idx, infos):
+        """Parity mode's 1D densities: the byte-exact host path, reusing the
+        primed N_eff caches; never the fused route, whose conventions are
+        not the reference's."""
+        if self.needs_update:
+            self.updateBaseStatistics()
+        return {info.name: self._host_1d_density(j) for j, info in zip(idx, infos)}
 
     @staticmethod
     def _parity_grid_edges(infos):
@@ -1748,7 +2738,7 @@ class MCSamples(Chains):
                 list(pool.map(lambda ji: self._get1DNeff(ji[1], ji[0]), zip(idx, infos)))
         neff = np.array([self._get1DNeff(info, j) for j, info in zip(idx, infos)])
         mark("neff")
-        dens1 = {info.name: self.get1DDensityGridData(j) for j, info in zip(idx, infos)}
+        dens1 = self._parity_densities_1d(idx, infos)
         mark("1d_host")
 
         binmin, binmax = self._parity_grid_edges(infos)
@@ -1916,7 +2906,7 @@ class MCSamples(Chains):
         mark("neff")
 
         # 1D densities on the host, reusing the N_eff cache
-        dens1 = {info.name: self.get1DDensityGridData(j) for j, info in zip(idx, infos)}
+        dens1 = self._parity_densities_1d(idx, infos)
         mark("1d_host")
 
         # -- sheared bandwidths: device residual binning + host optimizer ----

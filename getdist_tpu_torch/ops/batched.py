@@ -102,25 +102,58 @@ def prepare_chain(samples, weights, device="cuda", dtype=torch.float32):
     return _tensor(samples, device, dtype), _tensor(weights, device, dtype)
 
 
-@full_fp32_matmuls()
 def pair_cumulant_score(samples, weights, group=None):
     """|k31| + |k13| + |k22| standardized joint cumulants for every param
     pair, as a (P, P) tensor on the samples' device. These vanish for
     jointly-Gaussian pairs, so the host uses them to gate the fragile-
     bandwidth f64 assist (``MCSamples._fast_regrid_plan``): genuinely
     non-Gaussian zoo shapes measure 0.4-3.4 where Gaussian chains stay
-    below ~0.11. The products run in full FP32 (no TF32). With ``group``,
-    ``samples`` / ``weights`` are this rank's block and every sum over
-    samples is all-reduced: each rank returns the same score."""
-    wn = weights / coll.psum(torch.sum(weights), group)
-    zc = samples - coll.psum(torch.matmul(wn, samples), group)
-    zc = zc / torch.sqrt(coll.psum(torch.matmul(wn, zc * zc), group))
+    below ~0.11. The sums over samples run in f64 partial sums cast once
+    (:func:`_psum64`). With ``group``, ``samples`` / ``weights`` are this
+    rank's block and every sum over samples is all-reduced: each rank
+    returns one card's score."""
+    dtype = samples.dtype
+
+    def wsum(a, b):  # sum over samples of a.T b, in f64 partial sums (_psum64)
+        return _psum64(torch.matmul(a.to(torch.float64), b.to(torch.float64)), group, dtype)
+
+    wn = weights / _psum64(torch.sum(weights, dtype=torch.float64), group, dtype)
+    zc = samples - wsum(wn, samples)
+    zc = zc / torch.sqrt(wsum(wn, zc * zc))
     z2 = zc * zc
     zw = zc * wn[:, None]
-    rho = coll.psum(torch.matmul(zw.T, zc), group)
-    k31 = coll.psum(torch.matmul((z2 * zw).T, zc), group) - 3 * rho
-    k22 = coll.psum(torch.matmul((z2 * wn[:, None]).T, z2), group) - 1 - 2 * rho * rho
+    rho = wsum(zw.T, zc)
+    k31 = wsum((z2 * zw).T, zc) - 3 * rho
+    k22 = wsum((z2 * wn[:, None]).T, z2) - 1 - 2 * rho * rho
     return torch.abs(k31) + torch.abs(k31).T + torch.abs(k22)
+
+
+def _psum64(partial, group, dtype):
+    """``partial``, an f64 sum over this rank's samples, summed over the
+    ranks of ``group`` in f64 and cast once to ``dtype``. The f64 sum of
+    f32 terms moves at ~1e-16 relative with the order of its adds, far
+    below an f32 step, so one card and W ranks (any split of the chain)
+    cast to the same f32 values; f32 partial sums differ in their last bits
+    between splits, which the bandwidths and the 2D like grids' 1e-4 density
+    floor magnify (ROADMAP C13 (c))."""
+    return coll.psum(partial, group).to(dtype)
+
+
+def _weighted_moments(cols, weights, group=None, full_cov=False):
+    """(norm, means (P,), variances (P,) or with ``full_cov`` the (P, P)
+    covariance) of (P, N) columns with (N,) weights, over the whole chain
+    (every rank of ``group``), in ``cols``' dtype. The sums run in f64 and
+    are cast once (:func:`_psum64`): the same values on any split."""
+    dtype = cols.dtype
+    w64 = weights.to(torch.float64)
+    norm = _psum64(torch.sum(w64), group, dtype)
+    means = _psum64(torch.matmul(cols.to(torch.float64), w64), group, dtype) / norm
+    diffs = cols - means[:, None]
+    if full_cov:
+        second = torch.matmul((diffs * weights[None, :]).to(torch.float64), diffs.T.to(torch.float64))
+    else:
+        second = torch.matmul((diffs * diffs).to(torch.float64), w64)
+    return norm, means, _psum64(second, group, dtype) / norm
 
 
 # ---------------------------------------------------------------------------
@@ -186,9 +219,9 @@ def _neff_kde_batch(values, weights, sigmas, lags, group=None, n_samples=None):
     kernel_std = sigmas * 0.2
     inv2 = 1.0 / (4.0 * kernel_std**2)
 
-    def pair_sum(left, left_w, right, right_w):
+    def pair_sum(left, left_w, right, right_w):  # f64 partial sums (_psum64)
         diff2 = (left - right) ** 2 * inv2[:, None]
-        return torch.sum(torch.exp(-diff2) * left_w[None, :] * right_w[None, :], dim=1)
+        return torch.sum(torch.exp(-diff2) * left_w[None, :] * right_w[None, :], dim=1, dtype=torch.float64)
 
     n_base = 5
     if world > 1:
@@ -230,12 +263,13 @@ def _neff_kde_batch(values, weights, sigmas, lags, group=None, n_samples=None):
             return lag_sum(uncorr_len + j)
 
     n_global = world * n if n_samples is None else n_samples
-    uncorr = coll.psum(sum(base_sum(j) for j in range(n_base)), group)
+    dtype = values.dtype
+    uncorr = _psum64(sum(base_sum(j) for j in range(n_base)), group, dtype)
     nav = sum(n_global - (uncorr_len + j) for j in range(n_base))
     uncorr_term = uncorr / nav
 
-    corr0 = coll.psum(torch.sum(weights * weights), group)
-    corr_k = coll.psum(torch.stack([lag_sum(k) for k in lags]), group)  # (L, P)
+    corr0 = _psum64(torch.sum(weights * weights, dtype=torch.float64), group, dtype)
+    corr_k = _psum64(torch.stack([lag_sum(k) for k in lags]), group, dtype)  # (L, P)
     n_pairs_k = torch.tensor([n_global - k for k in lags], dtype=values.dtype, device=values.device)[:, None]
     corr_k = corr_k - n_pairs_k * uncorr_term[None, :]
     alive = torch.cumprod((corr_k >= min_corr * corr0).to(corr_k.dtype), dim=0)  # stop at first drop
@@ -245,7 +279,7 @@ def _neff_kde_batch(values, weights, sigmas, lags, group=None, n_samples=None):
         (steps + np.append(np.diff(np.asarray(lags)), 0)) / 2.0, dtype=values.dtype, device=values.device
     )
     total = corr0 + 2.0 * torch.sum(contrib * weights_lag[:, None], dim=0)
-    return coll.psum(torch.sum(weights), group) ** 2 / total
+    return _psum64(torch.sum(weights, dtype=torch.float64), group, dtype) ** 2 / total
 
 
 # ---------------------------------------------------------------------------
@@ -781,9 +815,7 @@ def all_1d_densities(
     has_limits = limits_lo is not None or limits_hi is not None or periodic is not None
 
     cols = samples.T.contiguous()  # (P, N)
-    norm = coll.psum(torch.sum(weights), group)
-    means = coll.psum(torch.matmul(cols, weights), group) / norm
-    variances = coll.psum(torch.matmul((cols - means[:, None]) ** 2, weights), group) / norm
+    _, means, variances = _weighted_moments(cols, weights, group)
     sigmas = torch.sqrt(variances)
 
     # ranges from histogram quantiles
@@ -1103,8 +1135,9 @@ def all_2d_densities(
 
     ``group`` (a ``torch.distributed`` process group; replaces the JAX hook
     ``axis_name``): the samples are this rank's block; the pair histograms
-    of each block and the optimizer's moments (norm, means, covariance) are
-    all-reduced, so every grid-local stage sees the same global inputs on
+    of each block and the optimizer's moments (norm, means, covariance; f64
+    partial sums cast once, :func:`_psum64`) are all-reduced, so every
+    grid-local stage sees the same global inputs on
     every rank and every rank returns the same result. Fractional weights
     (the chain's, and ``like_weights``) bin in 64-bit fixed point on the
     group's scale (max |w| over the ranks and ``n_samples``, the chain's
@@ -1359,10 +1392,7 @@ def _optimized_bandwidths(
     ``lim``: (P,) bools, the parameters with an active hard limit."""
     dtype, device = cols.dtype, cols.device
     k_all = pa.shape[0]
-    norm = coll.psum(torch.sum(weights), group)
-    means = coll.psum(torch.matmul(cols, weights), group) / norm
-    diffs = cols - means[:, None]
-    cov = coll.psum(torch.matmul(diffs * weights[None, :], diffs.T), group) / norm
+    cov = _weighted_moments(cols, weights, group, full_cov=True)[2]
     sd = torch.sqrt(torch.diagonal(cov))
     corr_mat = cov / torch.outer(sd, sd)
     range_a = (binmax - binmin)[pa]

@@ -72,12 +72,9 @@ def sharded_all_2d_densities(group, samples, weights, pair_a, pair_b, neff, binm
 
 
 def sharded_moments(group, samples, weights):
-    """Global weighted (norm, means (P,), cov (P, P)) of a sharded chain."""
-    norm = coll.psum(torch.sum(weights), group)
-    means = coll.psum(weights @ samples, group) / norm
-    diffs = samples - means
-    cov = coll.psum((diffs * weights[:, None]).T @ diffs, group) / norm
-    return norm, means, cov
+    """Global weighted (norm, means (P,), cov (P, P)) of a sharded chain,
+    the same values on any split (f64 partial sums cast once)."""
+    return batched._weighted_moments(samples.T, weights, group, full_cov=True)
 
 
 def sharded_hist_1d(group, ix, weights, nbins):
@@ -140,9 +137,8 @@ def sharded_triangle_step(group, samples, weights, pair_a, pair_b, fine_bins=128
     cols = samples.T.contiguous()
     mins = coll.pmin(torch.amin(cols, dim=1), group)
     maxs = coll.pmax(torch.amax(cols, dim=1), group)
-    norm = coll.psum(torch.sum(weights), group)
-    means = coll.psum(cols @ weights, group) / norm
-    sigmas = torch.sqrt(coll.psum(((cols - means[:, None]) ** 2) @ weights, group) / norm)
+    norm, _, variances = batched._weighted_moments(cols, weights, group)
+    sigmas = torch.sqrt(variances)
 
     span = maxs - mins
     binmin = mins - 0.1 * span
@@ -155,7 +151,7 @@ def sharded_triangle_step(group, samples, weights, pair_a, pair_b, fine_bins=128
     )
     hist2 = coll.psum(hist2, group).to(dtype)
 
-    neff_proxy = norm**2 / coll.psum(torch.sum(weights * weights), group)
+    neff_proxy = norm**2 / batched._psum64(torch.sum(weights * weights, dtype=torch.float64), group, dtype)
     h1_bins = torch.clamp(1.06 * sigmas / span * neff_proxy ** (-0.2) * fine_bins, 1.0, fine_bins / 4)
     pad = 2 * fine_bins
     freqs = torch.arange(pad // 2 + 1, dtype=dtype, device=device)

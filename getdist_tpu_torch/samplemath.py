@@ -1,11 +1,12 @@
 """Pure algorithms over weighted-sample arrays (host numpy).
 
-The port's own copy of the parts of ``getdist_tpu/samplemath.py`` that
-loading chains and parity mode call, with the same arithmetic: chain-file
-name matching, sorted-weight confidence queries, the FFT autocorrelation
-and its correlation length, and the Gaussian-KDE effective-sample
-estimator with adaptive lag stepping (reference semantics
-``getdist/chains.py``).
+The port's own copy of ``getdist_tpu/samplemath.py``, with the same
+arithmetic: chain-file name matching, exact integer-weight thinning,
+sorted-weight confidence queries, the FFT autocorrelation and its
+correlation length, the 1D and 2D Gaussian-KDE effective-sample
+estimators (adaptive lag stepping and the 2D lag scan), the Gelman-Rubin
+eigen-diagnostic and the signal-to-noise eigen-analysis (reference
+semantics ``getdist/chains.py``).
 """
 
 import os
@@ -20,11 +21,16 @@ __all__ = [
     "match_chain_files",
     "autocorr_fft",
     "acl_from_curve",
+    "thin_exact",
     "ParamConfidenceData",
     "sorted_weight_table",
     "tail_value",
     "kde_pair_sum_adaptive",
+    "kde_pair_sum_scan",
     "kde_lag_term_1d",
+    "kde_lag_term_2d",
+    "gelman_rubin_eigs",
+    "sn_eigendecomp",
     "corr_from_cov",
 ]
 
@@ -81,6 +87,36 @@ def acl_from_curve(corr, min_corr):
     lag (0 when none is below, making the tail sum empty)."""
     cut = np.argmin(corr > min_corr * corr[0])
     return corr[0] + 2 * np.sum(corr[1:cut])
+
+
+# -- thinning -----------------------------------------------------------------
+
+
+def thin_exact(factor, weights):
+    """Unit-weight sample indices for exact integer-weight thinning.
+
+    Two regimes, matching reference ``chains.py:878-916`` output exactly:
+
+    * ``factor >= max(weight)``: one index per distinct value of
+      ``cumsum(w) // factor`` (first occurrence).
+    * otherwise: the j-th output is the sample containing cumulative-weight
+      position ``j*factor`` (a vectorized searchsorted, equivalent to the
+      reference's sequential multiplicity walk).
+    """
+    total_f = np.sum(weights)
+    weights = weights.astype(int)
+    total = np.sum(weights)
+    if abs(total - total_f) > 1e-4:
+        raise ValueError("Can only thin with integer weights")
+    if factor != int(factor):
+        raise ValueError("Thin factor must be integer")
+    factor = int(factor)
+    running = np.cumsum(weights)
+    if factor >= weights.max():
+        _, first_of_group = np.unique(running // factor, return_index=True)
+        return first_of_group
+    marks = factor * np.arange(1, total // factor + 1)
+    return np.searchsorted(running, marks, side="left")
 
 
 # -- confidence limits ----------------------------------------------------------
@@ -157,13 +193,64 @@ def kde_pair_sum_adaptive(pair_term, weights, numrows, maxoff, min_corr):
     return lag0 + 2 * acc
 
 
+def kde_pair_sum_scan(pair_term, weights, numrows, maxoff, min_corr):
+    """2D-variant pair-sum N: simple lag scan with baseline subtraction and
+    early exit (reference ``chains.py:576-635``)."""
+    base = baseline_pair_term(pair_term, numrows)
+    lag0 = float(np.dot(weights, weights))
+    acc = lag0
+    for k in range(1, maxoff + 1):
+        val = pair_term(k) - (numrows - k) * base
+        if val < min_corr * lag0:
+            break
+        acc += 2 * val
+    return acc
+
+
 def kde_lag_term_1d(d, w, k, kernel_std):
     """Gaussian-kernel pair sum at lag k."""
     step = d[k:] - d[:-k]
     return float(np.dot(np.exp(step * step / (-4.0 * kernel_std**2)), w[k:] * w[:-k]))
 
 
-# -- linear algebra ----------------------------------------------------------------
+def kde_lag_term_2d(d1, d2, w, k, kernel_inv):
+    """2D anisotropic-kernel pair sum at lag k."""
+    u = d1[k:] - d1[:-k]
+    v = d2[k:] - d2[:-k]
+    quad = kernel_inv[0, 0] * u * u + 2 * kernel_inv[0, 1] * u * v + kernel_inv[1, 1] * v * v
+    return float(np.dot(np.exp(-0.25 * quad), w[k:] * w[:-k]))
+
+
+# -- convergence / linear algebra ----------------------------------------------
+
+
+def gelman_rubin_eigs(global_means, chain_means, chain_covs):
+    """Eigenvalues of var-of-means against mean-of-vars, in the basis where
+    the mean covariance is white (Brooks & Gelman); None if the mean
+    covariance is not positive definite."""
+    spread = np.asarray(chain_means) - np.asarray(global_means)
+    between = spread.T @ spread / (len(chain_means) - 1)
+    within = np.mean(chain_covs, axis=0)
+    evals, basis = np.linalg.eigh(within)
+    if evals.min() <= 0:
+        return None
+    whitener = basis / np.sqrt(evals)
+    return np.linalg.eigvalsh(whitener.T @ between @ whitener)
+
+
+def sn_eigendecomp(C, noise=None, R=None, eigs_only=False):
+    """Signal-to-noise eigen-analysis of covariance C against a noise
+    matrix: eigenvalues (and rotation) of R C R^T, R the inverse Cholesky
+    root of the noise."""
+    if R is None:
+        if noise is None:
+            raise ValueError("Must give noise or rotation R")
+        R = np.linalg.inv(np.linalg.cholesky(noise))
+    white = R @ C @ R.T
+    if eigs_only:
+        return np.linalg.eigvalsh(white)
+    evals, vecs = np.linalg.eigh(white)
+    return evals, vecs.T @ R
 
 
 def corr_from_cov(cov, copy=True):

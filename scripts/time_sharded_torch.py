@@ -28,8 +28,10 @@ entry without ``mesh``) and returns the largest differences. The parent
 checks every rank's digests against rank 0's and the differences against
 tests/test_parallel.py's tolerances (neff rtol 1e-3, 1D P 1e-5, 2D P 3e-5
 and 2e-5 for the entry's served grids, contours rtol 1e-3; 1D like curves
-1e-4, 2D like grids where P > 1e-2 at 5e-3; the whole grid's difference
-is printed beside, ROADMAP C13 (c)). Last, every rank bins the bounded
+1e-4, 2D like grids where P > 1e-2 at 5e-3, and over the whole grid at
+1e-4, the entry's served like grids (its reruns' too) over the whole grid
+at 1e-4: every moment the ranks sum runs in f64 partial sums cast once,
+ROADMAP C13 (c)). Last, every rank bins the bounded
 chain's like-weighted pair histograms as the like grids' route does
 (``sharded_all_2d_densities`` with the like weights as its fractional
 weights, at the sharded triangle's N_eff and ranges, histograms exported),
@@ -67,8 +69,8 @@ from getdist_tpu_torch.parallel import (  # noqa: E402
 )
 
 TOL = {"neff": ("rtol", 1e-3), "1D P": ("atol", 1e-5), "2D P": ("atol", 3e-5), "contours": ("rtol", 1e-3),
-       "1D likes": ("atol", 1e-4), "2D likes where P > 0.01": ("atol", 5e-3), "served 2D P": ("atol", 2e-5),
-       "2D like hists": ("atol", 0.0)}
+       "1D likes": ("atol", 1e-4), "2D likes where P > 0.01": ("atol", 5e-3), "2D likes, whole grid": ("atol", 1e-4),
+       "served 2D P": ("atol", 2e-5), "served 2D likes, whole grid": ("atol", 1e-4), "2D like hists": ("atol", 0.0)}
 
 
 def _sync(device):
@@ -127,6 +129,8 @@ def _max_diffs(got, want, entry=False):
            "contours": err(g2["contours"], w2["contours"], "rtol")}
     if entry:
         out["served 2D P"] = max(float((g["P"].cpu() - w["P"].cpu()).abs().max()) for g, w in entry)
+        out["served 2D likes, whole grid"] = max(float((g["likes"].cpu() - w["likes"].cpu()).abs().max())
+                                                 for g, w in entry)
     else:
         out["2D P"] = err(g2["P"], w2["P"], "atol")
     if g1.get("likes") is not None:
@@ -152,7 +156,8 @@ def _rank(group, rows, columns, turns, device_name):
 
     def entry(**kw):
         d1, d2, pairs = mc.fastTriangleDensities(meanlikes=True, **kw)
-        served = [d2["regrid"][key] if key in d2["regrid"] else {"P": d2["P"][k]} for k, key in enumerate(pairs)]
+        served = [d2["regrid"][key] if key in d2["regrid"] else {"P": d2["P"][k], "likes": d2["likes"][k]}
+                  for k, key in enumerate(pairs)]
         return (d1, {key: v for key, v in d2.items() if key != "regrid"}), served, sorted(d2["regrid"])
 
     workloads = {

@@ -482,8 +482,9 @@ def test_fast_densities_carry_like_grids(entry_runs, monkeypatch):
     """fastDensities(meanlikes=True) on the entry run's results (the
     method's own fastTriangleDensities call answered from the fixture, so
     the chain is not run again): each Density1D carries its like curve,
-    each Density2D served from the program its like grid (a rerun's grid
-    has none, as in the JAX package)."""
+    each Density2D its like grid, from the program or, for a pair the
+    entry reran, from the rerun (which bins the like weights at its own
+    grid; the JAX package's reruns carry none)."""
     mc, names = entry_runs["mc"], entry_runs["kw"]["names"]
     t1, t2 = entry_runs["t1"], entry_runs["t2"]
     seen = []
@@ -500,7 +501,9 @@ def test_fast_densities_carry_like_grids(entry_runs, monkeypatch):
     for k, (a, b) in enumerate(entry_runs["tpairs"]):
         density = dens2[(names[a], names[b])]
         if (a, b) in t2["regrid"]:
-            assert density.likes is None
+            rerun = _np(t2["regrid"][(a, b)]["likes"])
+            assert rerun.shape == density.P.shape and rerun.max() == 1.0
+            np.testing.assert_allclose(density.likes, rerun, rtol=1e-6, atol=1e-7)
         else:
             np.testing.assert_allclose(density.likes, _np(t2["likes"][k]), rtol=1e-6, atol=1e-7)
 

@@ -755,8 +755,8 @@ def test_bounded_entry_on_card_matches_cpu(cuda):
     """The public fused entry with meanlikes on a 20k x 6 bounded chain
     (every 10th sample of ``chip_smoke.bounded_chain(200k, 6)``: lower,
     upper and two-sided limits, a periodic column, loglikes) on the card
-    against the port on the CPU: K1 ran once with f32 like weights and K3 on
-    the 316-wide extended grids; the same regrid keys; grids within the
+    against the port on the CPU: K1 ran with f32 like weights once in
+    program B and once in each rerun, and K3 on the 316-wide extended grids; the same regrid keys; grids within the
     zoo's 5e-3, 1D and its like curves within 1e-4, the like grids within
     5e-3 (f32 round-off over the density floor, on both sides)."""
     from chip_smoke import bounded_chain
@@ -766,8 +766,10 @@ def test_bounded_entry_on_card_matches_cpu(cuda):
     kw = dict(samples=s[::10].copy(), weights=w[::10].copy(), loglikes=ll[::10].copy(), names=names, ranges=ranges)
     float_before = pair_hist.pair_histograms.float_launches
     ext_before = dft_conv.dft_conv2d.inputs.get((384, 316), 0)
-    g1, g2, pairs = MCSamples(device=cuda, **kw).fastTriangleDensities(meanlikes=True)
-    assert pair_hist.pair_histograms.float_launches == float_before + 1
+    on_card = MCSamples(device=cuda, **kw)
+    g1, g2, pairs = on_card.fastTriangleDensities(meanlikes=True)
+    # like weights once in program B and once in each rerun
+    assert pair_hist.pair_histograms.float_launches == float_before + 1 + len(on_card.fast_regrid_groups)
     assert dft_conv.dft_conv2d.inputs.get((384, 316), 0) >= ext_before + 6
     c1, c2, _ = MCSamples(device="cpu", **kw).fastTriangleDensities(meanlikes=True)
     assert set(g2["regrid"]) == set(c2["regrid"])
@@ -876,3 +878,33 @@ def test_one_rank_nccl_bounded_sharded_matches_fused(cuda, tmp_path):
     # bit for bit over the whole grid (ROADMAP C13)
     assert torch.equal(g2["likes"], u2["likes"])
     assert torch.equal(g1["active_lo"], u1["active_lo"]) and torch.equal(g1["periodic"], u1["periodic"])
+
+
+def test_host_api_routes_onto_the_card(cuda, monkeypatch):
+    """A CUDA MCSamples serves getMargeStats from one fused program on the
+    card (K1, K2 and K3 launched, one cache entry); its limits track the
+    host path's (GETDIST_TPU_TORCH_FUSED=0) within 0.05 sd, and a CPU
+    object takes the host path."""
+    from getdist_tpu_torch import chains
+    from getdist_tpu_torch.mcsamples import MCSamples
+
+    monkeypatch.setattr(chains, "print_load_details", False)
+    monkeypatch.delenv("GETDIST_TPU_TORCH_FUSED", raising=False)
+    rng = np.random.default_rng(17)
+    n = 40000
+    x = rng.normal(size=n)
+    chain = dict(samples=np.c_[x, 0.6 * x + 0.8 * rng.normal(size=n), np.abs(rng.normal(size=n))],
+                 names=["x", "y", "z"], ranges={"z": [0, None]})
+    mc = MCSamples(device="cuda", **chain)
+    assert mc._fused_route_enabled() and not MCSamples(device="cpu", **chain)._fused_route_enabled()
+    counters = (pair_hist.pair_histograms, dft_conv.dft_conv_spectrum, dft_conv.dft_conv2d)
+    before = [fn.launches for fn in counters]
+    routed = mc.getMargeStats()
+    assert all(fn.launches > b for fn, b in zip(counters, before))
+    assert list(mc._fused_cache) == [False]
+    monkeypatch.setenv("GETDIST_TPU_TORCH_FUSED", "0")
+    host = MCSamples(device="cuda", **chain).getMargeStats()
+    for name in "xyz":
+        p, q = routed.parWithName(name), host.parWithName(name)
+        for lim_p, lim_q in zip(p.limits, q.limits):
+            assert abs(lim_p.lower - lim_q.lower) < 0.05 * q.err and abs(lim_p.upper - lim_q.upper) < 0.05 * q.err

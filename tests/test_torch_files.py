@@ -546,18 +546,24 @@ def test_unported_roots_raise(tmp_path):
 
 
 def test_loading_imports_no_jax(tmp_path):
-    """In a fresh process, importing the port and loading a root on the CPU
-    imports neither JAX nor the JAX package."""
+    """In a fresh process, importing the port, loading a root on the CPU
+    and running its host analysis API (marginalized and likelihood
+    statistics, the convergence tests, a latex table: the result types of
+    ``getdist_tpu_torch.types``) imports neither JAX nor the JAX
+    package."""
     root = _small_root(tmp_path / "c")
     code = (
-        "import sys, getdist_tpu_torch\n"
+        "import sys, getdist_tpu_torch, getdist_tpu_torch.types\n"
         f"mc = getdist_tpu_torch.loadMCSamples({root!r}, device='cpu')\n"
         "assert mc.samples.shape == (10000, 5), mc.samples.shape\n"
+        "text = str(mc.getMargeStats()) + str(mc.getLikeStats()) + mc.getConvergeTests() + mc.getTable().tableTex()\n"
+        "assert isinstance(mc.getMargeStats(), getdist_tpu_torch.types.MargeStats) and 'phi' in text\n"
         "assert 'jax' not in sys.modules and 'getdist_tpu' not in sys.modules, sorted(sys.modules)\n"
         "print('ok')\n"
     )
     env = dict(os.environ, XDG_CACHE_HOME=str(tmp_path / "xdg"))
     env.pop("GETDIST_TPU_TORCH_CONFIG", None)
+    env.pop("GETDIST_TPU_TORCH_FUSED", None)
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=repo, env=env, timeout=300)
     assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr

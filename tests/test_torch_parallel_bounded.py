@@ -26,6 +26,7 @@ from getdist_tpu_torch.parallel import (  # noqa: E402
     shard_samples,
     shard_values,
     sharded_all_2d_densities,
+    sharded_moments,
     sharded_triangle_densities,
     spawn_ranks,
 )
@@ -95,6 +96,8 @@ def _rank_work(group):
             group, local[0], shard_values(group, like, "cpu"), *_like_hist_args(d1), int8_weights=False, n_samples=n,
             export_hists=True,
         )["hists"])
+        out[f"moments_{name}"] = _np(sharded_moments(group, *local))
+        out[f"score_{name}"] = _np(tb.pair_cumulant_score(*local, group=group))
     mc = MCSamples(device="cpu", **_entry_chain())
     d1, d2, pairs = mc.fastTriangleDensities(mesh=group, meanlikes=True)
     regrid = {key: _np(entry) for key, entry in d2.pop("regrid").items()}
@@ -204,10 +207,40 @@ def test_like_histograms_of_ranks_equal_one_rank(ranks, name):
         np.testing.assert_array_equal(rank[f"like_hists_{name}"], want)
 
 
+@pytest.mark.parametrize("name", list(TRIANGLE_N))
+def test_reduced_moments_and_grids_of_ranks_equal_one_rank(ranks, name):
+    """ROADMAP C13 (c): every moment the fused program sums over samples and
+    all-reduces (norm, means, variances and covariance, the N_eff lag sums,
+    the cumulant score's sums) runs in f64 partial sums cast once, so 4
+    ranks give one rank's f32 values bit for bit, and with the histograms'
+    fixed point (C13 (a)) the 1D and 2D grids, contours, kernels and like
+    grids are one rank's too. f32 partial sums all-reduced differ from one
+    rank's in their last bits, which the like grids' density floor
+    magnifies."""
+    s, w, lo, hi, per, like = _bounded_chain(TRIANGLE_N[name])
+    u1, u2 = _np(tb.triangle_densities(s, w, limits_lo=lo, limits_hi=hi, periodic=per, like_weights=like,
+                                       int8_weights=False, enable_shear=True, device="cpu"))
+    s32, w32 = torch.from_numpy(s.astype(np.float32)), torch.from_numpy(w.astype(np.float32))
+    moments = _np(sharded_moments(None, s32, w32))
+    score = tb.pair_cumulant_score(s32, w32).numpy()
+    for rank in ranks:
+        for got, want in zip(rank[f"moments_{name}"], moments):
+            np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(rank[f"score_{name}"], score)
+        g1, g2 = rank[f"triangle_{name}"]
+        for key in ("mean", "sigma", "neff", "bandwidth", "P", "likes"):
+            np.testing.assert_array_equal(g1[key], u1[key], err_msg=key)
+        for i in range(2):
+            np.testing.assert_array_equal(g1["range"][i], u1["range"][i])
+        for key in ("rx", "ry", "corr", "P", "contours", "likes"):
+            np.testing.assert_array_equal(g2[key], u2[key], err_msg=key)
+
+
 def test_public_entry_mesh_matches_unsharded(ranks):
     """``fastTriangleDensities(mesh=group)`` against the unsharded entry,
     with tests/test_parallel.py:207-249's features and tolerances: equal
-    regrid keys, the served grids within 2e-5; the like grids within 1e-4."""
+    regrid keys, the served grids within 2e-5; the like grids (the reruns'
+    too) within 1e-4."""
     g1, g2, g_regrid, pairs, groups = ranks[0]["entry"]
     mc = MCSamples(device="cpu", **_entry_chain())
     u1, u2, u_pairs = mc.fastTriangleDensities(meanlikes=True)
@@ -224,6 +257,8 @@ def test_public_entry_mesh_matches_unsharded(ranks):
     np.testing.assert_allclose(g2["likes"], u2["likes"].numpy(), rtol=0, atol=1e-4)
     for key, entry in u2["regrid"].items():
         np.testing.assert_allclose(g_regrid[key]["P"], entry["P"].numpy(), rtol=0, atol=2e-5)
+        # a rerun bins the like weights at its own grid
+        np.testing.assert_allclose(g_regrid[key]["likes"], entry["likes"].numpy(), rtol=0, atol=1e-4)
 
 
 def test_public_entry_mesh_holds_only_its_block(ranks):

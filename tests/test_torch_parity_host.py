@@ -140,18 +140,6 @@ def test_use_effective_samples_2d_matches_jax(device):
     _assert_parity_close(got, MCSamples(device="cpu", **kwargs).fastParityDensities(device=device))
 
 
-def test_getautobandwidth2d_2d_neff_not_ported():
-    mc = MCSamples(device="cpu", **_small_chain("integer"))
-    parx, pary = mc._initParamRanges(0), mc._initParamRanges(1)
-    args = (None, parx, pary, 0, 1, 0.45, 1.0, 1.0, 256)
-    with pytest.raises(NotImplementedError, match="A10"):
-        mc.getAutoBandwidth2D(*args, use_2D_Neff=True)
-    mc.use_effective_samples_2D = True
-    with pytest.raises(NotImplementedError, match="A10"):
-        mc.getAutoBandwidth2D(*args, use_2D_Neff=None)
-    assert np.isfinite(mc.getAutoBandwidth2D(*args, N_eff=2000.0, use_2D_Neff=True)).all()
-
-
 @pytest.mark.parametrize("kind", ["integer", "fractional"])
 def test_sheared_bandwidths_batch_equals_per_pair(kind):
     """The sheared branch batched over every pair of the chain that takes
