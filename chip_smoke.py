@@ -108,7 +108,17 @@ CUDA kernels from ``getdist_tpu_torch/csrc``. Then three paths on
    densities within 1.5e-2; a limited x periodic pair's difference
    printed), and routed meanlikes 2D queries (K1 with
    like weights) on a pair of the program and a rerun pair, their like
-   grids within 1.5e-2 of the host's, none served by the host.
+   grids within 1.5e-2 of the host's, none served by the host;
+10. the batch command (``cli_phase``) on phase 8's root, on the card, into a
+   temporary ``out_dir`` (PCA of 4 parameters, ``thin_factor`` 10, plot
+   scripts written): cold with the default host statistics (the wall from
+   root to every output, its stages, ``getConvergeTests``, K1/K2/K3
+   launches, each non-zero) and again with
+   ``GETDIST_TPU_TORCH_DEVICE_OPS=1`` (both convergence-battery walls;
+   ``.converge``, ``.covmat`` and ``.PCA`` within 1e-10 relative of the
+   default run's, differing lines printed); then a 3-parameter N-D
+   density through the card's ``weighted_bincount``, bitwise equal to the
+   host's.
 
 K1, K4, K5 and the wide kernels are timed with the weights their paths
 pass (integer weights as uint8, ``pair_hist.narrow_weights``), each beside
@@ -2430,6 +2440,7 @@ def files_phase(bounded, card, pair_hist, dft_conv):
         torch.cuda.empty_cache()
         tmc.MCSamples.readChains = saved_read
         host_api_phase(root, names, ranges, card, pair_hist, dft_conv)
+        cli_phase(root, names, ranges, card, pair_hist, dft_conv)
     finally:
         getdist_tpu_torch.cache_dir = saved_cache
         tmc.MCSamples.readChains = saved_read
@@ -2654,6 +2665,197 @@ def host_api_phase(root, names, ranges, card, pair_hist, dft_conv):
         os.environ.pop("GETDIST_TPU_TORCH_FUSED", None)
         if saved_flag is not None:
             os.environ["GETDIST_TPU_TORCH_FUSED"] = saved_flag
+
+
+# the CLI phase's bar: the device-ops run's numbers against the default
+# run's, relative (or one unit of the last printed digit, where only the
+# printing's rounding moves them)
+CLI_REL = 1e-10
+# the MCSamples methods whose walls the CLI phase prints inside its stages
+CLI_TIMED = ("getConvergeTests", "writeCovMatrix", "writeCorrelationMatrix", "writeThinData", "PCA",
+             "_setDensitiesandMarge1D", "getMargeStats", "getLikeStats")
+
+
+_NUMBER = r"[-+]?(?:\d+\.\d*|\.\d+|\d+)(?:[eE][-+]?\d+)?"
+
+
+def _number_lines_differ(a, b):
+    """None if two output lines agree: the same words, and every pair of
+    numbers within CLI_REL relative or one unit of its last printed digit;
+    else the largest relative difference of a pair that is not (inf where
+    the words differ)."""
+    import re
+
+    if " ".join(re.sub(_NUMBER, "#", a).split()) != " ".join(re.sub(_NUMBER, "#", b).split()):
+        return float("inf")
+    worst = None
+    for x, y in zip(re.findall(_NUMBER, a), re.findall(_NUMBER, b)):
+        fx, fy = float(x), float(y)
+        rel = abs(fx - fy) / max(abs(fx), abs(fy), 1e-300)
+        mantissa, _, exponent = y.lower().partition("e")
+        decimals = len(mantissa.split(".")[1]) if "." in mantissa else 0
+        unit = 10.0 ** (int(exponent or 0) - decimals)
+        if rel > CLI_REL and abs(fx - fy) > 1.01 * unit:
+            worst = max(worst or 0.0, rel)
+    return worst
+
+
+def _read_bytes(path):
+    with open(path, "rb") as handle:
+        return handle.read()
+
+
+def cli_phase(root, names, ranges, card, pair_hist, dft_conv):
+    """Phase 10: the port's batch command (``getdist_tpu_torch.command_line``)
+    on the files phase's root, on the card, into a temporary ``out_dir``:
+    an ini from ``make_param_file`` with PCA of four free parameters,
+    ``thin_factor`` 10 and plot scripts written (not run; 1D and one 3D
+    plot). Run cold (the chains parsed from the root's text files) with
+    the default host statistics: its wall, the walls of its stages and of
+    ``getConvergeTests``, and its K1/K2/K3 launches (the routed 1D
+    densities' fused program), each non-zero; every text output present.
+    Then again with ``GETDIST_TPU_TORCH_DEVICE_OPS=1`` (the chain
+    statistics, autocorrelations, N_eff lag sums and sorts on the card):
+    both ``getConvergeTests`` walls, and ``.converge``, ``.covmat`` and
+    ``.PCA`` held against the default run's (CLI_REL; every differing line
+    printed), with the covariance and the Gelman-Rubin R-1 of the two runs'
+    objects within CLI_REL. The walls of the methods in CLI_TIMED are
+    printed inside the stages'. Last, ``getRawNDDensityGridData`` of three
+    parameters (one hard-limited, with mean likelihoods) on the default
+    run's object with its histograms on the host and through the card's
+    ``weighted_bincount``: the density and contours (integer weights)
+    bitwise equal, the mean likelihoods (fractional weights) within
+    CLI_REL of the peak."""
+    import tempfile
+    import types as pytypes
+
+    import numpy as np
+    import torch
+
+    from getdist_tpu_torch import command_line as tcl
+    from getdist_tpu_torch import mcsamples as tmc
+    from getdist_tpu_torch.inifile import IniFile
+
+    free = [n for n in names if n not in ranges]
+    limited = next(n for n, w in ranges.items() if len(w) == 2 and w[0] is not None)
+    counters = (pair_hist.pair_histograms, dft_conv.dft_conv_spectrum, dft_conv.dft_conv2d)
+    saved_ops = os.environ.pop("GETDIST_TPU_TORCH_DEVICE_OPS", None)
+    saved_bincount = tmc.weighted_bincount
+    saved_methods = {name: getattr(tmc.MCSamples, name) for name in CLI_TIMED}
+    method_s, binned_on = {}, []
+
+    def timed(name):
+        def method(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = saved_methods[name](self, *args, **kwargs)
+            torch.cuda.synchronize()
+            method_s[name] = method_s.get(name, 0.0) + time.perf_counter() - t0
+            return out
+
+        return method
+
+    def seen_bincount(indices, weights, length):
+        binned_on.append(indices.device.type)
+        return saved_bincount(indices, weights, length)
+
+    folder = tempfile.mkdtemp(prefix="chip_smoke_cli_", dir=os.path.dirname(root))
+    for name in CLI_TIMED:
+        setattr(tmc.MCSamples, name, timed(name))
+    try:
+        runs = {}
+        for label, ops in (("default", None), ("device ops", "1")):
+            out_dir = os.path.join(folder, label.replace(" ", "_"))
+            os.mkdir(out_dir)
+            ini_file = os.path.join(out_dir, "pars.ini")
+            tcl.make_param_file(ini_file, feedback=False)
+            ini = IniFile(ini_file)
+            ini.params.update({"file_root": root, "out_dir": out_dir, "PCA_num": "4", "PCA_params": " ".join(free[:4]),
+                               "PCA_func": "NNNN", "thin_factor": "10", "no_plots": "F", "num_3D_plots": "1",
+                               "3D_plot1": " ".join(free[:3])})
+            ini.saveFile(ini_file)
+            if ops:
+                os.environ["GETDIST_TPU_TORCH_DEVICE_OPS"] = ops
+            for fn in counters:
+                fn.launches = 0
+            method_s.clear()
+            run = tcl._BatchRun(pytypes.SimpleNamespace(ini_file=ini_file, chain_root=root, ignore_rows=None,
+                                                        make_plots=False), False, "cuda")
+            wall, _ = wall_s(run.execute)
+            launches = {fn.__name__: fn.launches for fn in counters}
+            os.environ.pop("GETDIST_TPU_TORCH_DEVICE_OPS", None)
+            stem = os.path.join(out_dir, os.path.basename(root))
+            outputs = {ext: stem + ext for ext in (".margestats", ".likestats", ".converge", ".covmat", ".corr",
+                                                   ".PCA", "_thin.txt", ".py", "_3D.py")}
+            missing = [ext for ext, path in outputs.items() if not os.path.exists(path)]
+            check(not missing, f"CLI ({label}): every output written (missing {missing})")
+            check(all(launches.values()), f"CLI ({label}): the run launched K1, K2 and K3 ({launches})")
+            check(run.samples.device == torch.device("cuda"), f"CLI ({label}): the MCSamples is on the card")
+            check(set(method_s) == set(CLI_TIMED), f"CLI ({label}): every timed method ran ({sorted(method_s)})")
+            runs[label] = dict(wall=wall, stages=dict(run.stage_seconds), launches=launches,
+                               battery=method_s["getConvergeTests"], outputs=outputs, samples=run.samples)
+            print(f"CLI ({label}), bounded chain {run.samples.numrows:,} x {run.samples.n} from its 4-file root, "
+                  f"{card}: wall {wall:.3f} s (root to every output); stages "
+                  + json.dumps({k: round(v, 3) for k, v in run.stage_seconds.items()})
+                  + "; inside them " + json.dumps({k: round(v, 3) for k, v in method_s.items()})
+                  + f"; launches {json.dumps(launches)}")
+        print(f"CLI getConvergeTests, {card}: host numpy {runs['default']['battery']:.3f} s, "
+              f"GETDIST_TPU_TORCH_DEVICE_OPS=1 {runs['device ops']['battery']:.3f} s "
+              f"({runs['default']['battery'] / runs['device ops']['battery']:.2f}x)")
+
+        base, dev = runs["default"], runs["device ops"]
+        for ext in (".converge", ".covmat", ".PCA"):
+            with open(base["outputs"][ext], encoding="utf-8") as handle:
+                want = handle.read().splitlines()
+            with open(dev["outputs"][ext], encoding="utf-8") as handle:
+                got = handle.read().splitlines()
+            check(len(got) == len(want), f"CLI: {ext} has as many lines with device ops as without")
+            differing = [(g, w, _number_lines_differ(g, w)) for g, w in zip(got, want) if g != w]
+            for g, w, rel in differing:
+                print(f"CLI {ext} line differs: device ops {g!r} default {w!r} (largest relative difference {rel})")
+            bad = [(g, w) for g, w, rel in differing if rel is not None]
+            check(not bad, f"CLI: {ext} with device ops within {CLI_REL} relative of the default run ({bad[:3]})")
+            print(f"CLI {ext}: {len(differing)} of {len(want)} lines differ in their text, all within {CLI_REL} "
+                  f"relative or the last printed digit")
+        cov_b, cov_d = base["samples"].getCov(), dev["samples"].getCov()
+        cov_rel = float(np.max(np.abs(cov_d - cov_b)) / np.max(np.abs(cov_b)))
+        gr_b, gr_d = base["samples"].getGelmanRubin(), dev["samples"].getGelmanRubin()
+        check(cov_rel <= CLI_REL and abs(gr_d - gr_b) <= CLI_REL * abs(gr_b),
+              f"CLI: covariance ({cov_rel:.3g}) and R-1 ({gr_d} against {gr_b}) within {CLI_REL}")
+        same_marge = _read_bytes(base["outputs"][".margestats"]) == _read_bytes(dev["outputs"][".margestats"])
+        print(f"CLI device ops against default: covariance max diff {cov_rel:.3g} of the largest, R-1 "
+              f"{float(gr_d)!r} against {float(gr_b)!r}; .margestats byte-identical {same_marge}")
+
+        mc = base["samples"]
+        nd_params = [free[0], limited, free[1]]
+        for name in nd_params:  # the parameters' ranges (argsorts) outside both walls
+            mc._initParamRanges(name)
+        host_s, host_nd = wall_s(lambda: mc.getRawNDDensityGridData(nd_params, meanlikes=True))
+        tmc.weighted_bincount = seen_bincount
+        os.environ["GETDIST_TPU_TORCH_DEVICE_OPS"] = "1"
+        try:
+            card_s, card_nd = wall_s(lambda: mc.getRawNDDensityGridData(nd_params, meanlikes=True))
+        finally:
+            os.environ.pop("GETDIST_TPU_TORCH_DEVICE_OPS", None)
+            tmc.weighted_bincount = saved_bincount
+        check(binned_on == ["cuda", "cuda"], f"CLI: the N-D histograms binned on the card ({binned_on})")
+        same = all(np.array_equal(getattr(card_nd, k), getattr(host_nd, k)) for k in ("P", "contours"))
+        check(same, "CLI: the N-D density (integer weights) through the card's weighted_bincount bitwise equals "
+                    "the host path's")
+        likes_diff = float(np.max(np.abs(card_nd.likes - host_nd.likes)))
+        check(likes_diff <= CLI_REL, f"CLI: the N-D mean likelihoods (fractional weights, summed in another order "
+                                     f"on the card) within {CLI_REL} of the peak ({likes_diff:.3g})")
+        print(f"CLI N-D density {nd_params} ({card_nd.P.shape} bins, meanlikes), {card}: host np.bincount "
+              f"{host_s * 1e3:.1f} ms, card weighted_bincount {card_s * 1e3:.1f} ms; density and contours bitwise "
+              f"equal {same}; mean likelihoods max diff {likes_diff:.3g} of the peak")
+        del runs, mc, base, dev
+        torch.cuda.empty_cache()
+    finally:
+        for name, method in saved_methods.items():
+            setattr(tmc.MCSamples, name, method)
+        tmc.weighted_bincount = saved_bincount
+        os.environ.pop("GETDIST_TPU_TORCH_DEVICE_OPS", None)
+        if saved_ops is not None:
+            os.environ["GETDIST_TPU_TORCH_DEVICE_OPS"] = saved_ops
 
 
 def main():

@@ -19,7 +19,11 @@ CPU):
   any weights), with the port's own jax-free host layer (``chains``,
   ``mcsamples``, ``kde_bandwidth``, ...);
 * ``getdist_tpu_torch.parallel``: the sharded sample reductions and the
-  fused program over a process group.
+  fused program over a process group;
+* the batch command ``getdist-tpu-torch`` (:mod:`getdist_tpu_torch.command_line`):
+  a chain root's text outputs (``.margestats``, ``.likestats``,
+  ``.converge``, ``.covmat``, ``.corr``, ``.PCA``, ``_thin.txt`` and the
+  plot scripts), on the card unless ``--device cpu`` is given.
 
 Plain tensor code is PyTorch; the TPU's Pallas kernels on those paths are
 hand-written CUDA kernels (``csrc/``), built with ``nvcc`` at first use,
@@ -32,7 +36,8 @@ Configuration (counterpart of ``getdist_tpu/__init__.py``, reference
 lives in ``$XDG_CACHE_HOME`` (else ``~/.cache``, ``%LOCALAPPDATA%`` on
 Windows) ``/getdist_tpu_torch_cache``, apart from the JAX package's, whose
 pickles would import it; ``$GETDIST_TPU_TORCH_CONFIG`` or a ``config.ini``
-beside this file may set another ``cache_dir``.
+beside this file may set another ``cache_dir`` and ``default_plot_output``
+(the plot scripts' figure format, ``pdf`` by default).
 """
 
 import os
@@ -62,10 +67,13 @@ def make_cache_dir():
 _config_file = os.environ.get("GETDIST_TPU_TORCH_CONFIG") or os.path.join(os.path.dirname(__file__), "config.ini")
 
 cache_dir = _get_cache_dir()
+default_plot_output = "pdf"
 if os.path.exists(_config_file):
     from getdist_tpu_torch.inifile import IniFile
 
-    cache_dir = IniFile(_config_file).string("cache_dir", "") or cache_dir
+    _ini = IniFile(_config_file)
+    cache_dir = _ini.string("cache_dir", "") or cache_dir
+    default_plot_output = _ini.string("default_plot_output", default_plot_output)
 
 
 def get_defaults_file(name="analysis_defaults.ini"):
@@ -74,6 +82,7 @@ def get_defaults_file(name="analysis_defaults.ini"):
 
 
 default_getdist_settings = get_defaults_file()
+distparam_template = get_defaults_file("distparam_template.ini")
 
 # re-exports, imported at first use (a bare import stays cheap and jax-free)
 _LAZY_EXPORTS = {
@@ -87,8 +96,9 @@ _LAZY_EXPORTS = {
     "ParamBounds": "getdist_tpu_torch.parampriors",
     "densities": "getdist_tpu_torch.densities",
     "types": "getdist_tpu_torch.types",
+    "covmat": "getdist_tpu_torch.covmat",
 }
-_MODULE_EXPORTS = {"chains", "densities", "types"}
+_MODULE_EXPORTS = {"chains", "densities", "types", "covmat"}
 
 
 def __getattr__(name):

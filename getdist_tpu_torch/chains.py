@@ -13,9 +13,20 @@ statistics in the same arithmetic as the JAX package's numpy branches:
 means, variances, covariance and correlation, the FFT autocorrelation
 length and the 1D and 2D Gaussian-KDE effective sample numbers.
 
+The device route (counterpart of the JAX package's
+``GETDIST_TPU_DEVICE_OPS`` branches): with ``GETDIST_TPU_TORCH_DEVICE_OPS=1``
+in the environment (read at each call) the means, variances and
+covariance (:mod:`getdist_tpu_torch.ops.stats`), the autocorrelation
+(``ops.convolve.autoConvolve``), the Gaussian-KDE lag sums and the argsort
+of the confidence tables run on the samples' torch device (``device``:
+the card unless the caller names the CPU; an ``MCSamples`` hands its own
+to the chains it makes). The upload (:meth:`WeightedSamples._dev`) is kept
+until the samples or weights change. Host numpy stays the default, whose
+text outputs are byte-identical to the JAX package's; with the switch on,
+a failure on the device raises (no numpy fallback).
+
 Not ported here: grid job items and Cobaya yaml roots (ROADMAP A10 slice
-4) and the device statistics branches (the JAX package's ``ops.stats``;
-ROADMAP A7).
+4).
 """
 
 import os
@@ -25,8 +36,12 @@ from copy import deepcopy
 from warnings import warn
 
 import numpy as np
+import torch
 
 from getdist_tpu_torch import samplemath as smath
+from getdist_tpu_torch.ops import stats as _stats
+from getdist_tpu_torch.ops._cuda import resolve_device
+from getdist_tpu_torch.ops.convolve import autoConvolve
 from getdist_tpu_torch.paramnames import ParamInfo, ParamNames, escapeLatex
 from getdist_tpu_torch.samplemath import ParamConfidenceData
 
@@ -35,6 +50,18 @@ print_load_details = True
 
 _int_types = (int, np.integer)
 _seq_types = (list, tuple)
+
+
+def _use_device_ops():
+    """Whether the statistics take the device route:
+    ``GETDIST_TPU_TORCH_DEVICE_OPS=1`` (read at each call, as
+    ``GETDIST_TPU_TORCH_FUSED`` is)."""
+    return os.environ.get("GETDIST_TPU_TORCH_DEVICE_OPS") == "1"
+
+
+def _host(x):
+    """A tensor's values as a numpy array (a readback from the device)."""
+    return x.detach().cpu().numpy()
 
 
 class WeightedSampleError(Exception):
@@ -101,6 +128,7 @@ class WeightedSamples:
         label=None,
         files_are_chains=True,
         min_weight_ratio=1e-30,
+        device="cuda",
     ):
         """
         :param filename: plain text chain file to load
@@ -112,7 +140,11 @@ class WeightedSamples:
         :param label: latex label
         :param files_are_chains: False if the file has no weight/loglike columns
         :param min_weight_ratio: drop samples below this ratio of the max weight
+        :param device: torch device of the statistics' device route
+            (``GETDIST_TPU_TORCH_DEVICE_OPS=1``), the card unless the caller
+            names the CPU; checked when the route first runs
         """
+        self.device = device
         self.min_weight_ratio = min_weight_ratio
         if filename:
             self.name_tag = name_tag if name_tag else os.path.basename(filename)
@@ -178,10 +210,37 @@ class WeightedSamples:
         for stale in ("means", "mean_loglike", "diffs", "fullcov", "correlationMatrix", "vars", "sddev"):
             setattr(self, stale, None)
         self.needs_update = True
+        self._device_cache = None
         # the parity and fused paths' device-resident chains (MCSamples)
         self._parity_chain_cache = None
         self._fast_chain_cache = None
         self._param_range_cache = {}
+
+    # -- device route ----------------------------------------------------------
+    def _device_stats_ok(self):
+        """Whether means, variances and the covariance take the device
+        route: the switch is on and the parity modes have not pinned them
+        to numpy (``_force_host_stats``: their bandwidth optimizers need
+        inputs bit-identical to the JAX package's)."""
+        on = _use_device_ops() and not getattr(self, "_force_host_stats", False)
+        if on:
+            self._stats_from_device = True
+        return on
+
+    def _upload(self, values):
+        """A copy of a host array (its dtype kept) on the samples' device."""
+        return torch.from_numpy(np.ascontiguousarray(values)).to(resolve_device(self.device), copy=True)
+
+    def _dev(self):
+        """(samples, weights, loglikes) on the samples' device, kept until
+        the samples or weights change."""
+        if getattr(self, "_device_cache", None) is None:
+            self._device_cache = (
+                self._upload(self.samples),
+                self._upload(self.weights),
+                None if self.loglikes is None else self._upload(self.loglikes),
+            )
+        return self._device_cache
 
     # -- naming ----------------------------------------------------------------
     def getName(self):
@@ -212,6 +271,13 @@ class WeightedSamples:
     # -- moments -------------------------------------------------------------
     def setMeans(self):
         """Compute and cache weighted means."""
+        if self._device_stats_ok():
+            dev_samples, dev_weights, dev_loglikes = self._dev()
+            self.means = _host(_stats.weighted_mean(dev_samples, dev_weights))
+            self.mean_loglike = (
+                None if dev_loglikes is None else float(_stats.weighted_mean(dev_loglikes, dev_weights))
+            )
+            return self.means
         self.means = self.weights @ self.samples / self.norm
         self.mean_loglike = None if self.loglikes is None else float(self.weights @ self.loglikes / self.norm)
         return self.means
@@ -226,6 +292,9 @@ class WeightedSamples:
         means = self.getMeans()
         if self.fullcov is not None:
             self.vars = self.fullcov.diagonal().copy()
+        elif self._device_stats_ok():
+            dev_samples, dev_weights, _ = self._dev()
+            self.vars = _host(_stats.weighted_var(dev_samples, dev_weights, self._upload(means)))
         else:
             centered = self.samples - means
             self.vars = self.weights @ (centered * centered) / self.norm
@@ -296,6 +365,9 @@ class WeightedSamples:
         """Weighted covariance for the given parameter vectors/indices (all
         parameters by default)."""
         if pars is None and where is None:
+            if self._device_stats_ok():
+                dev_samples, dev_weights, _ = self._dev()
+                return _host(_stats.weighted_cov(dev_samples, dev_weights))
             centered = self.samples - self.getMeans()
             return (centered * self.weights[:, None]).T @ centered / self.norm
         block = np.column_stack(self.mean_diffs(pars, where))
@@ -331,7 +403,10 @@ class WeightedSamples:
         default (reference ``chains.py:423-447``)."""
         maxOff = maxOff if maxOff is not None else self.n - 1
         weighted = self.mean_diff(paramVec) * self.weights
-        curve = smath.autocorr_fft(np.asarray(weighted), maxOff + 1)
+        if _use_device_ops():
+            curve = _host(autoConvolve(self._upload(weighted), n=maxOff + 1, normalize=True))
+        else:
+            curve = smath.autocorr_fft(np.asarray(weighted), maxOff + 1)
         if normalized:
             curve = curve / self.var(paramVec)
         return curve * len(weighted) / self.get_norm() if weight_units else curve
@@ -368,10 +443,17 @@ class WeightedSamples:
         if maxoff is None:
             maxoff = 4 + int(1.5 * self.getCorrelationLength(d, weight_units=False))
         maxoff = min(maxoff, self.numrows // 10)
-        host_d, host_w = np.asarray(d, float), np.asarray(self.weights, float)
+        if _use_device_ops():
+            dev_d, dev_w = self._upload(np.asarray(d, float)), self._dev()[1]
 
-        def pair_term(k):
-            return smath.kde_lag_term_1d(host_d, host_w, k, kernel_std)
+            def pair_term(k):
+                return float(_stats.kde_lag_correlation(dev_d, dev_w, k, kernel_std))
+
+        else:
+            host_d, host_w = np.asarray(d, float), np.asarray(self.weights, float)
+
+            def pair_term(k):
+                return smath.kde_lag_term_1d(host_d, host_w, k, kernel_std)
 
         N = smath.kde_pair_sum_adaptive(pair_term, self.weights, self.numrows, maxoff, min_corr)
         norm = self.get_norm()
@@ -392,10 +474,18 @@ class WeightedSamples:
             acl = max(self.getCorrelationLength(d, weight_units=False) for d in (d1, d2))
             maxoff = int(acl * 1.5) + 4
         maxoff = min(maxoff, self.numrows // 10)
-        h1, h2, hw = np.asarray(d1, float), np.asarray(d2, float), np.asarray(self.weights, float)
+        if _use_device_ops():
+            dev1, dev2, dev_w = self._upload(np.asarray(d1, float)), self._upload(np.asarray(d2, float)), self._dev()[1]
+            dev_kinv = self._upload(kernel_inv)
 
-        def pair_term(k):
-            return smath.kde_lag_term_2d(h1, h2, hw, k, kernel_inv)
+            def pair_term(k):
+                return float(_stats.kde_lag_correlation_2d(dev1, dev2, dev_w, k, dev_kinv))
+
+        else:
+            h1, h2, hw = np.asarray(d1, float), np.asarray(d2, float), np.asarray(self.weights, float)
+
+            def pair_term(k):
+                return smath.kde_lag_term_2d(h1, h2, hw, k, kernel_inv)
 
         N = smath.kde_pair_sum_scan(pair_term, self.weights, self.numrows, maxoff, min_corr)
         return self.get_norm() ** 2 / N
@@ -515,7 +605,13 @@ class WeightedSamples:
         """Sorted values/cumulative weights for repeated confidence queries."""
         w = self.weights if weights is None else weights
         values = self._makeParamvec(paramVec)[start:end]
-        return smath.sorted_weight_table(values, w[start : start + len(values)])
+        argsort = self._device_argsort if _use_device_ops() else np.argsort
+        return smath.sorted_weight_table(values, w[start : start + len(values)], argsort=argsort)
+
+    def _device_argsort(self, values):
+        """Stable argsort on the samples' device (ties keep their order, as
+        ``jnp.argsort``'s do; the table's tail values equal numpy's)."""
+        return _host(torch.sort(self._upload(values), stable=True).indices)
 
     def confidence(self, paramVec, limfrac, upper=False, start=0, end=None, weights=None):
         """Tail-count confidence limit(s): the parameter value where limfrac
@@ -769,7 +865,8 @@ class Chains(WeightedSamples):
             print_load_line(fname)
             try:
                 self.chains.append(
-                    WeightedSamples(fname, ignore_rows=ignore_lines, min_weight_ratio=self.min_weight_ratio)
+                    WeightedSamples(fname, ignore_rows=ignore_lines, min_weight_ratio=self.min_weight_ratio,
+                                    device=self.device)
                 )
             except WeightedSampleError:
                 print_load_line(f"Ignored file {fname} (likely empty)")
@@ -796,6 +893,7 @@ class Chains(WeightedSamples):
                     weights=None if weights is None else weights[i],
                     ignore_rows=ignore_lines,
                     min_weight_ratio=self.min_weight_ratio,
+                    device=self.device,
                 )
             )
         if self.paramNames is None:
@@ -820,7 +918,8 @@ class Chains(WeightedSamples):
         return self
 
     def getSeparateChains(self):
-        """Per-chain WeightedSamples views (no copies when combined)."""
+        """Per-chain WeightedSamples views (no copies when combined), on
+        this object's device."""
         if self.chains is not None:
             return self.chains
         if self.chain_offsets is None:
@@ -830,6 +929,7 @@ class Chains(WeightedSamples):
                 samples=self.samples[lo:hi],
                 weights=self.weights[lo:hi],
                 loglikes=None if self.loglikes is None else self.loglikes[lo:hi],
+                device=self.device,
             )
             for lo, hi in zip(self.chain_offsets[:-1], self.chain_offsets[1:])
         ]
@@ -911,11 +1011,13 @@ class Chains(WeightedSamples):
         self.paramNames.saveAsText(root + ".paramnames")
 
     def __getstate__(self):
-        """Pickle without the device-resident caches: the parity and fused
-        paths' chain copies on the card, the cumulant score, a ``mesh=``
-        block and its process group. They rebuild at the next call, on the
-        device of the object that unpickles."""
+        """Pickle without the device-resident caches: the statistics'
+        upload, the parity and fused paths' chain copies on the card, the
+        cumulant score, a ``mesh=`` block and its process group. They
+        rebuild at the next call, on the device of the object that
+        unpickles."""
         state = self.__dict__.copy()
+        state["_device_cache"] = None
         state["_parity_chain_cache"] = None
         state["_fast_chain_cache"] = None
         state["_param_range_cache"] = {}

@@ -1,7 +1,7 @@
 """Probability density grids: containers, credible intervals, contour levels.
 
-The port's own copy of ``getdist_tpu/densities.py`` (1D and 2D grids; the
-ND grid is not ported).
+The port's own copy of ``getdist_tpu/densities.py`` (1D, 2D and N-D
+grids).
 
 Host-facing layer consuming device-computed KDE grids (the plotting API
 surface; behavioral spec: reference ``getdist/densities.py:19-381``). Grids
@@ -16,9 +16,9 @@ intervals, and trapezoid-ish integrators with 2^-codimension edge weights.
 
 
 import numpy as np
-from scipy.interpolate import RectBivariateSpline, splev, splrep
+from scipy.interpolate import RectBivariateSpline, RegularGridInterpolator, splev, splrep
 
-__all__ = ["Density1D", "Density2D", "GridDensity", "getContourLevels", "DensitiesError"]
+__all__ = ["Density1D", "Density2D", "DensityND", "GridDensity", "getContourLevels", "DensitiesError"]
 
 defaultContours = (0.68, 0.95)
 
@@ -274,3 +274,46 @@ class Density2D(GridDensity):
     def Prob(self, x, y, grid=False):
         """Interpolated density at (x, y)."""
         return self(x, y, grid=grid)
+
+
+class DensityND(GridDensity):
+    """N-D marginalized density with linear interpolation."""
+
+    def __init__(self, xs, P=None, view_ranges=None):
+        """
+        :param xs: list of per-dimension grids
+        :param P: N-D density values (the last grid's axis leading)
+        :param view_ranges: optional per-dimension view ranges
+        """
+        self.view_ranges = view_ranges
+        self.dim = len(xs)
+        self.xs = xs
+        for name, ax in zip(("x", "y", "z"), xs):
+            setattr(self, name, ax)
+        steps = [ax[1] - ax[0] for ax in xs]
+        self.spacing = float(np.prod(steps))
+        self.axes = list(reversed(xs))
+        self.setP(P)
+
+    def integrate(self, P):
+        # a cell on c boundary hyperplanes (codimension c) carries weight 2^-c
+        weights = np.ones(P.shape)
+        for axis in range(P.ndim):
+            shape = [1] * P.ndim
+            shape[axis] = P.shape[axis]
+            per_axis = np.ones(P.shape[axis])
+            per_axis[0] = per_axis[-1] = 0.5
+            weights = weights * per_axis.reshape(shape)
+        return np.sum(P * weights)
+
+    def _initSpline(self):
+        # linear on the grid (the JAX package's LinearNDInterpolator over the
+        # axis grids, not the grid points, raises: ROADMAP C16)
+        self.spl = RegularGridInterpolator(self.xs, self.P.T)
+
+    def Prob(self, xs):
+        """Interpolated density at the points xs, an (m, dim) array (x
+        first)."""
+        return self._spline()(xs)
+
+    __call__ = Prob

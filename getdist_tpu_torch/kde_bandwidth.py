@@ -29,7 +29,7 @@ import numpy as np
 import scipy.fftpack as _fftpack
 from scipy.optimize import brentq, fsolve, minimize
 
-__all__ = ["bin_samples", "gaussian_kde_bandwidth_binned", "KernelOptimizer2D"]
+__all__ = ["bin_samples", "gaussian_kde_bandwidth", "gaussian_kde_bandwidth_binned", "KernelOptimizer2D"]
 
 _ROOT_PI = np.sqrt(np.pi)
 _PI_SQ = np.pi**2
@@ -67,6 +67,15 @@ def bin_samples(samples, range_min=None, range_max=None, nbins=2046, edge_fac=0.
     width = range_max - range_min
     dx = width / (nbins - 1)
     return ((samples - range_min) / dx).astype(int), width
+
+
+def gaussian_kde_bandwidth(samples, Neff=None, range_min=None, range_max=None, nbins=2046):
+    """ISJ bandwidth for raw (unbinned) samples, in sample units."""
+    if Neff is None:
+        Neff = np.count_nonzero(np.diff(samples)) + 1
+    indices, width = bin_samples(samples, range_min, range_max, nbins)
+    h = gaussian_kde_bandwidth_binned(np.bincount(indices, minlength=nbins), Neff)
+    return None if h is None else h * width
 
 
 def _refine_bandwidth_root(modes, neff):
@@ -366,3 +375,7 @@ class KernelOptimizer2D:
         if len(start) == 3:
             box.append((-0.99, 0.99))
         return minimize(self.AMISE, start, (fixed_corr,), method="TNC", bounds=box)
+
+    def get_hdiag(self):
+        """Diagonal-only bandwidths (no kernel correlation)."""
+        return self.get_h(do_correlation=False)

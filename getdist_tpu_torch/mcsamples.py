@@ -36,10 +36,21 @@ program on the card (``_fused_route_enabled``); on the CPU the host path
 answers, as the JAX package's CPU oracle does. ``GETDIST_TPU_TORCH_FUSED``
 set to ``0`` forces the host path, and to ``1`` routes a CPU object too.
 
-Not ported here: PCA, the N-D densities, the covmat, thin-data and chain
-writers and the combined / single samples (ROADMAP A10 slice 2b), the
-plots/CLI layers (A10 slice 3); grid job items and Cobaya yaml roots, A10
-slice 4.
+The batch command's outputs (:mod:`getdist_tpu_torch.command_line`):
+``PCA``, the N-D histogram densities (``getRawNDDensity``), the covmat,
+correlation, thin-data and chain writers, single and combined samples, and
+the plot-script writers (the scripts import ``getdist_tpu_torch.plots``).
+
+With ``GETDIST_TPU_TORCH_DEVICE_OPS=1`` the host densities' histograms and
+FFT convolutions (``_bincount``, ``_bincount2d``, ``_convolve1D``,
+``_convolve2D``) and the chains' statistics (:mod:`getdist_tpu_torch.chains`)
+run on ``self.device`` in f64; the default is host numpy. The switch does
+not route the density queries onto the fused program (the JAX package's
+``GETDIST_TPU_DEVICE_OPS`` does): that is the device's and
+``GETDIST_TPU_TORCH_FUSED``'s choice.
+
+Not ported here: the plots layer (A10 slice 3); grid job items and Cobaya
+yaml roots, A10 slice 4.
 """
 
 import copy
@@ -59,11 +70,19 @@ from scipy import stats
 
 import getdist_tpu_torch
 from getdist_tpu_torch import _native
-from getdist_tpu_torch import chains
+from getdist_tpu_torch import chains, covmat
 from getdist_tpu_torch import kde_bandwidth as kde
 from getdist_tpu_torch import types
-from getdist_tpu_torch.chains import Chains, ParamError, WeightedSampleError, chainFiles, last_modified
-from getdist_tpu_torch.densities import Density1D, Density2D
+from getdist_tpu_torch.chains import (
+    Chains,
+    ParamError,
+    WeightedSampleError,
+    _host,
+    _use_device_ops,
+    chainFiles,
+    last_modified,
+)
+from getdist_tpu_torch.densities import Density1D, Density2D, DensityND, getContourLevels
 from getdist_tpu_torch.inifile import IniFile
 from getdist_tpu_torch.ops import parity_device as pdev
 from getdist_tpu_torch.ops._cuda import resolve_device
@@ -74,11 +93,11 @@ from getdist_tpu_torch.ops.batched import (
     pair_cumulant_score,
     prepare_chain,
 )
-from getdist_tpu_torch.ops.convolve import convolve1D_host as convolve1D
-from getdist_tpu_torch.ops.convolve import convolve2D_host as convolve2D
+from getdist_tpu_torch.ops import convolve as _convolve
+from getdist_tpu_torch.ops.binning import weighted_bincount, weighted_bincount_2d
 from getdist_tpu_torch.ops.pair_hist import narrow_weights
 from getdist_tpu_torch.parallel.mesh import shard_samples, shard_values
-from getdist_tpu_torch.paramnames import ParamInfo
+from getdist_tpu_torch.paramnames import ParamInfo, ParamNames
 from getdist_tpu_torch.parampriors import ParamBounds
 
 __all__ = [
@@ -110,11 +129,6 @@ class SettingError(MCSamplesError):
 
 class BandwidthError(MCSamplesError):
     """KDE bandwidth determination failure."""
-
-
-def _host(x):
-    """A tensor's values as a numpy array (a readback from the card)."""
-    return x.detach().cpu().numpy()
 
 
 def loadMCSamples(file_root, ini=None, jobItem=None, no_cache=False, settings=None, chain_exclude=None,
@@ -229,14 +243,22 @@ _BASE_ANALYSIS_SETTINGS = dict(
     fine_bins_2D=256,
     smooth_scale_1D=-1.0,
     smooth_scale_2D=-1.0,
+    num_bins_ND=12,
     boundary_correction_order=1,
     mult_bias_correction_order=1,
     max_corr_2D=0.95,
     use_effective_samples_2D=False,
+    max_scatter_points=2000,
     credible_interval_threshold=0.05,
     shade_likes_is_mean_loglikes=False,
+    max_mult=0.0,
+    mean_mult=0.0,
+    plot_data_dir="",
     rootdirname="",
     indep_thin=0,
+    subplot_size_inch=4.0,
+    subplot_size_inch3=6.0,
+    out_dir="",
     no_warning_chi2_params=True,
     max_split_tests=4,
     force_twotail=False,
@@ -284,7 +306,7 @@ class MCSamples(Chains):
             label/name_tag/sampler passed to the inherited classes
         """
         self.device = resolve_device(device)
-        super().__init__(root, jobItem=jobItem, **kwargs)
+        super().__init__(root, jobItem=jobItem, device=self.device, **kwargs)
         self.version = pickle_version
         self.markers, self.ini = {}, ini
         self.batch_path = ""
@@ -297,6 +319,8 @@ class MCSamples(Chains):
         self.likeStats, self.no_warning_params, self.density1D = None, [], {}
         self.parity_profile, self.parity_buckets = {}, []
         self.fast_profile, self.fast_regrid_groups = {}, []
+        self.plot_output = getdist_tpu_torch.default_plot_output
+        self.subplot_size_inch2 = self.subplot_size_inch
         self.rootname = os.path.basename(root) if root else ""
         if "ignore_rows" in kwargs:
             settings = dict(settings or {})
@@ -383,7 +407,8 @@ class MCSamples(Chains):
             ini.setAttr(name, self)
         for name, default in (("boundary_correction_order", 1), ("mult_bias_correction_order", 1)):
             ini.setAttr(name, self, default)
-        for name in ("credible_interval_threshold", "force_twotail"):
+        for name in ("num_bins_ND", "max_scatter_points", "credible_interval_threshold", "subplot_size_inch",
+                     "subplot_size_inch2", "subplot_size_inch3", "plot_output", "force_twotail"):
             ini.setAttr(name, self)
         if self.force_twotail:
             logging.warning("force_twotail set: all limits treated as two-tail")
@@ -589,6 +614,42 @@ class MCSamples(Chains):
         ix = ((paramVec - binmin) / fine_width + 0.5).astype(np.int64)
         return ix, fine_width, binmin, binmax
 
+    # -- histograms and convolutions: host numpy, or the device route ----------------------
+
+    def _bincount(self, ix, weights, nbins):
+        """Weighted histogram of bin indices: ``np.bincount``, or with
+        ``GETDIST_TPU_TORCH_DEVICE_OPS=1`` a scatter-add on ``self.device``
+        (equal bit for bit where the weights are integers)."""
+        if _use_device_ops():
+            return _host(weighted_bincount(self._upload(ix), self._upload(np.asarray(weights, float)), nbins))
+        return np.bincount(np.asarray(ix), weights=np.asarray(weights), minlength=nbins)
+
+    def _bincount2d(self, ixs, iys, weights, xsize, ysize):
+        """Weighted 2D histogram, (ysize, xsize) with rows y; the device
+        route as :meth:`_bincount`."""
+        if _use_device_ops():
+            return _host(weighted_bincount_2d(self._upload(ixs), self._upload(iys),
+                                              self._upload(np.asarray(weights, float)), xsize, ysize))
+        flat = np.bincount(np.asarray(iys) * xsize + np.asarray(ixs), weights=np.asarray(weights),
+                           minlength=xsize * ysize)
+        return flat.reshape((ysize, xsize))
+
+    def _convolve1D(self, x, y, mode, largest_size=0):
+        """1D FFT convolution of the host densities: numpy, or with
+        ``GETDIST_TPU_TORCH_DEVICE_OPS=1`` ``torch.fft`` on ``self.device``."""
+        if _use_device_ops():
+            return _host(_convolve.convolve1D(self._upload(np.asarray(x, float)), self._upload(np.asarray(y, float)),
+                                              mode, largest_size=largest_size))
+        return _convolve.convolve1D_host(x, y, mode, largest_size=largest_size)
+
+    def _convolve2D(self, x, y, mode, largest_size=0):
+        """2D FFT convolution of the host densities, routed as
+        :meth:`_convolve1D`."""
+        if _use_device_ops():
+            return _host(_convolve.convolve2D(self._upload(np.asarray(x, float)), self._upload(np.asarray(y, float)),
+                                              mode, largest_size=largest_size))
+        return _convolve.convolve2D_host(x, y, mode, largest_size=largest_size)
+
     # -- 1D densities ----------------------------------------------------------------------
 
     def _get1DNeff(self, par, param):
@@ -668,7 +729,7 @@ class MCSamples(Chains):
         coarse_width = span / (num_bins - 1)
 
         bin_indices, fine_width, binmin, binmax = self._binSamples(self.samples[:, index], par, fine_bins)
-        bins = np.bincount(bin_indices, weights=self.weights, minlength=fine_bins)
+        bins = self._bincount(bin_indices, self.weights, fine_bins)
         finebinlikes = self._fine_like_bins(bin_indices, fine_bins) if meanlikes else None
 
         if smooth_scale_1D <= 0:
@@ -689,7 +750,7 @@ class MCSamples(Chains):
         winw = min(int(round(2.5 * smooth_1D)), support // 2 - 2)
         kernel = Kernel1D(winw, smooth_1D)
         conv_mode = "periodic" if par.periodic else "same"
-        smoothed = convolve1D(bins, kernel.Win, conv_mode)
+        smoothed = self._convolve1D(bins, kernel.Win, conv_mode)
         density1D = Density1D(np.linspace(binmin, binmax, fine_bins), P=smoothed,
                               view_ranges=[par.range_min, par.range_max])
         uncorrected = smoothed.copy() if meanlikes else None
@@ -714,13 +775,13 @@ class MCSamples(Chains):
             w = self.weights * self.loglikes
         else:
             w = self._likelihood_weights()
-        return np.bincount(bin_indices, weights=w, minlength=fine_bins)
+        return self._bincount(bin_indices, w, fine_bins)
 
     def _mean_likes_1d(self, density1D, finebinlikes, kernel, conv_mode, uncorrected):
         """Smoothed mean-likelihood curve aligned with the corrected density."""
         live = density1D.P > 0
         finebinlikes[live] /= density1D.P[live]
-        binlikes = convolve1D(finebinlikes, kernel.Win, conv_mode)
+        binlikes = self._convolve1D(finebinlikes, kernel.Win, conv_mode)
         binlikes[live] *= density1D.P[live] / uncorrected[live]
         if self.shade_likes_is_mean_loglikes:
             floor = np.min(binlikes)
@@ -739,20 +800,18 @@ class MCSamples(Chains):
                 return density
         return self.get1DDensityGridData(name, **kwargs)
 
-    @staticmethod
-    def _interior_order2_correct_1d(density1D, bins, kernel):
+    def _interior_order2_correct_1d(self, density1D, bins, kernel):
         """Higher-order kernel in the interior (no boundary): subtract the
         second-moment bias term in clamped log space."""
         curved = kernel.Win * kernel.x**2
-        secondP = convolve1D(bins, curved, "same")
+        secondP = self._convolve1D(bins, curved, "same")
         m2 = np.sum(curved)
         m4 = np.dot(curved, kernel.x**2)
         corrected = (density1D.P * m4 - m2 * secondP) / (m4 - m2**2)
         positive = density1D.P > 0
         density1D.P[positive] *= np.exp(np.minimum(corrected[positive] / density1D.P[positive], 2) - 1)
 
-    @staticmethod
-    def _boundary_correct_1d(density1D, bins, par, kernel, winw, fine_bins, order):
+    def _boundary_correct_1d(self, density1D, bins, par, kernel, winw, fine_bins, order):
         """Boundary-kernel correction in place: renormalize by the clipped
         window mass (order 0) or solve the linear/quadratic boundary-kernel
         moment system (orders 1/2); reference ``mcsamples.py:1600-1647``."""
@@ -765,7 +824,7 @@ class MCSamples(Chains):
             prior_mask[-winw:] = 0
 
         def mask_conv(window):
-            return convolve1D(prior_mask, window, "valid")
+            return self._convolve1D(prior_mask, window, "valid")
 
         m0 = mask_conv(kernel.Win)
         live = np.nonzero(m0 * density1D.P)
@@ -779,13 +838,13 @@ class MCSamples(Chains):
         tilted = kernel.Win * kernel.x
         m1 = mask_conv(tilted)[live]
         m2 = mask_conv(tilted * kernel.x)[live]
-        firstP = convolve1D(bins, tilted, "same")[live]
+        firstP = self._convolve1D(bins, tilted, "same")[live]
         if order == 1:
             corrected = (density1D.P[live] * m2 - firstP * m1) / (m0 * m2 - m1**2)
         else:
             m3 = mask_conv(tilted * kernel.x**2)[live]
             m4 = mask_conv(tilted * kernel.x**3)[live]
-            secondP = convolve1D(bins, tilted * kernel.x, "same")[live]
+            secondP = self._convolve1D(bins, tilted * kernel.x, "same")[live]
             det = m4 * m2 * m0 - m4 * m1**2 - m2**3 - m3**2 * m0 + 2 * m1 * m2 * m3
             corrected = (
                 density1D.P[live] * (m4 * m2 - m3**2) + firstP * (m2 * m3 - m4 * m1) + secondP * (m3 * m1 - m2**2)
@@ -793,8 +852,7 @@ class MCSamples(Chains):
         # clamped log-space update keeps the correction positive and bounded
         density1D.P[live] = normed * np.exp(np.minimum(corrected / normed, 4) - 1)
 
-    @staticmethod
-    def _mult_bias_correct_1d(density1D, bins, par, kernel, fine_bins, convolution_mode, order):
+    def _mult_bias_correct_1d(self, density1D, bins, par, kernel, fine_bins, convolution_mode, order):
         """Multiplicative bias iterations in place: divide out the current
         estimate, re-smooth, multiply back (reference ``mcsamples.py:1649-1666``);
         a periodic parameter has no edges to divide out."""
@@ -804,11 +862,11 @@ class MCSamples(Chains):
                 edge_weight[0] *= 0.5
             if par.has_limits_top:
                 edge_weight[-1] *= 0.5
-            a0 = convolve1D(edge_weight, kernel.Win, "same")
+            a0 = self._convolve1D(edge_weight, kernel.Win, "same")
         for _ in range(order):
             current = density1D.P.copy()
             current[current == 0] = 1
-            resmoothed = convolve1D(bins / current, kernel.Win, convolution_mode)
+            resmoothed = self._convolve1D(bins / current, kernel.Win, convolution_mode)
             density1D.setP(density1D.P * resmoothed)
             if not par.periodic:
                 density1D.P /= a0
@@ -844,10 +902,9 @@ class MCSamples(Chains):
 
     def _make2Dhist(self, ixs, iys, xsize, ysize):
         """(weighted (ysize, xsize) histogram, rows = y, and the flat
-        indices) of host bin indices, by ``np.bincount``."""
+        indices) of host bin indices (:meth:`_bincount2d`)."""
         flatix = ixs + iys * xsize
-        hist = np.bincount(flatix, weights=self.weights, minlength=xsize * ysize).reshape((ysize, xsize))
-        return hist, flatix
+        return self._bincount2d(ixs, iys, self.weights, xsize, ysize), flatix
 
     # -- host 2D densities ------------------------------------------------------------------
 
@@ -868,18 +925,16 @@ class MCSamples(Chains):
         return "periodic_y" if pary.periodic else "same"
 
     def _meanlikes_fine_2d(self, flatix, xsize, ysize):
-        flat = np.bincount(flatix, weights=self._likelihood_weights(), minlength=xsize * ysize)
-        return flat.reshape((ysize, xsize))
+        return self._bincount(flatix, self._likelihood_weights(), xsize * ysize).reshape((ysize, xsize))
 
-    @staticmethod
-    def _meanlikes_smooth_2d(finebinlikes, bins2D, Win, mode, convolvesize, mult_bias_order):
+    def _meanlikes_smooth_2d(self, finebinlikes, bins2D, Win, mode, convolvesize, mult_bias_order):
         """Smoothed mean-likelihood surface, de-biased like the density and
         divided by it where it carries weight."""
-        smoothed = convolve2D(finebinlikes, Win, mode, largest_size=convolvesize)
+        smoothed = self._convolve2D(finebinlikes, Win, mode, largest_size=convolvesize)
         if mult_bias_order:
             carried = smoothed > 0
             finebinlikes[carried] /= smoothed[carried]
-            second = convolve2D(finebinlikes, Win, mode, largest_size=convolvesize)
+            second = self._convolve2D(finebinlikes, Win, mode, largest_size=convolvesize)
             second[carried] *= smoothed[carried]
             smoothed = second
         floor = 1e-4 * np.max(bins2D)
@@ -958,7 +1013,7 @@ class MCSamples(Chains):
         stopwatch = time.time()
         convolvesize = xsize + 2 * winw + Win.shape[0]  # oversized for fast fft padding choice
         conv_mode = self._conv_mode_2d(parx, pary)
-        surface = convolve2D(pair_hist, Win, conv_mode, largest_size=convolvesize)
+        surface = self._convolve2D(pair_hist, Win, conv_mode, largest_size=convolvesize)
 
         like_surface = None
         if meanlikes:
@@ -1014,16 +1069,15 @@ class MCSamples(Chains):
         density.likes = like_surface
         return density
 
-    @staticmethod
-    def _mult_bias_correct_2d(surface, pair_hist, prior_mask, Win, conv_mode, convolvesize, order, masked_out):
+    def _mult_bias_correct_2d(self, surface, pair_hist, prior_mask, Win, conv_mode, convolvesize, order, masked_out):
         """Multiplicative bias iterations in place: divide out the current
         estimate, re-smooth, multiply back (reference ``mcsamples.py:1921-1944``)."""
-        mask_mass = convolve2D(prior_mask, Win, "valid", largest_size=convolvesize)
+        mask_mass = self._convolve2D(prior_mask, Win, "valid", largest_size=convolvesize)
         for _ in range(order):
             flattened = pair_hist.copy()
             significant = surface > np.max(surface) * 1e-8
             flattened[significant] /= surface[significant]
-            surface *= convolve2D(flattened, Win, conv_mode, largest_size=convolvesize)
+            surface *= self._convolve2D(flattened, Win, conv_mode, largest_size=convolvesize)
             if masked_out is not None:
                 surface[~masked_out] /= mask_mass[~masked_out]
             else:
@@ -1046,15 +1100,14 @@ class MCSamples(Chains):
             return (mx - mn) / 0.675
         return (mx - mn) / (2 * 0.675)
 
-    @staticmethod
-    def _boundary_correct_2d(bins2D, histbins, prior_mask, Win, winw, order, mode, convolvesize):
+    def _boundary_correct_2d(self, bins2D, histbins, prior_mask, Win, winw, order, mode, convolvesize):
         """Boundary-kernel correction in place: renormalize by the clipped
         window mass (order 0), or solve the 2D linear boundary-kernel system
         (order 1, Jones 1993 family) wherever the mask convolution carries
         weight (reference ``mcsamples.py:1921-1961``)."""
 
         def mask_conv(window):
-            return convolve2D(prior_mask, window, "valid", largest_size=convolvesize)
+            return self._convolve2D(prior_mask, window, "valid", largest_size=convolvesize)
 
         a00 = mask_conv(Win)
         live = a00 * bins2D > np.max(bins2D) * 1e-8
@@ -1078,8 +1131,8 @@ class MCSamples(Chains):
         }
         m00, m10, m01 = a00, m["10"], m["01"]
         m20, m02, m11 = m["20"], m["02"], m["11"]
-        firstP_x = convolve2D(histbins, tilted_x, mode, largest_size=convolvesize)[live]
-        firstP_y = convolve2D(histbins, tilted_y, mode, largest_size=convolvesize)[live]
+        firstP_x = self._convolve2D(histbins, tilted_x, mode, largest_size=convolvesize)[live]
+        firstP_y = self._convolve2D(histbins, tilted_y, mode, largest_size=convolvesize)[live]
         det = m20 * m01**2 + m10**2 * m02 - m00 * m02 * m20 + m11**2 * m00 - 2 * m01 * m10 * m11
         corrected = (
             bins2D[live] * (m11**2 - m02 * m20)
@@ -1420,6 +1473,492 @@ class MCSamples(Chains):
             new.needs_update = True
             new.updateSettings(settings)
         return new
+
+    # -- covariance, correlation, thinned and single-sample outputs ---------------------------
+
+    def getCovMat(self):
+        """CovMat of the non-derived parameters."""
+        n_free = self.paramNames.numNonDerived()
+        return covmat.CovMat(matrix=self.fullcov[:n_free, :n_free], paramNames=self.paramNames.list()[:n_free])
+
+    def writeCovMatrix(self, filename=None):
+        """Write the non-derived parameters' covariance as ``.covmat`` text."""
+        self.getCovMat().saveToFile(filename or self.rootdirname + ".covmat")
+
+    def writeCorrelationMatrix(self, filename=None):
+        """Write the correlation matrix as text."""
+        np.savetxt(filename or self.rootdirname + ".corr", self.getCorrelationMatrix(), fmt="%15.7E")
+
+    def writeThinData(self, fname, thin_ix, cool=1):
+        """Write samples for the given thinning indices, optionally cooled.
+
+        The rows follow the JAX package's writer byte for byte (ROADMAP
+        C15): row i holds the weight and -log(like) of sample
+        ``thin_ix[i]`` beside the parameters of sample ``i``, and the
+        uncooled weight and -log(like) are written with ``%f`` and no
+        separator."""
+        nparams = self.samples.shape[1]
+        if cool != 1:
+            logging.info("writing thinned samples cooled by %s", cool)
+        if self.loglikes is None:
+            raise ValueError("thinned output needs likelihood values")
+        MaxL = np.max(self.loglikes)
+        # one format per row: the same characters as one write per value
+        row_format = "%16.7E" * nparams + "\n"
+        with open(fname, "w", encoding="utf-8") as handle:
+            for i, row in enumerate(thin_ix):
+                if cool == 1:
+                    head = "%f%f" % (1.0, self.loglikes[row])
+                else:
+                    newL = self.loglikes[row] * cool
+                    head = "%16.7E%16.7E" % (np.exp(-(newL - self.loglikes[row]) - MaxL * (1 - cool)), newL)
+                handle.write(head + row_format % tuple(self.samples[i]))
+        print("Wrote ", len(thin_ix), " thinned samples")
+
+    def makeSingleSamples(self, filename="", single_thin=None, random_state=None):
+        """Random unit-weight samples, kept with probability w / (max(w)
+        single_thin); written to ``filename`` when one is given."""
+        if single_thin is None:
+            equiv = self.norm / self.max_mult
+            single_thin = max(1, equiv / self.max_scatter_points)
+        draws = np.random.default_rng(random_state).random(self.numrows)
+        if not filename:
+            return self.samples[draws <= self.weights / (self.max_mult * single_thin)]
+        row_format = "%16.7E" * (self.n + 2) + "\n"
+        with open(filename, "w", encoding="utf-8") as handle:
+            for i, draw in enumerate(draws):
+                if draw <= self.weights[i] / self.max_mult / single_thin:
+                    handle.write(row_format % (1.0, self.loglikes[i], *self.samples[i]))
+
+    # -- chain files and combined samples ---------------------------------------------------
+
+    def saveChainsAsText(self, root, make_dirs=False, properties=None):
+        """Save each chain as text plus the metadata sidecars (samples that
+        were never separate chains as one unnumbered chain file)."""
+        if self.chains is None and self.chain_offsets is None:
+            super(Chains, self).saveAsText(root, None, make_dirs)
+        else:
+            chain_list = self.getSeparateChains() if self.chains is None else self.chains
+            for i, chain in enumerate(chain_list):
+                chain.saveAsText(root, i, make_dirs)
+        self.saveTextMetadata(root, properties)
+
+    def saveTextMetadata(self, root, properties=None):
+        """Save the .paramnames, .ranges and .properties.ini sidecars."""
+        super().saveTextMetadata(root)
+        self.ranges.saveToFile(root + ".ranges")
+        sidecar = root + ".properties.ini"
+        stored = self.properties.params if self.properties else {}
+        if not (properties or stored or self.label):
+            if os.path.exists(sidecar):
+                os.remove(sidecar)
+            return
+        ini = IniFile(sidecar) if os.path.exists(sidecar) else IniFile()
+        ini.params.update(stored)
+        if self.label:
+            ini.params["label"] = self.label
+        ini.params.update(properties or {})
+        ini.saveFile(sidecar)
+
+    def getCombinedSamplesWithSamples(self, samps2, sample_weights=(1, 1)):
+        """A new MCSamples (on this object's device) of this object's and
+        ``samps2``'s samples of their shared parameters, weighted so that
+        each set carries equal mass by default."""
+        mine = set(self.paramNames.list())
+        shared = ParamNames()
+        shared.names = [
+            ParamInfo(name=q.name, label=q.label, derived=q.isDerived)
+            for q in samps2.paramNames.names
+            if q.name in mine
+        ]
+        both_have_likes = self.loglikes is not None and samps2.loglikes is not None
+        loglikes = np.concatenate([self.loglikes, samps2.loglikes]) if both_have_likes else None
+        if sample_weights is None:
+            balance, sample_weights = 1, (1, 1)
+        else:
+            balance = np.sum(self.weights) / np.sum(samps2.weights)
+        weights = np.concatenate([self.weights * sample_weights[0], samps2.weights * sample_weights[1] * balance])
+        first, second = self.getParams(), samps2.getParams()
+        columns = [np.concatenate([getattr(first, name), getattr(second, name)]) for name in shared.list()]
+        return MCSamples(samples=np.array(columns).T, weights=weights, loglikes=loglikes, paramNamesFile=shared,
+                         ignore_rows=0, ranges=self.ranges, settings=copy.deepcopy(self.ini.params),
+                         device=self.device)
+
+    def getCorrelatedVariable2DPlots(self, num_plots=12, nparam=None):
+        """Names of the most correlated parameter pairs, strongest first,
+        for quick-look 2D plots."""
+        if not nparam:
+            nparam = self.paramNames.numNonDerived()
+        correlation = self.getCorrelationMatrix()
+        ceiling = 1e5
+        best_x = best_y = 0
+        pairs = []
+        for _ in range(num_plots):
+            strongest = -1e5
+            for ix1 in range(nparam):
+                for ix2 in range(ix1 + 1, nparam):
+                    strength = abs(correlation[ix1][ix2])
+                    if strongest < strength < ceiling:
+                        strongest = strength
+                        best_x, best_y = ix1, ix2
+            if strongest == -1e5:
+                break
+            ceiling = strongest
+            pairs.append([self.parName(best_x), self.parName(best_y)])
+        return pairs
+
+    # -- principal components ----------------------------------------------------------------
+
+    def _pca_log_map(self, params, nparams):
+        """N (linear) or L (log) mapping per parameter: log where the
+        samples sit well away from zero."""
+        chosen = []
+        for info in self.paramNames.parsWithNames(params):
+            self._initParamRanges(info.name)
+            span10 = (info.param_max - info.param_min) / 10
+            chosen.append("N" if (info.param_max < 0 or info.param_min < span10) else "L")
+        return "".join(chosen)
+
+    def PCA(self, params, param_map=None, normparam=None, writeDataToFile=False, filename=None, conditional_params=(),
+            n_best_only=None):
+        """Principal component analysis of the standardized (optionally
+        log-mapped: ``L``, or ``M`` for ln(-x)) parameters, with any
+        ``conditional_params`` marginalized through the precision matrix:
+        a text report of the correlation matrix, its eigenvalues and
+        eigenvectors, each component as a power law and the components'
+        correlations with every parameter; written to ``<rootdirname>.PCA``
+        (or ``filename``) with ``writeDataToFile``."""
+        logging.info("PCA over %s parameters", len(params))
+        if conditional_params:
+            logging.info("with %s parameters conditioned out", len(conditional_params))
+        text = ["PCA for parameters:\n"]
+
+        params = [name for name in params if self.paramNames.parWithName(name) is not None]
+        nparams = len(params)
+        indices = [self.index[param] for param in params] + [self.index[p] for p in conditional_params]
+        normparam = params.index(normparam) if normparam and normparam in params else -1
+        if param_map is None:
+            param_map = self._pca_log_map(params, nparams)
+
+        n = len(indices)
+        table = self.samples[:, indices].copy()
+        doexp = False
+        for i in range(nparams):
+            label = self.parLabel(indices[i])
+            mapped = label
+            if param_map[i] == "L":
+                doexp = True
+                table[:, i] = np.log(table[:, i])
+                mapped = "ln(" + label + ")"
+            elif param_map[i] == "M":
+                doexp = True
+                table[:, i] = np.log(-1.0 * table[:, i])
+                mapped = "ln(-" + label + ")"
+            text.append("%10s :%s\n" % (str(indices[i] + 1), str(mapped)))
+        center = np.empty(n)
+        sd = np.empty(n)
+        for i in range(n):
+            center[i] = np.dot(self.weights, table[:, i]) / self.norm
+            table[:, i] -= center[i]
+            sd[i] = np.sqrt(np.dot(self.weights, table[:, i] ** 2) / self.norm)
+            if sd[i] != 0:
+                table[:, i] /= sd[i]
+
+        text.append("\n")
+        text.append("Correlation matrix for reduced parameters\n")
+        correlation = np.ones((n, n))
+        for i in range(n):
+            for j in range(i):
+                correlation[j][i] = np.dot(self.weights, table[:, i] * table[:, j]) / self.norm
+                correlation[i][j] = correlation[j][i]
+        for i in range(nparams):
+            text.append("%12s :" % params[i] + "".join("%8.4f" % correlation[j][i] for j in range(n)) + "\n")
+
+        if len(conditional_params):
+            keep = list(range(nparams))
+            reduced = np.linalg.inv(np.linalg.inv(correlation)[np.ix_(keep, keep)])
+            n = nparams
+            table = table[:, :nparams]
+        else:
+            reduced = correlation
+        evals, evects = np.linalg.eig(reduced)
+        by_size = evals.argsort()
+        modes = np.transpose(evects[:, by_size])
+
+        text.append("\n")
+        text.append("e-values of correlation matrix\n")
+        text.extend("PC%2i: %8.4f\n" % (i + 1, evals[by_size[i]]) for i in range(n))
+        text.append("\n")
+        text.append("e-vectors\n")
+        for j in range(n):
+            text.append("%3i:" % (indices[j] + 1) + "".join("%8.4f" % evects[j][by_size[i]] for i in range(n)) + "\n")
+
+        # scale each mode so the pivot parameter enters with its own sd
+        for i in range(n):
+            pivot = normparam if normparam != -1 else np.abs(modes[i, :]).argmax()
+            modes[i, :] = modes[i, :] / modes[i, pivot] * sd[pivot]
+
+        # row by row, as the JAX package does: its bits decide the report
+        for row in range(table.shape[0]):
+            table[row, :] = np.dot(modes, table[row, :])
+            if doexp:
+                table[row, :] = np.exp(table[row, :])
+
+        text.append("\n")
+        text.append("Principal components\n")
+        mode_texts = []
+        pc_mean = np.empty(n)
+        pc_sd = np.empty(n)
+        for i in range(n):
+            block = "PC%i (e-value: %f)\n" % (i + 1, evals[by_size[i]])
+            for j in range(n):
+                label = self.parLabel(indices[j])
+                weight_tag = f"[{modes[i][j]:f}]"
+                if param_map[j] in ("L", "M"):
+                    expo = "%f" % (1.0 / sd[j] * modes[i][j])
+                    sign = -1.0 if param_map[j] == "M" else 1.0
+                    div = "%f" % (sign * np.exp(center[j]))
+                    block += f"{weight_tag}  ({label}/{div})^{{{expo}}}\n"
+                else:
+                    expo = "%f" % (sd[j] / modes[i][j])
+                    form = f"exp(({label}-{center[j]:f})/{expo})" if doexp else f"({label}-{center[j]:f})/{expo}"
+                    block += f"{weight_tag}   {form}\n"
+            pc_mean[i] = self.mean(table[:, i])
+            pc_sd[i] = np.sqrt(self.mean((table[:, i] - pc_mean[i]) ** 2))
+            block += f"          = {pc_mean[i]:f} +- {pc_sd[i]:f}\n"
+            block += "\n"
+            mode_texts.append(block)
+        text.extend(mode_texts)
+
+        text.append("Correlations of principal components\n")
+        text.append("%s\n" % ("".join("%8i" % i for i in range(1, n + 1))))
+        for i in range(n):
+            table[:, i] = (table[:, i] - pc_mean[i]) / pc_sd[i]
+        for j in range(n):
+            text.append("PC%2i" % (j + 1) + "".join("%8.3f" % self.mean(table[:, i] * table[:, j]) for i in range(n))
+                        + "\n")
+        for j in range(self.n):
+            row = "%4i" % (j + 1)
+            scaled = (self.samples[:, j] - self.means[j]) / self.sddev[j]
+            for i in range(n):
+                row += "%8.3f" % (np.sum(self.weights * table[:, i] * scaled) / self.norm)
+            text.append(row + "   (%s)\n" % self.parLabel(j))
+
+        report = "".join(text)
+        if writeDataToFile:
+            with open(filename or self.rootdirname + ".PCA", "w", encoding="utf-8") as handle:
+                handle.write(report)
+        if n_best_only:
+            return mode_texts[0] if n_best_only == 1 else mode_texts[:n_best_only]
+        return report
+
+    # -- N-D densities -------------------------------------------------------------------------
+
+    def getRawNDDensity(self, xs, normalized=False, **kwargs):
+        """DensityND (the unsmoothed histogram) of a list of parameters."""
+        if self.needs_update:
+            self.updateBaseStatistics()
+        density = self.getRawNDDensityGridData(xs, get_density=True, **kwargs)
+        if normalized:
+            density.normalize(in_place=True)
+        return density
+
+    def getRawNDDensityGridData(self, js, writeDataToFile=False, num_plot_contours=None, get_density=False,
+                                meanlikes=False, maxlikes=False, **kwargs):
+        """Unsmoothed N-D histogram density of the parameters ``js``
+        (``num_bins_ND`` bins an axis; edge cells at a hard limit counted
+        at half width), with its contour levels and optional mean and
+        profile likelihoods; the weighted histograms through
+        :meth:`_bincount` (on ``self.device`` under
+        ``GETDIST_TPU_TORCH_DEVICE_OPS=1``)."""
+        if self.needs_update:
+            self.updateBaseStatistics()
+        resolved = [self._parAndNumber(j) for j in js]
+        if any(col is None for col, _ in resolved):
+            return None
+        columns = [col for col, _ in resolved]
+        infos = [info for _, info in resolved]
+        ndim = len(js)
+        for col in columns:
+            self._initParamRanges(col)
+
+        boundary_order = kwargs.get("boundary_correction_order", self.boundary_correction_order)
+        bounded = any(info.has_limits for info in infos)
+        nbinsND = kwargs.get("num_bins_ND") or self.num_bins_ND
+
+        binned = [self._binSamples(self.samples[:, col], info, nbinsND) for col, info in zip(columns, infos)]
+        ixv = [b[0] for b in binned]
+        axis_lo = [b[2] for b in binned]
+        axis_hi = [b[3] for b in binned]
+        shape = nbinsND * np.ones(ndim, dtype=int)
+        binsND, flatixv = self._makeNDhist(ixv, shape)
+
+        if bounded and boundary_order >= 0:
+            edge_weight = np.ones(shape[::-1])
+            self._setRawEdgeMaskND(infos, edge_weight)
+            binsND /= edge_weight
+
+        binNDlikes = None
+        if meanlikes:
+            flat = np.array(self._bincount(flatixv, self._likelihood_weights(), int(np.prod(shape))))
+            binNDlikes = flat.reshape(shape[::-1], order="C")
+
+        binNDmaxlikes = self._profile_likes_nd(binsND.shape, ixv, ndim) if maxlikes else None
+
+        grids = [np.linspace(lo, hi, n) for lo, hi, n in zip(axis_lo, axis_hi, shape)]
+        views = [(info.range_min, info.range_max) for info in infos]
+        density = DensityND(grids, binsND, view_ranges=views)
+        density.normalize("max", in_place=True)
+        if get_density:
+            return density
+
+        ncontours = len(self.contours)
+        if num_plot_contours:
+            ncontours = min(int(num_plot_contours), ncontours)
+        contours = self.contours[:ncontours]
+        density.contours = density.getContourLevels(contours)
+
+        if binNDlikes is not None:
+            binNDlikes /= np.max(binNDlikes)
+        density.likes = binNDlikes
+
+        density.maxlikes = binNDmaxlikes
+        if maxlikes:
+            density.maxcontours = getContourLevels(binNDmaxlikes, contours, half_edge=False)
+
+        if writeDataToFile:
+            self._write_nd_density_files(density, binsND, binNDlikes, binNDmaxlikes, grids, ndim, meanlikes, maxlikes)
+        return density
+
+    def _profile_likes_nd(self, shape, ixv, ndim):
+        """Per-cell profile (maximum) likelihood over the N-D histogram, by
+        one unordered maximum scatter (a maximum does not depend on the
+        order, so the bits are those of a row-by-row loop)."""
+        out = np.zeros(shape)
+        bestfit = np.max(-self.loglikes)
+        np.maximum.at(out, tuple(ixv[i] for i in range(ndim)[::-1]), np.exp(-bestfit - self.loglikes))
+        return out
+
+    def _write_nd_density_files(self, density, binsND, binNDlikes, binNDmaxlikes, grids, ndim, meanlikes, maxlikes):
+        """Write the plot-data files of an N-D histogram density."""
+        stem = self.rootname + "_%s" + f"_{ndim}D.dat"
+        table = [np.ravel(binsND, order="C")]
+        for i in range(ndim):
+            table.append([grids[i][cell[::-1][i]] for cell in np.ndindex(binsND.shape)])
+        np.savetxt(os.path.join(self.plot_data_dir, stem % "posterior"), np.transpose(table), "%16.7E")
+        contfile = f"{self.rootname}_posterior_{ndim}D_cont.dat"
+        np.savetxt(os.path.join(self.plot_data_dir, contfile), np.atleast_2d(density.contours), "%16.7E")
+        for wanted, values, tag in ((meanlikes, binNDlikes, "meanlike"), (maxlikes, binNDmaxlikes, "maxlike")):
+            if wanted:
+                table[0] = np.ravel(values, order="C")
+                np.savetxt(os.path.join(self.plot_data_dir, stem % tag), np.transpose(table), "%16.7E")
+
+    def _makeNDhist(self, ixs, xsizes):
+        if len(ixs) != len(xsizes):
+            raise ValueError("need one bin size per index array")
+        flatixv = self._flattenValues(ixs, xsizes)
+        rebuilt = self._unflattenValues(flatixv, xsizes)
+        if np.any(np.asarray(ixs) != np.asarray(rebuilt)):
+            raise ValueError("ND flat-index round-trip failed")
+        # np.array: the caller divides the histogram in place by the edge mask
+        hist = np.array(self._bincount(flatixv, self.weights, int(np.prod(xsizes)))).reshape(xsizes[::-1], order="C")
+        return hist, flatixv
+
+    def _unflattenValues(self, q, xsizes):
+        ndim = len(xsizes)
+        if ndim == 1:
+            return [q]
+        strides = [np.prod(xsizes[:k]) for k in range(ndim)]
+        ixs = [np.array(q) for _ in range(ndim)]
+        ixs[ndim - 1] = q // strides[ndim - 1]
+        consumed = 0
+        for k in range(ndim - 2, -1, -1):
+            consumed = consumed + ixs[k + 1] * strides[k + 1]
+            remainder = q - consumed
+            ixs[k] = remainder // strides[k] if k > 0 else remainder
+        return ixs
+
+    def _flattenValues(self, ixs, xsizes):
+        q = ixs[0]
+        for i in range(1, len(ixs)):
+            q = q + np.prod(xsizes[0:i]) * ixs[i]
+        return q
+
+    def _setRawEdgeMaskND(self, parv, prior_mask):
+        ndim = len(parv)
+        vrap = parv[::-1]
+        if len(prior_mask.shape) != ndim:
+            raise ValueError("prior_mask dimensionality does not match the parameter list")
+        slices = [slice(None) for _ in range(ndim)]
+        for i in range(ndim):
+            if vrap[i].has_limits_bot:
+                slices[i] = 0
+                prior_mask[tuple(slices)] /= 2
+                slices[i] = slice(None)
+            if vrap[i].has_limits_top:
+                slices[i] = prior_mask.shape[i] - 1
+                prior_mask[tuple(slices)] /= 2
+                slices[i] = slice(None)
+
+    # -- plot scripts (for the batch command) -------------------------------------------------
+
+    def _WritePlotFile(self, filename, subplot_size, text, tag, ext=None):
+        """Write a plot script for this root; the script imports
+        ``getdist_tpu_torch.plots``."""
+        if not self.root:
+            raise ValueError("plot scripts need file-rooted samples (no root set)")
+        fname = self.rootname + tag + "." + (ext or self.plot_output)
+        script = [
+            "import getdist_tpu_torch.plots as plots, os",
+            "g=plots.GetDistPlotter(chain_dir=r'%s')" % (self.batch_path or os.path.dirname(self.root)),
+            "g.settings.set_with_subplot_size(%s)" % subplot_size,
+            "roots = ['%s']" % self.rootname,
+            text,
+            f"g.export(os.path.join(r'{self.out_dir}',r'{fname}'))",
+        ]
+        with open(filename, "w", encoding="utf-8") as handle:
+            handle.write("\n".join(script) + "\n")
+
+    def _writeScriptPlots3D(self, filename, plot_3D, ext=None):
+        rows = ["sets=[]"]
+        rows.extend("sets.append(['{}','{}','{}'])".format(*pars) for pars in plot_3D)
+        rows.append("g.plots_3d(roots,sets)")
+        self._WritePlotFile(filename, self.subplot_size_inch3, "\n".join(rows), "_3D", ext)
+
+    def _writeScriptPlotsTri(self, filename, triangle_params, ext=None):
+        self._WritePlotFile(filename, self.subplot_size_inch, "g.triangle_plot(roots, %s)" % triangle_params, "_tri",
+                            ext)
+
+    def _writeScriptPlots2D(self, filename, plot_2D_param=None, cust2DPlots=(), ext=None):
+        restricted = bool(plot_2D_param) or bool(len(cust2DPlots))
+        wanted = {f"{a}__{b}" for a, b in cust2DPlots}
+        done2D = {}
+        lines = ["pairs=[]"]
+        for j, name1 in enumerate(self.paramNames.list()):
+            if restricted and name1 == plot_2D_param:
+                continue
+            start = 0 if restricted else j + 1
+            for j2 in range(start, self.n):
+                name2 = self.parName(j2)
+                if plot_2D_param and name2 != plot_2D_param:
+                    continue
+                if wanted and f"{name1}__{name2}" not in wanted:
+                    continue
+                if (name1, name2) not in done2D:
+                    done2D[(name1, name2)] = True
+                    lines.append(f"pairs.append(['{name1}','{name2}'])")
+        lines.append("g.plots_2d(roots,param_pairs=pairs,filled=True)")
+        self._WritePlotFile(filename, self.subplot_size_inch2, "\n".join(lines), "_2D", ext)
+        return done2D
+
+    def _writeScriptPlots1D(self, filename, plotparams=None, ext=None):
+        rows = ["markers = " + (str(self.markers) if self.markers else "None")]
+        if plotparams:
+            quoted = ",".join(f"'{name}'" for name in plotparams)
+            rows.append(f"g.plots_1d(roots,[{quoted}], markers=markers)")
+        else:
+            rows.append("g.plots_1d(roots, markers=markers)")
+        self._WritePlotFile(filename, self.subplot_size_inch, "\n".join(rows), "", ext)
 
     # -- convergence tests -------------------------------------------------------------------
 
@@ -2497,11 +3036,31 @@ class MCSamples(Chains):
         convolutions on ``self.device``; it takes any weights, and
         ``materialize`` does not apply.
 
+        Both pin the means, variances and covariance to numpy
+        (:meth:`_pin_host_stats`), whatever ``GETDIST_TPU_TORCH_DEVICE_OPS``
+        says.
+
         :return: ({name: Density1D}, {(name_a, name_b): Density2D})
         """
+        self._pin_host_stats()
         if not device:
             return self._parity_densities_host(params, contours)
         return self._parity_densities_device(params, contours, materialize=materialize)
+
+    def _pin_host_stats(self):
+        """Pin the means, variances, covariance and correlation to numpy
+        (``_force_host_stats``) and recompute any computed on the device
+        route: scipy's bandwidth optimizers move by their own ~1e-4
+        tolerance under a 1-ulp change of their inputs, which parity keeps
+        bit-identical to the JAX package's."""
+        self._force_host_stats = True
+        if not getattr(self, "_stats_from_device", False):
+            return
+        self._stats_from_device = False
+        self.means = self.vars = self.fullcov = self.correlationMatrix = None
+        self._param_range_cache = {}
+        if not self.needs_update:
+            self.updateBaseStatistics()
 
     def _parity_densities_1d(self, idx, infos):
         """Parity mode's 1D densities: the byte-exact host path, reusing the

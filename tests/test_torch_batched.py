@@ -330,8 +330,10 @@ def test_slice_outputs_are_sane(slices):
 
 def test_port_imports_no_jax():
     code = (
-        "import sys, getdist_tpu_torch.ops.batched, getdist_tpu_torch.mcsamples, getdist_tpu_torch.parallel; "
-        "sys.exit(int('jax' in sys.modules))"
+        "import sys, getdist_tpu_torch.ops.batched, getdist_tpu_torch.mcsamples, getdist_tpu_torch.parallel, "
+        "getdist_tpu_torch.command_line, getdist_tpu_torch.covmat, getdist_tpu_torch.ops.binning, "
+        "getdist_tpu_torch.ops.stats, getdist_tpu_torch.ops.convolve, getdist_tpu_torch.ops.fft; "
+        "sys.exit(int('jax' in sys.modules or 'getdist_tpu' in sys.modules))"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

@@ -908,3 +908,123 @@ def test_host_api_routes_onto_the_card(cuda, monkeypatch):
         p, q = routed.parWithName(name), host.parWithName(name)
         for lim_p, lim_q in zip(p.limits, q.limits):
             assert abs(lim_p.lower - lim_q.lower) < 0.05 * q.err and abs(lim_p.upper - lim_q.upper) < 0.05 * q.err
+
+
+# -- the device primitives (ops.binning, ops.stats, ops.fft, ops.convolve) on the card against the CPU --
+
+
+def _both(cuda, *arrays):
+    """Each array as a CPU tensor and as a copy on the card."""
+    cpu = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+    return cpu, [t.to(cuda) for t in cpu]
+
+
+def test_weighted_bincount_on_card_bitwise(cuda):
+    from getdist_tpu_torch.ops import binning
+
+    rng = np.random.default_rng(61)
+    ix, iy = rng.integers(0, 64, 500_000), rng.integers(0, 48, 500_000)
+    w = rng.integers(1, 9, 500_000).astype(np.float64)
+    (c_ix, c_iy, c_w), (g_ix, g_iy, g_w) = _both(cuda, ix, iy, w)
+    assert torch.equal(binning.weighted_bincount(g_ix, g_w, 64).cpu(), binning.weighted_bincount(c_ix, c_w, 64))
+    assert torch.equal(binning.weighted_bincount_2d(g_ix, g_iy, g_w, 64, 48).cpu(),
+                       binning.weighted_bincount_2d(c_ix, c_iy, c_w, 64, 48))
+    values = rng.standard_normal(100_000)
+    (c_v,), (g_v,) = _both(cuda, values)
+    assert torch.equal(binning.bin_indices_1d(g_v, -3.0, 0.01, 600).cpu(), binning.bin_indices_1d(c_v, -3.0, 0.01, 600))
+
+
+@pytest.mark.parametrize("name", ["weighted_mean", "weighted_var", "weighted_cov", "kde_lag", "kde_lag_2d",
+                                  "confidence", "gelman_rubin"])
+def test_stats_on_card_match_cpu(cuda, name):
+    """f64 statistics on the card within 1e-12 of the CPU's (relative to the
+    largest value); the confidence limits equal."""
+    from getdist_tpu_torch.ops import stats
+
+    rng = np.random.default_rng(62)
+    x = rng.standard_normal((200_000, 6)) @ rng.standard_normal((6, 6))
+    w = rng.integers(1, 5, 200_000).astype(np.float64)
+    (cx, cw), (gx, gw) = _both(cuda, x, w)
+    calls = {
+        "weighted_mean": lambda s, v: stats.weighted_mean(s, v),
+        "weighted_var": lambda s, v: stats.weighted_var(s, v),
+        "weighted_cov": lambda s, v: stats.weighted_cov(s, v),
+        "kde_lag": lambda s, v: stats.kde_lag_correlation(s[:, 0].contiguous(), v, 17, 0.3),
+        "kde_lag_2d": lambda s, v: stats.kde_lag_correlation_2d(s[:, 0], s[:, 1], v, 5,
+                                                                 torch.eye(2, dtype=s.dtype, device=s.device)),
+        "confidence": lambda s, v: stats.confidence_bounds(s[:, 2].contiguous(), v,
+                                                           torch.tensor([0.025, 0.5, 0.975], dtype=s.dtype)),
+        "gelman_rubin": lambda s, v: stats.gelman_rubin_eigenvalues(
+            s[:4, :3] * 0.01, torch.stack([stats.weighted_cov(s[i::4, :3], v[i::4]) for i in range(4)]),
+            torch.zeros(3, dtype=s.dtype, device=s.device)),
+    }
+    got, want = calls[name](gx, gw).cpu(), calls[name](cx, cw)
+    if name == "confidence":
+        assert torch.equal(got, want)
+    else:
+        assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("name", ["dct2d", "idct2d", "convolveFFT", "convolveFFTn", "periodic_1d", "periodic_both",
+                                  "autoConvolve", "gaussDCT", "gaussTrunc"])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_fft_convolutions_on_card_match_cpu(cuda, name, dtype):
+    """cuFFT against the CPU's FFT: f64 within 1e-12 of the largest value,
+    f32 within 1e-5."""
+    from getdist_tpu_torch.ops import convolve, fft
+
+    rng = np.random.default_rng(63)
+    two_d = name in ("dct2d", "idct2d", "convolveFFTn", "periodic_both")
+    x = rng.random((300, 257) if two_d else 20_000).astype(dtype)
+    k = rng.random((21, 17) if two_d else 41).astype(dtype)
+    (cx, ck), (gx, gk) = _both(cuda, x, k)
+    calls = {
+        "dct2d": lambda a, b: fft.dct2d(a),
+        "idct2d": lambda a, b: fft.idct2d(a),
+        "convolveFFT": lambda a, b: convolve.convolveFFT(a, b, "same"),
+        "convolveFFTn": lambda a, b: convolve.convolveFFTn(a, b, "valid"),
+        "periodic_1d": lambda a, b: convolve.convolve1D(a, b, "periodic"),
+        "periodic_both": lambda a, b: convolve.convolve2D(a, b, "periodic_both"),
+        "autoConvolve": lambda a, b: convolve.autoConvolve(a, n=2000),
+        "gaussDCT": lambda a, b: convolve.convolveGaussianDCT(a, 7.5),
+        "gaussTrunc": lambda a, b: convolve.convolveGaussianTrunc(a, 3.0, mode="full"),
+    }
+    got, want = calls[name](gx, gk).cpu(), calls[name](cx, ck)
+    tol = 1e-12 if dtype == np.float64 else 1e-5
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+def test_device_ops_chain_statistics_on_card(cuda, monkeypatch):
+    """GETDIST_TPU_TORCH_DEVICE_OPS=1 on a CUDA MCSamples: means, covariance,
+    autocorrelation, N_eff and the confidence limits computed on the card
+    (its upload cached there), within 1e-12 / 1e-10 / equal of the host
+    path's."""
+    from getdist_tpu_torch import chains
+    from getdist_tpu_torch.mcsamples import MCSamples
+
+    monkeypatch.setattr(chains, "print_load_details", False)
+    monkeypatch.delenv("GETDIST_TPU_TORCH_DEVICE_OPS", raising=False)
+    rng = np.random.default_rng(64)
+    x = np.cumsum(rng.standard_normal((4, 20_000, 4)) * 0.1, axis=1)
+    parts = [x[i] - x[i].mean(0) for i in range(4)]
+    weights = [rng.integers(1, 4, 20_000).astype(float) for _ in range(4)]
+    kwargs = dict(samples=parts, weights=weights, names=["a", "b", "c", "d"])
+    host = MCSamples(device="cpu", **kwargs)
+    monkeypatch.setenv("GETDIST_TPU_TORCH_DEVICE_OPS", "1")
+    card = MCSamples(device="cuda", **kwargs)
+    assert card._device_cache[0].device.type == "cuda"
+    np.testing.assert_allclose(card.getMeans(), host.getMeans(), rtol=0, atol=1e-12 * np.abs(host.getMeans()).max())
+    np.testing.assert_allclose(card.getCov(), host.getCov(), rtol=0, atol=1e-12 * np.abs(host.getCov()).max())
+    curve, want = card.getAutocorrelation(1, maxOff=500), host.getAutocorrelation(1, maxOff=500)
+    assert np.abs(curve - want).max() <= 1e-12 * abs(want[0])
+    assert card.getEffectiveSamplesGaussianKDE(2) == pytest.approx(host.getEffectiveSamplesGaussianKDE(2), rel=1e-10)
+    assert card.getEffectiveSamplesGaussianKDE_2d(0, 3) == pytest.approx(host.getEffectiveSamplesGaussianKDE_2d(0, 3),
+                                                                         rel=1e-10)
+    np.testing.assert_array_equal(card.twoTailLimits(3, 0.95), host.twoTailLimits(3, 0.95))
+    # the N-D histogram through the card's weighted_bincount, on an object
+    # whose ranges the host computed: bitwise the host's
+    monkeypatch.delenv("GETDIST_TPU_TORCH_DEVICE_OPS")
+    plain = MCSamples(device="cuda", **kwargs)
+    want_nd = plain.getRawNDDensityGridData(["a", "b", "c"])
+    monkeypatch.setenv("GETDIST_TPU_TORCH_DEVICE_OPS", "1")
+    np.testing.assert_array_equal(plain.getRawNDDensityGridData(["a", "b", "c"]).P, want_nd.P)
