@@ -18,7 +18,7 @@ CUDA kernels from ``getdist_tpu_torch/csrc``. Then three paths on
    bytes and operations bounds), and compare the path on the card with the
    port on the CPU at 100k x 8;
 2. device parity mode, ``MCSamples(...).fastParityDensities(device=True)``:
-   one cold and two warm runs (stage profile, peak memory, launch counts of
+   one cold and one warm run (stage profile, peak memory, launch counts of
    one run), checks of its outputs, bin indices of all 30 columns against
    numpy's formula, K4 on this run's sheared stack (timed with the path's
    uint8 weights and with f32 weights) and f64 K2/K3 on its largest bucket
@@ -78,7 +78,7 @@ CUDA kernels from ``getdist_tpu_torch/csrc``. Then three paths on
    kernels, 256-bin grids and 508-wide edge masks), each against its plain
    version, and the entry on the card against the port on the CPU at
    100k x 10;
-7. parity mode on the bounded chain: device parity cold and warm (stage
+7. parity mode on the bounded chain: device parity, one call (stage
    profile, buckets, launches per kernel; every bucket's f64 K3 on its
    periodically extended grids), f64 K3 on the largest bucket's extended
    grids against its plain version (within 1e-12 of the largest value,
@@ -118,7 +118,22 @@ CUDA kernels from ``getdist_tpu_torch/csrc``. Then three paths on
    ``.converge``, ``.covmat`` and ``.PCA`` within 1e-10 relative of the
    default run's, differing lines printed); then a 3-parameter N-D
    density through the card's ``weighted_bincount``, bitwise equal to the
-   host's.
+   host's;
+11. the plotter's data layer (``plot_data_phase``) on phase 8's root,
+   with no matplotlib and no yaml: the root loaded through
+   ``sample_analysis.MCSampleAnalysis`` as a grid job item (cold, then
+   cached) and as a loose root (cached), each bitwise phase 8's samples;
+   the requests ``GetDistPlotter.triangle_plot`` makes for all 30
+   parameters (30 ``get_density``, 435 ``get_density_grid``) cold, warm
+   and repeated (walls; K1, K2 and K3 launched by one fused program cold,
+   none on the analyser's cache), every grid bitwise equal to the routed
+   analysis API's on a separately loaded object, ten pairs within 1.5e-2
+   of the host path's peak (a limited x periodic and a periodic x periodic
+   pair's differences and the one-sided 1D departures printed: the JAX
+   method's, ROADMAP C11, C18, C14), the ``shade_meanlikes`` gather of 20
+   pairs (K1 with like weights, none served by the host, like grids within
+   1.5e-2 of the host's but the reruns with a two-sided parameter, C18),
+   and the gather beside the host path's per-pair time x 435.
 
 K1, K4, K5 and the wide kernels are timed with the weights their paths
 pass (integer weights as uint8, ``pair_hist.narrow_weights``), each beside
@@ -634,7 +649,7 @@ def fused_path(samples, weights, batched, dft_conv, pair_hist, make_chain):
     print(f"launches in one main-path run: {launches}")
     check(launches == {"pair_histograms": 1, "dft_conv_spectrum": 1, "dft_conv2d": 2}, "kernel launch counts")
     check_outputs(d1, d2, p, k)
-    warm = min(wall_s(run)[0] for _ in range(3))
+    warm = min(wall_s(run)[0] for _ in range(2))
     torch.cuda.reset_peak_memory_stats()
     wall_s(run)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -642,9 +657,9 @@ def fused_path(samples, weights, batched, dft_conv, pair_hist, make_chain):
     def run_1d():
         return batched.all_1d_densities(*batched.prepare_chain(samples, weights, "cuda"))
 
-    t1d = min(wall_s(run_1d)[0] for _ in range(3))
+    t1d = min(wall_s(run_1d)[0] for _ in range(2))
     print(
-        f"slice 30 x 1M: first call {cold_s * 1e3:.1f} ms, warm {warm * 1e3:.1f} ms (min of 3; 1D stage "
+        f"slice 30 x 1M: first call {cold_s * 1e3:.1f} ms, warm {warm * 1e3:.1f} ms (min of 2; 1D stage "
         f"{t1d * 1e3:.1f} ms incl. upload), peak device memory {peak_gb:.2f} GB"
     )
     profile_slice(run)
@@ -749,27 +764,22 @@ def parity_path(samples, weights, batched, dft_conv, pair_hist):
     cold_s, _ = wall_s(lambda: mc.fastParityDensities(device=True))
     counters = (pair_hist.pair_histograms, pair_hist.pair_histograms_dynamic, dft_conv.dft_conv_spectrum,
                 dft_conv.dft_conv2d)
-    warm = []
-    for rep in range(2):
-        mc, _ = fresh()
-        if rep == 0:
-            for fn in counters:
-                fn.launches = 0
-            torch.cuda.reset_peak_memory_stats()
-        seconds, (dens1, dens2) = wall_s(lambda: mc.fastParityDensities(device=True))
-        if rep == 0:
-            launches = {fn.__name__: fn.launches for fn in counters}
-            peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        warm.append(seconds)
+    mc, _ = fresh()
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    warm_s, (dens1, dens2) = wall_s(lambda: mc.fastParityDensities(device=True))
+    launches = {fn.__name__: fn.launches for fn in counters}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"launches in one parity run: {launches}")
     check(all(v >= 1 for v in launches.values()), "parity run launched K1, K4, K2 and K3")
     check_parity_outputs(dens1, dens2, p, k)
     profile = ", ".join(f"{key} {sec:.3f}" for key, sec in mc.parity_profile.items())
     print(
         f"parity 30 x 1M: MCSamples built in {build_s:.2f} s; fastParityDensities first call {cold_s:.2f} s, "
-        f"warm {warm[0]:.2f} s and {warm[1]:.2f} s; peak device memory {peak_gb:.2f} GB"
+        f"warm {warm_s:.2f} s; peak device memory {peak_gb:.2f} GB"
     )
-    print(f"parity stages (s, last warm run): {profile}")
+    print(f"parity stages (s, warm run): {profile}")
     print(f"parity buckets: {json.dumps(mc.parity_buckets)}")
     mc, _ = fresh()
     busy_ms, wall_ms = profile_device_busy(lambda: mc.fastParityDensities(device=True))
@@ -1614,11 +1624,11 @@ def public_entry(samples, weights, batched, dft_conv, pair_hist):
         reset()
         _, (d1, d2, pairs) = wall_s(lambda: mc.fastTriangleDensities())
         launches = read()
-        walls = [wall_s(lambda: mc.fastTriangleDensities())[0] for _ in range(3)]
+        walls = [wall_s(lambda: mc.fastTriangleDensities())[0] for _ in range(2)]
         profile = dict(mc.fast_profile)
         route = "single dispatch" if "program" in profile else "two programs"
         print(f"{label}: MCSamples built in {build_s:.2f} s; fastTriangleDensities first call {cold_s * 1e3:.1f} ms "
-              f"(chain upload included), warm {min(walls) * 1e3:.1f} ms (min of 3: "
+              f"(chain upload included), warm {min(walls) * 1e3:.1f} ms (min of 2: "
               f"{', '.join(f'{x * 1e3:.1f}' for x in walls)}); route: {route}; launches of one run: {json.dumps(launches)}")
         check(launches["pair_histograms"] >= 1 and launches["dft_conv_spectrum"] >= 1 and launches["dft_conv2d"] >= 2,
               f"{label}: the run launched K1, K2 and K3")
@@ -1971,9 +1981,9 @@ def bounded_phase(bounded, batched, dft_conv, pair_hist):
         reset()
         warm_s, (d1, d2, pairs) = wall_s(run)
         launches = read()
-        walls = [warm_s] + [wall_s(run)[0] for _ in range(2)]
+        walls = [warm_s] + [wall_s(run)[0] for _ in range(1)]
         tag = f"{label}, meanlikes={meanlikes}"
-        print(f"{tag}: first call {cold_s * 1e3:.1f} ms, warm {min(walls) * 1e3:.1f} ms (min of 3: "
+        print(f"{tag}: first call {cold_s * 1e3:.1f} ms, warm {min(walls) * 1e3:.1f} ms (min of 2: "
               f"{', '.join(f'{x * 1e3:.1f}' for x in walls)}); launches of one run: {json.dumps(launches)}; stage "
               "split (s): " + ", ".join(f"{k} {v:.4f}" for k, v in mc.fast_profile.items()))
         check("program_b" in mc.fast_profile, f"{tag}: two programs")
@@ -2193,7 +2203,7 @@ def periodic_conv_row(name, mc, bucket, launches, pair_hist, dft_conv, batched):
 
 def parity_bounded_phase(bounded, batched, dft_conv, pair_hist):
     """Phase 7: parity mode on ``bounded_chain(1M)`` (30 x 1M, two periodic
-    columns): device parity cold and warm (stage profile, buckets, launches
+    columns): device parity, one call (stage profile, buckets, launches
     per kernel, outputs), a row of f64 K3 on its largest bucket's
     periodically extended grids; the same chain with importance weights
     (``importance_weights``, fractional): device parity routed to the host
@@ -2229,17 +2239,16 @@ def parity_bounded_phase(bounded, batched, dft_conv, pair_hist):
         return MCSamples(samples=samples, weights=w, names=names, ranges=ranges, device="cuda")
 
     label = "parity, bounded chain 30 x 1M"
-    cold_s, _ = wall_s(lambda: fresh(weights).fastParityDensities(device=True))
     mc = fresh(weights)
     reset()
-    warm_s, (dens1, dens2) = wall_s(lambda: mc.fastParityDensities(device=True))
+    cold_s, (dens1, dens2) = wall_s(lambda: mc.fastParityDensities(device=True))
     launches = read()
     check(all(launches[fn.__name__] >= 1 for fn in counters), f"{label}: K1, K4, K2 and K3 launched ({launches})")
     check_parity_outputs(dens1, dens2, p, k)
     buckets = list(mc.parity_buckets)
     ext_ran = [b for b in buckets if any(key.endswith(f":{b['fine'] + 2 * b['winw']}") for key in launches["conv_inputs"])]
     check(len(ext_ran) == len(buckets), f"{label}: every bucket's K3 ran on its periodically extended grids")
-    print(f"{label}: first call {cold_s:.2f} s, warm {warm_s:.2f} s; launches of the warm run: {json.dumps(launches)}; "
+    print(f"{label}: first call {cold_s:.2f} s; launches of the run: {json.dumps(launches)}; "
           "stages (s): " + ", ".join(f"{key} {sec:.3f}" for key, sec in mc.parity_profile.items())
           + f"; buckets {json.dumps(buckets)}")
     bucket = max((b for b in buckets if b["fine"] == 256), key=lambda b: b["pairs"])
@@ -2256,7 +2265,7 @@ def parity_bounded_phase(bounded, batched, dft_conv, pair_hist):
         rows.append(spectrum_row(f"dft_conv_spectrum_f64_w{winw}_frame{pad}", kernels, pad,
                                  launches["spectrum_kernels"].get(f"{pad}:{m}", 0)))
         print(f"K2 f64, bounded parity bucket fine {b['fine']} winw {winw} ({b['pairs']} pairs, {m}^2 kernels, "
-              f"frame {pad}): launches at this shape in the warm run {rows[-1]['launches']}")
+              f"frame {pad}): launches at this shape in the run {rows[-1]['launches']}")
     check(sum(launches["spectrum_kernels"].values()) == launches["dft_conv_spectrum"],
           f"bounded parity: K2 launches by shape add up ({launches['spectrum_kernels']})")
     del mc, dens1, dens2
@@ -2418,7 +2427,7 @@ def files_phase(bounded, card, pair_hist, dft_conv):
               and launches["dft_conv_spectrum"] >= 1 and launches["dft_conv2d"] >= 2,
               f"files: the entry on the loaded root launched K1 (with like weights once in program B and once "
               f"in each of its {like_runs - 1} reruns), K2 and K3 ({launches})")
-        warm_entry_s = min([first_s] + [wall_s(lambda: entry(mc))[0] for _ in range(2)])
+        warm_entry_s = min([first_s] + [wall_s(lambda: entry(mc))[0] for _ in range(1)])
         pairs = [(a, b) for a in range(len(names)) for b in range(a + 1, len(names))]
         check_bounded_outputs(got[0], got[1], pairs, BOUNDED_KINDS, "files: entry on the loaded root")
         memory = tmc.MCSamples(samples=mc.samples, weights=mc.weights, loglikes=mc.loglikes,
@@ -2432,19 +2441,33 @@ def files_phase(bounded, card, pair_hist, dft_conv):
         print(f"files, bounded chain {len(samples):,} x {samples.shape[1]} as a 4-file root ({card}): "
               f"loadMCSamples cold (native loader) {cold_load_s * 1e3:.1f} ms, cache hit {hit_load_s * 1e3:.1f} ms; "
               f"fastTriangleDensities(meanlikes=True) on the loaded object cold {cold_entry_s * 1e3:.1f} ms, warm "
-              f"{warm_entry_s * 1e3:.1f} ms (min of 3), on the cache hit's first call {hit_cold_s * 1e3:.1f} ms; "
+              f"{warm_entry_s * 1e3:.1f} ms (min of 2), on the cache hit's first call {hit_cold_s * 1e3:.1f} ms; "
               f"launches {json.dumps(launches)}; bitwise equal to the in-memory entry {same_memory} and the cache "
               f"hit's {same_hit}; regrid groups "
               + json.dumps([dict(g, pairs=len(g["pairs"])) for g in mc.fast_regrid_groups]))
         del mc, mc_hit, got, hit
         torch.cuda.empty_cache()
         tmc.MCSamples.readChains = saved_read
-        host_api_phase(root, names, ranges, card, pair_hist, dft_conv)
+        host_pair_walls = host_api_phase(root, names, ranges, card, pair_hist, dft_conv)
         cli_phase(root, names, ranges, card, pair_hist, dft_conv)
+        plot_data_phase(root, names, ranges, samples, card, pair_hist, dft_conv, host_pair_walls)
     finally:
         getdist_tpu_torch.cache_dir = saved_cache
         tmc.MCSamples.readChains = saved_read
         shutil.rmtree(folder, ignore_errors=True)
+
+
+def triangle_requests(names, conts=2, shade_meanlikes=False):
+    """The data-layer requests of ``GetDistPlotter.triangle_plot`` on one
+    root of ``names`` at default settings but ``shade_meanlikes``, in order:
+    ``("1d", name, likes)`` for each parameter (the diagonal), then
+    ``("2d", x, y, conts, likes)`` for each pair below it, column before
+    row (``tests/test_torch_plots.py`` pins them against the port's
+    plotter and the JAX package's)."""
+    from itertools import combinations
+
+    return ([("1d", name, False) for name in names]
+            + [("2d", x, y, conts, shade_meanlikes) for x, y in combinations(names, 2)])
 
 
 CONVERGE_TESTS = ("MeanVar", "GelmanRubin", "SplitTest", "RafteryLewis", "CorrLengths", "CorrSteps")
@@ -2491,7 +2514,7 @@ def host_api_phase(root, names, ranges, card, pair_hist, dft_conv):
     """Phase 9: the host ``MCSamples`` analysis API on the files phase's
     root (loaded from its pickle cache, on the card). Routed (the default
     on a CUDA object): ``getMargeStats()`` cold (the first object) and warm
-    (a fresh object, min of 2), each one fused program (one
+    (a fresh object), each one fused program (one
     ``_fused_cache`` entry) that launches K1, K2 and K3; ``getLikeStats()``,
     ``getConvergeTests()`` with all six tests (integer weights 1-4),
     ``getTable().tableTex()`` and ``getInlineLatex``, with walls. Then the
@@ -2531,7 +2554,7 @@ def host_api_phase(root, names, ranges, card, pair_hist, dft_conv):
         check(all(launches.values()), f"host API: the routed getMargeStats launched K1, K2 and K3 ({launches})")
         check(list(mc._fused_cache) == [False], f"host API: one fused program ({list(mc._fused_cache)})")
         warm, fused = [], []
-        for _ in range(2):
+        for _ in range(1):
             fresh = load()
             warm.append(wall_s(fresh.getMargeStats)[0])
             check(list(fresh._fused_cache) == [False], "host API: one fused program (warm)")
@@ -2661,6 +2684,7 @@ def host_api_phase(root, names, ranges, card, pair_hist, dft_conv):
               f"{[k for k in like_diffs if held(k)]}; the others at a one-sided limit, ROADMAP C14, printed)")
         del mc, host, routed_2d, host_2d, routed_likes, host_likes
         torch.cuda.empty_cache()
+        return [wall for key, wall in host_walls.items() if key.startswith("get2DDensity ")]
     finally:
         os.environ.pop("GETDIST_TPU_TORCH_FUSED", None)
         if saved_flag is not None:
@@ -2856,6 +2880,241 @@ def cli_phase(root, names, ranges, card, pair_hist, dft_conv):
         os.environ.pop("GETDIST_TPU_TORCH_DEVICE_OPS", None)
         if saved_ops is not None:
             os.environ["GETDIST_TPU_TORCH_DEVICE_OPS"] = saved_ops
+
+
+# the plot-data phase's pairs, held against the host path at the host-API
+# phase's ROUTED_2D_PEAK but for PLOT_PAIRS_UNHELD, whose differences are
+# the JAX method's and are printed: a limited x periodic pair's wrap line
+# (ROADMAP C11), and the mult-bias rounds the fused path runs on a pair of
+# two periodic parameters, which the host path skips (C18)
+PLOT_PAIRS = {"free x free": ("b10", "b11"), "free x free, far": ("b20", "b29"),
+              "limited x limited": ("b6", "b7"), "lower x upper": ("b1", "b5"), "lower x free": ("b0", "b12"),
+              "upper x free": ("b4", "b13"), "two-sided x free": ("b7", "b15"), "periodic x free": ("b9", "b14"),
+              "periodic x periodic": ("b8", "b9"), "limited x periodic": ("b6", "b8")}
+PLOT_PAIRS_UNHELD = {"limited x periodic": "C11", "periodic x periodic": "C18"}
+# the meanlikes gather's parameters: its 20 pairs are theirs but the
+# limited x periodic one (ROADMAP C11); none at a one-sided limit (C14).
+# The like grids of the pairs the fused run reran with a two-sided
+# parameter are printed, not held: the JAX method's rerun bandwidths there
+# depart from the host path's (C18)
+PLOT_LIKE_PARAMS = ("b6", "b8", "b10", "b11", "b12", "b13", "b14")
+
+
+def gather_plot_data(analyser, root, requests, params):
+    """Make ``requests`` (``triangle_requests``' tuples) of the plotter's
+    data layer ``analyser`` on ``root``, as ``triangle_plot`` makes them;
+    returns {request: density}."""
+    out = {}
+    for request in requests:
+        if request[0] == "1d":
+            out[request] = analyser.get_density(root, params[request[1]], likes=request[2])
+        else:
+            _, x, y, conts, likes = request
+            out[request] = analyser.get_density_grid(root, params[x], params[y], conts=conts, likes=likes)
+    return out
+
+
+def plot_data_phase(root, names, ranges, samples, card, pair_hist, dft_conv, host_pair_walls):
+    """Phase 11: the plotter's data layer (``sample_analysis.MCSampleAnalysis``,
+    which the port's ``plots.GetDistPlotter`` draws from on the host) on
+    the files phase's root, on the card, with no matplotlib and no yaml.
+    The root loads through the analyser as a grid job item (its files
+    linked into a subfolder of a ``ChainDirGrid``: cold from the text,
+    then from its pickle cache) and as a loose root (phase 8's pickle
+    cache), each holding phase 8's samples bitwise. Then the requests of
+    ``triangle_plot`` on all 30 parameters at default settings
+    (``triangle_requests``: 30 ``get_density``, 435 ``get_density_grid``):
+    cold (a fresh analyser on a fresh load: one fused program and its
+    reruns, K1, K2 and K3 launched), warm (a second fresh analyser on the
+    same object) and repeated on the first analyser (0 launches, its
+    cache); the wide kernels' launches printed. Every grid bitwise equal
+    to the routed ``get1DDensityGridData`` / ``get2DDensityGridData`` of a
+    separately loaded object; PLOT_PAIRS' densities within
+    ROUTED_2D_PEAK of the host path's (``GETDIST_TPU_TORCH_FUSED=0``, on
+    that object) but
+    PLOT_PAIRS_UNHELD's (printed, ROADMAP C11 and C18); the one-sided
+    limited parameters' 1D departures from the host printed (C14). Then
+    the meanlikes gather (``shade_meanlikes``) on PLOT_LIKE_PARAMS' 20
+    pairs: K1 with like weights launched, no query served by the host, the
+    like grids within ROUTED_2D_PEAK of the host's but those of the pairs
+    the fused run reran with a two-sided parameter (printed, ROADMAP C18).
+    Last, the cold gather
+    beside the host path's per-pair ``get2DDensity`` walls (phase 9's and
+    this phase's) times 435, printed only."""
+    import numpy as np
+    import torch
+
+    import getdist_tpu_torch
+    from getdist_tpu_torch.chain_grid import ChainItem
+    from getdist_tpu_torch.mcsamples import MCSamples
+    from getdist_tpu_torch.sample_analysis import MCSampleAnalysis
+
+    phase_t0 = time.perf_counter()
+    folder, name = os.path.split(root)
+    counters = (pair_hist.pair_histograms, dft_conv.dft_conv_spectrum, dft_conv.dft_conv2d)
+
+    def zero():
+        for fn in counters:
+            fn.launches = 0
+        pair_hist.pair_histograms.float_launches = 0
+        pair_hist.pair_histograms.wide_launches = 0
+
+    def counts():
+        out = {fn.__name__: fn.launches for fn in counters}
+        out["float"] = pair_hist.pair_histograms.float_launches
+        out["wide"] = pair_hist.pair_histograms.wide_launches
+        return out
+
+    reads = []
+    saved_read = MCSamples.readChains
+
+    def counted(self, *a, **k):
+        reads.append(1)
+        return saved_read(self, *a, **k)
+
+    saved_flag = os.environ.pop("GETDIST_TPU_TORCH_FUSED", None)
+    MCSamples.readChains = counted
+    try:
+        grid_dir = os.path.join(folder, "grid", "tag")
+        os.makedirs(grid_dir)
+        for entry in os.listdir(folder):
+            if entry.startswith(name + "_") or entry.startswith(name + "."):
+                os.symlink(os.path.join(folder, entry), os.path.join(grid_dir, entry))
+        loads = {}
+        for tag, location in (("grid item cold", os.path.dirname(grid_dir)), ("grid item cached",
+                                                                             os.path.dirname(grid_dir)),
+                              ("loose root cached", folder)):
+            before = len(reads)
+            loads[tag], mc = wall_s(lambda loc=location: MCSampleAnalysis(loc, device="cuda").samples_for_root(name))
+            check(np.array_equal(mc.samples, samples) and mc.device == torch.device("cuda"),
+                  f"plot data: the {tag} load holds phase 8's samples bitwise on the card")
+            check((len(reads) > before) == (tag == "grid item cold"),
+                  f"plot data: the {tag} load {'parsed the files' if tag.endswith('cold') else 'hit its cache'}")
+            if tag.startswith("grid"):
+                check(isinstance(mc.jobItem, ChainItem) and mc.jobItem.chainRoot == os.path.join(grid_dir, name)
+                      and mc.batch_path == os.path.dirname(grid_dir), f"plot data: the {tag} load is a job item")
+            else:
+                check(mc.jobItem is None, "plot data: the loose root has no job item")
+        del mc
+
+        requests = triangle_requests(names)
+        check(len(requests) == 30 + 435, "plot data: the triangle's 465 requests")
+        analyser = MCSampleAnalysis(folder, device="cuda")
+        zero()
+        load_s, mc = wall_s(lambda: analyser.samples_for_root(name))
+        params = {n: mc.paramNames.parWithName(n) for n in names}
+        cold_s, grids = wall_s(lambda: gather_plot_data(analyser, name, requests, params))
+        cold = counts()
+        check(cold["pair_histograms"] > 0 and cold["dft_conv_spectrum"] > 0 and cold["dft_conv2d"] > 0,
+              f"plot data: the cold gather launched K1, K2 and K3 ({cold})")
+        check(list(mc._fused_cache) == [False] and mc.fast_profile.get("host_served", 0) == 0,
+              f"plot data: one fused program served every request ({list(mc._fused_cache)}, host served "
+              f"{mc.fast_profile.get('host_served', 0)})")
+        check(all(g is not None for g in grids.values()), "plot data: every request has a density")
+        reruns = len(mc.fast_regrid_groups)
+        fused_s = sum(v for k, v in mc.fast_profile.items() if k != "host_served")
+        warm_analyser = MCSampleAnalysis(folder, device="cuda")
+        warm_analyser.mcsamples[name] = mc
+        zero()
+        warm_s, warm = wall_s(lambda: gather_plot_data(warm_analyser, name, requests, params))
+        warm_counts = counts()
+        zero()
+        repeat_s, repeat = wall_s(lambda: gather_plot_data(analyser, name, requests, params))
+        repeat_counts = counts()
+        check(not any(repeat_counts.values()) and all(repeat[k] is grids[k] for k in requests),
+              f"plot data: the repeat gather is served from the analyser's cache ({repeat_counts})")
+        print(f"plot data, 30-parameter triangle on the {len(samples):,}-row file root ({card}): loads "
+              + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in loads.items())
+              + f"; the analyser's load {load_s * 1e3:.1f} ms; 30 get_density + 435 get_density_grid cold "
+              f"{cold_s * 1e3:.1f} ms (of which the fused run, fast_profile, {fused_s * 1e3:.1f} ms; launches "
+              f"{json.dumps(cold)}, fused regrid groups {reruns}), warm "
+              f"{warm_s * 1e3:.1f} ms (launches {json.dumps(warm_counts)}), repeated on the same analyser "
+              f"{repeat_s * 1e3:.1f} ms (launches {json.dumps(repeat_counts)})")
+
+        # the analysis API's routed queries on a separately loaded object
+        api = getdist_tpu_torch.loadMCSamples(root, ini=analyser.ini, device="cuda")
+        differing = []
+        for request, got in grids.items():
+            if request[0] == "1d":
+                want = api.get1DDensityGridData(request[1])
+                same = np.array_equal(got.x, want.x) and np.array_equal(got.P, want.P)
+            else:
+                want = api.get2DDensityGridData(request[1], request[2], num_plot_contours=request[3])
+                same = (np.array_equal(got.x, want.x) and np.array_equal(got.y, want.y)
+                        and np.array_equal(got.P, want.P) and np.array_equal(got.contours, want.contours))
+            if not same or not (np.array_equal(warm[request].P, got.P)):
+                differing.append(request)
+        check(not differing, f"plot data: every grid (and the warm gather's) bitwise equal to the routed "
+                             f"analysis API's on a separately loaded object (differing {differing[:5]})")
+
+        # the host path on that object (its parameter ranges already set up,
+        # as phase 9's host object has them when it times get2DDensity)
+        os.environ["GETDIST_TPU_TORCH_FUSED"] = "0"
+        host = api
+        check(not host._fused_route_enabled(), "plot data: GETDIST_TPU_TORCH_FUSED=0 forces the host path")
+        pair_walls, diffs = [], {}
+        for key, (x, y) in PLOT_PAIRS.items():
+            wall, want = wall_s(lambda x=x, y=y: host.get2DDensityGridData(x, y, num_plot_contours=2))
+            pair_walls.append(wall)
+            diffs[key] = routed_2d_diff(grids[("2d", x, y, 2, False)], want)
+            if key not in PLOT_PAIRS_UNHELD:
+                check(diffs[key] < ROUTED_2D_PEAK, f"plot data: {key} {(x, y)} within {ROUTED_2D_PEAK} of the "
+                                                   f"peak of the host's ({diffs[key]:.4g})")
+        one_sided = [n for n, w in ranges.items() if len(w) == 2 and (w[0] is None) != (w[1] is None)]
+        c14 = {n: round(routed_1d_diff(grids[("1d", n, False)], host.get1DDensityGridData(n)), 6) for n in one_sided}
+        print(f"plot data, routed against the host path ({card}): 2D max diff of the peak "
+              + json.dumps({f"{k} {PLOT_PAIRS[k]}": round(v, 6) for k, v in diffs.items()})
+              + f" (bar {ROUTED_2D_PEAK}; no bar, ROADMAP {json.dumps(PLOT_PAIRS_UNHELD)}); one-sided limited 1D "
+              f"{json.dumps(c14)} (no bar, ROADMAP C14)")
+
+        like_pairs = [(x, y) for i, x in enumerate(PLOT_LIKE_PARAMS) for y in PLOT_LIKE_PARAMS[i + 1:]
+                      if (x, y) != ("b6", "b8")]
+        check(len(like_pairs) == 20, "plot data: 20 meanlikes pairs")
+        like_requests = [("2d", x, y, 2, True) for x, y in like_pairs]
+        os.environ.pop("GETDIST_TPU_TORCH_FUSED", None)
+        like_analyser = MCSampleAnalysis(folder, device="cuda")
+        like_analyser.mcsamples[name] = mc
+        served = mc.fast_profile.get("host_served", 0)
+        zero()
+        like_s, like_grids = wall_s(lambda: gather_plot_data(like_analyser, name, like_requests, params))
+        like_counts = counts()
+        check(like_counts["float"] > 0 and mc.fast_profile.get("host_served", 0) == served
+              and all(g.likes is not None for g in like_grids.values()),
+              f"plot data: the meanlikes gather ran K1 with like weights ({like_counts}) and the host served no "
+              f"query ({mc.fast_profile.get('host_served', 0) - served})")
+        os.environ["GETDIST_TPU_TORCH_FUSED"] = "0"
+        like_diffs, like_dens_diffs = {}, {}
+        for request, got in like_grids.items():
+            want = host.get2DDensityGridData(request[1], request[2], num_plot_contours=2, meanlikes=True)
+            like_diffs[request[1:3]] = routed_2d_diff(got, want, likes=True)
+            like_dens_diffs[request[1:3]] = routed_2d_diff(got, want)
+        rerun = {(names[a], names[b]) for group in mc.fast_regrid_groups for a, b in group["pairs"]}
+        two_sided = {n for n, w in ranges.items() if len(w) == 2 and None not in w}
+        unheld = {k for k in like_diffs if k in rerun and set(k) & two_sided}
+        held_likes = {k: v for k, v in like_diffs.items() if k not in unheld}
+        worst = max(held_likes, key=held_likes.get)
+        check(held_likes[worst] < ROUTED_2D_PEAK, f"plot data: the routed like grids within {ROUTED_2D_PEAK} of the "
+                                                  f"host's (worst {worst} {held_likes[worst]:.4g})")
+        print(f"plot data, meanlikes gather of 20 pairs {like_s * 1e3:.1f} ms ({card}; its own fused run, launches "
+              f"{json.dumps(like_counts)}); like grids of {len(held_likes)} pairs within {held_likes[worst]:.4g} "
+              f"of the host's (worst {worst}; bar {ROUTED_2D_PEAK}); like grid / density max diff of the peak, "
+              f"rerun, of every pair: " + json.dumps({f"{k}": [round(like_diffs[k], 6), round(like_dens_diffs[k], 6),
+                                                               k in rerun] for k in like_diffs})
+              + f"; no bar on the reruns with a two-sided parameter {sorted(unheld)} (ROADMAP C18)")
+        print(f"plot data, scale ({card}; printed, not held): the cold gather of 465 densities {cold_s:.3f} s "
+              f"against the host path's get2DDensity per pair x 435: phase 9's mean "
+              f"{np.mean(host_pair_walls) * 1e3:.1f} ms x 435 = {np.mean(host_pair_walls) * 435:.1f} s, this "
+              f"phase's mean {np.mean(pair_walls) * 1e3:.1f} ms x 435 = {np.mean(pair_walls) * 435:.1f} s; the "
+              f"phase's wall {time.perf_counter() - phase_t0:.1f} s")
+        bad = [m for m in ("matplotlib", "yaml") if m in sys.modules]
+        check(not bad, f"plot data: the phase imported neither matplotlib nor yaml ({bad})")
+        del mc, api, host, grids, warm, repeat, like_grids, analyser, warm_analyser, like_analyser
+        torch.cuda.empty_cache()
+    finally:
+        MCSamples.readChains = saved_read
+        os.environ.pop("GETDIST_TPU_TORCH_FUSED", None)
+        if saved_flag is not None:
+            os.environ["GETDIST_TPU_TORCH_FUSED"] = saved_flag
 
 
 def main():

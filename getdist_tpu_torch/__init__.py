@@ -23,7 +23,15 @@ CPU):
 * the batch command ``getdist-tpu-torch`` (:mod:`getdist_tpu_torch.command_line`):
   a chain root's text outputs (``.margestats``, ``.likestats``,
   ``.converge``, ``.covmat``, ``.corr``, ``.PCA``, ``_thin.txt`` and the
-  plot scripts), on the card unless ``--device cpu`` is given.
+  plot scripts, run with ``--make_plots``), on the card unless ``--device
+  cpu`` is given;
+* the plots (:mod:`getdist_tpu_torch.plots`, matplotlib on the host) over
+  the data layer :mod:`getdist_tpu_torch.sample_analysis` (no matplotlib),
+  whose density queries run on the plotter's ``device``; chain directory
+  trees and grids (:mod:`~getdist_tpu_torch.chain_grid`), Gaussian
+  mixtures and Fisher models (:mod:`~getdist_tpu_torch.gaussian_mixtures`,
+  :mod:`~getdist_tpu_torch.models`), and the covmat tools ``covscale`` /
+  ``covcomb``.
 
 Plain tensor code is PyTorch; the TPU's Pallas kernels on those paths are
 hand-written CUDA kernels (``csrc/``), built with ``nvcc`` at first use,
@@ -36,8 +44,10 @@ Configuration (counterpart of ``getdist_tpu/__init__.py``, reference
 lives in ``$XDG_CACHE_HOME`` (else ``~/.cache``, ``%LOCALAPPDATA%`` on
 Windows) ``/getdist_tpu_torch_cache``, apart from the JAX package's, whose
 pickles would import it; ``$GETDIST_TPU_TORCH_CONFIG`` or a ``config.ini``
-beside this file may set another ``cache_dir`` and ``default_plot_output``
-(the plot scripts' figure format, ``pdf`` by default).
+beside this file may set another ``cache_dir``, ``default_plot_output``
+(the plot scripts' figure format, ``pdf`` by default) and
+``default_grid_root`` (where a plotter with no ``chain_dir`` looks for
+roots). Importing the package imports neither the plots nor matplotlib.
 """
 
 import os
@@ -68,12 +78,14 @@ _config_file = os.environ.get("GETDIST_TPU_TORCH_CONFIG") or os.path.join(os.pat
 
 cache_dir = _get_cache_dir()
 default_plot_output = "pdf"
+default_grid_root = None
 if os.path.exists(_config_file):
     from getdist_tpu_torch.inifile import IniFile
 
     _ini = IniFile(_config_file)
     cache_dir = _ini.string("cache_dir", "") or cache_dir
     default_plot_output = _ini.string("default_plot_output", default_plot_output)
+    default_grid_root = _ini.string("default_grid_root", "") or None
 
 
 def get_defaults_file(name="analysis_defaults.ini"):
@@ -97,8 +109,13 @@ _LAZY_EXPORTS = {
     "densities": "getdist_tpu_torch.densities",
     "types": "getdist_tpu_torch.types",
     "covmat": "getdist_tpu_torch.covmat",
+    "CovMat": "getdist_tpu_torch.covmat",
+    "plots": "getdist_tpu_torch.plots",
+    "get_single_plotter": "getdist_tpu_torch.plots",
+    "get_subplot_plotter": "getdist_tpu_torch.plots",
+    "gaussian_mixtures": "getdist_tpu_torch.gaussian_mixtures",
 }
-_MODULE_EXPORTS = {"chains", "densities", "types", "covmat"}
+_MODULE_EXPORTS = {"chains", "densities", "types", "covmat", "plots", "gaussian_mixtures"}
 
 
 def __getattr__(name):

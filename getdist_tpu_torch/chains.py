@@ -25,8 +25,7 @@ until the samples or weights change. Host numpy stays the default, whose
 text outputs are byte-identical to the JAX package's; with the switch on,
 a failure on the device raises (no numpy fallback).
 
-Not ported here: grid job items and Cobaya yaml roots (ROADMAP A10 slice
-4).
+Not ported here: Cobaya yaml roots (ROADMAP A10 slice 4).
 """
 
 import os
@@ -656,7 +655,8 @@ class Chains(WeightedSamples):
     ):
         """
         :param root: optional file root (its ``.paramnames`` names the parameters)
-        :param jobItem: a grid jobItem: not ported (ROADMAP A10 slice 4), raises
+        :param jobItem: optional grid jobItem with chainRoot/batchPath
+            (:class:`~.chain_grid.ChainItem`, or a CosmoMC/Cobaya grid's)
         :param paramNamesFile: .paramnames file for names
         :param names: list of name strings
         :param labels: list of latex labels
@@ -664,8 +664,6 @@ class Chains(WeightedSamples):
         :param sampler: 'mcmc' (default), 'nested' or 'uncorrelated'
         :param kwargs: passed to :class:`WeightedSamples`
         """
-        if jobItem is not None:
-            raise _not_ported("grid job items", "A10 slice 4")
         self.jobItem = jobItem
         self.root = root
         self.chains = None

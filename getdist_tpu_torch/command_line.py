@@ -5,7 +5,9 @@ Loads a chain root's chains (glob multi-root support), removes burn-in,
 writes the convergence, covmat, correlation and thinned outputs, runs PCA,
 computes all marginalized statistics (``.margestats`` / ``.likestats``) and
 writes the plot scripts (1D / 2D / triangle / 3D; they import
-``getdist_tpu_torch.plots``). The ``MCSamples`` is built on ``device``, the
+``getdist_tpu_torch.plots`` and draw on the run's device), each run in a
+new Python process with ``make_plots`` / ``--make_plots``. The
+``MCSamples`` is built on ``device``, the
 card unless the caller names the CPU (``--device cpu``): on the card its
 densities are served by the fused program (``fastDensities``), on the CPU
 by the host path, whose text outputs are byte-identical to the JAX
@@ -13,20 +15,19 @@ package's. ``GETDIST_TPU_TORCH_DEVICE_OPS=1`` puts the chain statistics and
 the host densities' histograms and convolutions on that device too.
 
 Structured as a small pipeline object (:class:`_BatchRun`) whose stages
-mirror the analysis order. Not ported: running the plot scripts
-(``make_plots`` / ``--make_plots`` raise until the port has its plots
-layer, ROADMAP A10 slice 3) and the GUI launchers (A10 slice 4). Nothing
-here imports matplotlib or yaml.
+mirror the analysis order; ``plot_processes`` holds the plot scripts'
+processes. Not ported: the GUI launchers (ROADMAP A10 slice 4). Nothing
+here imports matplotlib or yaml (the plot scripts' processes do).
 """
 
 import logging
 import os
+import subprocess
 import sys
 import time
 
 import getdist_tpu_torch
 from getdist_tpu_torch import chains
-from getdist_tpu_torch.chains import _not_ported
 from getdist_tpu_torch.inifile import IniFile
 from getdist_tpu_torch.mcsamples import MCSamples
 
@@ -45,15 +46,17 @@ _RETIRED_KEYS = frozenset(
 
 
 def runScript(fname):
-    """Run a written plot script: not ported until the port has its plots
-    layer (ROADMAP A10 slice 3)."""
-    raise _not_ported("running plot scripts", "A10 slice 3")
+    """Run a written plot script in a new Python process; returns its
+    ``subprocess.Popen`` (the caller may wait on it)."""
+    command = [sys.executable or "python", fname]
+    return subprocess.Popen(command)
 
 
 class _BatchRun:
     """One CLI analysis invocation: holds the option state and the captured
     output lines; stages are methods, executed in order by :meth:`execute`.
-    ``stage_seconds`` holds each stage's wall."""
+    ``stage_seconds`` holds each stage's wall, ``plot_processes`` the
+    process of each plot script run (``make_plots``)."""
 
     def __init__(self, args, exit_on_error, device):
         self.args = args
@@ -63,6 +66,7 @@ class _BatchRun:
         self.samples = None
         self.opts = None
         self.stage_seconds = {}
+        self.plot_processes = []
 
     # -- infrastructure -----------------------------------------------------
 
@@ -160,9 +164,6 @@ class _BatchRun:
 
         if "do_minimal_1d_intervals" in opts.params:
             self.fail("do_minimal_1d_intervals no longer used; set credible_interval_threshold instead")
-
-        if not self.no_plots and (opts.bool("make_plots", False) or self.args.make_plots):
-            raise _not_ported("running plot scripts", "A10 slice 3")
 
         pca_line = opts.string("PCA_params", "")
         self.pca_params = None  # resolved after load when 'all'
@@ -293,8 +294,13 @@ class _BatchRun:
             else:
                 n_scatter -= 1
 
+        make_now = opts.bool("make_plots", False) or self.args.make_plots
+
         def emit(suffix, writer, *writer_args):
-            writer(self.rootdirname + suffix + "." + self.plot_ext, *writer_args)
+            fname = self.rootdirname + suffix + "." + self.plot_ext
+            writer(fname, *writer_args)
+            if make_now:
+                self.plot_processes.append(runScript(fname))
 
         emit("", samp._writeScriptPlots1D, requested_1d)
 
@@ -381,8 +387,7 @@ _CLI_ARGS = (
         "--make_param_file",
         dict(help="write an editable template distparams.ini to this path and exit"),
     ),
-    ("--make_plots", dict(action="store_true", help="execute any generated plot scripts to produce PDFs "
-                                                   "(not ported yet: raises)")),
+    ("--make_plots", dict(action="store_true", help="execute any generated plot scripts to produce PDFs")),
     ("--device", dict(default="cuda", help="torch device of the analysis: cuda (default) or cpu")),
 )
 

@@ -49,8 +49,7 @@ not route the density queries onto the fused program (the JAX package's
 ``GETDIST_TPU_DEVICE_OPS`` does): that is the device's and
 ``GETDIST_TPU_TORCH_FUSED``'s choice.
 
-Not ported here: the plots layer (A10 slice 3); grid job items and Cobaya
-yaml roots, A10 slice 4.
+Not ported here: Cobaya yaml roots (ROADMAP A10 slice 4).
 """
 
 import copy
@@ -145,7 +144,8 @@ def loadMCSamples(file_root, ini=None, jobItem=None, no_cache=False, settings=No
 
     :param file_root: root name (no extension)
     :param ini: .ini filename or IniFile with analysis settings
-    :param jobItem: a grid jobItem: not ported (ROADMAP A10 slice 4), raises
+    :param jobItem: optional grid jobItem (its ``batchPath`` becomes the
+        object's ``batch_path``; an importance or burn-removed job keeps its rows)
     :param no_cache: delete/ignore any pickle cache
     :param settings: dict of analysis setting overrides
     :param chain_exclude: chain indices to exclude
@@ -290,7 +290,7 @@ class MCSamples(Chains):
         :param root: file root to load from (its ``.paramnames``,
             ``.ranges`` and ``.properties.ini`` are read here; the chain
             files by :meth:`readChains`, or :func:`loadMCSamples`)
-        :param jobItem: a grid jobItem: not ported (ROADMAP A10 slice 4), raises
+        :param jobItem: grid jobItem (with chainRoot/batchPath)
         :param ini: .ini file (or IniFile) of analysis settings
         :param settings: dict of setting overrides
         :param ranges: dict/list of hard prior bounds per parameter; a
@@ -309,7 +309,7 @@ class MCSamples(Chains):
         super().__init__(root, jobItem=jobItem, device=self.device, **kwargs)
         self.version = pickle_version
         self.markers, self.ini = {}, ini
-        self.batch_path = ""
+        self.batch_path = self.jobItem.batchPath if self.jobItem else ""
         self._readRanges()
         if ranges is not None:
             self.setRanges(ranges)
@@ -373,7 +373,11 @@ class MCSamples(Chains):
         """Load samples (chain files or arrays), remove burn-in, delete
         fixed parameters, and combine into a single samples array."""
         self.loadChains(self.root, files_or_samples, weights=weights, loglikes=loglikes)
-        if self.ignore_frac:
+        grid_item = self.jobItem
+        grid_handled = grid_item is not None and hasattr(grid_item, "isImportanceJob") and (
+            grid_item.isImportanceJob or grid_item.isBurnRemoved()
+        )
+        if self.ignore_frac and not grid_handled:
             self.removeBurnFraction(self.ignore_frac)
             chains.print_load_line(f"Removed {self.ignore_frac} as burn in")
         elif not int(self.ignore_rows):
@@ -1904,13 +1908,15 @@ class MCSamples(Chains):
 
     def _WritePlotFile(self, filename, subplot_size, text, tag, ext=None):
         """Write a plot script for this root; the script imports
-        ``getdist_tpu_torch.plots``."""
+        ``getdist_tpu_torch.plots`` and its plotter loads the root on this
+        object's device (``device='cpu'`` in a CPU run's script)."""
         if not self.root:
             raise ValueError("plot scripts need file-rooted samples (no root set)")
         fname = self.rootname + tag + "." + (ext or self.plot_output)
         script = [
             "import getdist_tpu_torch.plots as plots, os",
-            "g=plots.GetDistPlotter(chain_dir=r'%s')" % (self.batch_path or os.path.dirname(self.root)),
+            "g=plots.GetDistPlotter(chain_dir=r'%s', device='%s')"
+            % (self.batch_path or os.path.dirname(self.root), self.device),
             "g.settings.set_with_subplot_size(%s)" % subplot_size,
             "roots = ['%s']" % self.rootname,
             text,

@@ -10,11 +10,12 @@ most correlated 2D pairs, a triangle and a 3D plot), the port's
 directory of their own. Held: every text output byte-identical
 (``.margestats``, ``.likestats``, ``.converge``, ``.covmat``, ``.corr``,
 ``.PCA``, ``_thin.txt``) and the printed lines equal; the plot scripts
-equal up to the package name and output directory; ``--make_plots`` (and
-``make_plots`` in the ini) raising, naming ROADMAP A10 slice 3;
-``--version``; ``make_param_file``; the bare-root run with the packaged
-defaults; ``--device``; and a fresh process running the command imports
-neither JAX, ``getdist_tpu``, matplotlib nor yaml.
+equal up to the package name, the plotter's ``device='cpu'`` and output
+directory; ``--make_plots`` (and ``make_plots`` in the ini) running the
+scripts to the same figure files as the JAX command's; ``--version``;
+``make_param_file``; the bare-root run with the packaged defaults;
+``--device``; and a fresh process running the command imports neither
+JAX, ``getdist_tpu``, matplotlib nor yaml.
 """
 
 import contextlib
@@ -116,19 +117,44 @@ def test_plot_scripts_equal_up_to_package(runs, suffix):
     got = (runs["port"][0] / f"planck_like{suffix}.py").read_text()
     want = (runs["jax"][0] / f"planck_like{suffix}.py").read_text()
     assert got.startswith("import getdist_tpu_torch.plots as plots, os\n")
+    assert "device='cpu')\n" in got
     normalized = got.replace("getdist_tpu_torch.plots", "getdist_tpu.plots").replace(str(runs["port"][0]), "OUT")
+    normalized = normalized.replace(", device='cpu')\n", ")\n")
     assert normalized == want.replace(str(runs["jax"][0]), "OUT")
 
 
 @pytest.mark.parametrize("where", ["flag", "ini"])
-def test_make_plots_raises_naming_slice_3(root, quiet, tmp_path, where):
-    ini = write_ini(tcl, tmp_path / "pars.ini", root, tmp_path, **({"make_plots": "T"} if where == "ini" else {}))
-    args = args_for(ini, root)
-    args.make_plots = where == "flag"
-    with pytest.raises(NotImplementedError, match="A10 slice 3"):
-        run("port", args)
-    with pytest.raises(NotImplementedError, match="A10 slice 3"):
-        tcl.runScript(str(tmp_path / "x.py"))
+def test_make_plots_runs_scripts(root, quiet, tmp_path, monkeypatch, where):
+    """``--make_plots`` (or ``make_plots`` in the ini): the port's command
+    (``--device cpu``) runs each plot script it writes in a new process
+    (``_BatchRun.plot_processes``), which draws on the CPU, and the figure
+    files are those of the JAX command's scripts."""
+    monkeypatch.setenv("MPLBACKEND", "Agg")
+    monkeypatch.setenv("JAX_PLATFORMS", "cpu")
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    monkeypatch.setenv("PYTHONPATH", REPO)
+    procs, figures = {"port": [], "jax": []}, {}
+    monkeypatch.setattr(jcl, "subprocess", types.SimpleNamespace(
+        Popen=lambda command: procs["jax"].append(subprocess.Popen(command))))
+    for which, module in (("port", tcl), ("jax", jcl)):
+        folder = tmp_path / which
+        folder.mkdir()
+        ini = write_ini(module, folder / "pars.ini", root, folder, **({"make_plots": "T"} if where == "ini" else {}))
+        args = args_for(ini, root)
+        args.make_plots = where == "flag"
+        if which == "port":
+            batch = tcl._BatchRun(args, False, "cpu")
+            batch.execute()
+            procs["port"] = batch.plot_processes
+        else:
+            run(which, args)
+    for which, started in procs.items():
+        assert len(started) == len(SCRIPTS) and all(isinstance(p, subprocess.Popen) for p in started)
+        assert [p.wait(timeout=600) for p in started] == [0] * len(SCRIPTS), which
+        figures[which] = sorted(name for name in os.listdir(tmp_path / which) if name.endswith(".pdf"))
+    assert figures["port"] == figures["jax"] == sorted(f"planck_like{s}.pdf" for s in SCRIPTS)
+    assert all((tmp_path / "port" / name).stat().st_size > 2000 for name in figures["port"])
 
 
 def test_version_flag(capsys):

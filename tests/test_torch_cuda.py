@@ -1028,3 +1028,68 @@ def test_device_ops_chain_statistics_on_card(cuda, monkeypatch):
     want_nd = plain.getRawNDDensityGridData(["a", "b", "c"])
     monkeypatch.setenv("GETDIST_TPU_TORCH_DEVICE_OPS", "1")
     np.testing.assert_array_equal(plain.getRawNDDensityGridData(["a", "b", "c"]).P, want_nd.P)
+
+
+# -- the plots layer's data path (no matplotlib on the card's machine) --
+
+
+def test_plot_data_layer_routes_onto_the_card(cuda, monkeypatch, tmp_path):
+    """The plotter's data layer (``sample_analysis.MCSampleAnalysis``) on a
+    small chain root loads it on the card, whose 1D and 2D requests come
+    from one fused program (K1, K2 and K3 launched), bitwise equal to the
+    routed queries of the object itself; a repeat is served by the
+    analyser's cache with no launch."""
+    import getdist_tpu_torch
+    from getdist_tpu_torch import chains
+    from getdist_tpu_torch.sample_analysis import MCSampleAnalysis
+
+    monkeypatch.setattr(chains, "print_load_details", False)
+    monkeypatch.setattr(getdist_tpu_torch, "cache_dir", str(tmp_path / "cache"))
+    monkeypatch.delenv("GETDIST_TPU_TORCH_FUSED", raising=False)
+    rng = np.random.default_rng(19)
+    n = 40000
+    x = rng.normal(size=n)
+    table = np.c_[np.ones(n), x * x / 2, x, 0.6 * x + 0.8 * rng.normal(size=n), np.abs(rng.normal(size=n))]
+    np.savetxt(tmp_path / "toy_1.txt", table)
+    (tmp_path / "toy.paramnames").write_text("x\tx\ny\ty\nz\tz\n")
+    (tmp_path / "toy.ranges").write_text("z 0 N\n")
+    analyser = MCSampleAnalysis(str(tmp_path), device="cuda")
+    mc = analyser.samples_for_root("toy")
+    assert mc.device.type == "cuda"
+    params = {name: mc.paramNames.parWithName(name) for name in "xyz"}
+    counters = (pair_hist.pair_histograms, dft_conv.dft_conv_spectrum, dft_conv.dft_conv2d)
+    before = [fn.launches for fn in counters]
+    dens1 = {name: analyser.get_density("toy", params[name]) for name in "xyz"}
+    dens2 = {(a, b): analyser.get_density_grid("toy", params[a], params[b]) for a, b in ("xy", "xz", "yz")}
+    assert all(fn.launches > b for fn, b in zip(counters, before)) and list(mc._fused_cache) == [False]
+    other = getdist_tpu_torch.loadMCSamples(str(tmp_path / "toy"), ini=analyser.ini, device="cuda")
+    for name, got in dens1.items():
+        assert np.array_equal(got.P, other.get1DDensityGridData(name).P)
+    for (a, b), got in dens2.items():
+        want = other.get2DDensityGridData(a, b, num_plot_contours=2)
+        assert np.array_equal(got.P, want.P) and np.array_equal(got.contours, want.contours)
+    after = [fn.launches for fn in counters]
+    assert analyser.get_density_grid("toy", params["x"], params["y"]) is dens2[("x", "y")]
+    assert [fn.launches for fn in counters] == after
+
+
+def test_mixture_samples_on_the_card(cuda):
+    from getdist_tpu_torch import chains
+    from getdist_tpu_torch.gaussian_mixtures import Gaussian2D
+
+    chains.print_load_details = False
+    gauss = Gaussian2D([0, 0], (0.9, 1.1, 0.3))
+    on_card = gauss.MCSamples(5000, logLikes=True, random_state=11, names=["x", "y"])
+    on_cpu = gauss.MCSamples(5000, logLikes=True, random_state=11, names=["x", "y"], device="cpu")
+    assert on_card.device.type == "cuda" and on_cpu.device.type == "cpu"
+    assert np.array_equal(on_card.samples, on_cpu.samples) and np.array_equal(on_card.loglikes, on_cpu.loglikes)
+
+
+def test_device_timer_waits_for_the_card(cuda):
+    from getdist_tpu_torch.utils.profiling import device_timer
+
+    a = torch.randn(2048, 2048, device=cuda)
+    with device_timer("matmul", sync_value=a) as holder:
+        b = a @ a
+        holder["sync"] = b
+    assert holder["seconds"] > 0 and torch.isfinite(b).all()

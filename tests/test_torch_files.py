@@ -531,13 +531,17 @@ def test_root_reads_sidecars_and_settings(tmp_path):
 
 
 def test_unported_roots_raise(tmp_path):
-    """Grid job items and Cobaya yaml roots keep raising, naming their
-    slice (ROADMAP A10 slice 4); a root without chain files raises
-    OSError."""
-    with pytest.raises(NotImplementedError, match="A10 slice 4"):
-        tmcsamples.MCSamples(jobItem=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A10 slice 4"):
-        getdist_tpu_torch.loadMCSamples(str(tmp_path / "x"), jobItem=object(), device="cpu")
+    """Cobaya yaml roots keep raising, naming their slice (ROADMAP A10
+    slice 4); grid job items load (their ``batchPath`` becomes
+    ``batch_path``; ``tests/test_torch_chain_grid.py`` holds them against
+    the JAX package); a root without chain files raises OSError."""
+    from getdist_tpu_torch.chain_grid import ChainItem
+
+    item = ChainItem(str(tmp_path), str(tmp_path / "x"), "tag")
+    mc = tmcsamples.MCSamples(jobItem=item, device="cpu")
+    assert mc.jobItem is item and mc.batch_path == str(tmp_path)
+    with pytest.raises(OSError, match="no chain files"):
+        getdist_tpu_torch.loadMCSamples(str(tmp_path / "x"), jobItem=item, device="cpu", no_cache=True)
     (tmp_path / "cob.updated.yaml").write_text("params: {}\n")
     with pytest.raises(NotImplementedError, match="A10 slice 4"):
         getdist_tpu_torch.loadMCSamples(str(tmp_path / "cob"), device="cpu")
