@@ -133,7 +133,28 @@ CUDA kernels from ``getdist_tpu_torch/csrc``. Then three paths on
    method's, ROADMAP C11, C18, C14), the ``shade_meanlikes`` gather of 20
    pairs (K1 with like weights, none served by the host, like grids within
    1.5e-2 of the host's but the reruns with a two-sided parameter, C18),
-   and the gather beside the host path's per-pair time x 435.
+   and the gather beside the host path's per-pair time x 435;
+12. interop and the GUI session (``interop_gui_phase``) on phase 8's root
+   and chain, with no matplotlib: the chain as four Cobaya
+   collections (numpy-backed, with the ``minuslogprior`` / ``chi2``
+   columns) and its priors as a Cobaya info dict through
+   ``MCSamplesFromCobaya(..., device="cuda")``, whose samples, weights,
+   loglikes and ranges of the 30 parameters and whose
+   ``fastTriangleDensities`` equal phase 8's loaded object's bit for bit;
+   the chain as a duck-typed ArviZ InferenceData (posterior arrays (4,
+   250k), weights and log-likelihood variables) through
+   ``arviz_to_mcsamples(..., device="cuda")``, equal bit for bit to an
+   ``MCSamples`` built from the same arrays, with the same routed
+   ``getMargeStats`` text; and ``GuiSession(device="cuda")`` on phase 8's
+   directory: the 30-parameter triangle's 465 densities through the
+   session's data layer cold and warm, bitwise phase 11's, and its
+   marginalized, likelihood and parameter-table texts equal to the
+   analysis API's on an object loaded with the session's settings; all
+   that with no yaml imported; then the chain written as a Cobaya root
+   (``run.updated.yaml`` and ``run.1.txt`` ... ``run.4.txt``, written by
+   four processes while the parts above run) and loaded by
+   ``loadMCSamples`` (PyYAML), bitwise phase 8's object (K1/K2/K3
+   launches and walls of each part, and the phase's wall).
 
 K1, K4, K5 and the wide kernels are timed with the weights their paths
 pass (integer weights as uint8, ``pair_hist.narrow_weights``), each beside
@@ -2450,7 +2471,8 @@ def files_phase(bounded, card, pair_hist, dft_conv):
         tmc.MCSamples.readChains = saved_read
         host_pair_walls = host_api_phase(root, names, ranges, card, pair_hist, dft_conv)
         cli_phase(root, names, ranges, card, pair_hist, dft_conv)
-        plot_data_phase(root, names, ranges, samples, card, pair_hist, dft_conv, host_pair_walls)
+        plot_grids = plot_data_phase(root, names, ranges, samples, card, pair_hist, dft_conv, host_pair_walls)
+        interop_gui_phase(root, bounded, card, pair_hist, dft_conv, plot_grids)
     finally:
         getdist_tpu_torch.cache_dir = saved_cache
         tmc.MCSamples.readChains = saved_read
@@ -3108,13 +3130,328 @@ def plot_data_phase(root, names, ranges, samples, card, pair_hist, dft_conv, hos
               f"phase's wall {time.perf_counter() - phase_t0:.1f} s")
         bad = [m for m in ("matplotlib", "yaml") if m in sys.modules]
         check(not bad, f"plot data: the phase imported neither matplotlib nor yaml ({bad})")
-        del mc, api, host, grids, warm, repeat, like_grids, analyser, warm_analyser, like_analyser
+        del mc, api, host, warm, repeat, like_grids, analyser, warm_analyser, like_analyser
         torch.cuda.empty_cache()
+        return grids
     finally:
         MCSamples.readChains = saved_read
         os.environ.pop("GETDIST_TPU_TORCH_FUSED", None)
         if saved_flag is not None:
             os.environ["GETDIST_TPU_TORCH_FUSED"] = saved_flag
+
+
+def _cobaya_info(names, ranges):
+    """A Cobaya ``updated`` info dict for the bounded chain: each parameter
+    with a prior giving its range (``{min, max}``, a one-sided ``{min}`` or
+    ``{max}``, ``periodic: true``, or an unbounded normal), its label as
+    phase 8's ``.paramnames`` has it, one likelihood."""
+    params = {}
+    for i, name in enumerate(names):
+        window = ranges.get(name)
+        if window is None:
+            prior = {"dist": "norm", "loc": 0.0, "scale": 10.0}
+        else:
+            prior = {edge: value for edge, value in zip(("min", "max"), window[:2]) if value is not None}
+        params[name] = {"prior": prior, "latex": f"b_{{{i}}}"}
+        if window is not None and len(window) > 2 and window[2]:
+            params[name]["periodic"] = True
+    return {"params": params, "likelihood": {"like": None}, "sampler": {"mcmc": {"temperature": 1}}}
+
+
+class _Collection:
+    """A Cobaya SampleCollection's surface on numpy columns (``data.columns``,
+    ``c[name].values``, ``c[[names]].values``), as ``MCSamplesFromCobaya``
+    reads it."""
+
+    class _Frame:
+        def __init__(self, columns):
+            self.columns = columns
+
+        def __iter__(self):
+            return iter(self.columns)
+
+    class _Values:
+        def __init__(self, values):
+            self.values = values
+
+    def __init__(self, columns):
+        self._columns = columns
+        self.data = self._Frame(list(columns))
+
+    def __getitem__(self, key):
+        import numpy as np
+
+        if isinstance(key, list):
+            return self._Values(np.column_stack([self._columns[k] for k in key]))
+        return self._Values(self._columns[key])
+
+
+class _InferenceData:
+    """A duck-typed ArviZ InferenceData: groups of (chain, draw) arrays."""
+
+    class _Array:
+        def __init__(self, values):
+            self.values, self.shape, self.dims, self.coords = values, values.shape, ("chain", "draw"), {}
+
+    class _Group(dict):
+        @property
+        def data_vars(self):
+            return list(self)
+
+        @property
+        def sizes(self):
+            shape = next(iter(self.values())).shape
+            return {"chain": shape[0], "draw": shape[1]}
+
+    def __init__(self, **groups):
+        for name, arrays in groups.items():
+            setattr(self, name, self._Group({k: self._Array(v) for k, v in arrays.items()}))
+
+    def __contains__(self, name):
+        return name in self.__dict__
+
+
+def interop_gui_phase(root, bounded, card, pair_hist, dft_conv, plot_grids):
+    """Phase 12: what a Cobaya, PyMC or GUI user's session sends to the card,
+    on the files phase's root and chain, with no matplotlib.
+    (a) The chain's four files as four numpy-backed Cobaya collections
+    (weight, minuslogpost, the 30 parameters, the minuslogprior and chi2
+    columns) with a Cobaya info dict whose priors give the root's
+    ``.ranges`` (``_cobaya_info``), through
+    ``MCSamplesFromCobaya(..., device="cuda")``: the 30 parameters'
+    samples, weights, loglikes and ranges bitwise phase 8's loaded object's
+    (its pickle cache), and ``fastTriangleDensities(params=<the 30>)`` on
+    both bitwise equal. (b) The chain as a duck-typed InferenceData
+    (posterior arrays (4, 250k) per parameter, weights in ``sample_stats``,
+    log-likelihoods in ``log_likelihood``) through
+    ``arviz_to_mcsamples(..., custom_ranges=<the root's>, device="cuda")``:
+    its arrays bitwise an ``MCSamples`` built from the same per-chain arrays
+    and ranges, its routed ``getMargeStats()`` text that object's.
+    (c) ``GuiSession(device="cuda")`` on the root's directory: the
+    465 densities a 30-parameter triangle ``PlotSpec`` draws, gathered
+    through the session's data layer cold (the root's load and one fused
+    program) and warm (the loaded object's fused run, empty density
+    caches), bitwise phase 11's (``plot_grids``); its ``marge_stats``,
+    ``like_stats`` and ``param_table_tabs`` equal to the text of
+    ``loadMCSamples`` with the session's settings on the card. No yaml is
+    imported up to here. (d) The chain as a Cobaya root on disk
+    (``cobaya/run.updated.yaml``, dumped from (a)'s info, and
+    ``run.1.txt`` ... ``run.4.txt`` with (a)'s columns, written by four
+    processes from the phase's start, a set-up that overlaps (a)-(c)),
+    loaded by ``loadMCSamples`` (its yaml through PyYAML): its 30
+    parameters' samples, weights, loglikes, labels and ranges bitwise
+    phase 8's object's. Each part's K1/K2/K3 launches (each non-zero, for
+    (a)-(c)) and walls, and the phase's wall, are printed beside
+    ``card``."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    import torch
+
+    import getdist_tpu_torch
+    from getdist_tpu_torch.arviz_wrapper import arviz_to_mcsamples
+    from getdist_tpu_torch.cobaya_interface import MCSamplesFromCobaya
+    from getdist_tpu_torch.gui import app_logic
+    from getdist_tpu_torch.mcsamples import MCSamples
+
+    phase_t0 = time.perf_counter()
+    samples, weights, loglikes, names, ranges = bounded
+    folder, name = os.path.split(root)
+    counters = (pair_hist.pair_histograms, dft_conv.dft_conv_spectrum, dft_conv.dft_conv2d)
+
+    def zero():
+        for fn in counters:
+            fn.launches = 0
+
+    def counts(part):
+        out = {fn.__name__: fn.launches for fn in counters}
+        check(all(out.values()), f"interop, {part}: K1, K2 and K3 launched ({out})")
+        return out
+
+    walls, launches = {}, {}
+    saved_recent = app_logic.RECENT_FILE
+    app_logic.RECENT_FILE = os.path.join(folder, "recent_dirs")
+    # (d)'s chain files, written from now on by four processes
+    cobaya_root = os.path.join(folder, "cobaya", "run")
+    os.makedirs(os.path.dirname(cobaya_root))
+    zeros = np.zeros(len(samples))
+    table = np.column_stack([weights, loglikes, samples, zeros, zeros, 2 * loglikes, 2 * loglikes])
+    writers = ProcessPoolExecutor(4, mp_context=multiprocessing.get_context("spawn"))
+    written = [writers.submit(write_chain_text, f"{cobaya_root}.{i + 1}.txt", block)
+               for i, block in enumerate(np.array_split(table, 4))]
+    del table
+    try:
+        loaded = getdist_tpu_torch.loadMCSamples(root, settings={"ignore_rows": 0}, device="cuda")
+        p = len(names)
+
+        # (a) Cobaya collections: one per chain file of phase 8
+        t0 = time.perf_counter()
+        info = _cobaya_info(names, ranges)
+        collections = []
+        for rows in np.array_split(np.arange(len(samples)), 4):
+            columns = {"weight": weights[rows], "minuslogpost": loglikes[rows]}
+            columns.update({n: samples[rows, j] for j, n in enumerate(names)})
+            zeros = np.zeros(len(rows))
+            columns.update(minuslogprior=zeros, minuslogprior__0=zeros, chi2=2 * loglikes[rows],
+                           chi2__like=2 * loglikes[rows])
+            collections.append(_Collection(columns))
+        setup_s = time.perf_counter() - t0
+        walls["cobaya build"], cobaya = wall_s(lambda: MCSamplesFromCobaya(info, collections, device="cuda"))
+        check(cobaya.device == torch.device("cuda") and cobaya.paramNames.list()[:p] == list(names),
+              f"interop, Cobaya: the 30 parameters first, on the card ({cobaya.paramNames.list()}, {cobaya.device})")
+        check(np.array_equal(cobaya.samples[:, :p], loaded.samples) and np.array_equal(cobaya.weights, loaded.weights)
+              and np.array_equal(cobaya.loglikes, loaded.loglikes),
+              "interop, Cobaya: samples, weights and loglikes bitwise phase 8's loaded object's")
+        check(all(cobaya.ranges.getLower(n) == loaded.ranges.getLower(n)
+                  and cobaya.ranges.getUpper(n) == loaded.ranges.getUpper(n) for n in names)
+              and cobaya.ranges.periodic & set(names) == loaded.ranges.periodic
+              and [cobaya.paramNames.parWithName(n).label for n in names]
+              == [loaded.paramNames.parWithName(n).label for n in names],
+              "interop, Cobaya: the 30 parameters' ranges, periodic flags and labels phase 8's")
+        zero()
+        walls["cobaya fastTriangleDensities"], got = wall_s(lambda: cobaya.fastTriangleDensities(params=list(names)))
+        launches["cobaya"] = counts("Cobaya fastTriangleDensities")
+        walls["loaded fastTriangleDensities"], want = wall_s(lambda: loaded.fastTriangleDensities(params=list(names)))
+        same_cobaya = entries_bitwise(got, want)
+        check(same_cobaya, "interop, Cobaya: fastTriangleDensities bitwise equal to phase 8's loaded object's")
+        del cobaya, collections, got, want
+        print(f"interop, Cobaya ({card}): 4 numpy collections of {len(samples) // 4:,} rows x {p + 6} columns "
+              f"(set-up {setup_s:.1f} s); MCSamplesFromCobaya {walls['cobaya build'] * 1e3:.1f} ms; "
+              f"fastTriangleDensities(params=<{p}>) {walls['cobaya fastTriangleDensities'] * 1e3:.1f} ms (phase 8's "
+              f"object {walls['loaded fastTriangleDensities'] * 1e3:.1f} ms), launches {json.dumps(launches['cobaya'])}; "
+              f"samples, weights, loglikes, ranges and densities bitwise phase 8's: {same_cobaya}")
+
+        # (b) ArviZ InferenceData: posterior (chain, draw) arrays per parameter
+        t0 = time.perf_counter()
+        chains = np.array_split(np.arange(len(samples)), 4)
+        check(len({len(c) for c in chains}) == 1, "interop, ArviZ: four chains of equal length")
+        draws = len(chains[0])
+        idata = _InferenceData(
+            posterior={n: samples[:, j].reshape(4, draws) for j, n in enumerate(names)},
+            sample_stats={"w": weights.reshape(4, draws)},
+            log_likelihood={"ll": (-loglikes).reshape(4, draws)},
+        )
+        labels = {n: f"b_{{{i}}}" for i, n in enumerate(names)}
+        setup_s = time.perf_counter() - t0
+        walls["arviz build"], az = wall_s(lambda: arviz_to_mcsamples(
+            idata, custom_labels=labels, custom_ranges=ranges, weights_var="w", loglikes_var="ll", device="cuda"))
+        walls["direct build"], direct = wall_s(lambda: MCSamples(
+            samples=[samples[c] for c in chains], weights=[weights[c] for c in chains],
+            loglikes=[loglikes[c] for c in chains], names=list(names), labels=[labels[n] for n in names],
+            ranges=ranges, label="MCSamples from InferenceData", device="cuda"))
+        check(az.device == torch.device("cuda") and az.paramNames.list() == list(names)
+              and all(np.array_equal(getattr(az, a), getattr(direct, a))
+                      for a in ("samples", "weights", "loglikes", "chain_offsets"))
+              and (az.ranges.lower, az.ranges.upper, az.ranges.periodic)
+              == (direct.ranges.lower, direct.ranges.upper, direct.ranges.periodic),
+              "interop, ArviZ: names, arrays, chain offsets and ranges bitwise the directly built MCSamples'")
+        zero()
+        walls["arviz getMargeStats"], az_marge = wall_s(lambda: str(az.getMargeStats()))
+        launches["arviz"] = counts("ArviZ getMargeStats")
+        walls["direct getMargeStats"], direct_marge = wall_s(lambda: str(direct.getMargeStats()))
+        check(az_marge == direct_marge, "interop, ArviZ: the routed getMargeStats text equals the direct object's")
+        del az, direct, idata
+        print(f"interop, ArviZ ({card}): InferenceData of {p} posterior arrays (4, {draws:,}) with weights and "
+              f"log-likelihoods (set-up {setup_s:.1f} s); arviz_to_mcsamples {walls['arviz build'] * 1e3:.1f} ms "
+              f"(MCSamples from the same arrays {walls['direct build'] * 1e3:.1f} ms); "
+              f"routed getMargeStats {walls['arviz getMargeStats'] * 1e3:.1f} ms (direct object "
+              f"{walls['direct getMargeStats'] * 1e3:.1f} ms), launches {json.dumps(launches['arviz'])}; arrays "
+              f"bitwise and marge text equal")
+
+        # (c) the GUI session on the root's directory
+        session = app_logic.GuiSession(device="cuda")
+        roots = session.open_directory(folder)
+        check(name in roots and not session.is_grid(), f"interop, GUI: the session finds the root ({roots})")
+        session.add_root(name)
+        check(session.param_list() == list(names), "interop, GUI: the session lists the 30 parameters")
+        spec = app_logic.PlotSpec(plot_type="triangle", x_params=list(names))
+        check(not spec.problems() and "device='cuda'" in session.script_for(spec),
+              "interop, GUI: a triangle PlotSpec of the 30 parameters, its script on the card")
+        requests = triangle_requests(list(spec.x_params))
+        analysis = session.analysis()
+        zero()
+
+        def gather():
+            mc = analysis.samples_for_root(name)
+            params = {n: mc.paramNames.parWithName(n) for n in names}
+            return gather_plot_data(analysis, name, requests, params)
+
+        walls["gui triangle cold"], grids = wall_s(gather)
+        launches["gui"] = counts("GUI triangle data")
+        analysis.densities_1D.clear()
+        analysis.densities_2D.clear()
+        walls["gui triangle warm"], warm = wall_s(gather)
+        differing = [k for k in requests if not all(
+            np.array_equal(getattr(g[k], a), getattr(plot_grids[k], a))
+            for g in (grids, warm) for a in ("x", "P") + (("y", "contours") if k[0] == "2d" else ()))]
+        check(not differing, f"interop, GUI: the triangle's 465 densities bitwise phase 11's (differing "
+                             f"{differing[:5]})")
+        walls["gui marge_stats"], marge = wall_s(lambda: session.marge_stats(name))
+        walls["gui like_stats"], like = wall_s(lambda: session.like_stats(name))
+        walls["gui param_table_tabs"], tabs = wall_s(lambda: session.param_table_tabs(name))
+        walls["api load + stats"], api_texts = wall_s(lambda: _api_texts(root, analysis.ini, len(tabs)))
+        check(marge == api_texts[0] and like == api_texts[1] and [t for _, t in tabs] == api_texts[2],
+              "interop, GUI: marge_stats, like_stats and param_table_tabs equal the analysis API's text on the card")
+        bad = [m for m in ("matplotlib", "yaml") if m in sys.modules]
+        check(not bad, f"interop: parts (a)-(c) imported neither matplotlib nor yaml ({bad})")
+        del session, analysis, grids, warm
+        torch.cuda.empty_cache()
+        print(f"interop, GUI session ({card}): triangle PlotSpec data ({p} get_density + {len(requests) - p} "
+              f"get_density_grid) cold "
+              f"{walls['gui triangle cold'] * 1e3:.1f} ms (launches {json.dumps(launches['gui'])}), warm "
+              f"{walls['gui triangle warm'] * 1e3:.1f} ms, bitwise phase 11's; marge_stats "
+              f"{walls['gui marge_stats'] * 1e3:.1f} ms, like_stats {walls['gui like_stats'] * 1e3:.1f} ms, "
+              f"param_table_tabs {walls['gui param_table_tabs'] * 1e3:.1f} ms, equal to the analysis API's "
+              f"(its load and stats {walls['api load + stats'] * 1e3:.1f} ms)")
+
+        # (d) the chain as a Cobaya root on disk, loaded through its yaml
+        t0 = time.perf_counter()
+        for future in written:
+            future.result()
+        walls["cobaya root files (wait)"] = time.perf_counter() - t0
+        import yaml
+
+        with open(cobaya_root + ".updated.yaml", "w", encoding="utf-8") as handle:
+            yaml.safe_dump(info, handle, sort_keys=False)
+        zero()
+        walls["cobaya root load"], from_yaml = wall_s(lambda: getdist_tpu_torch.loadMCSamples(
+            cobaya_root, settings={"ignore_rows": 0}, device="cuda", no_cache=True))
+        check(from_yaml.device == torch.device("cuda") and from_yaml.paramNames.list()[:p] == list(names)
+              and np.array_equal(from_yaml.samples[:, :p], loaded.samples)
+              and np.array_equal(from_yaml.weights, loaded.weights)
+              and np.array_equal(from_yaml.loglikes, loaded.loglikes)
+              and [from_yaml.paramNames.parWithName(n).label for n in names]
+              == [loaded.paramNames.parWithName(n).label for n in names]
+              and all(from_yaml.ranges.getLower(n) == loaded.ranges.getLower(n)
+                      and from_yaml.ranges.getUpper(n) == loaded.ranges.getUpper(n) for n in names)
+              and from_yaml.ranges.periodic & set(names) == loaded.ranges.periodic
+              and from_yaml.sampler == "mcmc" and from_yaml.properties.params.get("sampler") == "mcmc",
+              "interop, Cobaya root: loadMCSamples of run.updated.yaml and its 4 chain files holds phase 8's "
+              "samples, weights, loglikes, labels and ranges bitwise")
+        print(f"interop, Cobaya root on disk ({card}): {len(samples):,} rows x {from_yaml.samples.shape[1]} "
+              f"parameters in 4 files (written during (a)-(c); waited {walls['cobaya root files (wait)']:.1f} s "
+              f"more); loadMCSamples through the yaml {walls['cobaya root load'] * 1e3:.1f} ms; bitwise phase 8's "
+              f"object; parameters after the {p}: {from_yaml.paramNames.list()[p:]}")
+        del from_yaml, loaded
+        bad = [m for m in ("matplotlib",) if m in sys.modules]
+        check(not bad, f"interop: the phase imported no matplotlib ({bad})")
+        print(f"interop and GUI phase ({card}): walls (ms) "
+              + json.dumps({k: round(v * 1e3, 1) for k, v in walls.items()})
+              + f"; launches {json.dumps(launches)}; the phase's wall {time.perf_counter() - phase_t0:.1f} s")
+    finally:
+        writers.shutdown(cancel_futures=True)
+        app_logic.RECENT_FILE = saved_recent
+
+
+def _api_texts(root, ini, n_tabs):
+    """(marge stats, like stats, the parameter tables by limit) of the
+    analysis API on ``root`` loaded on the card with ``ini``."""
+    import getdist_tpu_torch
+
+    mc = getdist_tpu_torch.loadMCSamples(root, ini=ini, device="cuda")
+    return (str(mc.getMargeStats()), str(mc.getLikeStats()),
+            [mc.getTable(columns=1, limit=i + 1).tableTex() for i in range(n_tabs)])
 
 
 def main():

@@ -5,9 +5,14 @@ CPU):
 
 * ``getdist_tpu_torch.loadMCSamples(root, settings=..., device=...)``:
   an ``MCSamples`` from a chain root on disk (``root_1.txt ...``,
-  ``root.paramnames``, ``root.ranges``, ``root.properties.ini``), parsed
-  by the port's native loader and cached as a pickle in
-  :data:`cache_dir`;
+  ``root.paramnames``, ``root.ranges``, ``root.properties.ini``, or a
+  Cobaya root's ``root.updated.yaml``), parsed by the port's native
+  loader and cached as a pickle in :data:`cache_dir`;
+* interop: ``MCSamplesFromCobaya(info, collections, device=...)``
+  (:mod:`~getdist_tpu_torch.cobaya_interface`) and
+  ``arviz_wrapper.arviz_to_mcsamples(idata, device=...)``: an
+  ``MCSamples`` from a Cobaya run's collections or an ArviZ
+  ``InferenceData``;
 * ``getdist_tpu_torch.ops.batched.triangle_densities``: all 1D and
   all-pairs 2D marginalized densities of a weighted chain, the fused path
   (hard limits, periodic parameters, mean-likelihood grids);
@@ -31,7 +36,11 @@ CPU):
   trees and grids (:mod:`~getdist_tpu_torch.chain_grid`), Gaussian
   mixtures and Fisher models (:mod:`~getdist_tpu_torch.gaussian_mixtures`,
   :mod:`~getdist_tpu_torch.models`), and the covmat tools ``covscale`` /
-  ``covcomb``.
+  ``covcomb``;
+* the GUIs (:mod:`getdist_tpu_torch.gui`): the session logic
+  ``gui.app_logic.GuiSession(device=...)`` under a streamlit app and a Qt
+  window, launched by ``getdist-tpu-torch-streamlit`` and
+  ``getdist-tpu-torch-gui``.
 
 Plain tensor code is PyTorch; the TPU's Pallas kernels on those paths are
 hand-written CUDA kernels (``csrc/``), built with ``nvcc`` at first use,
@@ -101,6 +110,7 @@ _LAZY_EXPORTS = {
     "WeightedSamples": "getdist_tpu_torch.chains",
     "MCSamples": "getdist_tpu_torch.mcsamples",
     "loadMCSamples": "getdist_tpu_torch.mcsamples",
+    "MCSamplesFromCobaya": "getdist_tpu_torch.cobaya_interface",
     "chains": "getdist_tpu_torch.chains",
     "IniFile": "getdist_tpu_torch.inifile",
     "ParamInfo": "getdist_tpu_torch.paramnames",

@@ -25,7 +25,9 @@ until the samples or weights change. Host numpy stays the default, whose
 text outputs are byte-identical to the JAX package's; with the switch on,
 a failure on the device raises (no numpy fallback).
 
-Not ported here: Cobaya yaml roots (ROADMAP A10 slice 4).
+A chain root's names come from its ``.paramnames``, or else from a Cobaya
+``*.updated.yaml`` / ``*__full.yaml`` next to the chain files
+(:mod:`getdist_tpu_torch.cobaya_interface`).
 """
 
 import os
@@ -73,10 +75,6 @@ class ParamError(WeightedSampleError):
 
 class ParSamples:
     """Attribute-bundle container for named parameter sample vectors."""
-
-
-def _not_ported(what, item):
-    return NotImplementedError(f"{what} is not ported to getdist_tpu_torch yet (ROADMAP {item})")
 
 
 def slice_or_none(x, start=None, end=None):
@@ -682,19 +680,16 @@ class Chains(WeightedSamples):
 
     @staticmethod
     def _sidecar_names(root):
-        """The ``.paramnames`` file next to the chain files, if any. A root
-        that has only a Cobaya yaml raises: loading yaml is not ported."""
+        """A names source next to the chain files: .paramnames text or a
+        Cobaya yaml."""
         if not root:
             return None
         candidate = root + ".paramnames"
         if os.path.exists(candidate):
             return candidate
-        trailing = root.endswith((os.sep, "/"))
-        for joiner, suffix in ((".", "updated.yaml"), ("__", "full.yaml")):
-            yaml_file = root + ("" if trailing else joiner) + suffix
-            if os.path.exists(yaml_file):
-                raise _not_ported(f"the Cobaya root {yaml_file}", "A10 slice 4")
-        return None
+        from getdist_tpu_torch import cobaya_interface
+
+        return cobaya_interface.cobaya_params_file(root)
 
     def setSampler(self, sampler):
         """Set the sampler type ('mcmc', 'nested' or 'uncorrelated')."""

@@ -16,8 +16,10 @@ the host densities' histograms and convolutions on that device too.
 
 Structured as a small pipeline object (:class:`_BatchRun`) whose stages
 mirror the analysis order; ``plot_processes`` holds the plot scripts'
-processes. Not ported: the GUI launchers (ROADMAP A10 slice 4). Nothing
-here imports matplotlib or yaml (the plot scripts' processes do).
+processes. The GUI launchers :func:`getdist_gui` (``getdist-tpu-torch-gui``)
+and :func:`getdist_streamlit` (``getdist-tpu-torch-streamlit``) start the
+Qt window and the streamlit app, each with ``--device``. Nothing here
+imports matplotlib or yaml (the plot scripts' processes and the GUIs do).
 """
 
 import logging
@@ -406,6 +408,70 @@ def getdist_command(args=None):
         make_param_file(parsed.make_param_file)
         return None
     return getdist_script(parsed)
+
+
+def getdist_gui(argv=None):
+    """Entry point launching the Qt desktop GUI (reference
+    command_line.py:357-360): ``getdist-tpu-torch-gui [--device DEVICE]``.
+    Returns 1, after printing install guidance, when PySide6 is missing."""
+    import argparse
+
+    parser = argparse.ArgumentParser(prog="getdist-tpu-torch-gui", description="GetDist-TPU GUI, PyTorch port")
+    parser.add_argument("--device", default="cuda", help="torch device of the analysis: cuda (default) or cpu")
+    parsed, qt_args = parser.parse_known_args(sys.argv[1:] if argv is None else argv)
+    from getdist_tpu_torch.gui import mainwindow
+
+    return mainwindow.run_gui([sys.argv[0]] + qt_args, device=parsed.device)
+
+
+# launcher flags that take a value and go to the streamlit server
+_SERVER_PREFIXES = ("--server.", "--browser.", "--theme.", "--logger.")
+
+
+def streamlit_arguments(args):
+    """(server arguments, app arguments) of ``getdist-tpu-torch-streamlit``:
+    ``--port N`` / ``--port=N`` and ``--server.*`` / ``--browser.*`` /
+    ``--theme.*`` / ``--logger.*`` flags (with their values) go to the
+    streamlit server, everything else (the chain directory, ``--device``)
+    to the app. A flag whose value is missing raises ``ValueError`` (it
+    never passes an empty value on)."""
+    server_args, app_args = [], []
+    it = iter(args)
+    for arg in it:
+        if arg == "--port" or (arg.startswith(_SERVER_PREFIXES) and "=" not in arg):
+            value = next(it, None)
+            if value is None or value.startswith("--"):
+                raise ValueError(f"{arg} needs a value")
+            server_args += ["--server.port" if arg == "--port" else arg, value]
+        elif arg.startswith("--port="):
+            server_args += ["--server.port", arg.split("=", 1)[1]]
+        elif arg.startswith(_SERVER_PREFIXES):
+            server_args.append(arg)
+        else:
+            app_args.append(arg)
+    return server_args, app_args
+
+
+def getdist_streamlit(argv=None):
+    """Entry point launching the streamlit web GUI:
+    ``getdist-tpu-torch-streamlit [chain_dir] [--device DEVICE] [--port N]``
+    (see :func:`streamlit_arguments`). Runs the server until it exits and
+    returns its exit code; returns 1 after a message when streamlit is
+    missing or an argument is malformed (reference
+    streamlit_app.py:71-220)."""
+    import importlib.util
+
+    if importlib.util.find_spec("streamlit") is None:
+        print("Please pip install streamlit first")
+        return 1
+    try:
+        server_args, app_args = streamlit_arguments(sys.argv[1:] if argv is None else list(argv))
+    except ValueError as e:
+        print(f"usage: getdist-tpu-torch-streamlit [chain_dir] [--device DEVICE] [--port N]: {e}", file=sys.stderr)
+        return 1
+    app = os.path.join(os.path.dirname(os.path.abspath(__file__)), "gui", "streamlit_app.py")
+    launch = ["streamlit", "run", app] + server_args + ["--"] + app_args
+    return subprocess.Popen(launch, env=os.environ).wait()
 
 
 if __name__ == "__main__":

@@ -49,7 +49,12 @@ not route the density queries onto the fused program (the JAX package's
 ``GETDIST_TPU_DEVICE_OPS`` does): that is the device's and
 ``GETDIST_TPU_TORCH_FUSED``'s choice.
 
-Not ported here: Cobaya yaml roots (ROADMAP A10 slice 4).
+A Cobaya root (``root.updated.yaml`` or ``root__full.yaml`` beside its
+chain files, no ``.paramnames``) takes its names, labels, renames, ranges,
+sampler, label, temperature and post-processing burn-in from the yaml
+(:mod:`getdist_tpu_torch.cobaya_interface`, whose
+:func:`~getdist_tpu_torch.cobaya_interface.MCSamplesFromCobaya` is
+re-exported here: the samples of live Cobaya collections).
 """
 
 import copy
@@ -69,7 +74,7 @@ from scipy import stats
 
 import getdist_tpu_torch
 from getdist_tpu_torch import _native
-from getdist_tpu_torch import chains, covmat
+from getdist_tpu_torch import chains, cobaya_interface, covmat
 from getdist_tpu_torch import kde_bandwidth as kde
 from getdist_tpu_torch import types
 from getdist_tpu_torch.chains import (
@@ -81,6 +86,7 @@ from getdist_tpu_torch.chains import (
     chainFiles,
     last_modified,
 )
+from getdist_tpu_torch.cobaya_interface import MCSamplesFromCobaya
 from getdist_tpu_torch.densities import Density1D, Density2D, DensityND, getContourLevels
 from getdist_tpu_torch.inifile import IniFile
 from getdist_tpu_torch.ops import parity_device as pdev
@@ -107,6 +113,7 @@ __all__ = [
     "default_getdist_settings",
     "getRootFileName",
     "loadMCSamples",
+    "MCSamplesFromCobaya",
 ]
 
 default_getdist_settings = getdist_tpu_torch.default_getdist_settings
@@ -136,7 +143,8 @@ def loadMCSamples(file_root, ini=None, jobItem=None, no_cache=False, settings=No
 
     Chain files are ``file_root.txt`` or ``file_root_1.txt`` etc (or
     ``file_root.1.txt``; ``N.txt`` in a directory root ending in ``/``),
-    with sidecar ``.paramnames`` / ``.ranges`` / ``.properties.ini`` files.
+    with sidecar ``.paramnames`` / ``.ranges`` / ``.properties.ini`` files,
+    or a Cobaya ``file_root.updated.yaml`` / ``file_root__full.yaml``.
     The analyzed object is cached in the package's cache directory
     (:func:`getdist_tpu_torch.make_cache_dir`), invalidated by the sources'
     modification times and the burn-in and weight-filter settings
@@ -190,8 +198,18 @@ def _cache_path(file_root):
 
 
 def _source_files(file_root, files):
-    """Chain files plus the metadata sidecars whose mtimes gate the cache."""
-    return files + [file_root + ext for ext in (".ranges", ".paramnames", ".properties.ini")]
+    """Chain files plus the metadata sidecars whose mtimes gate the cache:
+    ``.ranges``, ``.paramnames`` and ``.properties.ini``, or a Cobaya root's
+    ``updated.yaml`` / ``full.yaml``."""
+    if os.path.isfile(f"{file_root}.paramnames"):
+        return files + [file_root + ext for ext in (".ranges", ".paramnames", ".properties.ini")]
+    folder, prefix = os.path.split(file_root)
+    yamls = [
+        os.path.join(folder, f)
+        for f in os.listdir(folder or ".")
+        if f.startswith(prefix) and f.lower().endswith(("updated.yaml", "full.yaml"))
+    ]
+    return files + yamls
 
 
 def _load_valid_cache(cachefile, source_files, samples, ini, settings):
@@ -288,8 +306,9 @@ class MCSamples(Chains):
                  loglikes=None, temperature=None, device="cuda", **kwargs):
         """
         :param root: file root to load from (its ``.paramnames``,
-            ``.ranges`` and ``.properties.ini`` are read here; the chain
-            files by :meth:`readChains`, or :func:`loadMCSamples`)
+            ``.ranges`` and ``.properties.ini``, or its Cobaya yaml, are
+            read here; the chain files by :meth:`readChains`, or
+            :func:`loadMCSamples`)
         :param jobItem: grid jobItem (with chainRoot/batchPath)
         :param ini: .ini file (or IniFile) of analysis settings
         :param settings: dict of setting overrides
@@ -333,7 +352,7 @@ class MCSamples(Chains):
         if sidecar and os.path.exists(sidecar):
             self._adopt_properties_ini(root, kwargs)
         else:
-            self._adopt_cobaya_properties(temperature)
+            self._adopt_cobaya_properties(root, kwargs, temperature)
         if self.ignore_frac or self.ignore_rows:
             self.properties.params["burn_removed"] = True
         if samples is not None:
@@ -354,18 +373,40 @@ class MCSamples(Chains):
         if "sampler" not in kwargs:
             self.setSampler(self.properties.string("sampler", self.sampler))
 
-    def _adopt_cobaya_properties(self, temperature):
-        """Chain properties without a .properties.ini: the branch of a root
-        without a Cobaya yaml (whose info is not ported, ROADMAP A10 slice
-        4) keeps only the sampling temperature."""
+    def _adopt_cobaya_properties(self, root, kwargs, temperature):
+        """Chain properties inferred from a Cobaya yaml info block, if any:
+        the burn-in a post-processing run skipped, the label, the sampler
+        and the temperature."""
         self.properties = IniFile()
+        info = self.paramNames.info_dict if root and self.paramNames else None
+        if info:
+            if cobaya_interface.get_burn_removed(info):
+                self.properties.params["burn_removed"] = True
+                self._mark_burn_removed()
+            if not self.label:
+                self.label = cobaya_interface.get_sample_label(info)
+                if self.label:
+                    self.properties.params["label"] = self.label
+            if "sampler" not in kwargs:
+                self.setSampler(cobaya_interface.get_sampler_type(info))
+            self.properties.params["sampler"] = self.sampler
+            if temperature is None:
+                temperature = cobaya_interface.get_sampler_temperature(info)
         if temperature not in (None, 1):
             self.properties.params["temperature"] = temperature
 
     def _readRanges(self):
-        """Bounds from the root's ``.ranges`` sidecar, if any."""
-        sidecar = self.root + ".ranges" if self.root else None
-        self.ranges = ParamBounds(sidecar) if sidecar and os.path.isfile(sidecar) else ParamBounds()
+        """Bounds from the root's ``.ranges`` sidecar, else its Cobaya yaml."""
+        if self.root:
+            sidecar = self.root + ".ranges"
+            if os.path.isfile(sidecar):
+                self.ranges = ParamBounds(sidecar)
+                return
+            yaml_info = cobaya_interface.cobaya_params_file(self.root)
+            if yaml_info:
+                self.ranges = ParamBounds(yaml_info)
+                return
+        self.ranges = ParamBounds()
 
     # -- settings and chains ------------------------------------------------------------
 

@@ -5,9 +5,9 @@ text format and the ParamInfo / ParamList / ParamNames API of the
 reference (``getdist/paramnames.py``). Each line is ``name[*] [latex
 label] [#comment]`` where a trailing ``*`` on the name marks a derived
 parameter and ``!`` in labels stands for a backslash; renames (aliases),
-labels, derived parameters, filtered copies and text output. Cobaya
-``.yaml`` parameter blocks are not ported yet (ROADMAP A10 slice 4) and
-raise.
+labels, derived parameters, filtered copies and text output; and the
+parameter block of a Cobaya ``.yaml`` info file (sampled parameters, then
+derived ones; the raw info is kept as ``info_dict``).
 """
 
 import fnmatch
@@ -150,7 +150,7 @@ class ParamList:
     matching, rename handling, and text serialization (reference
     ``paramnames.py:156-416``)."""
 
-    info_dict = None  # raw Cobaya yaml info (loading yaml is not ported: always None)
+    info_dict = None  # raw Cobaya yaml info, when loaded from a .yaml
 
     def __init__(self, fileName=None, setParamNameFile=None, default=0, names=None, labels=None):
         self.names = []
@@ -346,20 +346,35 @@ class ParamList:
 
 
 class ParamNames(ParamList):
-    """A :class:`ParamList` loadable from ``.paramnames`` text files
-    (reference ``paramnames.py:419-470``)."""
+    """A :class:`ParamList` loadable from ``.paramnames`` text files or
+    Cobaya ``.yaml`` info files (reference ``paramnames.py:419-470``)."""
 
     def loadFromFile(self, fileName):
-        """Load names from a ``.paramnames`` file (a Cobaya yaml raises)."""
+        """Load names from a ``.paramnames`` file or a Cobaya "full" yaml."""
         self.filenameLoadedFrom = os.path.basename(fileName)
         ext = os.path.splitext(fileName)[-1].lower()
         if ext == ".paramnames":
             with open(fileName, encoding="utf-8-sig") as handle:
                 self.names = [ParamInfo(line) for line in (s.strip() for s in handle) if line]
         elif ext in (".yaml", ".yml"):
-            raise NotImplementedError(
-                f"{fileName}: Cobaya .yaml parameter names are not ported to getdist_tpu_torch yet "
-                "(ROADMAP A10 slice 4)"
-            )
+            from getdist_tpu_torch import cobaya_interface as cobaya
+            from getdist_tpu_torch import yaml_tools
+
+            self.info_dict = yaml_tools.yaml_load_file(fileName)
+            info_params = cobaya.get_info_params(self.info_dict)
+
+            def entries(pred, derived):
+                for p, info in info_params.items():
+                    if pred(info):
+                        detail = info or {}
+                        yield ParamInfo(
+                            name=p,
+                            label=detail.get(cobaya._p_label, p),
+                            renames=detail.get(cobaya._p_renames),
+                            derived=derived,
+                        )
+
+            # sampled parameters first, then derived
+            self.names = [*entries(cobaya.is_sampled_param, False), *entries(cobaya.is_derived_param, True)]
         else:
             raise ValueError(f"ParamNames must load from .paramnames or .yaml/.yml, got {fileName}")

@@ -3,8 +3,8 @@
 The port's own copy of ``getdist_tpu/parampriors.py``: the
 ``.ranges``/``.bounds`` text format of the reference
 (``getdist/parampriors.py``), one line per parameter, ``name lower upper
-[periodic]`` where ``N`` means unbounded, read and written. Cobaya
-``.yaml`` ranges are not ported yet (ROADMAP A10 slice 4) and raise.
+[periodic]`` where ``N`` means unbounded, read and written, and the
+priors of a Cobaya ``.yaml`` info file.
 Bounds feed the fused and parity paths as limits and periodic flags.
 """
 
@@ -39,12 +39,13 @@ class ParamBounds:
                     self.setRange(fields[0], fields[1:])
 
     def _read_cobaya_yaml(self, fileName):
-        raise NotImplementedError(
-            f"{fileName}: Cobaya .yaml ranges are not ported to getdist_tpu_torch yet (ROADMAP A10 slice 4)"
-        )
+        from getdist_tpu_torch import cobaya_interface as cobaya
+
+        for p, info in cobaya.get_info_params(fileName).items():
+            self.setRange(p, cobaya.get_range(info))
 
     def loadFromFile(self, fileName):
-        """Load from ``.ranges``/``.bounds`` text (a Cobaya ``.yaml`` raises)."""
+        """Load from ``.ranges``/``.bounds`` text or Cobaya ``.yaml``."""
         _, tail = os.path.split(fileName)
         self.filenameLoadedFrom = tail
         ext = os.path.splitext(fileName)[-1]

@@ -1093,3 +1093,136 @@ def test_device_timer_waits_for_the_card(cuda):
         b = a @ a
         holder["sync"] = b
     assert holder["seconds"] > 0 and torch.isfinite(b).all()
+
+
+class _NumpyCollection:
+    """A Cobaya SampleCollection's surface on numpy columns."""
+
+    def __init__(self, columns):
+        self._columns = columns
+        self.data = type("Frame", (), {"columns": list(columns), "__iter__": lambda s: iter(s.columns)})()
+
+    def __getitem__(self, key):
+        import types
+
+        if isinstance(key, list):
+            return types.SimpleNamespace(values=np.column_stack([self._columns[k] for k in key]))
+        return types.SimpleNamespace(values=np.asarray(self._columns[key]))
+
+
+def _launch_counts():
+    counters = (pair_hist.pair_histograms, dft_conv.dft_conv_spectrum, dft_conv.dft_conv2d)
+    return [fn.launches for fn in counters]
+
+
+def test_cobaya_collections_on_the_card(cuda, monkeypatch):
+    """``MCSamplesFromCobaya`` builds its samples on the card by default
+    (the same arrays, names and ranges as a CPU build), and their routed
+    marginalized statistics come from one fused program (K1, K2 and K3
+    launched) with the host statistics' means."""
+    from getdist_tpu_torch import chains, cobaya_interface
+
+    monkeypatch.setattr(chains, "print_load_details", False)
+    monkeypatch.delenv("GETDIST_TPU_TORCH_FUSED", raising=False)
+    rng = np.random.default_rng(23)
+    info = {"params": {"a": {"prior": {"min": 0, "max": 1}}, "b": {"prior": {"min": 0}},
+                       "phi": {"prior": {"min": 0, "max": 6.283185307179586}, "periodic": True},
+                       "g": {"prior": {"dist": "norm", "loc": 0, "scale": 1}}, "c": {"derived": True}},
+            "likelihood": {"l": None}, "sampler": {"mcmc": {}}}
+    collections = []
+    for _ in range(2):
+        n = 30000
+        cols = {"weight": rng.integers(1, 4, n).astype(float), "minuslogpost": rng.random(n), "a": rng.random(n),
+                "b": np.abs(rng.normal(size=n)), "phi": rng.random(n) * 6.283185307179586, "g": rng.normal(size=n)}
+        cols["c"] = cols["a"] + cols["g"]
+        cols.update(minuslogprior=cols["minuslogpost"], minuslogprior__0=cols["minuslogpost"],
+                    chi2=cols["minuslogpost"], chi2__l=cols["minuslogpost"])
+        collections.append(_NumpyCollection(cols))
+    on_card = cobaya_interface.MCSamplesFromCobaya(info, collections)
+    on_cpu = cobaya_interface.MCSamplesFromCobaya(info, collections, device="cpu")
+    assert on_card.device.type == "cuda"
+    for attr in ("samples", "weights", "loglikes"):
+        assert np.array_equal(getattr(on_card, attr), getattr(on_cpu, attr))
+    assert on_card.paramNames.list() == on_cpu.paramNames.list() and on_card.ranges.periodic == {"phi"}
+    before = _launch_counts()
+    marge = on_card.getMargeStats()
+    assert all(a > b for a, b in zip(_launch_counts(), before)) and list(on_card._fused_cache) == [False]
+    assert [p.mean for p in marge.names] == [p.mean for p in on_cpu.getMargeStats().names]
+
+
+def test_arviz_on_the_card(cuda):
+    """``arviz_to_mcsamples`` builds its samples on the card by default, the
+    CPU build's arrays, whose routed 2D density is a fused program's."""
+    from getdist_tpu_torch.arviz_wrapper import arviz_to_mcsamples
+
+    rng = np.random.default_rng(29)
+
+    class Array:
+        def __init__(self, values, dims):
+            self.values, self.shape, self.dims, self.coords = values, values.shape, dims, {}
+
+    class Group(dict):
+        sizes = {"chain": 4, "draw": 20000}
+
+        @property
+        def data_vars(self):
+            return list(self)
+
+    class IData:
+        def __init__(self, **groups):
+            self.__dict__.update(groups)
+
+        def __contains__(self, name):
+            return name in self.__dict__
+
+    posterior = Group(mu=Array(rng.normal(size=(4, 20000)), ("chain", "draw")),
+                      theta=Array(rng.normal(size=(4, 20000, 2)), ("chain", "draw", "k")))
+    stats = Group(w=Array(rng.integers(1, 3, (4, 20000)).astype(float), ("chain", "draw")))
+    idata = IData(posterior=posterior, sample_stats=stats)
+    on_card = arviz_to_mcsamples(idata, weights_var="w", custom_ranges={"mu": (-10, 10)})
+    on_cpu = arviz_to_mcsamples(idata, weights_var="w", custom_ranges={"mu": (-10, 10)}, device="cpu")
+    assert on_card.device.type == "cuda" and on_card.paramNames.list() == ["mu", "theta_0", "theta_1"]
+    assert np.array_equal(on_card.samples, on_cpu.samples) and np.array_equal(on_card.weights, on_cpu.weights)
+    before = _launch_counts()
+    dens = on_card.get2DDensityGridData("mu", "theta_0")
+    assert dens is not None and all(a > b for a, b in zip(_launch_counts(), before))
+
+
+def test_gui_session_on_the_card(cuda, monkeypatch, tmp_path):
+    """``GuiSession()`` runs on the card by default: its statistics text
+    equals the analysis API's on an object loaded with the session's
+    settings, its triangle data (through the session's data layer, no
+    matplotlib) comes from one fused program, and its scripts say
+    ``device='cuda'``."""
+    import getdist_tpu_torch
+    from getdist_tpu_torch import chains
+    from getdist_tpu_torch.gui import app_logic
+
+    monkeypatch.setattr(chains, "print_load_details", False)
+    monkeypatch.setattr(getdist_tpu_torch, "cache_dir", str(tmp_path / "cache"))
+    monkeypatch.setattr(app_logic, "RECENT_FILE", str(tmp_path / "recent"))
+    monkeypatch.delenv("GETDIST_TPU_TORCH_FUSED", raising=False)
+    rng = np.random.default_rng(31)
+    n = 40000
+    x = rng.normal(size=n)
+    table = np.c_[np.ones(n), x * x / 2, x, 0.6 * x + 0.8 * rng.normal(size=n), np.abs(rng.normal(size=n))]
+    np.savetxt(tmp_path / "toy_1.txt", table)
+    (tmp_path / "toy.paramnames").write_text("x\tx\ny\ty\nz\tz\n")
+    (tmp_path / "toy.ranges").write_text("z 0 N\n")
+    session = app_logic.GuiSession()
+    assert session.device == "cuda" and session.open_directory(str(tmp_path)) == ["toy"]
+    session.add_root("toy")
+    api = getdist_tpu_torch.loadMCSamples(str(tmp_path / "toy"), ini=session.analysis().ini, device="cuda")
+    assert session.marge_stats("toy") == str(api.getMargeStats())
+    assert session.like_stats("toy") == str(api.getLikeStats())
+    assert [tex for _, tex in session.param_table_tabs("toy")] == [
+        api.getTable(columns=1, limit=i + 1).tableTex() for i in range(3)]
+    analysis = session.analysis()
+    mc = analysis.samples_for_root("toy")
+    assert mc.device.type == "cuda" and list(mc._fused_cache) == [False]
+    params = {name: mc.paramNames.parWithName(name) for name in "xyz"}
+    for a, b in ("xy", "xz", "yz"):
+        got = analysis.get_density_grid("toy", params[a], params[b])
+        want = api.get2DDensityGridData(a, b, num_plot_contours=2)
+        assert np.array_equal(got.P, want.P) and np.array_equal(got.contours, want.contours)
+    assert "device='cuda'" in session.script_for(app_logic.PlotSpec(plot_type="triangle", x_params=["x", "y"]))

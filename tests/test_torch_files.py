@@ -45,6 +45,32 @@ from test_zoo_fidelity import DEFAULT_TOL_2D  # noqa: E402
 
 SMALL_PARAMNAMES = "a\t\\alpha_1\nb\tb!_2  #a comment\nfixed\tf\nphi\t\\phi\ntau\t\\tau\nd*\tD_{\\rm derived}\n"
 SMALL_RANGES = "a N N\nphi 0 6.283185307179586 periodic\ntau 0 N\nfixed 1.5 1.5\n"
+# a Cobaya info file's parameters: two-sided, one-sided, periodic and
+# scipy.stats priors, a fixed value, a renamed one and a derived one
+COBAYA_YAML = """\
+params:
+  a: {prior: {min: 0, max: 1}, latex: \\alpha}
+  b: {prior: [-5, 5], renames: [bee]}
+  lo: {prior: {min: 0}}
+  phi: {prior: {min: 0, max: 6.283185307179586}, periodic: true, latex: \\phi}
+  g: {prior: {dist: norm, loc: 0.0, scale: 2.0}}
+  f: 0.5
+  c: {derived: true, latex: c_d}
+likelihood: {like1: null}
+sampler: {mcmc: {}}
+label: a Cobaya run
+"""
+
+
+@pytest.fixture
+def jax_cobaya_keys(monkeypatch):
+    """The reference's label and renames keys on the JAX package's
+    ``cobaya_interface``, which its ``ParamNames`` reads there for a Cobaya
+    yaml but which that module does not define (ROADMAP C20)."""
+    from getdist_tpu import cobaya_interface
+
+    monkeypatch.setattr(cobaya_interface, "_p_label", "latex", raising=False)
+    monkeypatch.setattr(cobaya_interface, "_p_renames", "renames", raising=False)
 
 
 @pytest.fixture(autouse=True)
@@ -228,8 +254,9 @@ def test_ini_inheritance_matches_jax(tmp_path, monkeypatch):
 
 def test_param_bounds_match_jax(tmp_path):
     """``.ranges`` / ``.bounds`` with ``N`` bounds, periodic flags (T and
-    ``periodic``), short and malformed lines, written back; a Cobaya yaml
-    raises naming ROADMAP A10 slice 4."""
+    ``periodic``), short and malformed lines, written back; a Cobaya yaml's
+    priors (two-sided, one-sided, periodic, scipy.stats, fixed) read as the
+    JAX package reads them."""
     text = "a N N\nb 0 N\nc N 3.5\nphi 0 6.283185307179586 T\npsi -1 1 periodic\nshort 1\nfix 2 2\n"
     for ext in (".ranges", ".bounds"):
         path = tmp_path / f"x{ext}"
@@ -245,18 +272,22 @@ def test_param_bounds_match_jax(tmp_path):
     (tmp_path / "bad.ranges").write_text("p N 1 periodic\n")
     with pytest.raises(ValueError, match="Periodic parameter must have lower and upper"):
         ParamBounds(str(tmp_path / "bad.ranges"))
-    (tmp_path / "r.yaml").write_text("params: {}\n")
-    with pytest.raises(NotImplementedError, match="A10 slice 4"):
-        ParamBounds(str(tmp_path / "r.yaml"))
+    for ext in (".yaml", ".yml"):
+        (tmp_path / f"r{ext}").write_text(COBAYA_YAML)
+        got, want = ParamBounds(str(tmp_path / f"r{ext}")), JaxParamBounds(str(tmp_path / f"r{ext}"))
+        assert (got.names, got.lower, got.upper, got.periodic) == (want.names, want.lower, want.upper, want.periodic)
+        assert str(got) == str(want) and got.periodic == {"phi"} and got.fixedValueDict() == {"f": 0.5}
+        assert got.getLower("lo") == 0 and got.getUpper("lo") is None and got.getLower("g") is None
     with pytest.raises(ValueError, match="must load from"):
         ParamBounds(str(tmp_path / "x.txt"))
 
 
-def test_param_names_match_jax(tmp_path):
+def test_param_names_match_jax(tmp_path, jax_cobaya_keys):
     """``.paramnames`` with derived parameters, ``!`` labels and comments;
     lookups with renames and globs; labels from another file; filtered
-    copies; ``addDerived``; text output read back; a yaml raises naming
-    ROADMAP A10 slice 4."""
+    copies; ``addDerived``; text output read back; a Cobaya yaml's
+    parameters (sampled first, then derived and the chi2 / minuslogprior
+    blocks; labels, renames, the raw info) as the JAX package reads them."""
     path = tmp_path / "x.paramnames"
     path.write_text(SMALL_PARAMNAMES + "\nomegam*\t\\Omega_m\n")
     got, want = ParamNames(str(path)), JaxParamNames(str(path))
@@ -280,9 +311,12 @@ def test_param_names_match_jax(tmp_path):
     assert got.addDerived("s8", label="S_8").string() == want.addDerived("s8", label="S_8").string()
     got.saveAsText(str(tmp_path / "saved.paramnames"))
     assert str(ParamNames(str(tmp_path / "saved.paramnames"))) == str(got)
-    (tmp_path / "x.yaml").write_text("params: {}\n")
-    with pytest.raises(NotImplementedError, match="A10 slice 4"):
-        ParamNames(str(tmp_path / "x.yaml"))
+    (tmp_path / "x.yaml").write_text(COBAYA_YAML)
+    got, want = ParamNames(str(tmp_path / "x.yaml")), JaxParamNames(str(tmp_path / "x.yaml"))
+    assert str(got) == str(want) and got.getRenames() == want.getRenames() and got.info_dict == want.info_dict
+    assert got.list() == ["a", "b", "lo", "phi", "g", "c", "minuslogprior", "minuslogprior__0", "chi2",
+                          "chi2__like1"]
+    assert got.parWithName("bee").name == "b" and got.parWithName("phi").label == "\\phi"
 
 
 def test_malformed_chain_file_raises_in_both(tmp_path):
@@ -530,11 +564,14 @@ def test_root_reads_sidecars_and_settings(tmp_path):
     assert tmcsamples.MCSamples(device="cpu", temperature=2.5).properties.params == {"temperature": 2.5}
 
 
-def test_unported_roots_raise(tmp_path):
-    """Cobaya yaml roots keep raising, naming their slice (ROADMAP A10
-    slice 4); grid job items load (their ``batchPath`` becomes
-    ``batch_path``; ``tests/test_torch_chain_grid.py`` holds them against
-    the JAX package); a root without chain files raises OSError."""
+def test_unported_roots_raise(tmp_path, jax_cobaya_keys):
+    """Every kind of root loads (none is left unported): a Cobaya root
+    (``root.updated.yaml`` beside ``root.N.txt``) gives the JAX package's
+    names, ranges, sampler, label and samples bit for bit
+    (``tests/test_torch_cobaya.py`` holds the rest); grid job items load
+    (their ``batchPath`` becomes ``batch_path``;
+    ``tests/test_torch_chain_grid.py`` holds them against the JAX package);
+    only a root without chain files raises, OSError."""
     from getdist_tpu_torch.chain_grid import ChainItem
 
     item = ChainItem(str(tmp_path), str(tmp_path / "x"), "tag")
@@ -542,9 +579,22 @@ def test_unported_roots_raise(tmp_path):
     assert mc.jobItem is item and mc.batch_path == str(tmp_path)
     with pytest.raises(OSError, match="no chain files"):
         getdist_tpu_torch.loadMCSamples(str(tmp_path / "x"), jobItem=item, device="cpu", no_cache=True)
-    (tmp_path / "cob.updated.yaml").write_text("params: {}\n")
-    with pytest.raises(NotImplementedError, match="A10 slice 4"):
-        getdist_tpu_torch.loadMCSamples(str(tmp_path / "cob"), device="cpu")
+    (tmp_path / "cob.updated.yaml").write_text(COBAYA_YAML)
+    rng = np.random.default_rng(7)
+    for i in (1, 2):
+        columns = [rng.integers(1, 3, 800), rng.random(800), rng.random(800), rng.standard_normal(800),
+                   np.abs(rng.standard_normal(800)), rng.random(800) * 6.283185307179586, rng.standard_normal(800)]
+        columns += [columns[2] + columns[3], columns[4], columns[4], columns[1], columns[1]]
+        np.savetxt(tmp_path / f"cob.{i}.txt", np.column_stack(columns), fmt="%.17g")
+    cob = getdist_tpu_torch.loadMCSamples(str(tmp_path / "cob"), device="cpu", no_cache=True)
+    want = getdist_tpu.loadMCSamples(str(tmp_path / "cob"), no_cache=True)
+    assert cob.paramNames.list() == want.paramNames.list() and str(cob.paramNames) == str(want.paramNames)
+    assert (cob.ranges.lower, cob.ranges.upper, cob.ranges.periodic) == (
+        want.ranges.lower, want.ranges.upper, want.ranges.periodic)
+    assert (cob.sampler, cob.label, cob.properties.params) == (want.sampler, want.label, want.properties.params)
+    assert cob.label == "a Cobaya run" and cob.numrows == 1600
+    for attr in ("samples", "weights", "loglikes"):
+        assert np.array_equal(getattr(cob, attr), getattr(want, attr)), attr
     with pytest.raises(OSError, match="no chain files"):
         getdist_tpu_torch.loadMCSamples(str(tmp_path / "absent"), device="cpu", no_cache=True)
 
