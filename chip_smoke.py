@@ -3,9 +3,12 @@
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                # every phase
+    python3 chip_smoke.py --phases 1,6,7  # a subset, by the numbers below
 
-Phases: require CUDA and print the card's name and power limit; build the
+A subset also runs the phases it needs (9 and 10 need 8's root, 11 needs 9,
+12 needs 11) and prints the same last lines, with the kernel rows of the
+phases that ran. Phases: require CUDA and print the card's name and power limit; build the
 CUDA kernels from ``getdist_tpu_torch/csrc``. Then three paths on
 ``bench.make_chain(1_000_000, 30)`` (30 1D and 435 2D densities):
 
@@ -76,8 +79,9 @@ CUDA kernels from ``getdist_tpu_torch/csrc``. Then three paths on
    316-wide periodically extended grids and
    edge masks, and K2 and K3 at the clamped rescue's 768 frame (its
    kernels, 256-bin grids and 508-wide edge masks), each against its plain
-   version, and the entry on the card against the port on the CPU at
-   100k x 10;
+   version, the f64 K2 and K3 of the meanlikes run's like-weighted
+   smoothing at both frames (within 1e-12 of their plain versions), and
+   the entry on the card against the port on the CPU at 100k x 10;
 7. parity mode on the bounded chain: device parity, one call (stage
    profile, buckets, launches per kernel; every bucket's f64 K3 on its
    periodically extended grids), f64 K3 on the largest bucket's extended
@@ -159,8 +163,9 @@ CUDA kernels from ``getdist_tpu_torch/csrc``. Then three paths on
 K1, K4, K5 and the wide kernels are timed with the weights their paths
 pass (integer weights as uint8, ``pair_hist.narrow_weights``), each beside
 one ``torch.bincount`` over flat pair keys, the yardstick no path calls.
-The build's ptxas lines of the uint8 pair-histogram kernel (K1, K4 and K5)
-and of the wide kernels are printed.
+The build's ptxas lines of the uint8 pair-histogram kernel (K1, K4 and K5),
+of the wide kernels and of the f32 K2/K3 kernel (``dft_wgmma_kernel``, one
+line per stage) are printed.
 
 Prints one JSON line of kernel results (with each kernel's bound on the
 card and, where one exists, a single PyTorch call's time), the card line
@@ -185,6 +190,10 @@ HBM_BYTES_S = 3.35e12
 FP32_FLOPS = 67e12
 TF32X3_FLOPS = 495e12 / 3
 FP64_FLOPS = 67e12
+
+PHASES = frozenset(range(1, 13))
+# what a phase takes from an earlier one: phase 8's root, phase 9's host walls, phase 11's grids
+REQUIRES = {9: {8}, 10: {8}, 11: {8, 9}, 12: {8, 9, 11}}
 
 
 def hard_chain(n, seed=23):
@@ -413,6 +422,10 @@ def fixed_point_error(got, ix, weights, pa, pb, nbins):
     return float(((got.double() - exact).abs() / allowed.clamp_min(1e-300)).max())
 
 
+# the f32 K2/K3 kernel's template arguments (A operand, epilogue) in its mangled name, by stage
+WGMMA_STAGES = {"ILi0ELi0E": "S1 / C1", "ILi2ELi1E": "S2", "ILi2ELi2E": "C2", "ILi3ELi3E": "C3", "ILi1ELi4E": "C4"}
+
+
 def ptxas_lines(log, name):
     """ptxas's register and spill report of each kernel whose (mangled) name
     holds ``name``, from a fresh build's ``-Xptxas -v`` log."""
@@ -435,33 +448,42 @@ def _dft_rate(e):
     return FP64_FLOPS if e == 8 else TF32X3_FLOPS
 
 
-def spectrum_work(kernels, pad):
+def spectrum_work(kernels, pad, unpaired=False):
     """K2's (bytes, flops): kernels and two DFT matrices read, two spectra
     written. Flops per pair of U = F K F contract over the m x m kernel
     support only (the frame's zero padding needs none), and U of a real
     kernel is Hermitian, so rows 0..P/2 (h of them) determine it: (h x m)
-    real x complex, then (h x m) x (m x P) complex x complex."""
+    real x complex, then (h x m) x (m x P) complex x complex, whose columns
+    c and P - c come from one set of four real products (F[j][P - c] =
+    conj(F[j][c])), 4 flops a term. ``unpaired``: that product counted at 8
+    flops a term, each column formed on its own."""
     k, m, _ = kernels.shape
     e = kernels.element_size()
     h = pad // 2 + 1
-    return e * (k * m * m + 2 * pad * pad + 2 * k * pad * pad), k * (4 * h * m * m + 8 * h * pad * m)
+    cross = 8 if unpaired else 4
+    return e * (k * m * m + 2 * pad * pad + 2 * k * pad * pad), k * (4 * h * m * m + cross * h * pad * m)
 
 
-def conv_work(grids, pad, out_size):
+def conv_work(grids, pad, out_size, unpaired=False):
     """K3's (bytes, flops): grids, two spectra and four DFT matrices read,
     the slice written. Flops per pair, with h = P/2 + 1 rows of the
     Hermitian spectrum of real grids: the forward transform contracts over
-    the I x I grid (h rows), the spectrum product is 6 per point of those
-    rows, and the inverse computes only the out_size rows and, of the real
-    part, the out_size columns of the slice; the rows of the first inverse
-    product are Hermitian too, so it needs h of their columns and the
-    second product a depth of h."""
+    the I x I grid (h rows), then over the I columns for all P output
+    columns, whose c and P - c share one set of four real products (4
+    flops a term); the spectrum product is 6 per point of those rows; the
+    inverse computes only the out_size rows and, of the real part, the
+    out_size columns of the slice; the first inverse product needs h of
+    its (Hermitian) columns, and its depth-P sum pairs the spectrum's rows
+    k and P - k against the real and imaginary parts of B (4 flops a
+    term), and the second product has a depth of h. ``unpaired``: the
+    paired products counted at 8 flops a term."""
     k, size, _ = grids.shape
     e = grids.element_size()
     h = pad // 2 + 1
+    cross = 8 if unpaired else 4
     nbytes = e * (k * size * size + 2 * k * pad * pad + 4 * pad * pad + k * out_size * out_size)
-    forward = 4 * h * size * size + 8 * h * pad * size
-    inverse = 8 * out_size * pad * h + 4 * out_size * out_size * h
+    forward = 4 * h * size * size + cross * h * pad * size
+    inverse = cross * out_size * pad * h + 4 * out_size * out_size * h
     return nbytes, k * (forward + 6 * h * pad + inverse)
 
 
@@ -475,15 +497,22 @@ def conv_bound(grids, pad, out_size):
     return bound(nbytes, flops, _dft_rate(grids.element_size()))
 
 
-def dft_report(name, r, work, rate):
+def dft_report(name, r, work_fn, *args):
     """One line: K2/K3 beside the full-frame plain chain, the library call
-    and both bounds."""
+    and both bounds of ``work_fn(*args)`` (:func:`spectrum_work` or
+    :func:`conv_work`); a second share, labelled, is of the bound with the
+    paired products counted in full."""
+    work, unpaired = work_fn(*args), work_fn(*args, unpaired=True)
+    rate = _dft_rate(args[0].element_size())
     t_bytes, t_ops = bound_terms(*work, rate)
+    share_unpaired = max(bound_terms(*unpaired, rate)) / r["ms"]
     print(
         f"{name}: kernel {r['ms']:.3f} ms, plain full-frame matmul chain {r['plain_ms']:.3f} ms, library "
         f"{r['library_ms']:.3f} ms; bounds: bytes {t_bytes:.3f} ms ({work[0] / 1e9:.3f} GB), operations "
         f"{t_ops:.3f} ms ({work[1] / 1e9:.1f} GFLOP at {rate / 1e12:.0f} TFLOP/s); kernel at "
-        f"{max(t_bytes, t_ops) / r['ms']:.1%} of the bound, {r['library_ms'] / r['ms']:.2f}x the library's speed"
+        f"{max(t_bytes, t_ops) / r['ms']:.1%} of the bound ({share_unpaired:.1%} of the bound with the paired "
+        f"products counted in full, {unpaired[1] / 1e9:.1f} GFLOP), {r['library_ms'] / r['ms']:.2f}x the "
+        "library's speed"
     )
 
 
@@ -757,8 +786,8 @@ def fused_path(samples, weights, batched, dft_conv, pair_hist, make_chain):
             "library_ms": library_conv_ms(hists, kernels, 256, 30, 3),
         },
     ]
-    dft_report("K2 f32", results[1], spectrum_work(kernels, 384), TF32X3_FLOPS)
-    dft_report("K3 f32", results[2], conv_work(hists, 384, 256), TF32X3_FLOPS)
+    dft_report("K2 f32", results[1], spectrum_work, kernels, 384)
+    dft_report("K3 f32", results[2], conv_work, hists, 384, 256)
     report = cross_device(make_chain, batched.triangle_densities)
     print(f"cross-device 100k x 8 (cuda vs cpu), max abs diffs: {json.dumps(report)}")
     return results
@@ -916,8 +945,8 @@ def parity_path(samples, weights, batched, dft_conv, pair_hist):
             "library_ms": library_conv_ms(hists, kernels, 256, winw, 1),
         },
     ]
-    dft_report("K2 f64", results[1], spectrum_work(kernels, pad), FP64_FLOPS)
-    dft_report("K3 f64", results[2], conv_work(hists, pad, 256), FP64_FLOPS)
+    dft_report("K2 f64", results[1], spectrum_work, kernels, pad)
+    dft_report("K3 f64", results[2], conv_work, hists, pad, 256)
     report = parity_cross_device(MCSamples)
     print(f"parity cross-device 20k x 6 (cuda vs cpu), max abs diffs: {json.dumps(report)}")
     return results
@@ -1379,7 +1408,8 @@ def fused_stage_rows(prof):
 
 
 def entry_call(mc, **kwargs):
-    """One profiled public-entry call: (device busy ms, wall ms, stage rows)."""
+    """One profiled public-entry call: (device busy ms, wall ms, stage rows,
+    {kernel name: (device ms, launches)})."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1394,10 +1424,20 @@ def entry_call(mc, **kwargs):
         and not e.name.startswith(("Activity Buffer",) + STAGE_PREFIXES)  # not the stage ranges' device spans
     ]
     busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
-    return busy_ms, wall_ms, fused_stage_rows(prof)
+    kernels = {}
+    for e in events:
+        ms, n = kernels.get(e.name, (0.0, 0))
+        kernels[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return busy_ms, wall_ms, fused_stage_rows(prof), kernels
 
 
-def print_entry_profile(label, mc, busy_ms, wall_ms, rows):
+def print_entry_profile(label, mc, busy_ms, wall_ms, rows, kernels):
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
+    dft = [(name, v) for name, v in top if "dft_wgmma_kernel" in name or "cgemm_kernel" in name]
+    print(f"{label}: device time by kernel name (ms, launches), largest first: "
+          + "; ".join(f"{name[:90]} {ms:.3f} x{n}" for name, (ms, n) in top[:14])
+          + f"; K2/K3 kernels in all {sum(ms for _, (ms, _) in dft):.3f} ms in {sum(n for _, (_, n) in dft)} "
+          f"launches, of {busy_ms:.1f} ms busy")
     print(f"{label}: device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms wall under the profiler "
           f"(idle share {1 - busy_ms / wall_ms:.3f}); stages (host ms, device ms of the kernels they queued, "
           "calls): " + ", ".join(f"{name} {cpu:.1f}/{dev:.1f} x{n}" for name, cpu, dev, n in rows))
@@ -1609,8 +1649,8 @@ def new_shape_rows(mc, d1, d2, launches, pair_hist, dft_conv, batched):
         ]
         print(f"K2/K3 f32 at frame {pad} ({group['bandwidths']} group): {len(keys)} pair(s) of {size}^2, window {off}")
         dft_checks(kernels, grids, ur, ui, conv, size, off, pad, f"K2/K3 f32, frame {pad}")
-        dft_report(f"K2 f32 frame {pad}", rows[-2], spectrum_work(kernels, pad), TF32X3_FLOPS)
-        dft_report(f"K3 f32 frame {pad}", rows[-1], conv_work(grids, pad, size), TF32X3_FLOPS)
+        dft_report(f"K2 f32 frame {pad}", rows[-2], spectrum_work, kernels, pad)
+        dft_report(f"K3 f32 frame {pad}", rows[-1], conv_work, grids, pad, size)
     return rows
 
 
@@ -1654,9 +1694,9 @@ def public_entry(samples, weights, batched, dft_conv, pair_hist):
         check(launches["pair_histograms"] >= 1 and launches["dft_conv_spectrum"] >= 1 and launches["dft_conv2d"] >= 2,
               f"{label}: the run launched K1, K2 and K3")
         check_entry_outputs(d1, d2, pairs, s.shape[1], label)
-        busy_ms, wall_ms, rows = entry_call(mc)
+        busy_ms, wall_ms, rows, kernels = entry_call(mc)
         mc.fast_profile = profile
-        print_entry_profile(label, mc, busy_ms, wall_ms, rows)
+        print_entry_profile(label, mc, busy_ms, wall_ms, rows, kernels)
         return mc, d1, d2, launches, route
 
     p = samples.shape[1]
@@ -1922,23 +1962,27 @@ def spectrum_row(name, kernels, pad, launches):
         "bound_by": by,
         "library_ms": library_spectrum_ms(kernels, pad, 5),
     }
-    dft_report(f"K2 {'f64' if f64 else 'f32'} {name}", row, spectrum_work(kernels, pad),
-               _dft_rate(kernels.element_size()))
+    dft_report(f"K2 {'f64' if f64 else 'f32'} {name}", row, spectrum_work, kernels, pad)
     return row
 
 
 def conv_row(name, kernels, grids, out_size, offset, pad, launches):
     """A K3 row at ``pad`` on ``grids`` with the spectra of ``kernels``,
     held within 1e-5 of max|ref| of its plain version (on the plain
-    spectra), with the repeat-call and f64 checks of :func:`dft_checks`."""
+    spectra) in f32, 1e-12 in f64, with the repeat-call (and, in f32, f64)
+    checks of :func:`dft_checks`."""
+    import torch
+
     from getdist_tpu_torch.ops import dft_conv
 
+    f64 = grids.dtype == torch.float64
+    tol = 1e-12 if f64 else 1e-5
     ur, ui = dft_conv.dft_conv_spectrum(kernels, pad)
     ur0, ui0 = dft_conv.dft_conv_spectrum_plain(kernels, pad)
     conv = dft_conv.dft_conv2d(grids, ur, ui, out_size, offset, pad)
     conv0 = dft_conv.dft_conv2d_plain(grids, ur0, ui0, out_size, offset, pad)
     err = float((conv - conv0).abs().max())
-    check(err <= 1e-5 * float(conv0.abs().max()), f"{name}: K3 within 1e-5 max|ref| ({err})")
+    check(err <= tol * float(conv0.abs().max()), f"{name}: K3 within {tol} max|ref| ({err})")
     b, by = conv_bound(grids, pad, out_size)
     row = {
         "name": name,
@@ -1951,11 +1995,30 @@ def conv_row(name, kernels, grids, out_size, offset, pad, launches):
         "plain_ms": cuda_ms(lambda: dft_conv.dft_conv2d_plain(grids, ur0, ui0, out_size, offset, pad), 5),
         "bound_ms": b,
         "bound_by": by,
-        "library_ms": library_conv_ms(grids, kernels, out_size, offset, 3),
+        "library_ms": library_conv_ms(grids, kernels, out_size, offset, 1 if f64 else 3),
     }
-    dft_checks(kernels, grids, ur, ui, conv, out_size, offset, pad, f"K2/K3 f32, {name}")
-    dft_report(f"K3 f32 {name}", row, conv_work(grids, pad, out_size), TF32X3_FLOPS)
+    kind = "f64" if f64 else "f32"
+    dft_checks(kernels, grids, ur, ui, conv, out_size, offset, pad, f"K2/K3 {kind}, {name}")
+    dft_report(f"K3 {kind} {name}", row, conv_work, grids, pad, out_size)
     return row
+
+
+def like_rows(kernels, like_ext, winw, pad, launches, tag=""):
+    """Rows of the f64 K2 and K3 of a meanlikes run's like-weighted
+    smoothing (``ops/batched.py``): the f32 ``kernels`` in f64, and the
+    like-weighted bins periodically extended to ``like_ext``, at ``pad``,
+    each held within 1e-12 of its plain version, with the run's f64
+    launches at that shape."""
+    ext = like_ext.shape[-1]
+    kernels = kernels.double()
+    spec = spectrum_row(f"dft_conv_spectrum_f64_like{tag}_frame{pad}", kernels, pad,
+                        launches["spectrum_frames_f64"].get(pad, 0))
+    conv = conv_row(f"dft_conv2d_f64_like{tag}_periodic_ext{ext}", kernels, like_ext, ext - 2 * winw, 2 * winw, pad,
+                    launches["conv_inputs_f64"].get(f"{pad}:{ext}", 0))
+    check(spec["launches"] >= 1 and conv["launches"] >= 1, f"f64 like smoothing at frame {pad}: K2 and K3 launched")
+    print(f"f64 like smoothing at frame {pad}: {kernels.shape[0]} pairs, {kernels.shape[-1]}^2 kernels, {ext}^2 "
+          f"inputs; launches in the meanlikes run: K2 {spec['launches']}, K3 {conv['launches']}")
+    return [spec, conv]
 
 
 def bounded_phase(bounded, batched, dft_conv, pair_hist):
@@ -1966,8 +2029,9 @@ def bounded_phase(bounded, batched, dft_conv, pair_hist):
     ``triangle_densities`` with the same limits, periodic flags and like
     weights; kernel rows of K1 with the f32 like weights, of K3 on the
     periodically extended grids and on the edge-mask stack (the input
-    fine + 2 winw wide), and of K2 and K3 at the clamped rescue's frame on
-    its own pairs; the entry on the card against the CPU at 100k x 10.
+    fine + 2 winw wide), of K2 and K3 at the clamped rescue's frame on
+    its own pairs, and of the f64 K2 and K3 of the like-weighted smoothing
+    at both frames; the entry on the card against the CPU at 100k x 10.
     ``bounded``: the chain's arrays."""
     import torch
 
@@ -1984,13 +2048,21 @@ def bounded_phase(bounded, batched, dft_conv, pair_hist):
         hist.wide_bins.clear()
         dft_conv.dft_conv_spectrum.frames.clear()
         dft_conv.dft_conv2d.inputs.clear()
+        dft_conv.dft_conv_spectrum.f64_frames.clear()
+        dft_conv.dft_conv2d.f64_inputs.clear()
 
     def read():
         out = {fn.__name__: fn.launches for fn in counters}
         out.update(float=hist.float_launches, wide=hist.wide_launches, wide_bins=dict(hist.wide_bins),
                    spectrum_frames=dict(dft_conv.dft_conv_spectrum.frames),
-                   conv_inputs={f"{pad}:{size}": n for (pad, size), n in dft_conv.dft_conv2d.inputs.items()})
+                   conv_inputs={f"{pad}:{size}": n for (pad, size), n in dft_conv.dft_conv2d.inputs.items()},
+                   spectrum_frames_f64=dict(dft_conv.dft_conv_spectrum.f64_frames),
+                   conv_inputs_f64={f"{pad}:{size}": n for (pad, size), n in dft_conv.dft_conv2d.f64_inputs.items()})
         return out
+
+    def f32_launches(key, frames="conv_inputs"):
+        # the like-weighted smoothing of a meanlikes run is f64 (ops/batched.py)
+        return launches[frames].get(key, 0) - launches[frames + "_f64"].get(key, 0)
 
     t0 = time.perf_counter()
     mc = MCSamples(samples=samples, weights=weights, loglikes=loglikes, names=names, ranges=ranges, device="cuda")
@@ -2020,9 +2092,9 @@ def bounded_phase(bounded, batched, dft_conv, pair_hist):
         print(f"{tag}: outputs checked; wrap-line difference on pairs of a periodic and a limited parameter "
               f"{wrap:.4g} (the JAX package's non-periodic boundary correction, ROADMAP C11); regrid groups "
               + json.dumps([dict(g, pairs=len(g["pairs"])) for g in mc.fast_regrid_groups]))
-    busy_ms, wall_ms, rows = entry_call(mc, meanlikes=True)
+    busy_ms, wall_ms, rows, kernels = entry_call(mc, meanlikes=True)
     mc.fast_profile = dict(mc.fast_profile)
-    print_entry_profile(f"{label}, meanlikes=True", mc, busy_ms, wall_ms, rows)
+    print_entry_profile(f"{label}, meanlikes=True", mc, busy_ms, wall_ms, rows, kernels)
 
     # the fused program alone, with the same limits, periodic flags and like weights
     st = mc._fast_chain_state()
@@ -2094,13 +2166,19 @@ def bounded_phase(bounded, batched, dft_conv, pair_hist):
     act_lo, act_hi = d1["active_lo"], d1["active_hi"]
     masks = batched._edge_masks(act_lo[pa.long()], act_hi[pa.long()], act_lo[pb.long()], act_hi[pb.long()], 256, 30,
                                 torch.float32)
-    n_ext = launches["conv_inputs"].get("384:316", 0)
+    n_ext = f32_launches("384:316")
     for name, grids in (("dft_conv2d_periodic_ext316", ext_grids), ("dft_conv2d_edge_masks_ext316", masks)):
         check(tuple(grids.shape) == (k, 316, 316), f"{name}: the extended input")
         rows.append(conv_row(name, kernels, grids, 256, 60, 384, n_ext))
-    print(f"K3 launches on 316-wide inputs in the meanlikes run: {n_ext} (both rows: one kernel at one shape, "
-          "counted by (frame, input size); the program's periodic grids and its edge masks)")
-    del hists, ext_grids, masks
+    print(f"f32 K3 launches on 316-wide inputs in the meanlikes run: {n_ext} (both rows: one kernel at one shape, "
+          "counted by (frame, input size); the program's periodic grids and its edge masks), and f64 K2 / K3 "
+          f"launches of its like-weighted smoothing {json.dumps(launches['spectrum_frames_f64'])} / "
+          f"{json.dumps(launches['conv_inputs_f64'])}")
+    # the like-weighted smoothing's f64 K2 and K3, on the like bins extended
+    like_ext = batched._extend_periodic(hist(ix, lw, pa, pb, integer_weights=False).double(), per_t[pa.long()],
+                                        per_t[pb.long()], 30)
+    rows += like_rows(kernels, like_ext, 30, 384, launches)
+    del hists, ext_grids, masks, like_ext
 
     # the clamped rescue's rerun: K2 and K3 at its 768 frame (winw 126), on
     # its pairs' kernels, 256-bin histograms and 508-wide edge masks
@@ -2120,12 +2198,16 @@ def bounded_phase(bounded, batched, dft_conv, pair_hist):
           f"{launches['spectrum_frames'].get(pad, 0)}, K3 launches by input size: "
           f"{ {key: n for key, n in launches['conv_inputs'].items() if key.startswith(f'{pad}:')} }")
     rows.append(spectrum_row(f"dft_conv_spectrum_clamped_frame{pad}", kernels, pad,
-                             launches["spectrum_frames"].get(pad, 0)))
+                             f32_launches(pad, "spectrum_frames")))
     rows.append(conv_row(f"dft_conv2d_clamped_frame{pad}", kernels, grids, 256, winw, pad,
-                         launches["conv_inputs"].get(f"{pad}:256", 0)))
+                         f32_launches(f"{pad}:256")))
     rows.append(conv_row(f"dft_conv2d_edge_masks_ext{ext}", kernels, masks, 256, 2 * winw, pad,
-                         launches["conv_inputs"].get(f"{pad}:{ext}", 0)))
-    del grids, masks, kernels, ixg
+                         f32_launches(f"{pad}:{ext}")))
+    del grids, masks
+    like_ext = batched._extend_periodic(hist(ixg, lw, pag, pbg, integer_weights=False).double(), per_t[ka],
+                                        per_t[kb], winw)
+    rows += like_rows(kernels, like_ext, winw, pad, launches, "_clamped")
+    del kernels, ixg, like_ext
     del mc, st, d1, d2, t1, t2
     torch.cuda.empty_cache()
     report = bounded_cross_device(MCSamples)
@@ -2218,7 +2300,7 @@ def periodic_conv_row(name, mc, bucket, launches, pair_hist, dft_conv, batched):
     }
     print(f"{name}: {kb} pairs ({sum(per[a] or per[b] for a, b in pairs[:kb])} with a periodic axis), window "
           f"{winw}, input {ext}^2, frame {pad}; K3 launches on {ext}-wide inputs in the run: {row['launches']}")
-    dft_report(f"K3 f64 {name}", row, conv_work(grids, pad, fine), FP64_FLOPS)
+    dft_report(f"K3 f64 {name}", row, conv_work, grids, pad, fine)
     return row
 
 
@@ -2356,7 +2438,7 @@ def entries_bitwise(got, want):
     return reruns and bitwise(got[:2], want[:2])
 
 
-def files_phase(bounded, card, pair_hist, dft_conv):
+def files_phase(bounded, card, pair_hist, dft_conv, phases=PHASES):
     """Phase 8: a chain root on disk through ``loadMCSamples`` into the
     public entry. ``bounded_chain(1M)`` (``bounded``) is written as a
     4-chain root of 250k rows each (``weight -loglike p1 ... p30``, with
@@ -2368,7 +2450,8 @@ def files_phase(bounded, card, pair_hist, dft_conv):
     loaded object, with K1, K2 and K3 launched, its grids bitwise equal to
     the entry on an ``MCSamples`` built in memory from the loaded arrays and
     to the entry on the cache hit. Walls (host clock to
-    ``torch.cuda.synchronize()``) beside ``card``."""
+    ``torch.cuda.synchronize()``) beside ``card``. Then phases 9-12, those
+    of ``phases``, on that root."""
     import multiprocessing
     import shutil
     import tempfile
@@ -2469,10 +2552,14 @@ def files_phase(bounded, card, pair_hist, dft_conv):
         del mc, mc_hit, got, hit
         torch.cuda.empty_cache()
         tmc.MCSamples.readChains = saved_read
-        host_pair_walls = host_api_phase(root, names, ranges, card, pair_hist, dft_conv)
-        cli_phase(root, names, ranges, card, pair_hist, dft_conv)
-        plot_grids = plot_data_phase(root, names, ranges, samples, card, pair_hist, dft_conv, host_pair_walls)
-        interop_gui_phase(root, bounded, card, pair_hist, dft_conv, plot_grids)
+        host_pair_walls = host_api_phase(root, names, ranges, card, pair_hist, dft_conv) if 9 in phases else None
+        if 10 in phases:
+            cli_phase(root, names, ranges, card, pair_hist, dft_conv)
+        plot_grids = None
+        if 11 in phases:
+            plot_grids = plot_data_phase(root, names, ranges, samples, card, pair_hist, dft_conv, host_pair_walls)
+        if 12 in phases:
+            interop_gui_phase(root, bounded, card, pair_hist, dft_conv, plot_grids)
     finally:
         getdist_tpu_torch.cache_dir = saved_cache
         tmc.MCSamples.readChains = saved_read
@@ -3454,9 +3541,31 @@ def _api_texts(root, ini, n_tabs):
             [mc.getTable(columns=1, limit=i + 1).tableTex() for i in range(n_tabs)])
 
 
-def main():
+def selected_phases(argv):
+    """The phases to run: ``--phases`` (comma-separated numbers, default all)
+    and those they need."""
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Smoke run of getdist_tpu_torch on one CUDA card.")
+    parser.add_argument("--phases", help="comma-separated phase numbers 1-12 (default: every phase)")
+    args = parser.parse_args(argv)
+    if args.phases is None:
+        return PHASES
+    try:
+        chosen = {int(x) for x in args.phases.split(",") if x.strip()}
+    except ValueError:
+        parser.error(f"--phases takes comma-separated numbers, got {args.phases!r}")
+    if not chosen or not chosen <= PHASES:
+        parser.error(f"--phases takes numbers 1-12, got {args.phases!r}")
+    for phase in sorted(chosen, reverse=True):
+        chosen |= REQUIRES.get(phase, set())
+    return frozenset(chosen)
+
+
+def main(argv=()):
     import torch
 
+    phases = selected_phases(list(argv))
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -3479,24 +3588,40 @@ def main():
         print(f"ptxas, K1/K4/K5 uint8 kernel: {line}")
     for line in ptxas_lines(lib.log, "pair_hist_wide"):
         print(f"ptxas, wide kernels: {line}")
+    for line in ptxas_lines(lib.log, "dft_wgmma_kernel"):
+        stage = next((v for k, v in WGMMA_STAGES.items() if f"dft_wgmma_kernel{k}" in line), "?")
+        print(f"ptxas, f32 K2/K3 wgmma kernel ({stage}): {line}")
+    if phases != PHASES:
+        print(f"phases {sorted(phases)} of {len(PHASES)}")
 
-    t0 = time.perf_counter()
-    samples, weights = make_chain(1_000_000, 30)
-    print(f"chain 1,000,000 x 30 made in {time.perf_counter() - t0:.1f} s")
+    samples = weights = bounded = None
+    if phases & {1, 2, 3, 4}:
+        t0 = time.perf_counter()
+        samples, weights = make_chain(1_000_000, 30)
+        print(f"chain 1,000,000 x 30 made in {time.perf_counter() - t0:.1f} s")
+    if phases & {3, 6, 7, 8}:
+        t0 = time.perf_counter()
+        bounded = bounded_chain(1_000_000)
+        print(f"bounded chain 1,000,000 x {bounded[0].shape[1]} made in {time.perf_counter() - t0:.1f} s "
+              f"(kinds lower/upper/two-sided/periodic {BOUNDED_KINDS}, the rest unbounded)")
 
-    t0 = time.perf_counter()
-    bounded = bounded_chain(1_000_000)
-    print(f"bounded chain 1,000,000 x {bounded[0].shape[1]} made in {time.perf_counter() - t0:.1f} s "
-          f"(kinds lower/upper/two-sided/periodic {BOUNDED_KINDS}, the rest unbounded)")
-
-    results = fused_path(samples, weights, batched, dft_conv, pair_hist, make_chain)
-    results += parity_path(samples, weights, batched, dft_conv, pair_hist)
-    results += sharded_path(samples, weights, batched, dft_conv, pair_hist, make_chain, bounded)
-    results += public_entry(samples, weights, batched, dft_conv, pair_hist)
-    results += degenerate_phase(pair_hist, batched)
-    results += bounded_phase(bounded, batched, dft_conv, pair_hist)
-    results += parity_bounded_phase(bounded, batched, dft_conv, pair_hist)
-    files_phase(bounded, card, pair_hist, dft_conv)
+    results = []
+    if 1 in phases:
+        results += fused_path(samples, weights, batched, dft_conv, pair_hist, make_chain)
+    if 2 in phases:
+        results += parity_path(samples, weights, batched, dft_conv, pair_hist)
+    if 3 in phases:
+        results += sharded_path(samples, weights, batched, dft_conv, pair_hist, make_chain, bounded)
+    if 4 in phases:
+        results += public_entry(samples, weights, batched, dft_conv, pair_hist)
+    if 5 in phases:
+        results += degenerate_phase(pair_hist, batched)
+    if 6 in phases:
+        results += bounded_phase(bounded, batched, dft_conv, pair_hist)
+    if 7 in phases:
+        results += parity_bounded_phase(bounded, batched, dft_conv, pair_hist)
+    if 8 in phases:
+        files_phase(bounded, card, pair_hist, dft_conv, phases)
     for r in results:
         # a bound is a least time: no measured way of computing the function may beat it
         measured = [t for t in (r["ms"], r["plain_ms"], r["library_ms"]) if t is not None]
@@ -3516,7 +3641,7 @@ def main():
 
 if __name__ == "__main__":
     try:
-        code = main()
+        code = main(sys.argv[1:])
     except Exception:  # noqa: BLE001 - the smoke run reports every failure and exits non-zero
         traceback.print_exc()
         code = 1

@@ -5,59 +5,929 @@
 // _conv_kernel).  F is the symmetric P x P DFT matrix and B = conj(F) / P is
 // symmetric too.  For pair k, kernel W (m x m) and grid G (I x I), both real
 // and at the origin of the P x P frame, with h = P / 2 + 1 and w = [offset,
-// offset + out_size) the output window:
-//   spectrum (2 launches):  T  = F[:h, :m] W                       depth m
-//                           U  = T F[:m, :], rows h.. mirrored     depth m
-//   conv (4 launches):      C1 T  = F[:h, :I] G                    depth I
-//                           C2 E  = (T F[:I, :]) o U, mirrored     depth I
-//                           C3 T2 = (B[w, :] E)[:, :h], stored transposed,
-//                                   columns 0 < c < P / 2 doubled  depth P
-//                           C4 out = Re(B[w, :h] T2^T)^T           depth h
+// offset + out_size) the output window, the function is
+//   U = F W F,  out = Re(B[w, :] ((F G F) o U) B[:, w]).
 // Every stage contracts over the kernel's or grid's support, or over the
 // frame only where the window needs it: nothing multiplies through the zero
-// padding.  Real inputs make U and E Hermitian (X[P - r][P - c] =
-// conj(X[r][c])), so rows 0..P/2 determine them and the epilogue writes the
-// other rows as the conjugate mirror; the rows of T2 are Hermitian too, so
-// Re(T2 B[:, w]) needs only columns 0..P/2 of T2, the inner ones twice.
-// That halves every stage but C2's depth and C3's depth.
+// padding.  Real inputs make U and E = (F G F) o U Hermitian (X[P - r][P - c]
+// = conj(X[r][c])), so rows 0..P/2 determine them; the rows of T2 = B[w, :] E
+// are Hermitian too, so Re(T2 B[:, w]) needs only columns 0..P/2 of T2, the
+// inner ones twice.
 //
 // What bounds it on this card.  The fastest f32-accurate product is three
 // TF32 tensor-core passes (495 / 3 = 165 TFLOP/s); in f64 it is DMMA (67
-// TFLOP/s).  At the fused path's shapes (435 pairs, P = 384, m = 61, I =
-// out = 256, f32) the spectrum needs 17.0 GFLOP with the Hermitian halves
-// (33.8 without) and must write 0.51 GB of spectra: bytes bound it (0.16
-// ms).  A convolution needs 176 GFLOP (350 without) against 0.74 GB:
-// operations bound it (1.07 ms).  Parity's f64 shapes (P = 512, m = 69)
-// are the same: the spectrum bytes bound, the convolution operations bound.
+// TFLOP/s).  Operations bound every f32 shape the paths run but the fused
+// path's spectrum (435 x 61^2 at P = 384: 17.0 GFLOP against 0.51 GB of
+// spectra written, bytes bound).  The bounded chain's rows: the clamped
+// rescue's spectrum (110 x 253^2, P = 768) needs 76.7 GFLOP (0.465 ms), its
+// 508-wide convolution 254 GFLOP (1.538 ms), the 316-wide ones at P = 384
+// 203 GFLOP (1.232 ms).  Parity's f64 shapes: the spectrum bytes bound, the
+// convolution operations bound.
 //
-// What the design does about it: one batched complex GEMM kernel
-// (cgemm_kernel) with four epilogue modes runs every stage.
-//  - Tensor cores through mma.sync.m16n8k8: f32 as 3xTF32 (each operand
-//    split into hi = rna(x) and lo = rna(x - hi); lo.hi + hi.lo + hi.hi,
-//    about f32 accuracy, where one TF32 pass keeps three digits), f64 as
-//    DMMA.
-//  - Operands stream through a multi-stage ring of cp.async copies in
-//    dynamic shared memory: 16-byte copies where the operand's base and
-//    leading dimension allow, element copies otherwise (the kernels' m x m
-//    rows, odd grid widths).  The ragged edges of the supports and of the
-//    window are zero-filled by the copy (src-size below the copy size),
-//    never tested in the inner loop.
-//  - Where B is the shared DFT matrix (U, C2), the pairs' T stack into one
-//    tall operand, so no row tile is spent on a pair's ragged h rows.
-//  - Fused epilogues: C2 multiplies by the kernel spectrum U as it stores;
-//    C3 stores T2 transposed so that C4 reads both operands row by row
-//    (B[:, w] = B[w, :]^T by symmetry); C4 keeps only the real part and
-//    writes the window straight to the output.
+// f32 (dft_wgmma_kernel): six stages, each a batched complex product
+// D = A B whose A is the data and whose B is a block of F or B, run by one
+// kernel template on wgmma (m64n64k8, tf32):
+//   spectrum:  S1  T^T = W^T F[:m, :h], stored as T (h x m)   depth m
+//              S2  U   = T F[:m, :], rows h.. mirrored       depth m
+//   conv:      C1  T^T = G^T F[:I, :h], stored as T (h x I)   depth I
+//              C2  E   = (T F[:I, :]) o U, stored as C3's operand:
+//                      E[:, :h]^T with rows k and P - k paired  depth I
+//              C3  T2^T = E[:, :h]^T B[:, w], columns 0 < c < P/2 doubled,
+//                      stored as T2 (out_size x h)          depth 2 (P/2 + 1)
+//              C4  out = Re(T2 B[:h, w])                      depth h
+//  - wgmma takes tf32 operands K-major only.  The DFT blocks are K-major
+//    by symmetry (B[k][n] = F[n][k]: row n of F), so they are the
+//    shared-memory operand, loaded by TMA (128-byte swizzle) from tf32 hi
+//    and lo planes split once per frame (ops/dft_conv.py:tf32_planes).  The
+//    data is the register operand, read from shared memory in the layout
+//    its stage left (row-major, or transposed for W^T and G^T) and split in
+//    registers (hi = rna(x), lo = rna(x - hi)); products lo.hi + hi.lo +
+//    hi.hi, lo.lo dropped (3xTF32, about f32 accuracy).
+//  - S2 and C2 (kConj) multiply T by [Fr | Fi] of DFT columns c < P/2 only:
+//    F[k][P - c] = conj(F[k][c]), so the four real products give columns c
+//    and P - c, half the products of T F.  The real DFT columns 0 and P/2
+//    share one slot (Fi's zero row 0 holds Fr's row P/2 in the planes), so
+//    S1, C1, S2 and C2 tile P/2 columns, not P/2 + 1.  C3 (kSplit) pairs
+//    E's rows k and P - k the same way (B[P - k][y] = conj(B[k][y])): C2
+//    writes S = a + b and i D = i (a - b), and C3 multiplies [S | i D] by
+//    the real [Br; Bi] over k <= P/2, half the products of E^T B.
+//  - Data tiles arrive by cp.async (16-byte copies where base and leading
+//    dimension allow, element copies otherwise: odd grid widths; the
+//    wrapper pads the kernels' rows), zero-filled past the support, and
+//    signal the same mbarrier as the stage's TMA loads.
+//  - Warp specialised and persistent: one block per SM walks its output
+//    tiles; a producer warpgroup (56 registers) keeps a ring of 3 or 4 stages full
+//    while two consumer warpgroups (224 registers) each compute 64 rows of a
+//    128-row tile.
+//  - The tensor cores' f32 accumulation truncates (round toward zero).
+//    Each two depth-8 steps sum into a partial started with scale-d = 0,
+//    which an IEEE add brings into the tile's accumulator: 1.4-1.7e-6 of
+//    the largest value from an f64 chain, a third of the plain f32 chain's
+//    distance; partials of depth 8 reach 1.0-1.6e-6 and cost 5-8% more time,
+//    of depth 32 2.3-2.7e-6, one truncating sum over the whole depth
+//    1.5-2.4e-5, past the 1e-5 bar (tests/test_torch_dft_conv.py emulates
+//    these; scripts/time_dft_conv_torch.py --depths measures them).
+//  - The pairs' rows stack into one tall operand wherever B is shared (S2,
+//    C2, C3, C4), so no tile is spent on a pair's ragged h rows; E keeps only
+//    its h columns the next stage reads (h x P a pair, half of E).
+//  - Epilogues through shared memory (32 KB, one output plane at a time),
+//    so that every warp writes whole 128-byte lines, transposed stores
+//    included; fused there: the Hermitian mirror (S2, C2), the product with
+//    U (C2), the fold (C3), the real part (C4).
 //  - Each output element is summed by one thread in one fixed order: no
 //    split-K, no atomics, so two calls give bitwise-equal results.
-// Block tile 64 x 64, four warps of 32 x 32; depth 16 a stage in f32 (3
-// stages), 8 in f64 (4 stages).
+// What bounds it now: not the tensor cores.  Built without its products
+// (scripts/time_dft_conv_torch.py --no-products) K3 still takes 60% of its
+// time at the bounded shapes, K2 at P = 768 64%: the operand copies, the
+// register operand's split, the partials' drains and adds and the
+// epilogues hold it (PERF.md section 6).
 
+// f64 (cgemm_kernel<double>): four stages of one batched complex GEMM kernel
+// on mma.sync.m16n8k8 DMMA (wgmma has no f64), block tile 64 x 64, four
+// warps of 32 x 32, depth 8 a stage, 4 cp.async stages:
+//   spectrum:  T  = F[:h, :m] W,  U = T F[:m, :] (rows h.. mirrored)
+//   conv:      C1 T = F[:h, :I] G,  C2 E = (T F[:I, :]) o U (mirrored),
+//              C3 T2 = (B[w, :] E)[:, :h] stored transposed, folded,
+//              C4 out = Re(B[w, :h] T2^T)^T
+
+#include <cuda.h>  // CUtensorMap and its encoder's types; the encoder itself comes through cudaGetDriverEntryPoint
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#define RETURN_IF_ERROR(expr)             \
+  do {                                    \
+    const cudaError_t err_ = (expr);      \
+    if (err_ != cudaSuccess) return err_; \
+  } while (0)
+
 namespace {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- cp.async ----
+
+template <int kBytes>
+__device__ __forceinline__ void cp_async_zfill(void* dst, const void* src, int src_bytes) {
+  const unsigned s = smem_u32(dst);
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(src_bytes) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(src), "n"(kBytes), "r"(src_bytes)
+                 : "memory");
+  }
+}
+
+// =====================================================================
+// f32: wgmma, TMA and mbarriers
+// =====================================================================
+
+namespace f32 {
+
+constexpr int kBM = 128;              // rows of a block tile: two consumer warpgroups of 64
+constexpr int kBN = 64;               // columns of a block tile (each a complex pair of f32)
+constexpr int kBK = 32;               // depth of a stage: one 128-byte swizzle row of f32
+constexpr int kConsumers = 256;
+constexpr int kProducers = 128;
+constexpr int kThreads = kConsumers + kProducers;
+constexpr int kSAT = kBM + 8;         // transposed data tile: stride of a depth row (fragment reads free of bank conflicts)
+constexpr int kTileB = kBN * kBK * 4;  // one plane of the DFT block: 64 rows of 128 bytes
+constexpr int kBytesB = 4 * kTileB;   // re hi, re lo, im hi, im lo
+constexpr int kBytesOut = kBM * kBN * 4;  // the epilogue's staging: one plane of the output tile
+constexpr int kFullCount = kProducers + 1;  // the producer's cp.async arrivals and its TMA thread's expect_tx
+constexpr int kAccSteps = 2;          // depth-8 steps summed into a partial between IEEE adds
+
+// data operand: real and transposed (W^T, G^T), or complex and row-major;
+// kConj: complex, against B = [Fr; Fi] of 32 DFT columns c, whose four real
+// products give the columns c and P - c at once (F[k][P - c] = conj(F[k][c]));
+// kSplit: complex A = [S | R] (two segments of depth `seg`) against the real
+// B = [Br; Bi] of the window's 64 columns, Br's rows for S, Bi's for R
+enum AMode { kRealT = 0, kCplx = 1, kConj = 2, kSplit = 3 };
+enum Epi { kStoreT = 0, kHerm = 1, kMulU = 2, kFold = 3, kRe = 4 };
+
+template <int kA>
+__host__ __device__ constexpr int a_bytes() {
+  return kA == kRealT ? kBK * kSAT * 4 : 2 * kBM * kBK * 4;
+}
+template <int kA>
+__host__ __device__ constexpr int b_bytes() {
+  return kA == kConj || kA == kSplit ? kBytesB / 2 : kBytesB;
+}
+// columns of a tile: output columns, or for kConj DFT columns (each two outputs)
+template <int kA>
+__host__ __device__ constexpr int tile_cols() {
+  return kA == kConj ? kBN / 2 : kBN;
+}
+template <int kA>
+__host__ __device__ constexpr int stage_bytes() {
+  return (b_bytes<kA>() + a_bytes<kA>() + 1023) / 1024 * 1024;  // B tiles stay 1024-byte aligned (the swizzle's period)
+}
+// the ring's depth: as many stages as the 227 KB of shared memory hold beside the staging buffer
+template <int kA>
+__host__ __device__ constexpr int stages() {
+  return kA == kConj || kA == kSplit ? 4 : 3;
+}
+template <int kA>
+__host__ __device__ constexpr int smem_bytes() {
+  return stages<kA>() * stage_bytes<kA>() + kBytesOut + 2 * stages<kA>() * 8 + 1024;  // ring, staging, barriers, alignment
+}
+
+// One stage D = A B and its epilogue.  A: data, element (i, k) at
+// a_re/a_im[b * a_batch + i * lda + k] (kCplx, kConj, kSplit: the pairs
+// stacked into the rows) or a_re[b * a_batch + k * lda + i] (kRealT), i < m,
+// k < depth, zero outside.  B[k][n] = plane[b_plane + q][b_row0 + n][k], n <
+// n_cols, the planes q as the producer loads them.  Output element (i, n) of
+// batch b goes where the epilogue says (see store_tile).
+struct Args {
+  const float* a_re;
+  const float* a_im;
+  long long a_batch;
+  int lda;
+  int m;
+  int depth;
+  int a_vec;  // base, lda and a_batch allow 16-byte copies
+  int n;
+  int b_plane;
+  int b_row0;
+  int batch;
+  int tiles_m;
+  int tiles_n;
+  float* o_re;
+  float* o_im;
+  long long o_batch;
+  int o_ld;
+  int rows_per_batch;  // stacked rows: row R is row R % rows_per_batch of pair R / rows_per_batch
+  int pad;
+  int seg;      // kSplit: the data's second segment starts at this column
+  int seg_len;  // kSplit: the data columns of each segment (the rest of a segment is zero)
+  int o_seg;    // kMulU: the output's second segment (i D) starts at this column
+  const float* u_re;
+  const float* u_im;
+};
+
+// ---- mbarriers and TMA ----
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// one arrival on bar once this thread's earlier cp.async copies have landed
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// ---- wgmma ----
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep a register that an asynchronous wgmma reads or writes where it is
+// until this point (after the wait that ends the wgmma)
+__device__ __forceinline__ void keep(float& x) { asm volatile("" : "+f"(x)::"memory"); }
+__device__ __forceinline__ void keep(uint32_t& x) { asm volatile("" : "+r"(x)::"memory"); }
+
+// K-major operand in 128-byte-swizzled rows: start address, stride 1024
+// bytes between groups of 8 rows, swizzle mode 1 (128 B)
+__device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t{1} << 16) | (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
+}
+
+// d (64 x 64 f32, this thread's 32) (+)= s * a (64 x 8 tf32, registers) b (8 x 64 tf32, shared memory)
+// scale_d = 0 starts a new sum; kNeg negates a
+template <int kNeg>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, %38, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),
+        "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(kNeg ? -1 : 1));
+}
+
+// A fragment of a 64 x 8 tf32 register operand, split in two: a warp's 16
+// rows, (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4) with g = lane / 4,
+// t = lane % 4
+struct Frag {
+  uint32_t hi[4], lo[4];
+};
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  const float rest = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
+}
+
+__device__ __forceinline__ void split4(Frag& f, float x0, float x1, float x2, float x3) {
+  split_tf32(x0, f.hi[0], f.lo[0]);
+  split_tf32(x1, f.hi[1], f.lo[1]);
+  split_tf32(x2, f.hi[2], f.lo[2]);
+  split_tf32(x3, f.hi[3], f.lo[3]);
+}
+
+__device__ __forceinline__ void keep(Frag& f) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    keep(f.hi[q]);
+    keep(f.lo[q]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void keep(float (&x)[N]) {
+#pragma unroll
+  for (int q = 0; q < N; ++q) keep(x[q]);
+}
+
+// element (r, c) of a row-major data tile of 32-float rows: its 16-byte chunk
+// swizzled by the row, so that a fragment's 8 rows x 4 columns hit 32 banks
+__device__ __forceinline__ int a_at(int r, int c) { return r * kBK + ((((c >> 2) ^ r) & 7) << 2) + (c & 3); }
+
+// ---- the producer's data copies: rows [row0, row0 + 128) x depth [k0, k0 + 32) ----
+
+template <int kA>
+__device__ __forceinline__ void load_a(float* sa, const float* a_re, const float* a_im, const Args& p, int row0, int k0,
+                                       int ptid) {
+  if constexpr (kA != kRealT) {
+    // sa[plane][row][32], the 16-byte chunk c of row r at c ^ (r % 8) (see a_at)
+    if (p.a_vec) {
+      constexpr int kChunks = kBK / 4;  // 16-byte chunks of a row
+#pragma unroll 4
+      for (int l = 0; l < 2 * kBM * kChunks / kProducers; ++l) {
+        const int e = ptid + l * kProducers;
+        const int plane = e / (kBM * kChunks);
+        const int r = (e / kChunks) % kBM;
+        const int c = (e % kChunks) * 4;
+        const int gr = row0 + r;
+        const int gc = k0 + c;
+        const int kk = p.seg && gc >= p.seg ? gc - p.seg : gc;  // column within its segment
+        const int lim = p.seg ? p.seg_len : p.depth;
+        const bool in = gr < p.m && kk < lim;
+        const float* src = plane ? a_im : a_re;
+        cp_async_zfill<16>(sa + a_at(plane * kBM + r, c), in ? src + static_cast<long long>(gr) * p.lda + gc : src,
+                           in ? min(4, lim - kk) * 4 : 0);
+      }
+    } else {
+#pragma unroll 4
+      for (int l = 0; l < 2 * kBM * kBK / kProducers; ++l) {
+        const int e = ptid + l * kProducers;
+        const int plane = e / (kBM * kBK);
+        const int r = (e / kBK) % kBM;
+        const int c = e % kBK;
+        const int gr = row0 + r;
+        const int gc = k0 + c;
+        const bool in = gr < p.m && (p.seg && gc >= p.seg ? gc - p.seg : gc) < (p.seg ? p.seg_len : p.depth);
+        const float* src = plane ? a_im : a_re;
+        cp_async_zfill<4>(sa + a_at(plane * kBM + r, c), in ? src + static_cast<long long>(gr) * p.lda + gc : src,
+                          in ? 4 : 0);
+      }
+    }
+  } else {
+    // sa[k][kSAT]: A[i][k] = a[k * lda + i], i contiguous
+    if (p.a_vec) {
+      constexpr int kChunks = kBM / 4;
+#pragma unroll 4
+      for (int l = 0; l < kBK * kChunks / kProducers; ++l) {
+        const int e = ptid + l * kProducers;
+        const int k = e / kChunks;
+        const int i = (e % kChunks) * 4;
+        const int gk = k0 + k;
+        const int gi = row0 + i;
+        const bool in = gk < p.depth && gi < p.m;
+        cp_async_zfill<16>(sa + k * kSAT + i, in ? a_re + static_cast<long long>(gk) * p.lda + gi : a_re,
+                           in ? min(4, p.m - gi) * 4 : 0);
+      }
+    } else {
+#pragma unroll 4
+      for (int l = 0; l < kBK * kBM / kProducers; ++l) {
+        const int e = ptid + l * kProducers;
+        const int k = e / kBM;
+        const int i = e % kBM;
+        const int gk = k0 + k;
+        const int gi = row0 + i;
+        const bool in = gk < p.depth && gi < p.m;
+        cp_async_zfill<4>(sa + k * kSAT + i, in ? a_re + static_cast<long long>(gk) * p.lda + gi : a_re, in ? 4 : 0);
+      }
+    }
+  }
+}
+
+// ---- the consumers' fragments: rows rb.. of the tile, depth 8 kk.. of the stage ----
+
+template <int kA>
+__device__ __forceinline__ void load_frags(Frag (&f)[2], const float* sa, int rb, int kk, int g, int t) {
+  if constexpr (kA != kRealT) {
+#pragma unroll
+    for (int plane = 0; plane < 2; ++plane) {
+      const int r = plane * kBM + rb + g;
+      const int c = 8 * kk + t;
+      split4(f[plane], sa[a_at(r, c)], sa[a_at(r + 8, c)], sa[a_at(r, c + 4)], sa[a_at(r + 8, c + 4)]);
+    }
+  } else {
+    const float* s = sa + (8 * kk + t) * kSAT + rb + g;
+    split4(f[0], s[0], s[8], s[4 * kSAT], s[4 * kSAT + 8]);
+  }
+}
+
+// ---- epilogue ----
+// Each output plane (re, then im) of the 128 x 64 tile goes through shared
+// memory, so that each warp writes whole 128-byte lines of the output:
+// staged by rows where the output runs along the tile's columns (kHerm,
+// kRe), by columns where it runs along its rows (the transposed stores).
+// kStoreT: out[b][n][i] (T from T^T)
+// kHerm (after kConj): U[pair][r][n] for n in {c, P - c} (c = 0: {0, P/2})
+//          and, for 0 < r < P/2, U[pair][P - r][(P - n) % P] = conj
+// kMulU (after kConj): E = D o U[pair][r][n], n as for kHerm; E^T[pair][n][r]
+//          for n < h and, for 0 < r < P/2 and n in {0} u [P/2, P),
+//          E^T[pair][(P - n) % P][P - r] = conj
+// kFold:   T2[pair][n][c] = D (c = the stacked row's index in its pair),
+//          doubled for 0 < c < P/2
+// kRe:     out[row][n] = Re D
+
+__device__ __forceinline__ void consumer_sync() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); }
+
+// element (r, c) of a staged plane, swizzled so that the fragments' stores
+// and the write-out's loads are free of bank conflicts
+template <bool kCol>
+__device__ __forceinline__ int out_at(int r, int c) {
+  if constexpr (kCol) return c * kBM + (r ^ (((c >> 1) & 3) << 3));
+  return r * kBN + (c ^ ((r & 7) << 3));
+}
+
+template <int kEpi>
+__device__ __forceinline__ void store_tile(const Args& p, float (&dr)[32], float (&di)[32], int b, int row0, int col0,
+                                           int rb, int g, int t, float* stage, int tid) {
+  constexpr bool kImOut = kEpi != kRe;
+  constexpr bool kCol = kEpi == kStoreT || kEpi == kMulU || kEpi == kFold;
+  constexpr bool kPairs = kEpi == kHerm || kEpi == kMulU;  // after kConj: tile column q < 32 is DFT column c0 + q,
+                                                           // q >= 32 is P - (c0 + q - 32)
+  const int h = p.rows_per_batch;
+  if constexpr (kPairs) {
+    // dr = [Tr Fr | Tr Fi], di = [Ti Fr | Ti Fi] over the tile's DFT columns c:
+    // D[c] = (TrFr - TiFi) + i (TrFi + TiFr), D[P - c] = (TrFr + TiFi) + i (TiFr - TrFi).
+    // Column 0's Fi (zero) slot carries Fr of column P/2 (tf32_planes): D[0] = TrFr + i TiFr
+    // there, D[P/2] = Tr Fr[P/2] + i Ti Fr[P/2] takes the place of D[P - 0]
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const float a1 = dr[q], a3 = dr[16 + q], a4 = di[q], a2 = di[16 + q];
+      const bool nyquist = col0 == 0 && t == 0 && (q == 0 || q == 2);  // DFT column 0 (j = 0, e = 0)
+      dr[q] = nyquist ? a1 : a1 - a2;
+      di[q] = nyquist ? a4 : a3 + a4;
+      dr[16 + q] = nyquist ? a3 : a1 + a2;
+      di[16 + q] = nyquist ? a2 : a4 - a3;
+    }
+  }
+  if constexpr (kEpi == kStoreT) {
+    // column 0's imaginary part is Tr Fr[P/2], the (real) DFT column P/2: written
+    // straight to its row of T, and column 0's own imaginary part is zero
+    if (col0 == 0 && t == 0) {
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const int row = row0 + rb + g + 8 * h2;
+        if (row < p.m) {
+          const long long at = b * p.o_batch + static_cast<long long>(p.pad / 2) * p.o_ld + row;
+          p.o_re[at] = di[2 * h2];
+          p.o_im[at] = 0.f;
+        }
+        di[2 * h2] = 0.f;
+      }
+    }
+  }
+  if constexpr (kEpi == kMulU) {
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int row = row0 + rb + g + 8 * h2;
+      if (row >= p.m) continue;
+      const long long item = row / h;
+      const long long u0 = item * p.pad * p.pad + static_cast<long long>(row - item * h) * p.pad;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = col0 + 8 * j + 2 * t;
+        if (c >= p.n) continue;
+        const float2 xr = *reinterpret_cast<const float2*>(p.u_re + u0 + c);  // c + 1 < P
+        const float2 xi = *reinterpret_cast<const float2*>(p.u_im + u0 + c);
+        const int mc = c ? p.pad - c : p.pad / 2;  // the column of D[16 + q]
+        const float ur[4] = {xr.x, xr.y, p.u_re[u0 + mc], p.u_re[u0 + p.pad - c - 1]};
+        const float ui[4] = {xi.x, xi.y, p.u_im[u0 + mc], p.u_im[u0 + p.pad - c - 1]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int q = 4 * j + 2 * h2 + (e & 1) + (e >> 1) * 16;
+          const float er = dr[q] * ur[e] - di[q] * ui[e];
+          di[q] = dr[q] * ui[e] + di[q] * ur[e];
+          dr[q] = er;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int plane = 0; plane < (kImOut ? 2 : 1); ++plane) {
+    const float(&d)[32] = plane ? di : dr;
+    const float sign = plane ? -1.f : 1.f;  // of a conjugate mirror
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int r = rb + g + 8 * h2;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        if constexpr (kCol) {
+          stage[out_at<true>(r, c)] = d[4 * j + 2 * h2];
+          stage[out_at<true>(r, c + 1)] = d[4 * j + 2 * h2 + 1];
+        } else {
+          *reinterpret_cast<float2*>(stage + out_at<false>(r, c)) = make_float2(d[4 * j + 2 * h2], d[4 * j + 2 * h2 + 1]);
+        }
+      }
+    }
+    consumer_sync();
+    float* o = plane ? p.o_im : p.o_re;
+    if constexpr (kCol) {
+      // a thread's row is fixed, its columns step by 2; a warp writes 32 consecutive rows of one column
+      const int r = tid & (kBM - 1);
+      const int row = row0 + r;
+      if (row < p.m) {
+        long long item = b;
+        int rr = row;
+        if constexpr (kEpi != kStoreT) {
+          item = row / h;
+          rr = row - static_cast<int>(item) * h;
+        }
+        float* ob = o + item * p.o_batch;
+        const bool mirror_row = rr > 0 && 2 * rr < p.pad;
+        const float fold = kEpi == kFold && mirror_row ? 2.f : 1.f;  // exact
+        if constexpr (kEpi != kMulU) {
+#pragma unroll 4
+          for (int l = 0; l < kBN / 2; ++l) {
+            const int n = col0 + (tid >> 7) + 2 * l;
+            if (n >= p.n) break;
+            ob[static_cast<long long>(n) * p.o_ld + rr] = fold * stage[out_at<true>(r, n - col0)];
+          }
+        } else {
+          // C3 needs sum_k E[k][c] B[k][y]; B[P - k][y] = conj(B[k][y]) pairs row k of E with row
+          // P - k: S B_r + i D B_i, S = a + b, D = a - b (a = E[k][c], b = E[P - k][c] =
+          // conj(E[k][P - c]), 0 < k < P/2; S = a, D = 0 at k = 0, P/2).  Written as [S | i D]
+          // (row c, columns k and seg + k).  This plane's part: re: S_r = a_r + b_r and
+          // (i D)_i = a_r - b_r; im: S_i = a_i + b_i and (i D)_r = -(a_i - b_i), with b = conj(E[k][P - c])
+          float* out_s = plane ? p.o_im : p.o_re;
+          float* out_r = plane ? p.o_re : p.o_im;
+          const long long base = item * p.o_batch + rr;
+          auto write_pair = [&](int c, float e1, float e2) {
+            const long long at = base + static_cast<long long>(c) * p.o_ld;
+            const float b = plane ? -e2 : e2;  // conj
+            out_s[at] = mirror_row ? e1 + b : e1;
+            out_r[at + p.o_seg] = mirror_row ? (plane ? b - e1 : e1 - b) : 0.f;
+          };
+#pragma unroll 4
+          for (int l = 0; l < kBN / 4; ++l) {
+            const int q = (tid >> 7) + 2 * l;  // DFT column col0 + q; its partner P - (col0 + q) in slot q + 32
+            const int c = col0 + q;
+            if (c >= p.n) break;
+            const float e1 = stage[out_at<true>(r, q)];
+            write_pair(c, e1, c ? stage[out_at<true>(r, q + 32)] : e1);
+          }
+          if (col0 == 0 && (tid >> 7) == 0) {
+            const float e = stage[out_at<true>(r, 32)];  // DFT column P/2, in column 0's second slot
+            write_pair(p.pad / 2, e, e);
+          }
+        }
+      }
+    } else {
+      // a thread's column is fixed, its rows step by 4; a warp writes 32 consecutive columns of one row
+      const int c = tid & (kBN - 1);
+      int n = col0 + c;
+      bool valid = n < p.n;
+      if constexpr (kPairs) {
+        const int cq = col0 + (c & 31);
+        n = c < 32 ? cq : cq ? p.pad - cq : p.pad / 2;
+        valid = cq < p.n;
+      }
+      int r = tid >> 6;
+      int row = row0 + r;
+      long long item = 0;
+      int rr = row;
+      if constexpr (kEpi == kHerm) {
+        item = row / h;
+        rr = row - static_cast<int>(item) * h;
+      }
+      if (valid) {
+#pragma unroll 4
+        for (int l = 0; l < kBM / 4; ++l, r += 4, row += 4) {
+          if (row >= p.m) break;
+          const float v = stage[out_at<false>(r, c)];
+          if constexpr (kEpi == kHerm) {
+            float* ob = o + item * p.o_batch;
+            ob[static_cast<long long>(rr) * p.o_ld + n] = v;
+            if (rr > 0 && 2 * rr < p.pad) ob[static_cast<long long>(p.pad - rr) * p.o_ld + (n ? p.pad - n : 0)] = sign * v;
+            rr += 4;
+            if (rr >= h) {
+              rr -= h;
+              ++item;
+            }
+          } else {
+            o[static_cast<long long>(row) * p.o_ld + n] = v;
+          }
+        }
+      }
+    }
+    consumer_sync();
+  }
+}
+
+template <int kA, int kEpi>
+__global__ void __launch_bounds__(kThreads, 1)
+    dft_wgmma_kernel(const __grid_constant__ CUtensorMap planes, const Args p) {
+  constexpr bool kImOut = kEpi != kRe;
+  constexpr int kStage = stage_bytes<kA>();
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  constexpr int kStages = stages<kA>();
+  float* stage = reinterpret_cast<float*>(smem + kStages * kStage);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStage + kBytesOut);
+  uint64_t* empty = full + kStages;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], kFullCount);
+      mbar_init(&empty[s], kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int tiles_per_batch = p.tiles_m * p.tiles_n;
+  const int total = p.batch * tiles_per_batch;
+  const int nk = (p.depth + kBK - 1) / kBK;
+  const int nsteps = (p.depth + 7) / 8;
+
+  if (tid >= kConsumers) {
+    // producer warpgroup: the ring's data copies (every thread) and DFT-block TMA loads (one thread)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    const int ptid = tid - kConsumers;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < total; tile += gridDim.x) {
+      const int b = tile / tiles_per_batch;
+      const int rest = tile - b * tiles_per_batch;
+      const int row0 = (rest / p.tiles_n) * kBM;
+      const int col0 = (rest % p.tiles_n) * tile_cols<kA>();
+      const float* a_re = p.a_re + b * p.a_batch;
+      const float* a_im = kA != kRealT ? p.a_im + b * p.a_batch : nullptr;
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int slot = it % kStages;
+        mbar_wait(&empty[slot], ((it / kStages) & 1) ^ 1);
+        unsigned char* st = smem + slot * kStage;
+        if (ptid == 0 && kA == kSplit) {
+          // [Br or Bi] hi then lo: Br's rows for S's columns, Bi's for R's
+          const bool second = kt * kBK >= p.seg;
+          mbar_expect_tx(&full[slot], b_bytes<kA>());
+          for (int q = 0; q < 2; ++q)
+            tma_load(st + q * kTileB, &planes, &full[slot], kt * kBK - (second ? p.seg : 0), p.b_row0 + col0,
+                     p.b_plane + 2 * second + q);
+        } else if (ptid == 0) {
+          mbar_expect_tx(&full[slot], b_bytes<kA>());
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            // kConj: [Fr hi; Fi' hi] then [Fr lo; Fi' lo], 32 rows each plane; kRealT: Fr hi, Fr lo,
+            // Fi' hi, Fi' lo (Fi': Fi with Fr's row P/2 in its row 0, the Nyquist column's place)
+            const int plane = kA == kConj ? (q >> 1) + 8 * (q & 1) : kA == kRealT && q >= 2 ? 6 + q : q;
+            tma_load(st + q * (b_bytes<kA>() / 4), &planes, &full[slot], kt * kBK, p.b_row0 + col0, p.b_plane + plane);
+          }
+        }
+        load_a<kA>(reinterpret_cast<float*>(st + b_bytes<kA>()), a_re, a_im, p, row0, kt * kBK, ptid);
+        cp_async_arrive(&full[slot]);
+      }
+    }
+  } else {
+    // consumer warpgroups: 64 rows each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+    const int wg = tid >> 7;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int rb = wg * 64 + ((tid >> 5) & 3) * 16;
+    float acc_r[32], acc_i[32], part_r[32], part_i[32];
+    Frag fa[2][2];  // [buffer][re, im]: the register operand of two depth-8 steps in flight
+    int it = 0;
+    for (int tile = blockIdx.x; tile < total; tile += gridDim.x) {
+      const int b = tile / tiles_per_batch;
+      const int rest = tile - b * tiles_per_batch;
+      const int row0 = (rest / p.tiles_n) * kBM;
+      const int col0 = (rest % p.tiles_n) * tile_cols<kA>();
+#pragma unroll
+      for (int q = 0; q < 32; ++q) acc_r[q] = acc_i[q] = 0.f;
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int slot = it % kStages;
+        mbar_wait(&full[slot], (it / kStages) & 1);
+        const unsigned char* st = smem + slot * kStage;
+        const uint64_t d_rh = desc_sw128(st);  // kConj, kSplit: the stage's real block, hi
+        const uint64_t d_rl = desc_sw128(st + kTileB);  // and lo
+        const uint64_t d_ih = desc_sw128(st + 2 * kTileB);
+        const uint64_t d_il = desc_sw128(st + 3 * kTileB);
+        const float* sa = reinterpret_cast<const float*>(st + b_bytes<kA>());
+        const int steps = min(kBK / 8, (p.depth - kt * kBK + 7) / 8);
+#pragma unroll
+        for (int kk = 0; kk < kBK / 8; ++kk) {
+          if (kk < steps) {
+            Frag(&f)[2] = fa[kk & 1];
+            if (kk >= 2) {
+              wg_wait<1>();  // the group that read this buffer (step kk - 2) is done
+              keep(f[0]);
+              keep(f[1]);
+            }
+            load_frags<kA>(f, sa, rb, kk, g, t);
+            const int step = kt * (kBK / 8) + kk;  // of the tile's depth
+            const int z = step % kAccSteps != 0;   // a partial's first products start its sums
+            const uint64_t o = 2 * kk;  // 32 bytes of depth a step, inside the swizzled row
+            wg_fence();
+            if constexpr (kA == kConj || kA == kSplit) {
+              // kConj: part_r = [Tr Fr | Tr Fi], part_i = [Ti Fr | Ti Fi]; kSplit: part = [S | R] B
+              wgmma_tf32<0>(part_r, f[0].lo, d_rh + o, z);
+              wgmma_tf32<0>(part_i, f[1].lo, d_rh + o, z);
+              wgmma_tf32<0>(part_r, f[0].hi, d_rl + o, 1);
+              wgmma_tf32<0>(part_i, f[1].hi, d_rl + o, 1);
+              wgmma_tf32<0>(part_r, f[0].hi, d_rh + o, 1);
+              wgmma_tf32<0>(part_i, f[1].hi, d_rh + o, 1);
+            } else if constexpr (kA == kRealT) {
+              wgmma_tf32<0>(part_r, f[0].lo, d_rh + o, z);
+              wgmma_tf32<0>(part_i, f[0].lo, d_ih + o, z);
+              wgmma_tf32<0>(part_r, f[0].hi, d_rl + o, 1);
+              wgmma_tf32<0>(part_i, f[0].hi, d_il + o, 1);
+              wgmma_tf32<0>(part_r, f[0].hi, d_rh + o, 1);
+              wgmma_tf32<0>(part_i, f[0].hi, d_ih + o, 1);
+            } else {
+              // re += ar br - ai bi, im += ar bi + ai br; the small terms first
+              wgmma_tf32<0>(part_r, f[0].lo, d_rh + o, z);
+              if constexpr (kImOut) wgmma_tf32<0>(part_i, f[0].lo, d_ih + o, z);
+              wgmma_tf32<0>(part_r, f[0].hi, d_rl + o, 1);
+              if constexpr (kImOut) wgmma_tf32<0>(part_i, f[0].hi, d_il + o, 1);
+              wgmma_tf32<1>(part_r, f[1].lo, d_ih + o, 1);
+              if constexpr (kImOut) wgmma_tf32<0>(part_i, f[1].lo, d_rh + o, 1);
+              wgmma_tf32<1>(part_r, f[1].hi, d_il + o, 1);
+              if constexpr (kImOut) wgmma_tf32<0>(part_i, f[1].hi, d_rl + o, 1);
+              wgmma_tf32<0>(part_r, f[0].hi, d_rh + o, 1);
+              if constexpr (kImOut) wgmma_tf32<0>(part_i, f[0].hi, d_ih + o, 1);
+              wgmma_tf32<1>(part_r, f[1].hi, d_ih + o, 1);
+              if constexpr (kImOut) wgmma_tf32<0>(part_i, f[1].hi, d_rh + o, 1);
+            }
+            wg_commit();
+            if ((step + 1) % kAccSteps == 0 || step + 1 == nsteps) {
+              // the partial sums (truncating tensor-core adds) into the tile's, rounded to nearest
+              wg_wait<0>();
+              keep(part_r);
+              if constexpr (kImOut) keep(part_i);
+#pragma unroll
+              for (int q = 0; q < 32; ++q) {
+                acc_r[q] += part_r[q];
+                if constexpr (kImOut) acc_i[q] += part_i[q];
+              }
+            }
+          }
+        }
+        wg_wait<0>();  // no product reads the slot any more
+        keep(fa[0][0]);
+        keep(fa[0][1]);
+        keep(fa[1][0]);
+        keep(fa[1][1]);
+        mbar_arrive(&empty[slot]);
+      }
+      store_tile<kEpi>(p, acc_r, acc_i, b, row0, col0, rb, g, t, stage, tid);
+    }
+  }
+}
+
+// ---- host side ----
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
+                                                             &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// the tf32 planes (10, P, P): Fr hi, lo, Fi hi, lo, Br hi, lo, Bi hi, lo, Fi' hi, lo (Fi with
+// row 0 replaced by Fr's row P/2); tiles of `rows` rows x 32 values
+cudaError_t plane_map(CUtensorMap* map, const void* planes, int pad, int rows) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(pad), static_cast<cuuint64_t>(pad), 10};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(pad) * 4, static_cast<cuuint64_t>(pad) * pad * 4};
+  const cuuint32_t box[3] = {kBK, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(planes), dims, strides, box,
+                            step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
+
+// columns 0..P/2 of C3's operand segments, rounded up to whole stages
+int split_seg(int pad) { return (pad / 2 + 1 + kBK - 1) / kBK * kBK; }
+
+Args data(const float* re, const float* im, long long batch_stride, int ld, int m, int depth, int pad) {
+  Args a{};
+  a.pad = pad;
+  a.a_re = re;
+  a.a_im = im;
+  a.a_batch = batch_stride;
+  a.lda = ld;
+  a.m = m;
+  a.depth = depth;
+  a.a_vec = aligned16(re) && (im == nullptr || aligned16(im)) && ld % 4 == 0 && batch_stride % 4 == 0;
+  a.batch = 1;
+  return a;
+}
+
+void dft_block(Args& a, int n, int plane, int row0) {
+  a.n = n;
+  a.b_plane = plane;
+  a.b_row0 = row0;
+}
+
+void out_to(Args& a, float* re, float* im, long long batch_stride, int ld) {
+  a.o_re = re;
+  a.o_im = im;
+  a.o_batch = batch_stride;
+  a.o_ld = ld;
+}
+
+template <int kA, int kEpi>
+cudaError_t run(const void* planes, Args a, int device, cudaStream_t s) {
+  if (a.batch == 0 || a.m == 0 || a.n == 0) return cudaSuccess;
+  a.tiles_m = (a.m + kBM - 1) / kBM;
+  a.tiles_n = (a.n + tile_cols<kA>() - 1) / tile_cols<kA>();
+  const long long tiles = static_cast<long long>(a.batch) * a.tiles_m * a.tiles_n;
+  if (tiles > (1LL << 31) - 1) return cudaErrorInvalidValue;
+  // per device, once: the SM count and the kernel's shared-memory attribute
+  static int sms[64] = {};
+  static unsigned long long attribute_set = 0;
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  if (sms[device] == 0) RETURN_IF_ERROR(cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount, device));
+  CUtensorMap map;
+  RETURN_IF_ERROR(plane_map(&map, planes, a.pad, tile_cols<kA>()));
+  const auto kernel = dft_wgmma_kernel<kA, kEpi>;
+  constexpr int bytes = smem_bytes<kA>();
+  if (!(attribute_set >> device & 1)) {
+    RETURN_IF_ERROR(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+    attribute_set |= 1ULL << device;
+  }
+  const int grid = static_cast<int>(tiles < sms[device] ? tiles : sms[device]);
+  kernel<<<grid, kThreads, bytes, s>>>(map, a);
+  return cudaGetLastError();
+}
+
+cudaError_t spectrum(const float* kernels, int n_pairs, int m, int k_ld, const void* planes, float* tr, float* ti,
+                     int t_ld, float* ur, float* ui, int pad, int device, cudaStream_t s) {
+  const int half = pad / 2 + 1;  // U of a real kernel is Hermitian: rows 0..P/2 determine it
+  // S1: T^T = W^T F[:m, :h], stored as T (h x m) a pair (columns 0..P/2 - 1, P/2 in column 0's
+  // imaginary place); W's rows k_ld apart
+  Args s1 = data(kernels, nullptr, static_cast<long long>(m) * k_ld, k_ld, m, m, pad);
+  s1.batch = n_pairs;
+  dft_block(s1, pad / 2, 0, 0);
+  out_to(s1, tr, ti, static_cast<long long>(half) * t_ld, t_ld);
+  RETURN_IF_ERROR((run<kRealT, kStoreT>(planes, s1, device, s)));
+  // S2: U = T F[:m, :] over DFT columns 0..P/2 - 1 (each gives c and P - c; column 0 also P/2),
+  // the pairs' T stacked into one (K h) x m operand; rows h.. as the mirror
+  Args s2 = data(tr, ti, 0, t_ld, n_pairs * half, m, pad);
+  dft_block(s2, pad / 2, 0, 0);
+  out_to(s2, ur, ui, static_cast<long long>(pad) * pad, pad);
+  s2.rows_per_batch = half;
+  return run<kConj, kHerm>(planes, s2, device, s);
+}
+
+cudaError_t conv(const float* grids, int n_pairs, int in_size, const void* planes, const float* ur, const float* ui,
+                 float* tr, float* ti, int t_ld, float* er, float* ei, float* t2r, float* t2i, int t2_ld, float* out,
+                 int out_size, int offset, int pad, int device, cudaStream_t s) {
+  const int half = pad / 2 + 1;
+  // C1: T^T = G^T F[:I, :h], stored as T (h x I) a pair (as S1)
+  Args c1 = data(grids, nullptr, static_cast<long long>(in_size) * in_size, in_size, in_size, in_size, pad);
+  c1.batch = n_pairs;
+  dft_block(c1, pad / 2, 0, 0);
+  out_to(c1, tr, ti, static_cast<long long>(half) * t_ld, t_ld);
+  RETURN_IF_ERROR((run<kRealT, kStoreT>(planes, c1, device, s)));
+  const int seg = split_seg(pad);
+  // C2: E = (T F[:I, :]) o U over the stacked T, DFT columns as S2's; written as
+  // C3's operand [S | i D] (h x 2 seg a pair, rows c of E^T with rows k and P - k paired)
+  Args c2 = data(tr, ti, 0, t_ld, n_pairs * half, in_size, pad);
+  dft_block(c2, pad / 2, 0, 0);
+  out_to(c2, er, ei, static_cast<long long>(half) * 2 * seg, 2 * seg);
+  c2.rows_per_batch = half;
+  c2.o_seg = seg;
+  c2.u_re = ur;
+  c2.u_im = ui;
+  RETURN_IF_ERROR((run<kConj, kMulU>(planes, c2, device, s)));
+  // C3: T2^T = E[:, :h]^T B[:, w] = S B_r[:h, w] + (i D) B_i[:h, w] (B[k][w0 + x] =
+  // B[w0 + x][k]), depth 2 seg; E Hermitian makes each row of T2 Hermitian, so
+  // Re(T2 B[:, w]) sums columns 0 and P/2 once and the columns between twice,
+  // which the epilogue doubles; stored as T2
+  Args c3 = data(er, ei, 0, 2 * seg, n_pairs * half, 2 * seg, pad);
+  c3.seg = seg;
+  c3.seg_len = half;
+  dft_block(c3, out_size, 4, offset);
+  out_to(c3, t2r, t2i, static_cast<long long>(out_size) * t2_ld, t2_ld);
+  c3.rows_per_batch = half;
+  RETURN_IF_ERROR((run<kSplit, kFold>(planes, c3, device, s)));
+  // C4: out[x][y] = Re(sum_c T2[x][c] B[c][w0 + y]), c = 0..P/2, the pairs' T2 stacked
+  Args c4 = data(t2r, t2i, 0, t2_ld, n_pairs * out_size, half, pad);
+  dft_block(c4, out_size, 4, offset);
+  out_to(c4, out, nullptr, 0, out_size);
+  return run<kCplx, kRe>(planes, c4, device, s);
+}
+
+}  // namespace f32
+
+// =====================================================================
+// f64: DMMA (mma.sync)
+// =====================================================================
 
 constexpr int kThreads = 128;
 constexpr int kBN = 64;
@@ -67,11 +937,6 @@ struct Cfg;
 
 // MT: 16-row tiles of a warp (2 x 2 warps, each 16 MT x 32); strides SA, SB
 // keep the fragment reads free of bank conflicts
-template <>
-struct Cfg<float> {
-  static constexpr int MT = 2, BM = 32 * MT, BK = 16, STAGES = 3, SA = BK + 4, SB = kBN + 8;
-};
-
 template <>
 struct Cfg<double> {
   static constexpr int MT = 2, BM = 32 * MT, BK = 8, STAGES = 4, SA = BK + 4, SB = kBN + 4;
@@ -110,26 +975,6 @@ struct Out {
   int u_ld;
 };
 
-// ---- cp.async ----
-
-template <int kBytes>
-__device__ __forceinline__ void cp_async_zfill(void* dst, const void* src, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if constexpr (kBytes == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(src_bytes) : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(src), "n"(kBytes), "r"(src_bytes)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // ROWS x COLS tile of g at (row0, col0) into s (row stride LD); zeros past (rows, cols).
 template <typename T, int ROWS, int COLS, int LD>
 __device__ __forceinline__ void load_tile(T* s, const T* g, int ld, int row0, int col0, int rows, int cols, bool vec,
@@ -165,17 +1010,18 @@ __device__ __forceinline__ void load_tile(T* s, const T* g, int ld, int row0, in
   }
 }
 
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // ---- fragments and tensor-core products (m16n8k8; g = lane / 4, t = lane % 4) ----
 // A 16 x 8: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
 // B 8 x 8:  b0 (t, g), b1 (t + 4, g)
 // C 16 x 8: c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
 
-struct FragA32 {
-  uint32_t hi[4], lo[4];
-};
-struct FragB32 {
-  uint32_t hi[2], lo[2];
-};
 struct FragA64 {
   double v[4];
 };
@@ -186,27 +1032,10 @@ struct FragB64 {
 template <typename T>
 struct Frags;
 template <>
-struct Frags<float> {
-  using A = FragA32;
-  using B = FragB32;
-};
-template <>
 struct Frags<double> {
   using A = FragA64;
   using B = FragB64;
 };
-
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  const float rest = x - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
-}
-
-__device__ __forceinline__ void frag_a(FragA32& f, const float* p, int ld) {
-  const float x[4] = {p[0], p[8 * ld], p[4], p[8 * ld + 4]};
-#pragma unroll
-  for (int q = 0; q < 4; ++q) split_tf32(x[q], f.hi[q], f.lo[q]);
-}
 
 __device__ __forceinline__ void frag_a(FragA64& f, const double* p, int ld) {
   f.v[0] = p[0];
@@ -215,42 +1044,12 @@ __device__ __forceinline__ void frag_a(FragA64& f, const double* p, int ld) {
   f.v[3] = p[8 * ld + 4];
 }
 
-__device__ __forceinline__ void frag_b(FragB32& f, const float* p, int ld) {
-  split_tf32(p[0], f.hi[0], f.lo[0]);
-  split_tf32(p[4 * ld], f.hi[1], f.lo[1]);
-}
-
 __device__ __forceinline__ void frag_b(FragB64& f, const double* p, int ld) {
   f.v[0] = p[0];
   f.v[1] = p[4 * ld];
 }
 
-// -b: a sign flip is exact for both halves
-__device__ __forceinline__ FragB32 negated(const FragB32& f) {
-  FragB32 n;
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    n.hi[q] = f.hi[q] ^ 0x80000000u;
-    n.lo[q] = f.lo[q] ^ 0x80000000u;
-  }
-  return n;
-}
-
 __device__ __forceinline__ FragB64 negated(const FragB64& f) { return {{-f.v[0], -f.v[1]}}; }
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// 3xTF32: the small terms first, then hi . hi
-__device__ __forceinline__ void mma(float (&d)[4], const FragA32& a, const FragB32& b) {
-  mma_tf32(d, a.lo, b.hi);
-  mma_tf32(d, a.hi, b.lo);
-  mma_tf32(d, a.hi, b.hi);
-}
 
 __device__ __forceinline__ void mma(double (&d)[4], const FragA64& a, const FragB64& b) {
   asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
@@ -259,28 +1058,7 @@ __device__ __forceinline__ void mma(double (&d)[4], const FragA64& a, const Frag
       : "d"(a.v[0]), "d"(a.v[1]), "d"(a.v[2]), "d"(a.v[3]), "d"(b.v[0]), "d"(b.v[1]));
 }
 
-// acc += a1 b1 (+ a2 b2).  The tensor cores' f32 accumulation truncates
-// (round toward zero), which biases a long sum by up to an ulp of the
-// running total per product: summed over the chain's depths that was 2.5e-5
-// of the largest value.  So one k-step's 3xTF32 passes (one or two
-// products of depth 8) go into a zeroed partial, and an IEEE add (round to
-// nearest) brings it into acc.  DMMA is IEEE f64: it accumulates directly.
-__device__ __forceinline__ void mma_acc(float (&acc)[4], const FragA32& a1, const FragB32& b1) {
-  float p[4] = {0.f, 0.f, 0.f, 0.f};
-  mma(p, a1, b1);
-#pragma unroll
-  for (int q = 0; q < 4; ++q) acc[q] += p[q];
-}
-
-__device__ __forceinline__ void mma_acc(float (&acc)[4], const FragA32& a1, const FragB32& b1, const FragA32& a2,
-                                        const FragB32& b2) {
-  float p[4] = {0.f, 0.f, 0.f, 0.f};
-  mma(p, a1, b1);
-  mma(p, a2, b2);
-#pragma unroll
-  for (int q = 0; q < 4; ++q) acc[q] += p[q];
-}
-
+// acc += a1 b1 (+ a2 b2).  DMMA is IEEE f64: it accumulates directly.
 __device__ __forceinline__ void mma_acc(double (&acc)[4], const FragA64& a1, const FragB64& b1) { mma(acc, a1, b1); }
 
 __device__ __forceinline__ void mma_acc(double (&acc)[4], const FragA64& a1, const FragB64& b1, const FragA64& a2,
@@ -289,19 +1067,11 @@ __device__ __forceinline__ void mma_acc(double (&acc)[4], const FragA64& a1, con
   mma(acc, a2, b2);
 }
 
-// two adjacent values at an even element (8- or 16-byte aligned)
-__device__ __forceinline__ void load2(const float* p, float (&v)[2]) {
-  const float2 x = *reinterpret_cast<const float2*>(p);
-  v[0] = x.x;
-  v[1] = x.y;
-}
+// two adjacent values at an even element (16-byte aligned)
 __device__ __forceinline__ void load2(const double* p, double (&v)[2]) {
   const double2 x = *reinterpret_cast<const double2*>(p);
   v[0] = x.x;
   v[1] = x.y;
-}
-__device__ __forceinline__ void store2(float* p, const float (&v)[2]) {
-  *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
 }
 __device__ __forceinline__ void store2(double* p, const double (&v)[2]) {
   *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
@@ -495,12 +1265,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-#define RETURN_IF_ERROR(expr)             \
-  do {                                    \
-    const cudaError_t err_ = (expr);      \
-    if (err_ != cudaSuccess) return err_; \
-  } while (0)
-
 template <typename T>
 Mat<T> mat(const void* re, const void* im, long long batch_stride, int ld, int rows, int cols) {
   constexpr int VE = 16 / static_cast<int>(sizeof(T));
@@ -588,30 +1352,45 @@ cudaError_t conv(const void* grids, int n_pairs, int in_size, const void* fr, co
 
 }  // namespace
 
-// kernels (K, m, m) -> ur, ui (K, P, P); tr, ti are (K, P / 2 + 1, t_ld)
-// scratch, t_ld >= m.  Every array is f64 when is_double, else f32.
-extern "C" int dft_spectrum_launch(int device, int is_double, const void* kernels, int n_pairs, int m,
-                                   const void* fr, const void* fi, void* tr, void* ti, int t_ld, void* ur, void* ui,
-                                   int pad, void* stream) {
+// kernels (K, m, k_ld), the first m of each row used (f64: k_ld == m) -> ur,
+// ui (K, P, P); tr, ti are (K, P / 2 + 1, t_ld) scratch, t_ld >= m.  Every
+// array is f64 when is_double (Fr, Fi used, planes null), else f32 (the tf32
+// planes (10, P, P) used, Fr, Fi null).
+extern "C" int dft_spectrum_launch(int device, int is_double, const void* kernels, int n_pairs, int m, int k_ld,
+                                   const void* fr, const void* fi, const void* planes, void* tr, void* ti, int t_ld,
+                                   void* ur, void* ui, int pad, void* stream) {
   RETURN_IF_ERROR(cudaSetDevice(device));
   auto s = static_cast<cudaStream_t>(stream);
-  if (is_double) return static_cast<int>(spectrum<double>(kernels, n_pairs, m, fr, fi, tr, ti, t_ld, ur, ui, pad, s));
-  return static_cast<int>(spectrum<float>(kernels, n_pairs, m, fr, fi, tr, ti, t_ld, ur, ui, pad, s));
+  if (is_double) {
+    if (k_ld != m) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(spectrum<double>(kernels, n_pairs, m, fr, fi, tr, ti, t_ld, ur, ui, pad, s));
+  }
+  return static_cast<int>(f32::spectrum(static_cast<const float*>(kernels), n_pairs, m, k_ld, planes,
+                                        static_cast<float*>(tr), static_cast<float*>(ti), t_ld,
+                                        static_cast<float*>(ur), static_cast<float*>(ui), pad, device, s));
 }
 
 // grids (K, I, I), spectra ur, ui (K, P, P) -> out (K, out_size, out_size),
 // the slice [offset, offset + out_size)^2 of the full linear convolution.
-// Scratch: tr, ti (K, P / 2 + 1, t_ld >= I); er, ei (K, P, P); t2r, t2i
-// (K, P / 2 + 1, t2_ld >= out_size).  Every array is f64 when is_double, else f32.
+// Scratch: tr, ti (K, P / 2 + 1, t_ld >= I); in f64 er, ei (K, P, P) and
+// t2r, t2i (K, P / 2 + 1, t2_ld >= out_size); in f32 er, ei (K, P / 2 + 1,
+// 2 s), s = P / 2 + 1 rounded up to a multiple of 32, and t2r, t2i (K,
+// out_size, t2_ld >= P / 2 + 1).  Every array is f64 when
+// is_double (Fr, Fi, Br, Bi used, planes null), else f32 (the tf32 planes
+// used, Fr, Fi, Br, Bi null).
 extern "C" int dft_conv_launch(int device, int is_double, const void* grids, int n_pairs, int in_size,
-                               const void* fr, const void* fi, const void* br, const void* bi, const void* ur,
-                               const void* ui, void* tr, void* ti, int t_ld, void* er, void* ei, void* t2r, void* t2i,
-                               int t2_ld, void* out, int out_size, int offset, int pad, void* stream) {
+                               const void* fr, const void* fi, const void* br, const void* bi, const void* planes,
+                               const void* ur, const void* ui, void* tr, void* ti, int t_ld, void* er, void* ei,
+                               void* t2r, void* t2i, int t2_ld, void* out, int out_size, int offset, int pad,
+                               void* stream) {
   RETURN_IF_ERROR(cudaSetDevice(device));
   auto s = static_cast<cudaStream_t>(stream);
   if (is_double)
     return static_cast<int>(conv<double>(grids, n_pairs, in_size, fr, fi, br, bi, ur, ui, tr, ti, t_ld, er, ei, t2r,
                                          t2i, t2_ld, out, out_size, offset, pad, s));
-  return static_cast<int>(conv<float>(grids, n_pairs, in_size, fr, fi, br, bi, ur, ui, tr, ti, t_ld, er, ei, t2r, t2i,
-                                      t2_ld, out, out_size, offset, pad, s));
+  return static_cast<int>(f32::conv(static_cast<const float*>(grids), n_pairs, in_size, planes,
+                                    static_cast<const float*>(ur), static_cast<const float*>(ui),
+                                    static_cast<float*>(tr), static_cast<float*>(ti), t_ld, static_cast<float*>(er),
+                                    static_cast<float*>(ei), static_cast<float*>(t2r), static_cast<float*>(t2i),
+                                    t2_ld, static_cast<float*>(out), out_size, offset, pad, device, s));
 }

@@ -1246,8 +1246,8 @@ def all_2d_densities(
         per = _tensor(periodic, device, torch.bool)
         per_x, per_y = per[pa], per[pb]
 
-        def conv_main(grids):
-            out = conv_valid_ext(_extend_periodic(grids, per_x, per_y, winw))
+        def conv_main(grids, sp=spec):
+            out = conv_valid_ext(_extend_periodic(grids, per_x, per_y, winw), sp)
             # the wrap line duplicates its partner row / column
             out[:, -1, :] = torch.where(per_y[:, None], out[:, 0, :], out[:, -1, :])
             out[:, :, -1] = torch.where(per_x[:, None], out[:, :, 0], out[:, :, -1])
@@ -1263,8 +1263,14 @@ def all_2d_densities(
     if like_hists is not None:
         # mean-likelihood grids (reference mcsamples.py:1888-1901): smooth
         # the like-weighted bins, one bias round, then divide by the smoothed
-        # density where it carries mass
-        bin2dlikes = conv_main(like_hists)
+        # density where it carries mass. The like weights span many decades:
+        # an f32 smoothing's error (~1e-7 of its peak, whatever the chain)
+        # sets the sign of its tails, which the ratios below turn into whole
+        # like values at the density floor; so it runs in f64, as the
+        # reference's does, and its values come back to f32 exact to f32
+        spec64 = dft_conv_spectrum(kernels.double(), pad)
+        bin2dlikes = conv_main(like_hists.double(), spec64).to(like_hists.dtype)
+        del spec64
         if mult_bias_order:
             live = bin2dlikes > 0
             flat_l = torch.where(live, like_hists / torch.where(live, bin2dlikes, 1.0), like_hists)

@@ -429,6 +429,33 @@ def test_triangle_densities_with_limits_periodic_likes_at_384(chain):
     np.testing.assert_allclose(g2["likes"].max(axis=(1, 2)), 1.0, rtol=1e-6)
 
 
+def test_like_grids_hold_under_f32_convolution_noise(chain, monkeypatch):
+    """The program's like grids under noise in its f32 convolutions far
+    inside their 1e-5 bar: every f32 K3 output moved by 1e-7 of its pair's
+    largest value, signs drawn from a seed, as one f32 chain differs from
+    another (the plain chain, the card's kernels). The like-weighted bins
+    are smoothed in f64, whose tails then keep their sign, so the like
+    grids stay within 5e-3 of the unmoved ones (the card-against-CPU bar),
+    as do the densities."""
+    lo, hi, per = _limits(chain["names"], chain["ranges"])
+    kw = dict(limits_lo=lo, limits_hi=hi, periodic=per, like_weights=chain["lw32"])
+    _, want = tb.triangle_densities(chain["s"], chain["w"], device="cpu", **kw)
+    conv = tb.dft_conv2d
+    rng = np.random.default_rng(3)
+
+    def moved(grids, ur, ui, out_size, offset, pad):
+        out = conv(grids, ur, ui, out_size, offset, pad)
+        if out.dtype != torch.float32:
+            return out
+        sign = torch.from_numpy(rng.choice(np.float32([-1.0, 1.0]), size=tuple(out.shape)))
+        return out + 1e-7 * out.abs().amax(dim=(1, 2), keepdim=True) * sign
+
+    monkeypatch.setattr(tb, "dft_conv2d", moved)
+    _, got = tb.triangle_densities(chain["s"], chain["w"], device="cpu", **kw)
+    np.testing.assert_allclose(_np(got["likes"]), _np(want["likes"]), rtol=0, atol=5e-3)
+    np.testing.assert_allclose(_np(got["P"]), _np(want["P"]), rtol=0, atol=5e-3)
+
+
 @pytest.fixture(scope="module")
 def entry_runs(chain):
     """The JAX method (x64 off) and the port's with meanlikes on the chain."""

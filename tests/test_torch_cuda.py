@@ -256,6 +256,40 @@ def test_dft_conv_calls_bitwise_equal(cuda):
             assert torch.equal(a, b)
 
 
+# (pad, I, m, offset, out_size): the bounded chain's f32 shapes (the clamped
+# rescue's 508-wide 'valid' convolution at 768 with 253^2 kernels, the
+# 316-wide ones at 384), and odd kernel and input widths beside them (element
+# copies of the data operand, ragged tiles and depths)
+BOUNDED_F32 = {
+    "rescue-768": (768, 508, 253, 252, 256),
+    "ext316-384": (384, 316, 61, 60, 256),
+    "odd-768": (768, 507, 251, 250, 255),
+    "odd-384": (384, 315, 63, 61, 253),
+}
+
+
+@pytest.mark.parametrize("geometry", list(BOUNDED_F32))
+def test_dft_conv_f32_bounded_shapes_within_1e5(cuda, geometry):
+    """The wgmma route at the bounded chain's shapes: K2 and K3 within 1e-5
+    of the largest value of the plain versions."""
+    pad, in_size, m, offset, out_size = BOUNDED_F32[geometry]
+    grids, kernels = _conv_inputs(3, in_size, m, torch.float32, cuda, seed=12)
+    _check_dft_conv(grids, kernels, out_size, offset, pad, 1e-5)
+
+
+def test_dft_conv_f32_frame768_calls_bitwise_equal(cuda):
+    """One summation order per output element at the rescue's frame: two
+    calls give the same bits."""
+    pad, in_size, m, offset, out_size = BOUNDED_F32["rescue-768"]
+    grids, kernels = _conv_inputs(4, in_size, m, torch.float32, cuda, seed=13)
+    runs = []
+    for _ in range(2):
+        ur, ui = dft_conv.dft_conv_spectrum(kernels, pad)
+        runs.append((ur, ui, dft_conv.dft_conv2d(grids, ur, ui, out_size, offset, pad)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
 def test_slice_on_card_matches_cpu(cuda):
     rng = np.random.RandomState(7)
     n, p = 30_000, 5

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch.nn.functional as F  # noqa: E402
 
 from torch_cpu_threads import torch_threads_per_worker  # noqa: E402,F401 (module fixture)
 
@@ -145,3 +146,203 @@ def test_3xtf32_support_chain_within_1e5_of_plain():
     assert float((out - want).abs().max()) <= 1e-5 * float(want.abs().max())
     _, _, one_pass = _support_chain(grids, kernels, 256, 30, 384, _mm_tf32)
     assert float((one_pass - want).abs().max()) > 1e-5 * float(want.abs().max())
+
+
+# ---- the wgmma kernels' accumulation, emulated at the bounded chain's geometry ----
+# The tensor cores add each depth-8 product of a wgmma into its f32 sum with
+# a truncating (round toward zero) add. The f32 kernels sum each ACC_STEPS
+# steps of depth 8 into a partial started afresh, and add the partials into
+# the tile's sum with IEEE (round to nearest) adds.
+ACC_STEPS = 2
+
+
+def _rz_(x):
+    """Round f64 values toward zero to f32's 24 significant bits, in place
+    (kept as f64): the 29 low mantissa bits cleared."""
+    x.view(torch.int64).bitwise_and_(-(1 << 29))
+    return x
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _mm_wgmma(terms, steps):
+    """sum_s sign_s A_s @ B_s as the kernels form it: per depth-8 step, the
+    terms (sign, A, B) in order, each block product exact (f64) and added
+    with a truncating f32 add into a partial of ``steps`` steps; partials
+    added in order with f32 round-to-nearest adds. A (M, K), B (K, N) f32,
+    already TF32."""
+    k = terms[0][1].shape[-1]
+    chunks = -(-k // (8 * steps))
+    pad = chunks * 8 * steps - k
+    blocks = []
+    for sign, a, b in terms:
+        # (chunks, steps, M, 8) and (chunks, steps, 8, N), the sign in A (exact)
+        a = (sign * F.pad(a.double(), (0, pad))).reshape(-1, chunks, steps, 8).permute(1, 2, 0, 3).contiguous()
+        b = F.pad(b.double(), (0, 0, 0, pad)).reshape(chunks, steps, 8, b.shape[-1])
+        blocks.append((a, b))
+    part = None
+    for s in range(steps):
+        for a, b in blocks:
+            prod = torch.bmm(a[:, s], b[:, s])
+            part = _rz_(prod if part is None else part.add_(prod))
+    part = part.float().reshape(chunks, *terms[0][1].shape[:-1], -1)
+    acc = part[0]
+    for c in range(1, chunks):
+        acc = acc + part[c]
+    return acc
+
+
+def _cmm_wgmma(ar, ai, br, bi, steps, imag=True):
+    """(ar + i ai)(br + i bi) (ai None: real A) in the kernels' 3xTF32 pass
+    order: lo.hi, hi.lo, hi.hi (lo.lo dropped), each A part against the
+    matching B part. Returns (re, im) (im None when not ``imag``)."""
+    arh, arl = _split(ar)
+    brh, brl = _split(br)
+    bih, bil = _split(bi)
+    if ai is None:
+        re = [(1, arl, brh), (1, arh, brl), (1, arh, brh)]
+        im = [(1, arl, bih), (1, arh, bil), (1, arh, bih)]
+    else:
+        aih, ail = _split(ai)
+        re = [(1, arl, brh), (1, arh, brl), (-1, ail, bih), (-1, aih, bil), (1, arh, brh), (-1, aih, bih)]
+        im = [(1, arl, bih), (1, arh, bil), (1, ail, brh), (1, aih, brl), (1, arh, bih), (1, aih, brh)]
+    return _mm_wgmma(re, steps), _mm_wgmma(im, steps) if imag else None
+
+
+def _conj_wgmma(ar, ai, fr, fi, steps):
+    """(ar + i ai) (fr + i fi) over all P columns as the kernels' S2 and C2
+    form it: the four real products against [Fr | Fi] of DFT columns
+    0..P/2 in two partial sums (Tr, Ti), combined in f32 into columns c and
+    P - c (F[k][P - c] = conj(F[k][c]))."""
+    pad = fr.shape[-1]
+    h = pad // 2 + 1
+    bh, bl = _split(torch.cat([fr[:, :h], fi[:, :h]], dim=-1))
+    arh, arl = _split(ar)
+    aih, ail = _split(ai)
+    p1 = _mm_wgmma([(1, arl, bh), (1, arh, bl), (1, arh, bh)], steps)
+    p2 = _mm_wgmma([(1, ail, bh), (1, aih, bl), (1, aih, bh)], steps)
+    a1, a3, a4, a2 = p1[..., :h], p1[..., h:], p2[..., :h], p2[..., h:]
+    inner = torch.arange(pad // 2 - 1, 0, -1)  # columns P - c for c = P/2 - 1 .. 1
+    hr = torch.cat([a1 - a2, (a1 + a2)[..., inner]], dim=-1)
+    hi = torch.cat([a3 + a4, (a4 - a3)[..., inner]], dim=-1)
+    return hr, hi
+
+
+def _split_wgmma(er, ei, br, bi, steps):
+    """E[:, :h]^T (br + i bi) (E P x P, B P x n) as the kernels' C3 forms it:
+    rows k and P - k of E paired, S = a + b, D = a - b (a = E[k], b =
+    E[P - k], 0 < k < P/2; S = a, D = 0 at k = 0, P/2), formed in f32, then
+    [S | i D] (two segments of h columns, each padded with zeros to a
+    multiple of 32) against the real [Br[:h]; Bi[:h]] in three TF32 passes."""
+    pad = er.shape[-1]
+    h = pad // 2 + 1
+    seg = -(-h // 32) * 32
+    k = torch.arange(h)
+    inner = (k > 0) & (2 * k < pad)
+    partner = (pad - k) % pad
+    a_r, a_i = er[..., :h, :h].transpose(-1, -2), ei[..., :h, :h].transpose(-1, -2)  # E^T[c][k], c, k < h
+    b_r = torch.where(inner, er[..., partner, :h].transpose(-1, -2), 0.0)  # E^T[c][P - k]
+    b_i = torch.where(inner, ei[..., partner, :h].transpose(-1, -2), 0.0)
+    s_r, s_i = a_r + b_r, a_i + b_i
+    d_r, d_i = torch.where(inner, a_r - b_r, 0.0), torch.where(inner, a_i - b_i, 0.0)
+
+    def segments(x, y):
+        return torch.cat([F.pad(x, (0, seg - h)), F.pad(y, (0, seg - h))], dim=-1)
+
+    ar, ai = segments(s_r, -d_i), segments(s_i, d_r)  # [S | i D]
+    bh, bl = _split(torch.cat([F.pad(br[:h], (0, 0, 0, seg - h)), F.pad(bi[:h], (0, 0, 0, seg - h))], dim=-2))
+    arh, arl = _split(ar)
+    aih, ail = _split(ai)
+    return (_mm_wgmma([(1, arl, bh), (1, arh, bl), (1, arh, bh)], steps),
+            _mm_wgmma([(1, ail, bh), (1, aih, bl), (1, aih, bh)], steps))
+
+
+def _mirror(xr, xi, pad):
+    """Full P x P Hermitian arrays from rows 0..P/2: X[P - r][(P - c) % P] = conj(X[r][c])."""
+    h = pad // 2 + 1
+    cols = (-torch.arange(pad)) % pad
+    rows = torch.arange(h, pad)
+    src = pad - rows
+    full_r = torch.cat([xr, xr[..., src, :][..., :, cols]], dim=-2)
+    full_i = torch.cat([xi, -xi[..., src, :][..., :, cols]], dim=-2)
+    return full_r, full_i
+
+
+def _wgmma_chain(grids, kernels, out_size, offset, pad, steps):
+    """The f32 kernels' six stages (csrc/dft_conv.cu) with their arithmetic
+    emulated: S1, S2 the spectrum; C1-C4 the convolution."""
+    fr, fi, br, bi = dft_conv.dft_matrices(pad, "cpu", torch.float32)
+    m, size = kernels.shape[-1], grids.shape[-1]
+    h = pad // 2 + 1
+    w = slice(offset, offset + out_size)
+    tr, ti = _cmm_wgmma(kernels.transpose(-1, -2), None, fr[:m, :h], fi[:m, :h], steps)  # S1: T^T
+    ur, ui = _mirror(*_conj_wgmma(tr.transpose(-1, -2), ti.transpose(-1, -2), fr[:m], fi[:m], steps), pad)  # S2
+    tr, ti = _cmm_wgmma(grids.transpose(-1, -2), None, fr[:size, :h], fi[:size, :h], steps)  # C1: T^T
+    hr, hi = _conj_wgmma(tr.transpose(-1, -2), ti.transpose(-1, -2), fr[:size], fi[:size], steps)  # C2
+    er, ei = hr * ur[..., :h, :] - hi * ui[..., :h, :], hr * ui[..., :h, :] + hi * ur[..., :h, :]
+    er, ei = _mirror(er, ei, pad)
+    t2r, t2i = _split_wgmma(er, ei, br[:, w], bi[:, w], steps)  # C3: T2^T, then the fold
+    fold = torch.ones(h, 1)
+    fold[1 : pad // 2] = 2.0
+    t2r, t2i = t2r * fold, t2i * fold
+    out, _ = _cmm_wgmma(t2r.transpose(-1, -2), t2i.transpose(-1, -2), br[:h, w], bi[:h, w], steps, imag=False)  # C4
+    return ur, ui, out
+
+
+# (pad, m, input size, offset): the clamped rescue's 508-wide 'valid'
+# convolution at frame 768 (winw 126, 253^2 kernels), the 316-wide one at 384
+BOUNDED = {"rescue768": (768, 253, 508, 252), "ext384": (384, 61, 316, 60)}
+
+
+def _bounded_inputs(case, seed):
+    pad, m, size, offset = BOUNDED[case]
+    rng = np.random.RandomState(seed)
+    grids = (rng.rand(1, size, size) * 50).astype(np.float32)
+    kernels = rng.rand(1, m, m).astype(np.float32)
+    return grids, kernels, offset, pad
+
+
+def _bar_errors(got, want):
+    ur, ui, out = got
+    ur0, ui0, out0 = want
+    scale_u = float(torch.maximum(ur0.abs().max(), ui0.abs().max()))
+    spec = float(torch.maximum((ur - ur0).abs().max(), (ui - ui0).abs().max())) / scale_u
+    return spec, float((out - out0).abs().max()) / float(out0.abs().max())
+
+
+@pytest.mark.parametrize("case", list(BOUNDED))
+def test_wgmma_accumulation_within_1e5_at_the_bounded_shapes(case):
+    """The f32 kernels' arithmetic at the bounded chain's shapes: TF32
+    splits, truncating sums within each depth-16 partial, round-to-nearest
+    adds between partials. K2 and K3 stay within 1e-5 of the largest value
+    of the plain f32 chain, and within 1e-5 of the JAX package's
+    ``dft_conv2d_ref``. K3 also stays within 2e-6 of an f64 chain, nearer
+    than the plain f32 chain (2.3e-6 and 3.5e-6 here); partials of depth 32
+    drift to 2.0-2.4e-6."""
+    grids, kernels, offset, pad = _bounded_inputs(case, seed=11)
+    g, k = torch.from_numpy(grids), torch.from_numpy(kernels)
+    ur0, ui0 = dft_conv.dft_conv_spectrum_plain(k, pad)
+    want = (ur0, ui0, dft_conv.dft_conv2d_plain(g, ur0, ui0, 256, offset, pad))
+    got = _wgmma_chain(g, k, 256, offset, pad, ACC_STEPS)
+    spec, conv = _bar_errors(got, want)
+    assert spec <= 1e-5 and conv <= 1e-5, (spec, conv)
+    ref = dft_conv.dft_conv2d_plain(g.double(), *dft_conv.dft_conv_spectrum_plain(k.double(), pad), 256, offset, pad)
+    assert float((got[2].double() - ref).abs().max()) <= 2e-6 * float(ref.abs().max())
+    with jax.enable_x64(False):
+        ref = np.asarray(jdft.dft_conv2d_ref(jnp.asarray(grids), jnp.asarray(kernels), 256, offset, pad=pad))
+    np.testing.assert_allclose(got[2].numpy(), ref, rtol=0, atol=1e-5 * float(np.abs(ref).max()))
+
+
+def test_wgmma_truncating_over_the_full_depth_misses_1e5():
+    """Why the partials: the same arithmetic with one truncating sum over a
+    stage's whole depth (no round-to-nearest adds) drifts past 1e-5 of the
+    largest value of the 316-wide convolution at frame 384."""
+    grids, kernels, offset, pad = _bounded_inputs("ext384", seed=11)
+    g, k = torch.from_numpy(grids), torch.from_numpy(kernels)
+    ur0, ui0 = dft_conv.dft_conv_spectrum_plain(k, pad)
+    want = (ur0, ui0, dft_conv.dft_conv2d_plain(g, ur0, ui0, 256, offset, pad))
+    _, conv = _bar_errors(_wgmma_chain(g, k, 256, offset, pad, pad // 8), want)
+    assert conv > 1e-5, conv
