@@ -86,7 +86,10 @@ CUDA kernels from ``getdist_tpu_torch/csrc``. Then three paths on
    profile, buckets, launches per kernel; every bucket's f64 K3 on its
    periodically extended grids), f64 K3 on the largest bucket's extended
    grids against its plain version (within 1e-12 of the largest value,
-   two calls bitwise equal, beside cuDNN's f64 conv2d and the bound); the
+   two calls bitwise equal, beside cuDNN's f64 conv2d and the bound); f64
+   K2 at every bucket's shape (CUDA events, the device time of calls
+   queued behind a sleep kernel and the host's enqueue time, each beside
+   ``torch.fft.fft2``'s); the
    same chain with fractional importance weights (``importance_weights``):
    device parity routed to the host variant and the host variant called
    directly (walls, stages, equal results); parity on the card against
@@ -164,8 +167,8 @@ K1, K4, K5 and the wide kernels are timed with the weights their paths
 pass (integer weights as uint8, ``pair_hist.narrow_weights``), each beside
 one ``torch.bincount`` over flat pair keys, the yardstick no path calls.
 The build's ptxas lines of the uint8 pair-histogram kernel (K1, K4 and K5),
-of the wide kernels and of the f32 K2/K3 kernel (``dft_wgmma_kernel``, one
-line per stage) are printed.
+of the wide kernels and of the f32 and f64 K2/K3 kernels (``dft_wgmma_kernel``
+and ``dft_dmma_kernel``, one line per stage) are printed.
 
 Prints one JSON line of kernel results (with each kernel's bound on the
 card and, where one exists, a single PyTorch call's time), the card line
@@ -339,6 +342,54 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def device_ms(fn, reps):
+    """Mean device milliseconds per call of ``fn`` with the host's enqueue
+    hidden: after a warm-up call, the ``reps`` calls are queued behind a
+    sleep kernel (~25 ms, longer than the host takes to queue them), so the
+    CUDA events time the device's work back to back. (torch.profiler drops
+    events in a process that has profiled several times before.)"""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def device_events(prof, ranges=()):
+    """The device's kernels, memcpys and memsets in ``prof``: its CUDA
+    events without the profiler's buffers and without the device spans of
+    the record_function ranges whose names start with ``ranges``."""
+    import torch
+
+    return [
+        e for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith(("Activity Buffer",) + ranges)
+    ]
+
+
+def enqueue_ms(fn, reps):
+    """Mean host milliseconds per call of ``fn`` with no synchronisation
+    between calls: what the host takes to queue one call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / reps
+
+
 def wall_s(fn):
     import torch
 
@@ -422,8 +473,9 @@ def fixed_point_error(got, ix, weights, pa, pb, nbins):
     return float(((got.double() - exact).abs() / allowed.clamp_min(1e-300)).max())
 
 
-# the f32 K2/K3 kernel's template arguments (A operand, epilogue) in its mangled name, by stage
-WGMMA_STAGES = {"ILi0ELi0E": "S1 / C1", "ILi2ELi1E": "S2", "ILi2ELi2E": "C2", "ILi3ELi3E": "C3", "ILi1ELi4E": "C4"}
+# the K2/K3 kernels' template arguments (A operand, epilogue) in their mangled names, by stage (the
+# same for the f32 wgmma kernel and the f64 DMMA kernel)
+DFT_STAGES = {"ILi0ELi0E": "S1 / C1", "ILi2ELi1E": "S2", "ILi2ELi2E": "C2", "ILi3ELi3E": "C3", "ILi1ELi4E": "C4"}
 
 
 def ptxas_lines(log, name):
@@ -671,11 +723,7 @@ def profile_device_busy(run):
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [
-        e for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith("Activity Buffer")
-    ]
-    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    busy_ms = sum(e.time_range.elapsed_us() for e in device_events(prof)) / 1e3
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=12))
     return busy_ms, wall_ms
 
@@ -1418,11 +1466,7 @@ def entry_call(mc, **kwargs):
         mc.fastTriangleDensities(**kwargs)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [
-        e for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and not e.name.startswith(("Activity Buffer",) + STAGE_PREFIXES)  # not the stage ranges' device spans
-    ]
+    events = device_events(prof, STAGE_PREFIXES)
     busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
     kernels = {}
     for e in events:
@@ -1433,11 +1477,12 @@ def entry_call(mc, **kwargs):
 
 def print_entry_profile(label, mc, busy_ms, wall_ms, rows, kernels):
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
-    dft = [(name, v) for name, v in top if "dft_wgmma_kernel" in name or "cgemm_kernel" in name]
+    dft = [(name, v) for name, v in top if "dft_wgmma_kernel" in name or "dft_dmma_kernel" in name]
+    f64 = [v for name, v in dft if "dft_dmma_kernel" in name]
     print(f"{label}: device time by kernel name (ms, launches), largest first: "
           + "; ".join(f"{name[:90]} {ms:.3f} x{n}" for name, (ms, n) in top[:14])
           + f"; K2/K3 kernels in all {sum(ms for _, (ms, _) in dft):.3f} ms in {sum(n for _, (_, n) in dft)} "
-          f"launches, of {busy_ms:.1f} ms busy")
+          f"launches (f64 {sum(ms for ms, _ in f64):.3f} ms in {sum(n for _, n in f64)}), of {busy_ms:.1f} ms busy")
     print(f"{label}: device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms wall under the profiler "
           f"(idle share {1 - busy_ms / wall_ms:.3f}); stages (host ms, device ms of the kernels they queued, "
           "calls): " + ", ".join(f"{name} {cpu:.1f}/{dev:.1f} x{n}" for name, cpu, dev, n in rows))
@@ -2369,6 +2414,15 @@ def parity_bounded_phase(bounded, batched, dft_conv, pair_hist):
                                  launches["spectrum_kernels"].get(f"{pad}:{m}", 0)))
         print(f"K2 f64, bounded parity bucket fine {b['fine']} winw {winw} ({b['pairs']} pairs, {m}^2 kernels, "
               f"frame {pad}): launches at this shape in the run {rows[-1]['launches']}")
+        # CUDA events around back-to-back calls read the host's enqueue rate
+        # where a call's device work is shorter than its enqueue: calls
+        # queued behind a sleep kernel time the device alone
+        k2 = lambda: dft_conv.dft_conv_spectrum(kernels, pad)  # noqa: E731
+        fft = lambda: torch.fft.fft2(kernels, s=(pad, pad))  # noqa: E731
+        print(f"K2 f64 {rows[-1]['name']}: device time (CUDA events, 20 calls queued behind a sleep kernel) "
+              f"kernel {device_ms(k2, 20):.4f} ms, torch.fft.fft2 {device_ms(fft, 20):.4f} ms; host enqueue a call "
+              f"kernel {enqueue_ms(k2, 20):.4f} ms, torch.fft.fft2 {enqueue_ms(fft, 20):.4f} ms; CUDA events "
+              f"kernel {rows[-1]['ms']:.4f} ms, torch.fft.fft2 {rows[-1]['library_ms']:.4f} ms")
     check(sum(launches["spectrum_kernels"].values()) == launches["dft_conv_spectrum"],
           f"bounded parity: K2 launches by shape add up ({launches['spectrum_kernels']})")
     del mc, dens1, dens2
@@ -3588,9 +3642,10 @@ def main(argv=()):
         print(f"ptxas, K1/K4/K5 uint8 kernel: {line}")
     for line in ptxas_lines(lib.log, "pair_hist_wide"):
         print(f"ptxas, wide kernels: {line}")
-    for line in ptxas_lines(lib.log, "dft_wgmma_kernel"):
-        stage = next((v for k, v in WGMMA_STAGES.items() if f"dft_wgmma_kernel{k}" in line), "?")
-        print(f"ptxas, f32 K2/K3 wgmma kernel ({stage}): {line}")
+    for kernel, label in (("dft_wgmma_kernel", "f32 K2/K3 wgmma"), ("dft_dmma_kernel", "f64 K2/K3 DMMA")):
+        for line in ptxas_lines(lib.log, kernel):
+            stage = next((v for k, v in DFT_STAGES.items() if f"{kernel}{k}" in line), "?")
+            print(f"ptxas, {label} kernel ({stage}): {line}")
     if phases != PHASES:
         print(f"phases {sorted(phases)} of {len(PHASES)}")
 

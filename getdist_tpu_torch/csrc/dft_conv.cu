@@ -21,8 +21,10 @@
 // spectra written, bytes bound).  The bounded chain's rows: the clamped
 // rescue's spectrum (110 x 253^2, P = 768) needs 76.7 GFLOP (0.465 ms), its
 // 508-wide convolution 254 GFLOP (1.538 ms), the 316-wide ones at P = 384
-// 203 GFLOP (1.232 ms).  Parity's f64 shapes: the spectrum bytes bound, the
-// convolution operations bound.
+// 203 GFLOP (1.232 ms).  The f64 shapes (parity's buckets, the meanlikes
+// smoothing's): the spectrum bytes bound but at P = 768 (U written whole,
+// 1.8 GB at parity's 435 x 69^2, P = 512), the convolution operations bound
+// (parity's 435 x 256^2: 176 GFLOP, 2.630 ms).
 //
 // f32 (dft_wgmma_kernel): six stages, each a batched complex product
 // D = A B whose A is the data and whose B is a block of F or B, run by one
@@ -82,13 +84,35 @@
 // register operand's split, the partials' drains and adds and the
 // epilogues hold it (PERF.md section 6).
 
-// f64 (cgemm_kernel<double>): four stages of one batched complex GEMM kernel
-// on mma.sync.m16n8k8 DMMA (wgmma has no f64), block tile 64 x 64, four
-// warps of 32 x 32, depth 8 a stage, 4 cp.async stages:
-//   spectrum:  T  = F[:h, :m] W,  U = T F[:m, :] (rows h.. mirrored)
-//   conv:      C1 T = F[:h, :I] G,  C2 E = (T F[:I, :]) o U (mirrored),
-//              C3 T2 = (B[w, :] E)[:, :h] stored transposed, folded,
-//              C4 out = Re(B[w, :h] T2^T)^T
+// f64 (dft_dmma_kernel): the same six stages and algebra (conjugate-pair columns in S2 and C2, the
+// Nyquist column in column 0's Fi' slot, E kept only as C3's operand with its rows k and P - k paired),
+// on DMMA (mma.sync.m16n8k8; wgmma has no f64), four stage kinds of one kernel template:
+//   S1/C1  T^T = W^T [Fr | Fi'], stored as T (h x m)                 (kRealT, kStoreT)
+//   S2     U = T [Fr | Fi'] -> columns c, P - c, rows h.. mirrored   (kConj, kHerm)
+//   C2     E = (T [Fr | Fi']) o U, written as C3's operand [S | i D]: row c of E^T, S = E[k][c] +
+//          E[P - k][c] at column k, i (E[k][c] - E[P - k][c]) at column h + k - 1 (0 < k < P/2),
+//          h x P a pair                                              (kConj, kMulU)
+//   C3     T2^T = [S | i D] Bsplit[w, :]^T, Bsplit's row r = [Br[r][0..P/2] | Bi[r][1..P/2 - 1]]
+//          (B[P - k] = conj(B[k]); Bi's row 0 is zero, row P/2 too but for rounding), depth P,
+//          folded and written as C4's real operand [Re T2 | -Im T2] (out_size x P a pair)
+//                                                                    (kSplit, kFold)
+//   C4     out = [Re T2 | -Im T2] Bsplit[w, :]^T, depth P            (kReal, kRe)
+//  - The DFT blocks (Fr, Fi', Bsplit: ops/dft_conv.py:f64_planes) are K-major by symmetry and come by
+//    TMA (128-byte swizzle, 16 values of depth a row); so do the row-major data tiles (T, C3's and C4's
+//    operands, zero past their support).  The transposed ones (W^T, G^T) come by cp.async (element
+//    copies for odd widths).  One producer warp keeps a ring of 3 stages of depth 16 full (mbarriers);
+//    four consumer warps each compute 32 rows x 32 columns of B of a 64 x 64 tile.
+//  - Persistent: min(tiles, blocks that fit) blocks (two an SM) walk the tiles of all pairs; 64-row
+//    tiles give the 2- and 3-pair buckets at P = 768 156-228 tiles.
+//  - Epilogues through a 32 x 33 block of shared memory a warp, so that each store instruction writes
+//    runs of one output row (32 consecutive values, or 16 and their 16 partner columns), transposed
+//    stores and the mirror rows included.
+//  - Each output element is summed by one thread in one fixed order: two calls agree bitwise.
+// What bounds it now (PERF.md section 6, NVIDIA H100 80GB HBM3): C3 and C4 run at 64-66% of the DMMA
+// peak (parity's 435 x 256^2) and the K3 rows at 53-56% of their operations bound; what remains
+// is the epilogues (C2 reads U and writes C3's operand, ~0.8 ms at parity's 435 x 256^2) and C1's row
+// tiles (a 256- or 324-wide grid in 64-row tiles).  K2 is held by S2's stores: U is written whole
+// (its mirror rows half of it) at ~2.3 TB/s, not overlapped with S2's short mainloop (depth m).
 
 #include <cuda.h>  // CUtensorMap and its encoder's types; the encoder itself comes through cudaGetDriverEntryPoint
 #include <cuda_runtime.h>
@@ -926,468 +950,670 @@ cudaError_t conv(const float* grids, int n_pairs, int in_size, const void* plane
 }  // namespace f32
 
 // =====================================================================
-// f64: DMMA (mma.sync)
+// f64: DMMA (mma.sync), TMA and mbarriers
 // =====================================================================
 
-constexpr int kThreads = 128;
-constexpr int kBN = 64;
+namespace f64 {
 
-template <typename T>
-struct Cfg;
+constexpr int kMmaK = 8;        // depth of one mma.sync.m16n8k8
+constexpr int kBM = 64;         // rows of a block tile: two consumer warps of 32
+constexpr int kBN = 64;         // columns of B a block tile: two consumer warps of 32
+constexpr int kBK = 16;         // depth of a stage: one 128-byte swizzle row of f64
+constexpr int kConsumers = 128;
+constexpr int kThreads = kConsumers + 32;  // four consumer warps and one producer warp
+constexpr int kStages = 3;
+constexpr int kSAT = kBM + 4;   // transposed data tile: stride of a depth row
+constexpr int kBoxRows = 32;    // rows of a TMA box of the DFT planes
+constexpr int kTileB = kBN * kBK * 8;  // the stage's DFT block: 64 rows of 128 bytes
+constexpr int kTileA = kBM * kBK * 8;  // a plane of a row-major data tile: 64 rows of 128 bytes
+constexpr int kSO = 33;                // a warp's epilogue staging: 32 rows of 32 values, stride 33
+constexpr int kStaging = 4 * 32 * kSO * 8;  // four warps' staging
 
-// MT: 16-row tiles of a warp (2 x 2 warps, each 16 MT x 32); strides SA, SB
-// keep the fragment reads free of bank conflicts
-template <>
-struct Cfg<double> {
-  static constexpr int MT = 2, BM = 32 * MT, BK = 8, STAGES = 4, SA = BK + 4, SB = kBN + 4;
+// data operand: real and transposed (W^T, G^T); real and row-major (C4's [T2r | -T2i]); complex
+// against [Fr | Fi'] of 32 DFT columns c, whose four real products give the columns c and P - c
+// (kConj); complex against rows of the real Bsplit (kSplit)
+enum AMode { kRealT = 0, kReal = 1, kConj = 2, kSplit = 3 };
+enum Epi { kStoreT = 0, kHerm = 1, kMulU = 2, kFold = 3, kRe = 4 };
+
+template <int kA>
+__host__ __device__ constexpr int n_planes() {
+  return kA == kConj || kA == kSplit ? 2 : 1;
+}
+template <int kA>
+__host__ __device__ constexpr int a_bytes() {
+  return kA == kRealT ? kBK * kSAT * 8 : n_planes<kA>() * kTileA;
+}
+// arrivals that fill a stage: the producer's expect_tx, and with cp.async data (kRealT) each lane's copies
+template <int kA>
+__host__ __device__ constexpr int full_count() {
+  return kA == kRealT ? 32 + 1 : 1;
+}
+// columns of a tile: output columns, or for kConj and kRealT DFT columns (a Fr and an Fi' row of B each)
+template <int kA>
+__host__ __device__ constexpr int tile_cols() {
+  return kA == kConj || kA == kRealT ? kBN / 2 : kBN;
+}
+template <int kA>
+__host__ __device__ constexpr int stage_bytes() {
+  return (kTileB + a_bytes<kA>() + 1023) / 1024 * 1024;  // DFT blocks stay 1024-byte aligned (the swizzle's period)
+}
+template <int kA>
+__host__ __device__ constexpr int smem_bytes() {
+  return kStages * stage_bytes<kA>() + kStaging + 2 * kStages * 8 + 1024;  // ring, staging, barriers, alignment
+}
+
+// One stage D = A B and its epilogue.  A: data, element (i, k) at a_re/a_im[b * a_batch + i * lda +
+// k] (row-major; kConj, kSplit, kReal: the pairs stacked into the rows) or a_re[b * a_batch + k * lda
+// + i] (kRealT), i < m, k < depth, zero outside.  B[k][n] = plane[q][b_row0 + n][k]: kConj and
+// kRealT, planes 0 (Fr) and 1 (Fi') of 32 DFT columns each; kSplit and kReal, plane b_plane.
+struct Args {
+  const double* a_re;
+  const double* a_im;
+  long long a_batch;
+  int lda;
+  int m;
+  int depth;
+  int a_vec;  // base, lda and a_batch allow 16-byte copies
+  int n;
+  int b_plane;
+  int b_row0;
+  int batch;
+  int tiles_m;
+  int tiles_n;
+  double* o_re;
+  double* o_im;
+  long long o_batch;
+  int o_ld;
+  int pad;  // the frame P; stacked rows (kConj, kSplit): row R is row R % (P / 2 + 1) of pair R / (P / 2 + 1)
+  const double* u_re;
+  const double* u_im;
 };
 
-enum Mode { kRealB = 0, kComplex = 1, kMulU = 2, kReOut = 3 };
+// ---- the producer's copies of a transposed data tile (W^T, G^T): rows [row0, row0 + 64) x depth [k0, k0
+// + 16), sa[k][kSAT] with A[i][k] = a[k * lda + i] (i contiguous; odd widths by element).  Row-major data
+// tiles come by TMA, as the DFT blocks do ----
 
-// A batched operand: element (r, c) of batch b is re[b * batch_stride + r * ld + c]
-// (and im[...]) for r < rows, c < cols, zero outside.  im is null for a real operand.
-template <typename T>
-struct Mat {
-  const T* re;
-  const T* im;
-  long long batch_stride;
-  int ld;
-  int rows;
-  int cols;
-  int vec;  // base and ld allow 16-byte copies
-};
-
-// Where a stage's result goes: element (r, c) to re/im[b * batch_stride + r * ld + c],
-// or [c * ld + r] when transpose.  kMulU multiplies by (ur + i ui)[b * u_batch_stride + r * u_ld + c] first.
-template <typename T>
-struct Out {
-  T* re;
-  T* im;
-  long long batch_stride;
-  int ld;
-  int transpose;
-  int hermitian;  // also write rows n - r, 0 < r < n / 2, as the conjugate mirror (real inputs)
-  int fold;       // > 0: double the columns 0 < c < fold / 2 (a Hermitian row's other half, folded in)
-  int rows_per_batch;  // > 0: the batch is folded into the rows, row R is row R % rows_per_batch of R / rows_per_batch
-  const T* ur;
-  const T* ui;
-  long long u_batch_stride;
-  int u_ld;
-};
-
-// ROWS x COLS tile of g at (row0, col0) into s (row stride LD); zeros past (rows, cols).
-template <typename T, int ROWS, int COLS, int LD>
-__device__ __forceinline__ void load_tile(T* s, const T* g, int ld, int row0, int col0, int rows, int cols, bool vec,
-                                          int tid) {
-  if (vec) {
-    constexpr int VE = 16 / static_cast<int>(sizeof(T));
-    constexpr int CPR = COLS / VE;
-    static_assert((ROWS * CPR) % kThreads == 0, "whole chunks per thread");
-#pragma unroll
-    for (int l = 0; l < ROWS * CPR / kThreads; ++l) {
-      const int e = tid + l * kThreads;
-      const int r = e / CPR;
-      const int c = (e % CPR) * VE;
-      const int gr = row0 + r;
-      const int gc = col0 + c;
-      const bool in = gr < rows && gc < cols;
-      const int bytes = in ? min(VE, cols - gc) * static_cast<int>(sizeof(T)) : 0;
-      cp_async_zfill<16>(s + r * LD + c, in ? g + static_cast<long long>(gr) * ld + gc : g, bytes);
+__device__ __forceinline__ void load_at(double* sa, const double* a, const Args& p, int row0, int k0, int lane) {
+  if (p.a_vec) {
+    constexpr int kChunks = kBM / 2;
+#pragma unroll 4
+    for (int l = 0; l < kBK * kChunks / 32; ++l) {
+      const int e = lane + 32 * l;
+      const int k = e / kChunks;
+      const int i = (e % kChunks) * 2;
+      const int gk = k0 + k;
+      const int gi = row0 + i;
+      const bool in = gk < p.depth && gi < p.m;
+      cp_async_zfill<16>(sa + k * kSAT + i, in ? a + static_cast<long long>(gk) * p.lda + gi : a,
+                         in ? min(2, p.m - gi) * 8 : 0);
     }
   } else {
-    static_assert((ROWS * COLS) % kThreads == 0, "whole elements per thread");
 #pragma unroll 4
-    for (int l = 0; l < ROWS * COLS / kThreads; ++l) {
-      const int e = tid + l * kThreads;
-      const int r = e / COLS;
-      const int c = e % COLS;
-      const int gr = row0 + r;
-      const int gc = col0 + c;
-      const bool in = gr < rows && gc < cols;
-      cp_async_zfill<static_cast<int>(sizeof(T))>(s + r * LD + c, in ? g + static_cast<long long>(gr) * ld + gc : g,
-                                in ? static_cast<int>(sizeof(T)) : 0);
+    for (int l = 0; l < kBK * kBM / 32; ++l) {
+      const int e = lane + 32 * l;
+      const int k = e / kBM;
+      const int i = e % kBM;
+      const int gk = k0 + k;
+      const int gi = row0 + i;
+      const bool in = gk < p.depth && gi < p.m;
+      cp_async_zfill<8>(sa + k * kSAT + i, in ? a + static_cast<long long>(gk) * p.lda + gi : a, in ? 8 : 0);
     }
   }
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// ---- fragments and tensor-core products (m16n8k8; g = lane / 4, t = lane % 4) ----
-// A 16 x 8: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
-// B 8 x 8:  b0 (t, g), b1 (t + 4, g)
+// ---- fragments and products (g = lane / 4, t = lane % 4) ----
+// A 16 x 8: a[q] at (g + 8 (q % 2), t + 4 (q / 2)); B 8 x 8: b[q] at (t + 4 q, g);
 // C 16 x 8: c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
 
-struct FragA64 {
-  double v[4];
-};
-struct FragB64 {
-  double v[2];
-};
-
-template <typename T>
-struct Frags;
-template <>
-struct Frags<double> {
-  using A = FragA64;
-  using B = FragB64;
-};
-
-__device__ __forceinline__ void frag_a(FragA64& f, const double* p, int ld) {
-  f.v[0] = p[0];
-  f.v[1] = p[8 * ld];
-  f.v[2] = p[4];
-  f.v[3] = p[8 * ld + 4];
-}
-
-__device__ __forceinline__ void frag_b(FragB64& f, const double* p, int ld) {
-  f.v[0] = p[0];
-  f.v[1] = p[4 * ld];
-}
-
-__device__ __forceinline__ FragB64 negated(const FragB64& f) { return {{-f.v[0], -f.v[1]}}; }
-
-__device__ __forceinline__ void mma(double (&d)[4], const FragA64& a, const FragB64& b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
+__device__ __forceinline__ void dmma(double (&d)[4], const double (&a)[4], const double (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
-      : "d"(a.v[0]), "d"(a.v[1]), "d"(a.v[2]), "d"(a.v[3]), "d"(b.v[0]), "d"(b.v[1]));
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
 }
 
-// acc += a1 b1 (+ a2 b2).  DMMA is IEEE f64: it accumulates directly.
-__device__ __forceinline__ void mma_acc(double (&acc)[4], const FragA64& a1, const FragB64& b1) { mma(acc, a1, b1); }
+// element (n, k) of a tile that TMA loaded (a DFT block, a row-major data plane): row n holds 16 depth
+// values in 16-byte chunks, swizzled (chunk ^ n % 8 inside each 1024-byte period)
+__device__ __forceinline__ int b_at(int n, int k) { return n * kBK + ((((k >> 1) ^ n) & 7) << 1) + (k & 1); }
 
-__device__ __forceinline__ void mma_acc(double (&acc)[4], const FragA64& a1, const FragB64& b1, const FragA64& a2,
-                                        const FragB64& b2) {
-  mma(acc, a1, b1);
-  mma(acc, a2, b2);
+// rows r.. (16 of them) of the data tile's plane at depth k..
+template <int kA>
+__device__ __forceinline__ void frag_a(double (&a)[4], const double* sa, int plane, int r, int k, int g,
+                                       int t) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int row = r + g + 8 * (q & 1);
+    const int kk = k + t + 4 * (q >> 1);
+    a[q] = kA == kRealT ? sa[kk * kSAT + row] : sa[plane * (kTileA / 8) + b_at(row, kk)];
+  }
 }
 
-// two adjacent values at an even element (16-byte aligned)
-__device__ __forceinline__ void load2(const double* p, double (&v)[2]) {
-  const double2 x = *reinterpret_cast<const double2*>(p);
-  v[0] = x.x;
-  v[1] = x.y;
-}
-__device__ __forceinline__ void store2(double* p, const double (&v)[2]) {
-  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+__device__ __forceinline__ void frag_b(double (&b)[2], const double* sb, int n, int k, int t) {
+#pragma unroll
+  for (int q = 0; q < 2; ++q) b[q] = sb[b_at(n, k + t + 4 * q)];
 }
 
-template <typename T, int kMode>
-__host__ __device__ constexpr int stage_elems() {
-  return 2 * Cfg<T>::BM * Cfg<T>::SA + (kMode == kRealB ? 1 : 2) * Cfg<T>::BK * Cfg<T>::SB;
+// the DFT block's row of this warp's n8 tile j: kConj, kRealT: j = 0, 1 the Fr rows and j = 2, 3
+// the Fi' rows of the warp's 16 DFT columns; else 32 consecutive rows
+template <int kA>
+__device__ __forceinline__ int b_row(int j, int wn, int g) {
+  if constexpr (kA == kConj || kA == kRealT) return (j >> 1) * kBoxRows + 16 * wn + 8 * (j & 1) + g;
+  return 32 * wn + 8 * j + g;
 }
 
-// C[b] = A[b] B[b] (complex A; B real in kRealB) over `depth`, C m x n, then
-// the epilogue of kMode into o.  Grid (ceil(n / 64), ceil(m / BM), batch).
-template <typename T, int kMode>
-__global__ void __launch_bounds__(kThreads)
-    cgemm_kernel(Mat<T> a, Mat<T> b, int depth, int m, int n, Out<T> o) {
-  using C = Cfg<T>;
-  using FA = typename Frags<T>::A;
-  using FB = typename Frags<T>::B;
-  constexpr int kMT = C::MT, kNT = 4;  // 16 x 8 tiles of a warp's 16 MT x 32
-  constexpr int kStageA = C::BM * C::SA;
-  constexpr int kStageB = C::BK * C::SB;
-  constexpr int kStage = stage_elems<T, kMode>();
-  constexpr bool kImOut = kMode != kReOut;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
+// ---- epilogues ----
+// Thread (g, t) of warp (wm, wn) holds acc[plane][i][j][q]: row 32 wm + 16 i + g + 8 (q / 2), column
+// 2t + q % 2 of n8 tile j.  kConj and kRealT: tiles j and j + 2 are Fr and Fi' of one DFT column c =
+// cw + 8 j + 2t + q % 2 (j < 2, cw = col0 + 16 wn); the planes of kConj are A's real and imaginary
+// parts.  Each warp stages its values through its own 32 x 33 block of shared memory, one output
+// plane at a time, so that each store instruction writes 32 consecutive values of one output row
+// (transposed stores and the Hermitian mirror included).
+// kStoreT (after kRealT): T[b][c][i] (T from T^T); column 0's Fi' slot holds the DFT column P/2
+// kHerm (after kConj):   U[pair][r][n] for n in {c, P - c} (c = 0: {0, P/2}) and, for 0 < r < P/2,
+//                        U[pair][P - r][(P - n) % P] = conj
+// kMulU (after kConj):   E = D o U[pair][k][n], n as for kHerm, written as C3's operand: row c of
+//                        [S | i D], S[c][k] = a + b at column k, (i D)[c][k] = i (a - b) at column
+//                        h + k - 1 (0 < k < P/2; S = a at k = 0, P/2), a = E[k][c], b = E[P - k][c] =
+//                        conj(E[k][P - c])
+// kFold (after kSplit):  T2^T[c][y] of the stacked row (pair, c), written as C4's operand: row y of
+//                        [f Re T2 | -f Im T2], Re at column c, Im at h + c - 1 (0 < c < P/2), f = 2
+//                        for 0 < c < P/2 (the Hermitian row's other half), else 1
+// kRe (after kReal):     out[row][y]
 
-  const long long batch = blockIdx.z;
-  const int row0 = blockIdx.y * C::BM;
-  const int col0 = blockIdx.x * kBN;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+// kConj's products of DFT column c into D[c] and D[P - c], in place: [Tr Fr, Tr Fi'] and [Ti Fr, Ti
+// Fi'] become (Re, Im) D[c] at acc[0][i][j][q], acc[1][i][j][q] and (Re, Im) D[pc] at acc[0][i][j +
+// 2][q], acc[1][i][j + 2][q], pc the partner column P - c (P/2 at c = 0): D[c] = (TrFr - TiFi) + i
+// (TrFi + TiFr), D[P - c] = (TrFr + TiFi) + i (TiFr - TrFi); at c = 0 Fi' is Fr's column P/2 (Fi's is 0)
+__device__ __forceinline__ void pairs(double (&acc)[2][2][4][4], int cw, int t) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const bool c0 = cw + 8 * j + 2 * t + (q & 1) == 0;
+        const double a1 = acc[0][i][j][q], a3 = acc[0][i][j + 2][q];
+        const double a4 = acc[1][i][j][q], a2 = acc[1][i][j + 2][q];
+        acc[0][i][j][q] = c0 ? a1 : a1 - a2;
+        acc[1][i][j][q] = c0 ? a4 : a3 + a4;
+        acc[0][i][j + 2][q] = c0 ? a3 : a1 + a2;
+        acc[1][i][j + 2][q] = c0 ? a2 : a4 - a3;
+      }
+}
+
+template <int kEpi, int kP>
+__device__ __forceinline__ void store_tile(const Args& p, double (&acc)[kP][2][4][4], int b, int row0, int col0,
+                                           int wm, int wn, int lane, double* sw) {
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int wm = (warp >> 1) * 16 * kMT;
-  const int wn = (warp & 1) * 32;
-  const T* a_re = a.re + batch * a.batch_stride;
-  const T* a_im = a.im + batch * a.batch_stride;
-  const T* b_re = b.re + batch * b.batch_stride;
-  const T* b_im = kMode == kRealB ? nullptr : b.im + batch * b.batch_stride;
-
-  auto load = [&](int slot, int kt) {
-    T* s = smem + slot * kStage;
-    const int k0 = kt * C::BK;
-    load_tile<T, C::BM, C::BK, C::SA>(s, a_re, a.ld, row0, k0, a.rows, a.cols, a.vec, tid);
-    load_tile<T, C::BM, C::BK, C::SA>(s + kStageA, a_im, a.ld, row0, k0, a.rows, a.cols, a.vec, tid);
-    load_tile<T, C::BK, kBN, C::SB>(s + 2 * kStageA, b_re, b.ld, k0, col0, b.rows, b.cols, b.vec, tid);
-    if constexpr (kMode != kRealB)
-      load_tile<T, C::BK, kBN, C::SB>(s + 2 * kStageA + kStageB, b_im, b.ld, k0, col0, b.rows, b.cols, b.vec, tid);
+  const int pad = p.pad;
+  const int h = pad / 2 + 1;
+  const int r0 = row0 + 32 * wm;  // the warp's first row
+  if constexpr (kEpi == kRe) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const int row = r0 + 16 * i + g + 8 * h2;
+        if (row >= p.m) continue;
+        double* o = p.o_re + static_cast<long long>(row) * p.o_ld;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int y = col0 + 32 * wn + 8 * j + 2 * t;
+          const double v0 = acc[0][i][j][2 * h2], v1 = acc[0][i][j][2 * h2 + 1];
+          if (y + 1 < p.n && ((reinterpret_cast<uintptr_t>(o + y) & 15) == 0)) {
+            *reinterpret_cast<double2*>(o + y) = make_double2(v0, v1);
+          } else {
+            if (y < p.n) o[y] = v0;
+            if (y + 1 < p.n) o[y + 1] = v1;
+          }
+        }
+      }
+    return;
+  }
+  // put(x, row, col): the fragment value x at (row, col) of the warp's staging block
+  auto put = [&](double x, int row, int col) { sw[row * kSO + col] = x; };
+  auto each = [&](auto&& fn) {  // fn(value index (pl, i, j, q), local row, local column of tile j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) fn(i, j, q, 16 * i + g + 8 * (q >> 1), 8 * j + 2 * t + (q & 1));
   };
-  T acc[2][kMT][kNT][4];
+  if constexpr (kEpi == kStoreT) {
+    // staged transposed: row c' of the tile's 16 DFT columns (16: the column P/2), column i'
+    const int cw = col0 + 16 * wn;
+    const int i_ = r0 + lane;
 #pragma unroll
-  for (int p = 0; p < 2; ++p)
+    for (int pl = 0; pl < 2; ++pl) {
+      each([&](int i, int j, int q, int row, int col) {
+        if (j >= 2) return;
+        const double re = acc[0][i][j][q], im = acc[0][i][j + 2][q];
+        const bool c0 = cw + col == 0;
+        put(pl ? (c0 ? 0.0 : im) : re, col, row);
+        if (c0) put(pl ? 0.0 : im, 16, row);
+      });
+      __syncwarp();
+      if (i_ < p.m) {
+        double* o = (pl ? p.o_im : p.o_re) + b * p.o_batch + i_;
 #pragma unroll
-    for (int i = 0; i < kMT; ++i)
-#pragma unroll
-      for (int j = 0; j < kNT; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[p][i][j][q] = T(0);
-
-  const int nk = (depth + C::BK - 1) / C::BK;
-#pragma unroll
-  for (int s = 0; s < C::STAGES - 1; ++s) {
-    if (s < nk) load(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<C::STAGES - 2>();
-    __syncthreads();  // tile kt is in; every warp is done with the slot refilled below
-    if (kt + C::STAGES - 1 < nk) load((kt + C::STAGES - 1) % C::STAGES, kt + C::STAGES - 1);
-    cp_async_commit();
-    const T* s = smem + (kt % C::STAGES) * kStage;
-#pragma unroll
-    for (int kk = 0; kk < C::BK; kk += 8) {
-      FA ar[kMT], ai[kMT];
-#pragma unroll
-      for (int i = 0; i < kMT; ++i) {
-        const int off = (wm + 16 * i + g) * C::SA + kk + t;
-        frag_a(ar[i], s + off, C::SA);
-        frag_a(ai[i], s + kStageA + off, C::SA);
+        for (int c = 0; c < 16; ++c) o[static_cast<long long>(cw + c) * p.o_ld] = sw[c * kSO + lane];
+        if (cw == 0) o[static_cast<long long>(pad / 2) * p.o_ld] = sw[16 * kSO + lane];
       }
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const int off = (kk + t) * C::SB + wn + 8 * j + g;
-        FB br;
-        frag_b(br, s + 2 * kStageA + off, C::SB);
-        if constexpr (kMode == kRealB) {
-#pragma unroll
-          for (int i = 0; i < kMT; ++i) {
-            mma_acc(acc[0][i][j], ar[i], br);
-            mma_acc(acc[1][i][j], ai[i], br);
-          }
-        } else {
-          FB bi;
-          frag_b(bi, s + 2 * kStageA + kStageB + off, C::SB);
-          const FB nbi = negated(bi);
-#pragma unroll
-          for (int i = 0; i < kMT; ++i) {
-            mma_acc(acc[0][i][j], ar[i], br, ai[i], nbi);
-            if constexpr (kImOut) mma_acc(acc[1][i][j], ar[i], bi, ai[i], br);
-          }
-        }
-      }
+      __syncwarp();
     }
-  }
-  cp_async_wait<0>();
-
-  // each thread holds, per 16 x 8 tile, rows g and g + 8, columns 2t and 2t + 1
+  } else if constexpr (kEpi == kHerm) {
+    // staged by rows: columns 0..15 D[cw + c'], 31 - c' the partner D[pc]; a store instruction writes a
+    // row's 16 columns from cw and its 16 partner columns (the mirror row's the same, reversed)
+    const int cw = col0 + 16 * wn;
+    pairs(acc, cw, t);
+    const int n = lane < 16 ? cw + lane : (cw == 0 && lane == 31 ? pad / 2 : pad - cw - (31 - lane));
+    const int mn = n ? pad - n : 0;  // the mirror row's column
 #pragma unroll
-  for (int i = 0; i < kMT; ++i) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = row0 + wm + 16 * i + g + 8 * h;
-      if (row >= m) continue;
-      const long long item = o.rows_per_batch ? row / o.rows_per_batch : batch;
-      const int r = o.rows_per_batch ? row - static_cast<int>(item) * o.rows_per_batch : row;
-      T* o_re = o.re + item * o.batch_stride;
-      T* o_im = kImOut ? o.im + item * o.batch_stride : nullptr;
-      // rows n - r (n = P) of a Hermitian spectrum: the conjugate of row r, columns reversed
-      const bool mirror = kImOut && o.hermitian && r > 0 && 2 * r < n;
-      const long long mirror_row = static_cast<long long>(n - r) * o.ld;
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const int c = col0 + wn + 8 * j + 2 * t;
-        if (c >= n) continue;
-        const bool pair = c + 1 < n;
-        T vr[2], vi[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          vr[e] = acc[0][i][j][2 * h + e];
-          vi[e] = acc[1][i][j][2 * h + e];
-        }
-        if constexpr (kMode == kMulU) {
-          const long long u = item * o.u_batch_stride + static_cast<long long>(r) * o.u_ld + c;
-          T ur[2], ui[2];
-          if (pair) {
-            load2(o.ur + u, ur);
-            load2(o.ui + u, ui);
-          } else {
-            ur[0] = o.ur[u];
-            ui[0] = o.ui[u];
-            ur[1] = ui[1] = T(0);
-          }
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const T er = vr[e] * ur[e] - vi[e] * ui[e];
-            vi[e] = vr[e] * ui[e] + vi[e] * ur[e];
-            vr[e] = er;
-          }
-        }
-        if (o.fold) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            if (c + e > 0 && 2 * (c + e) < o.fold) {
-              vr[e] *= T(2);  // exact
-              vi[e] *= T(2);
-            }
-          }
-        }
-        if (o.transpose) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            if (e == 0 || pair) {
-              const long long at = static_cast<long long>(c + e) * o.ld + r;
-              o_re[at] = vr[e];
-              if constexpr (kImOut) o_im[at] = vi[e];
-            }
-          }
-        } else {
-          const long long at = static_cast<long long>(r) * o.ld + c;
-          if (pair) {
-            store2(o_re + at, vr);
-            if constexpr (kImOut) store2(o_im + at, vi);
-          } else {
-            o_re[at] = vr[0];
-            if constexpr (kImOut) o_im[at] = vi[0];
-          }
-        }
-        if (mirror) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            if (e == 0 || pair) {
-              const long long at = mirror_row + (c + e ? n - c - e : 0);
-              o_re[at] = vr[e];
-              o_im[at] = -vi[e];
-            }
-          }
-        }
+    for (int pl = 0; pl < 2; ++pl) {
+      each([&](int i, int j, int q, int row, int col) {
+        if (j >= 2) return;
+        put(acc[pl][i][j][q], row, col);
+        put(acc[pl][i][j + 2][q], row, 31 - col);
+      });
+      __syncwarp();
+      const double sign = pl ? -1.0 : 1.0;  // of a conjugate
+      double* o = pl ? p.o_im : p.o_re;
+      const long long pair0 = r0 / h;
+      const int rr0 = r0 - static_cast<int>(pair0) * h;
+      // unrolled by 16 (8 and 32 measured slower), so that each lane has several rows' loads and stores
+      // in flight; h > 32, so a warp's rows cross at most one pair boundary
+#pragma unroll 16
+      for (int row = 0; row < 32; ++row) {
+        if (r0 + row >= p.m) continue;
+        const int wrap = rr0 + row >= h;
+        const int r = rr0 + row - (wrap ? h : 0);
+        const double v = sw[row * kSO + lane];
+        double* ob = o + (pair0 + wrap) * p.o_batch;
+        ob[static_cast<long long>(r) * p.o_ld + n] = v;
+        if (r > 0 && 2 * r < pad) ob[static_cast<long long>(pad - r) * p.o_ld + mn] = sign * v;
       }
+      __syncwarp();
+    }
+  } else if constexpr (kEpi == kMulU) {
+    // E = D o U in place, then [S | i D] staged transposed: row c' (16: the column P/2), column k'
+    const int cw = col0 + 16 * wn;
+    pairs(acc, cw, t);
+    each([&](int i, int j, int q, int row, int col) {
+      if (j >= 2 || r0 + row >= p.m) return;
+      const int rr = r0 + row;
+      const long long pair = rr / h;
+      const int k = rr - static_cast<int>(pair) * h;
+      const int c = cw + col;
+      const int pc = c ? pad - c : pad / 2;
+      const double* ur = p.u_re + pair * pad * pad + static_cast<long long>(k) * pad;
+      const double* ui = p.u_im + pair * pad * pad + static_cast<long long>(k) * pad;
+      const double dr = acc[0][i][j][q], di = acc[1][i][j][q], pr = acc[0][i][j + 2][q], pi = acc[1][i][j + 2][q];
+      const double xr = ur[c], xi = ui[c], yr = ur[pc], yi = ui[pc];
+      acc[0][i][j][q] = dr * xr - di * xi;  // E[k][c]
+      acc[1][i][j][q] = dr * xi + di * xr;
+      acc[0][i][j + 2][q] = pr * yr - pi * yi;  // E[k][pc]
+      acc[1][i][j + 2][q] = pr * yi + pi * yr;
+    });
+    const int rr = r0 + lane;
+    const long long pair = rr / h;
+    const int k = rr - static_cast<int>(pair) * h;
+    const bool mirror = k > 0 && 2 * k < pad;
+    // passes: S re, S im, (i D) re, (i D) im, each from a = E[k][c] and b = conj(E[k][P - c])
+#pragma unroll
+    for (int pass = 0; pass < 4; ++pass) {
+      each([&](int i, int j, int q, int row, int col) {
+        if (j >= 2) return;
+        const int kk = r0 + row - static_cast<int>((r0 + row) / h) * h;
+        const bool mk = kk > 0 && 2 * kk < pad;
+        const double ar = acc[0][i][j][q], ai = acc[1][i][j][q];
+        const double er = acc[0][i][j + 2][q], ei = acc[1][i][j + 2][q];
+        const bool c0 = cw + col == 0;
+        // row c: b = conj(E[k][P - c]), at c = 0 conj(E[k][0]); row P/2 (c = 0 only): a = E[k][P/2], b = conj(a)
+        const double br = c0 ? ar : er, bi = c0 ? -ai : -ei;
+        auto value = [&](double xr, double xi, double yr, double yi) {
+          if (pass == 0) return mk ? xr + yr : xr;
+          if (pass == 1) return mk ? xi + yi : xi;
+          if (pass == 2) return yi - xi;  // Re i (x - y)
+          return xr - yr;                 // Im i (x - y)
+        };
+        put(value(ar, ai, br, bi), col, row);
+        if (c0) put(value(er, ei, er, -ei), 16, row);
+      });
+      __syncwarp();
+      if (rr < p.m && (pass < 2 || mirror)) {
+        double* o = (pass == 0 || pass == 2 ? p.o_re : p.o_im) + pair * p.o_batch + (pass < 2 ? k : h + k - 1);
+#pragma unroll 4
+        for (int c = 0; c < 16; ++c) o[static_cast<long long>(cw + c) * p.o_ld] = sw[c * kSO + lane];
+        if (cw == 0) o[static_cast<long long>(pad / 2) * p.o_ld] = sw[16 * kSO + lane];
+      }
+      __syncwarp();
+    }
+  } else {
+    // kFold: staged transposed, row y', column c' (the warp's rows)
+    const int rr = r0 + lane;
+    const long long pair = rr / h;
+    const int cc = rr - static_cast<int>(pair) * h;
+    const bool inner = cc > 0 && 2 * cc < pad;
+    const int yw = col0 + 32 * wn;
+#pragma unroll
+    for (int pl = 0; pl < 2; ++pl) {
+      each([&](int i, int j, int q, int row, int col) { put(acc[pl][i][j][q], col, row); });
+      __syncwarp();
+      if (rr < p.m && (pl == 0 || inner)) {
+        const double f = inner ? (pl ? -2.0 : 2.0) : 1.0;  // exact
+        double* o = p.o_re + pair * p.o_batch + (pl ? h + cc - 1 : cc);
+        for (int y = 0; y < 32 && yw + y < p.n; ++y) o[static_cast<long long>(yw + y) * p.o_ld] = f * sw[y * kSO + lane];
+      }
+      __syncwarp();
     }
   }
 }
 
-template <typename T>
-Mat<T> mat(const void* re, const void* im, long long batch_stride, int ld, int rows, int cols) {
-  constexpr int VE = 16 / static_cast<int>(sizeof(T));
-  const bool aligned = reinterpret_cast<uintptr_t>(re) % 16 == 0 && reinterpret_cast<uintptr_t>(im) % 16 == 0;
-  return {static_cast<const T*>(re), static_cast<const T*>(im), batch_stride, ld, rows, cols,
-          aligned && ld % VE == 0 && batch_stride % VE == 0};
+template <int kA, int kEpi>
+__global__ void __launch_bounds__(kThreads, 2)
+    dft_dmma_kernel(const __grid_constant__ CUtensorMap planes_map, const __grid_constant__ CUtensorMap a_map,
+                    const Args p) {
+  constexpr int kP = n_planes<kA>();
+  constexpr int kStage = stage_bytes<kA>();
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  double* staging = reinterpret_cast<double*>(smem + kStages * kStage);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStage + kStaging);
+  uint64_t* empty = full + kStages;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      f32::mbar_init(&full[s], full_count<kA>());
+      f32::mbar_init(&empty[s], kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int tiles_per_batch = p.tiles_m * p.tiles_n;
+  const int total = p.batch * tiles_per_batch;
+  const int nk = (p.depth + kBK - 1) / kBK;
+  const int lane = tid & 31;
+
+  if (tid >= kConsumers) {
+    // producer warp: the ring's TMA loads (lane 0) and, for transposed data, its copies (every lane)
+    if (kA != kRealT && lane != 0) return;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < total; tile += gridDim.x) {
+      const int b = tile / tiles_per_batch;
+      const int rest = tile - b * tiles_per_batch;
+      const int row0 = (rest / p.tiles_n) * kBM;
+      const int col0 = (rest % p.tiles_n) * tile_cols<kA>();
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int slot = it % kStages;
+        f32::mbar_wait(&empty[slot], ((it / kStages) & 1) ^ 1);
+        unsigned char* st = smem + slot * kStage;
+        if (lane == 0) {
+          f32::mbar_expect_tx(&full[slot], kTileB + (kA == kRealT ? 0 : kP * kTileA));
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            // kConj, kRealT: Fr then Fi' of the tile's 32 DFT columns; else 64 rows of one plane
+            const bool dft = kA == kConj || kA == kRealT;
+            f32::tma_load(st + q * (kTileB / 2), &planes_map, &full[slot], kt * kBK,
+                          p.b_row0 + col0 + (dft ? 0 : q * kBoxRows), dft ? q : p.b_plane);
+          }
+          if constexpr (kA != kRealT) {
+#pragma unroll
+            for (int pl = 0; pl < kP; ++pl)
+#pragma unroll
+              for (int q = 0; q < 2; ++q)
+                f32::tma_load(st + kTileB + pl * kTileA + q * (kTileA / 2), &a_map, &full[slot], kt * kBK,
+                              row0 + q * kBoxRows, pl);
+          }
+        }
+        if constexpr (kA == kRealT) {
+          load_at(reinterpret_cast<double*>(st + kTileB), p.a_re + b * p.a_batch, p, row0, kt * kBK, lane);
+          f32::cp_async_arrive(&full[slot]);
+        }
+      }
+    }
+  } else {
+    // consumer warps: 2 x 2 of 32 rows x 32 columns of B
+    const int warp = tid >> 5;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int wm = warp & 1;
+    const int wn = warp >> 1;
+    double acc[kP][2][4][4];
+    int it = 0;
+    for (int tile = blockIdx.x; tile < total; tile += gridDim.x) {
+      const int b = tile / tiles_per_batch;
+      const int rest = tile - b * tiles_per_batch;
+      const int row0 = (rest / p.tiles_n) * kBM;
+      const int col0 = (rest % p.tiles_n) * tile_cols<kA>();
+#pragma unroll
+      for (int pl = 0; pl < kP; ++pl)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[pl][i][j][q] = 0.0;
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int slot = it % kStages;
+        f32::mbar_wait(&full[slot], (it / kStages) & 1);
+        const double* sb = reinterpret_cast<const double*>(smem + slot * kStage);
+        const double* sa = sb + kTileB / 8;
+#pragma unroll
+        for (int kk = 0; kk < kBK; kk += kMmaK) {
+          if (kt * kBK + kk < p.depth) {
+            double a[kP][2][4];
+#pragma unroll
+            for (int pl = 0; pl < kP; ++pl)
+#pragma unroll
+              for (int i = 0; i < 2; ++i) frag_a<kA>(a[pl][i], sa, pl, 32 * wm + 16 * i, kk, g, t);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              double bf[2];
+              frag_b(bf, sb, b_row<kA>(j, wn, g), kk, t);
+#pragma unroll
+              for (int pl = 0; pl < kP; ++pl)
+#pragma unroll
+                for (int i = 0; i < 2; ++i) dmma(acc[pl][i][j], a[pl][i], bf);
+            }
+          }
+        }
+        f32::mbar_arrive(&empty[slot]);
+      }
+      store_tile<kEpi, kP>(p, acc, b, row0, col0, wm, wn, lane, staging + warp * 32 * kSO);
+    }
+  }
 }
 
-template <typename T>
-Out<T> out_to(void* re, void* im, long long batch_stride, int ld, int transpose) {
-  return {static_cast<T*>(re), static_cast<T*>(im), batch_stride, ld, transpose, 0, 0, 0, nullptr, nullptr, 0, 0};
+// ---- host side ----
+
+// the f64 planes (3, P, P): Fr, Fi' (Fi with row 0 replaced by Fr's row P/2), Bsplit (row r: Br[r][0..P/2]
+// then Bi[r][1..P/2 - 1]); boxes of 32 rows x 16 values
+cudaError_t plane_map(CUtensorMap* map, const void* planes, int pad) {
+  const f32::EncodeTiled encode = f32::encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(pad), static_cast<cuuint64_t>(pad), 3};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(pad) * 8, static_cast<cuuint64_t>(pad) * pad * 8};
+  const cuuint32_t box[3] = {kBK, kBoxRows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT64, 3, const_cast<void*>(planes), dims, strides, box,
+                            step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <typename T, int kMode>
-cudaError_t cgemm(const Mat<T>& a, const Mat<T>& b, int depth, int m, int n, const Out<T>& o, int batch,
-                  cudaStream_t s) {
-  constexpr int bytes = Cfg<T>::STAGES * stage_elems<T, kMode>() * static_cast<int>(sizeof(T));
-  if (batch > 65535 || (m + Cfg<T>::BM - 1) / Cfg<T>::BM > 65535) return cudaErrorInvalidValue;
-  if (batch == 0 || m == 0 || n == 0) return cudaSuccess;
-  const auto kernel = cgemm_kernel<T, kMode>;
-  RETURN_IF_ERROR(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
-  const dim3 grid((n + kBN - 1) / kBN, (m + Cfg<T>::BM - 1) / Cfg<T>::BM, batch);
-  kernel<<<grid, kThreads, bytes, s>>>(a, b, depth, m, n, o);
+// a row-major data operand's planes (re, im), the second plane_stride bytes after the first: depth x m x
+// planes, boxes of 32 rows x 16 values, zero past the depth and the rows
+cudaError_t data_map(CUtensorMap* map, const Args& a, int n_planes) {
+  const f32::EncodeTiled encode = f32::encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  long long plane_stride = (static_cast<long long>(a.lda) * a.m * 8 + 15) / 16 * 16;
+  if (n_planes == 2) plane_stride = reinterpret_cast<const char*>(a.a_im) - reinterpret_cast<const char*>(a.a_re);
+  if (!f32::aligned16(a.a_re) || a.lda % 2 || plane_stride <= 0 || plane_stride % 16) return cudaErrorInvalidValue;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(a.depth), static_cast<cuuint64_t>(a.m),
+                              static_cast<cuuint64_t>(n_planes)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(a.lda) * 8, static_cast<cuuint64_t>(plane_stride)};
+  const cuuint32_t box[3] = {kBK, kBoxRows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT64, 3, const_cast<double*>(a.a_re), dims, strides, box,
+                            step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+Args data(const double* re, const double* im, long long batch_stride, int ld, int m, int depth, int pad) {
+  Args a{};
+  a.pad = pad;
+  a.a_re = re;
+  a.a_im = im;
+  a.a_batch = batch_stride;
+  a.lda = ld;
+  a.m = m;
+  a.depth = depth;
+  a.a_vec = f32::aligned16(re) && (im == nullptr || f32::aligned16(im)) && ld % 2 == 0 && batch_stride % 2 == 0;
+  a.batch = 1;
+  return a;
+}
+
+void dft_block(Args& a, int n, int plane, int row0) {
+  a.n = n;
+  a.b_plane = plane;
+  a.b_row0 = row0;
+}
+
+void out_to(Args& a, double* re, double* im, long long batch_stride, int ld) {
+  a.o_re = re;
+  a.o_im = im;
+  a.o_batch = batch_stride;
+  a.o_ld = ld;
+}
+
+template <int kA, int kEpi>
+cudaError_t run(const void* planes, Args a, int device, cudaStream_t s) {
+  if (a.batch == 0 || a.m == 0 || a.n == 0) return cudaSuccess;
+  a.tiles_m = (a.m + kBM - 1) / kBM;
+  a.tiles_n = (a.n + tile_cols<kA>() - 1) / tile_cols<kA>();
+  const long long tiles = static_cast<long long>(a.batch) * a.tiles_m * a.tiles_n;
+  if (tiles > (1LL << 31) - 1) return cudaErrorInvalidValue;
+  // per device, once: the SM count and the kernel's shared-memory attribute
+  static int sms[64] = {};
+  static unsigned long long attribute_set = 0;
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  if (sms[device] == 0) RETURN_IF_ERROR(cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount, device));
+  CUtensorMap map, a_map{};
+  RETURN_IF_ERROR(plane_map(&map, planes, a.pad));
+  if (kA != kRealT) RETURN_IF_ERROR(data_map(&a_map, a, n_planes<kA>()));
+  const auto kernel = dft_dmma_kernel<kA, kEpi>;
+  constexpr int bytes = smem_bytes<kA>();
+  static int resident[64] = {};  // blocks an SM holds
+  if (!(attribute_set >> device & 1)) {
+    RETURN_IF_ERROR(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+    // all of the SM's shared memory for the kernel, so that two blocks fit (CUDA may pick a smaller carveout)
+    RETURN_IF_ERROR(
+        cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared));
+    RETURN_IF_ERROR(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident[device], kernel, kThreads, bytes));
+    if (resident[device] < 1) return cudaErrorInvalidConfiguration;
+    attribute_set |= 1ULL << device;
+  }
+  const long long slots = static_cast<long long>(resident[device]) * sms[device];  // persistent: one pass of blocks
+  const int grid = static_cast<int>(tiles < slots ? tiles : slots);
+  kernel<<<grid, kThreads, bytes, s>>>(map, a_map, a);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t spectrum(const void* kernels, int n_pairs, int m, const void* fr, const void* fi, void* tr, void* ti,
-                     int t_ld, void* ur, void* ui, int pad, cudaStream_t s) {
-  const long long frame = static_cast<long long>(pad) * pad;
+cudaError_t spectrum(const double* kernels, int n_pairs, int m, int k_ld, const void* planes, double* tr, double* ti,
+                     int t_ld, double* ur, double* ui, int pad, int device, cudaStream_t s) {
   const int half = pad / 2 + 1;  // U of a real kernel is Hermitian: rows 0..P/2 determine it
-  const long long t_stride = static_cast<long long>(half) * t_ld;
-  // T = F[:, :m] W, the rows U needs
-  RETURN_IF_ERROR((cgemm<T, kRealB>(mat<T>(fr, fi, 0, pad, half, m),
-                                    mat<T>(kernels, kernels, static_cast<long long>(m) * m, m, m, m), m, half, m,
-                                    out_to<T>(tr, ti, t_stride, t_ld, 0), n_pairs, s)));
-  // U = T F[:m, :]: rows 0..P/2, the rest as their Hermitian mirror
-  Out<T> u = out_to<T>(ur, ui, frame, pad, 0);
-  u.hermitian = 1;
-  u.rows_per_batch = half;  // F is shared: the pairs' T stack into one (K (P/2 + 1)) x m operand
-  return cgemm<T, kComplex>(mat<T>(tr, ti, 0, t_ld, n_pairs * half, m), mat<T>(fr, fi, 0, pad, m, pad), m,
-                            n_pairs * half, pad, u, 1, s);
+  // S1: T^T = W^T [Fr | Fi'] over DFT columns 0..P/2 - 1 (P/2 in column 0's Fi' slot), stored as T
+  // (h x m) a pair; W's rows k_ld apart
+  Args s1 = data(kernels, nullptr, static_cast<long long>(m) * k_ld, k_ld, m, m, pad);
+  s1.batch = n_pairs;
+  dft_block(s1, pad / 2, 0, 0);
+  out_to(s1, tr, ti, static_cast<long long>(half) * t_ld, t_ld);
+  RETURN_IF_ERROR((run<kRealT, kStoreT>(planes, s1, device, s)));
+  // S2: U = T F[:m, :] over DFT columns 0..P/2 - 1 (each gives c and P - c; column 0 also P/2), the
+  // pairs' T stacked into one (K h) x m operand; rows h.. as the mirror
+  Args s2 = data(tr, ti, 0, t_ld, n_pairs * half, m, pad);
+  dft_block(s2, pad / 2, 0, 0);
+  out_to(s2, ur, ui, static_cast<long long>(pad) * pad, pad);
+  return run<kConj, kHerm>(planes, s2, device, s);
 }
 
-template <typename T>
-cudaError_t conv(const void* grids, int n_pairs, int in_size, const void* fr, const void* fi, const void* br,
-                 const void* bi, const void* ur, const void* ui, void* tr, void* ti, int t_ld, void* er, void* ei,
-                 void* t2r, void* t2i, int t2_ld, void* out, int out_size, int offset, int pad, cudaStream_t s) {
-  const long long frame = static_cast<long long>(pad) * pad;
-  const int half = pad / 2 + 1;  // E of real grids and kernels is Hermitian: rows 0..P/2 determine it
-  const long long t_stride = static_cast<long long>(half) * t_ld;
-  const long long t2_stride = static_cast<long long>(half) * t2_ld;
-  const long long window_row = static_cast<long long>(offset) * pad;
-  const T* wr = static_cast<const T*>(br) + window_row;  // B[w, :] = B[:, w]^T
-  const T* wi = static_cast<const T*>(bi) + window_row;
-  // C1: T = F[:, :I] G, the rows E needs
-  RETURN_IF_ERROR((cgemm<T, kRealB>(mat<T>(fr, fi, 0, pad, half, in_size),
-                                    mat<T>(grids, grids, static_cast<long long>(in_size) * in_size, in_size, in_size,
-                                           in_size),
-                                    in_size, half, in_size, out_to<T>(tr, ti, t_stride, t_ld, 0), n_pairs, s)));
-  // C2: E = (T F[:I, :]) o U, rows 0..P/2 and their Hermitian mirror
-  Out<T> e = out_to<T>(er, ei, frame, pad, 0);
-  e.hermitian = 1;
-  e.ur = static_cast<const T*>(ur);
-  e.ui = static_cast<const T*>(ui);
-  e.u_batch_stride = frame;
-  e.u_ld = pad;
-  e.rows_per_batch = half;  // F is shared: the pairs' T stack into one (K (P/2 + 1)) x I operand
-  RETURN_IF_ERROR((cgemm<T, kMulU>(mat<T>(tr, ti, 0, t_ld, n_pairs * half, in_size),
-                                   mat<T>(fr, fi, 0, pad, in_size, pad), in_size, n_pairs * half, pad, e, 1, s)));
-  // C3: T2 = B[w, :] E, columns 0..P/2 only, stored transposed.  E Hermitian
-  // makes each row of T2 Hermitian too, T2[x][P - c] = conj(T2[x][c]), and
-  // B[P - c][y] = conj(B[c][y]): so Re(T2 B[:, w]) sums columns 0 and P/2
-  // once and the columns between twice, which the epilogue doubles.
-  Out<T> t2 = out_to<T>(t2r, t2i, t2_stride, t2_ld, 1);
-  t2.fold = pad;
-  RETURN_IF_ERROR((cgemm<T, kComplex>(mat<T>(wr, wi, 0, pad, out_size, pad), mat<T>(er, ei, frame, pad, pad, pad),
-                                      pad, out_size, half, t2, n_pairs, s)));
-  // C4: out[r][c] = Re(sum_k T2[r][k] B[k][offset + c]) = Re((B[w, :] T2^T)[c][r]), k = 0..P/2
-  return cgemm<T, kReOut>(mat<T>(wr, wi, 0, pad, out_size, half), mat<T>(t2r, t2i, t2_stride, t2_ld, half, out_size),
-                          half, out_size, out_size,
-                          out_to<T>(out, nullptr, static_cast<long long>(out_size) * out_size, out_size, 1), n_pairs,
-                          s);
+cudaError_t conv(const double* grids, int n_pairs, int in_size, const void* planes, const double* ur,
+                 const double* ui, double* tr, double* ti, int t_ld, double* er, double* ei, double* t2, double* out,
+                 int out_size, int offset, int pad, int device, cudaStream_t s) {
+  const int half = pad / 2 + 1;
+  // C1: T^T = G^T [Fr | Fi'], stored as T (h x I) a pair (as S1)
+  Args c1 = data(grids, nullptr, static_cast<long long>(in_size) * in_size, in_size, in_size, in_size, pad);
+  c1.batch = n_pairs;
+  dft_block(c1, pad / 2, 0, 0);
+  out_to(c1, tr, ti, static_cast<long long>(half) * t_ld, t_ld);
+  RETURN_IF_ERROR((run<kRealT, kStoreT>(planes, c1, device, s)));
+  // C2: E = (T F[:I, :]) o U over the stacked T, DFT columns as S2's, written as C3's operand
+  // [S | i D] (h x P a pair: row c, E's rows k and P - k paired)
+  Args c2 = data(tr, ti, 0, t_ld, n_pairs * half, in_size, pad);
+  dft_block(c2, pad / 2, 0, 0);
+  out_to(c2, er, ei, static_cast<long long>(half) * pad, pad);
+  c2.u_re = ur;
+  c2.u_im = ui;
+  RETURN_IF_ERROR((run<kConj, kMulU>(planes, c2, device, s)));
+  // C3: T2^T = E[:, :h]^T B[:, w] = [S | i D] Bsplit[w, :]^T (B[k][w0 + y] = B[w0 + y][k]; S against
+  // Br, i D against Bi), depth P; E Hermitian makes each row of T2 Hermitian, so Re(T2 B[:, w]) sums
+  // columns 0 and P/2 once and the columns between twice, which the epilogue doubles; stored as C4's
+  // operand [Re T2 | -Im T2] (out_size x P a pair)
+  Args c3 = data(er, ei, 0, pad, n_pairs * half, pad, pad);
+  dft_block(c3, out_size, 2, offset);
+  out_to(c3, t2, nullptr, static_cast<long long>(out_size) * pad, pad);
+  RETURN_IF_ERROR((run<kSplit, kFold>(planes, c3, device, s)));
+  // C4: out[x][y] = Re(sum_c T2[x][c] B[c][w0 + y]) = [Re T2 | -Im T2][x] Bsplit[w0 + y], the pairs'
+  // rows stacked (Bi's columns 0 and P/2 are zero)
+  Args c4 = data(t2, nullptr, 0, pad, n_pairs * out_size, pad, pad);
+  dft_block(c4, out_size, 2, offset);
+  out_to(c4, out, nullptr, 0, out_size);
+  return run<kReal, kRe>(planes, c4, device, s);
 }
+
+}  // namespace f64
 
 }  // namespace
 
-// kernels (K, m, k_ld), the first m of each row used (f64: k_ld == m) -> ur,
-// ui (K, P, P); tr, ti are (K, P / 2 + 1, t_ld) scratch, t_ld >= m.  Every
-// array is f64 when is_double (Fr, Fi used, planes null), else f32 (the tf32
-// planes (10, P, P) used, Fr, Fi null).
+// kernels (K, m, k_ld), the first m of each row used -> ur, ui (K, P, P); tr, ti are (K, P / 2
+// + 1, t_ld) scratch, t_ld >= m.  Every array is f64 when is_double (planes: the f64 planes (3, P,
+// P) of f64::plane_map), else f32 (planes: the tf32 planes (10, P, P)).
 extern "C" int dft_spectrum_launch(int device, int is_double, const void* kernels, int n_pairs, int m, int k_ld,
-                                   const void* fr, const void* fi, const void* planes, void* tr, void* ti, int t_ld,
-                                   void* ur, void* ui, int pad, void* stream) {
+                                   const void* planes, void* tr, void* ti, int t_ld, void* ur, void* ui, int pad,
+                                   void* stream) {
   RETURN_IF_ERROR(cudaSetDevice(device));
   auto s = static_cast<cudaStream_t>(stream);
-  if (is_double) {
-    if (k_ld != m) return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(spectrum<double>(kernels, n_pairs, m, fr, fi, tr, ti, t_ld, ur, ui, pad, s));
-  }
+  if (is_double)
+    return static_cast<int>(f64::spectrum(static_cast<const double*>(kernels), n_pairs, m, k_ld, planes,
+                                          static_cast<double*>(tr), static_cast<double*>(ti), t_ld,
+                                          static_cast<double*>(ur), static_cast<double*>(ui), pad, device, s));
   return static_cast<int>(f32::spectrum(static_cast<const float*>(kernels), n_pairs, m, k_ld, planes,
                                         static_cast<float*>(tr), static_cast<float*>(ti), t_ld,
                                         static_cast<float*>(ur), static_cast<float*>(ui), pad, device, s));
 }
 
-// grids (K, I, I), spectra ur, ui (K, P, P) -> out (K, out_size, out_size),
-// the slice [offset, offset + out_size)^2 of the full linear convolution.
-// Scratch: tr, ti (K, P / 2 + 1, t_ld >= I); in f64 er, ei (K, P, P) and
-// t2r, t2i (K, P / 2 + 1, t2_ld >= out_size); in f32 er, ei (K, P / 2 + 1,
-// 2 s), s = P / 2 + 1 rounded up to a multiple of 32, and t2r, t2i (K,
-// out_size, t2_ld >= P / 2 + 1).  Every array is f64 when
-// is_double (Fr, Fi, Br, Bi used, planes null), else f32 (the tf32 planes
-// used, Fr, Fi, Br, Bi null).
+// grids (K, I, I), spectra ur, ui (K, P, P) -> out (K, out_size, out_size), the slice [offset,
+// offset + out_size)^2 of the full linear convolution.  Scratch: tr, ti (K, P / 2 + 1, t_ld >= I);
+// in f64 er, ei (K, P / 2 + 1, P) and t2r (K, out_size, P) (t2i unused, t2_ld = P); in f32 er, ei
+// (K, P / 2 + 1, 2 s), s = P / 2 + 1 rounded up to a multiple of 32, and t2r, t2i (K, out_size,
+// t2_ld >= P / 2 + 1).  Every array is f64 when is_double (planes: the f64 planes), else f32 (the
+// tf32 planes).
 extern "C" int dft_conv_launch(int device, int is_double, const void* grids, int n_pairs, int in_size,
-                               const void* fr, const void* fi, const void* br, const void* bi, const void* planes,
-                               const void* ur, const void* ui, void* tr, void* ti, int t_ld, void* er, void* ei,
-                               void* t2r, void* t2i, int t2_ld, void* out, int out_size, int offset, int pad,
-                               void* stream) {
+                               const void* planes, const void* ur, const void* ui, void* tr, void* ti, int t_ld,
+                               void* er, void* ei, void* t2r, void* t2i, int t2_ld, void* out, int out_size,
+                               int offset, int pad, void* stream) {
   RETURN_IF_ERROR(cudaSetDevice(device));
   auto s = static_cast<cudaStream_t>(stream);
   if (is_double)
-    return static_cast<int>(conv<double>(grids, n_pairs, in_size, fr, fi, br, bi, ur, ui, tr, ti, t_ld, er, ei, t2r,
-                                         t2i, t2_ld, out, out_size, offset, pad, s));
+    return static_cast<int>(f64::conv(static_cast<const double*>(grids), n_pairs, in_size, planes,
+                                      static_cast<const double*>(ur), static_cast<const double*>(ui),
+                                      static_cast<double*>(tr), static_cast<double*>(ti), t_ld,
+                                      static_cast<double*>(er), static_cast<double*>(ei),
+                                      static_cast<double*>(t2r), static_cast<double*>(out), out_size, offset, pad,
+                                      device, s));
   return static_cast<int>(f32::conv(static_cast<const float*>(grids), n_pairs, in_size, planes,
                                     static_cast<const float*>(ur), static_cast<const float*>(ui),
                                     static_cast<float*>(tr), static_cast<float*>(ti), t_ld, static_cast<float*>(er),

@@ -46,14 +46,12 @@ _SIGNATURES = {
     ),
     # acc, out, count, wmax, n_scale
     "pair_hist_fixed_convert": (_I, _P, _P, ctypes.c_longlong, _P, ctypes.c_longlong, _P),
-    # kernels, K, m, kernels' row stride, Fr, Fi (f64; null in f32), tf32 planes (f32; null in f64),
+    # kernels, K, m, kernels' row stride, the route's planes (f64: f64_planes; f32: tf32_planes),
     # scratch T (re, im, ld), spectra (re, im), P
-    "dft_spectrum_launch": (_I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P),
-    # grids, K, I, Fr, Fi, Br, Bi (f64; null in f32), tf32 planes (f32; null in f64), spectra (re, im),
-    # scratch T (re, im, ld), E (re, im), T2 (re, im, ld), out, out_size, offset, P
-    "dft_conv_launch": (
-        _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P,
-    ),
+    "dft_spectrum_launch": (_I, _I, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P),
+    # grids, K, I, the route's planes, spectra (re, im), scratch T (re, im, ld), E (re, im), T2 (re, im,
+    # ld), out, out_size, offset, P
+    "dft_conv_launch": (_I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P),
 }
 
 

@@ -25,19 +25,24 @@ with w the window ``[offset, offset + out_size)`` and h = P/2 + 1: the
 spectra of real inputs are Hermitian, so their rows 0..P/2 determine
 them (the kernels write the other rows as the conjugate mirror), and so
 are the rows of T2, whose columns 0..P/2 carry the real part (the inner
-ones doubled). Inputs are f32 (the fused path) or f64 (parity mode); the
-DFT matrices are built in f64 on the host and rounded to the input type.
-f32 runs on ``wgmma`` as three TF32 passes, the data split in registers
-and the DFT matrices split once per frame into tf32 hi and lo planes
-(:func:`tf32_planes`) that TMA loads as they are; f64 runs on DMMA.
+ones doubled). The products against F take its columns c and P - c from
+one set of real products (F[k][P - c] = conj(F[k][c])), and E's rows k
+and P - k are paired the same way. Inputs are f32 (the fused path) or f64
+(parity mode and, in every path, the meanlikes run's like-weighted
+smoothing); the DFT matrices are built in f64 on the host and rounded to
+the input type. f32 runs on ``wgmma`` as three TF32 passes, the data split
+in registers and the DFT matrices split once per frame into tf32 hi and lo
+planes (:func:`tf32_planes`) that TMA loads as they are; f64 runs on DMMA
+(``mma.sync``) against :func:`f64_planes`, loaded by TMA too.
 The TPU kept the chain in VMEM; here the intermediates go through device
 memory: per pair, the spectrum's T (h x m) and the convolution's T
 (h x I), E and T2, each complex, with leading dimensions rounded up to a
-multiple of 4 (16-byte rows). In f32 E is kept as the next stage's
-operand, E's rows k and P - k paired (h x 2 s, s = h rounded up to a
-multiple of 32), and T2 is out_size x h; in f64 E is P x P and T2 is
-stored as T2^T (h x out_size). A batch whose scratch exceeds
-:data:`SCRATCH_BYTES` (counted as f64's, the larger) is split over K.
+multiple of 4 (16-byte rows). E is kept only as the next stage's operand,
+E's rows k and P - k paired: in f32 h x 2 s (s = h rounded up to a
+multiple of 32, two segments), in f64 h x P (the paired rows' sums, then
+their differences for 0 < k < P/2); T2 is out_size x h in f32 and, in f64,
+the real out_size x P operand of the last stage. A batch whose scratch
+exceeds :data:`SCRATCH_BYTES` (:func:`conv_scratch`) is split over K.
 
 The plain versions run the full-frame chain (through the zero padding) as
 batched ``torch.matmul`` in the input type with TF32 off
@@ -65,6 +70,7 @@ __all__ = [
     "frame_for",
     "dft_matrices",
     "tf32_planes",
+    "f64_planes",
     "dft_conv_spectrum",
     "dft_conv_spectrum_plain",
     "dft_conv2d",
@@ -132,13 +138,27 @@ def tf32_planes(pad, device):
     return _tf32_planes_on(int(pad), torch.device(device))
 
 
-def _constants(pad, device, is_double):
-    """A route's one constant operand, as pointers: Fr, Fi, Br, Bi of
-    :func:`dft_matrices` in f64 (no planes), or none of them and the f32
-    route's :func:`tf32_planes`."""
-    if is_double:
-        return tuple(a.data_ptr() for a in dft_matrices(pad, device, torch.float64)), None
-    return (None,) * 4, tf32_planes(pad, device).data_ptr()
+@functools.lru_cache(maxsize=8)
+def _f64_planes_on(pad, device):
+    fr, fi, br, bi = _dft_mats_np(pad)
+    fi_nyquist = fi.copy()
+    fi_nyquist[0] = fr[pad // 2]
+    split = np.concatenate([br[:, : _half(pad)], bi[:, 1 : pad // 2]], axis=1)
+    return torch.from_numpy(np.stack([fr, fi_nyquist, split])).to(device)
+
+
+def f64_planes(pad, device):
+    """(3, pad, pad) f64 on ``device``: Fr, Fi with its row 0 (zeros)
+    replaced by Fr's row P/2 (the kernels form the DFT's column P/2 in
+    column 0's place), and B split by rows, row r = [Br[r, 0..P/2],
+    Bi[r, 1..P/2 - 1]] (against the paired rows' sums, then their
+    differences). The f64 kernels' constant operand."""
+    return _f64_planes_on(int(pad), torch.device(device))
+
+
+def _planes(pad, device, is_double):
+    """A route's constant operand, as a pointer."""
+    return (f64_planes if is_double else tf32_planes)(pad, device).data_ptr()
 
 
 def _padded(x, pad):
@@ -203,11 +223,21 @@ def spectrum_scratch(pad, m):
     return 2 * _half(pad) * _ld(m)
 
 
+def _conv_shapes(pad, in_size, out_size, is_double):
+    """The convolution's scratch per pair, (rows, ld, planes) of T, E and T2."""
+    half = _half(pad)
+    if is_double:
+        # E as C3's operand (h x P), T2 as C4's real operand (out_size x P)
+        return (half, _ld(in_size), 2), (half, pad, 2), (out_size, pad, 1)
+    # E as C3's operand [S | i D] (h x 2 s, s = h rounded up to a multiple of 32), T2 (out_size x h)
+    return (half, _ld(in_size), 2), (half, 2 * (-(-half // 32) * 32), 2), (out_size, _ld(half), 2)
+
+
 def conv_scratch(pad, in_size, out_size):
-    """Elements of the f64 convolution's scratch per pair: T (P/2 + 1 x I),
-    E (P x P) and T2^T (P/2 + 1 x out_size), each complex. The f32 route's
-    (E[:, :h]^T of P/2 + 1 x P, T2 of out_size x P/2 + 1) is smaller."""
-    return 2 * (_half(pad) * (_ld(in_size) + _ld(out_size)) + pad * pad)
+    """Elements of the convolution's scratch per pair: T (P/2 + 1 x I), E
+    as the next stage's operand and T2, the larger of the f32 and f64
+    routes' counts."""
+    return max(sum(r * ld * n for r, ld, n in _conv_shapes(pad, in_size, out_size, d)) for d in (False, True))
 
 
 def _chunks(k, pair_bytes):
@@ -232,24 +262,29 @@ def dft_conv_spectrum(kernels, pad=DEFAULT_PAD):
     k, m, _ = kernels.shape
     _check_frame(pad, m, "kernel")
     dtype, device = kernels.dtype, kernels.device
-    (fr, fi, _, _), planes = _constants(pad, device, is_double)
-    ur, ui = (torch.empty((k, pad, pad), dtype=dtype, device=device) for _ in range(2))
+    planes = _planes(pad, device, is_double)
+    spectra = torch.empty((2, k, pad, pad), dtype=dtype, device=device)
     t_ld = _ld(m)
     # f32: rows of 16 bytes' multiple, so the kernel copies them 16 bytes at a time
     k_ld = m if is_double else t_ld
     rows = kernels if k_ld == m else F.pad(kernels, (0, k_ld - m))
-    for lo, hi in _chunks(k, spectrum_scratch(pad, m) * kernels.element_size()):
-        tr, ti = (torch.empty((hi - lo, _half(pad), t_ld), dtype=dtype, device=device) for _ in range(2))
+    # the launch's pointers by arithmetic on the buffers (no views: the host time of a call counts
+    # at the small buckets)
+    size = kernels.element_size()
+    rows_ptr, u_ptr, frame = rows.data_ptr(), spectra.data_ptr(), pad * pad * size
+    for lo, hi in _chunks(k, spectrum_scratch(pad, m) * size):
+        t = torch.empty((2, hi - lo, _half(pad), t_ld), dtype=dtype, device=device)
+        t_ptr = t.data_ptr()
         _cuda.call(
-            "dft_spectrum_launch", device, is_double, rows[lo:hi].data_ptr(), hi - lo, m, k_ld, fr, fi, planes, tr.data_ptr(), ti.data_ptr(), t_ld, ur[lo:hi].data_ptr(), ui[lo:hi].data_ptr(),
-            pad,
+            "dft_spectrum_launch", device, is_double, rows_ptr + lo * m * k_ld * size, hi - lo, m, k_ld, planes,
+            t_ptr, t_ptr + t.numel() // 2 * size, t_ld, u_ptr + lo * frame, u_ptr + (k + lo) * frame, pad,
         )
         dft_conv_spectrum.launches += 1
         dft_conv_spectrum.frames[pad] = dft_conv_spectrum.frames.get(pad, 0) + 1
         dft_conv_spectrum.kernels[(pad, m)] = dft_conv_spectrum.kernels.get((pad, m), 0) + 1
         if is_double:
             dft_conv_spectrum.f64_frames[pad] = dft_conv_spectrum.f64_frames.get(pad, 0) + 1
-    return ur, ui
+    return spectra[0], spectra[1]
 
 
 def dft_conv2d(grids, ur, ui, out_size, offset, pad=DEFAULT_PAD):
@@ -274,25 +309,20 @@ def dft_conv2d(grids, ur, ui, out_size, offset, pad=DEFAULT_PAD):
     if offset < 0 or out_size < 0 or offset + out_size > pad:
         raise ValueError(f"slice [{offset}, {offset + out_size}) outside the {pad} frame")
     dtype, device = grids.dtype, grids.device
-    (fr, fi, br, bi), planes = _constants(pad, device, is_double)
+    planes = _planes(pad, device, is_double)
     out = torch.empty((k, out_size, out_size), dtype=dtype, device=device)
-    half = _half(pad)
-    t_ld = _ld(in_size)
-    # f64: E (P x P), T2^T (h x out_size); f32: C3's operand [S | i D] (h x 2 s, s = h rounded
-    # up to a multiple of 32: E's rows k and P - k paired), T2 (out_size x h)
-    e_shape, t2_shape = ((pad, pad), (half, _ld(out_size))) if is_double else \
-        ((half, 2 * (-(-half // 32) * 32)), (out_size, _ld(half)))
-    for lo, hi in _chunks(k, conv_scratch(pad, in_size, out_size) * grids.element_size()):
+    shapes = _conv_shapes(pad, in_size, out_size, is_double)
+    size = grids.element_size()
+    g_ptr, ur_ptr, ui_ptr, o_ptr = grids.data_ptr(), ur.data_ptr(), ui.data_ptr(), out.data_ptr()
+    for lo, hi in _chunks(k, conv_scratch(pad, in_size, out_size) * size):
         n = hi - lo
-        t, e, t2 = (
-            torch.empty((2, n, rows, ld), dtype=dtype, device=device)
-            for rows, ld in ((half, t_ld), e_shape, t2_shape)
-        )
+        t, e, t2 = (torch.empty((planes_, n, rows, ld), dtype=dtype, device=device) for rows, ld, planes_ in shapes)
+        # each scratch's planes (re, im; f64's T2 is real: its one plane twice)
+        (t_re, t_im), (e_re, e_im), (t2_re, t2_im) = ((x[0].data_ptr(), x[-1].data_ptr()) for x in (t, e, t2))
         _cuda.call(
-            "dft_conv_launch", device, is_double, grids[lo:hi].data_ptr(), n, in_size, fr, fi, br, bi, planes,
-            ur[lo:hi].data_ptr(), ui[lo:hi].data_ptr(),
-            t[0].data_ptr(), t[1].data_ptr(), t_ld, e[0].data_ptr(), e[1].data_ptr(), t2[0].data_ptr(),
-            t2[1].data_ptr(), t2_shape[1], out[lo:hi].data_ptr(), out_size, offset, pad,
+            "dft_conv_launch", device, is_double, g_ptr + lo * in_size * in_size * size, n, in_size, planes,
+            ur_ptr + lo * pad * pad * size, ui_ptr + lo * pad * pad * size, t_re, t_im, shapes[0][1], e_re, e_im,
+            t2_re, t2_im, shapes[2][1], o_ptr + lo * out_size * out_size * size, out_size, offset, pad,
         )
         dft_conv2d.launches += 1
         dft_conv2d.inputs[(pad, in_size)] = dft_conv2d.inputs.get((pad, in_size), 0) + 1

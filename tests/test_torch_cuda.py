@@ -879,6 +879,45 @@ def test_dft_conv_f64_on_periodic_extension_matches_plain(cuda, winw):
                        dft_conv.dft_conv2d(ext, ur, ui, 256, 2 * winw, pad))
 
 
+# (pad, I, m, offset, out_size, pairs): every f64 shape the paths run. Bounded
+# parity's five buckets, (256 + 2 winw)^2 periodic extensions sliced at 2 winw
+# with (2 winw + 1)^2 kernels at their pair counts; the meanlikes run's
+# like-weighted smoothing at 384 and at the clamped rescue's 768; an odd grid
+# width and slice beside them (element copies, ragged tiles)
+F64_SHAPES = {
+    "bucket37-384": (384, 292, 37, 36, 256, 15),
+    "bucket69-512": (512, 324, 69, 68, 256, 310),
+    "bucket133-640": (640, 388, 133, 132, 256, 105),
+    "bucket197-768": (768, 452, 197, 196, 256, 2),
+    "bucket253-768": (768, 508, 253, 252, 256, 3),
+    "like-384": (384, 316, 61, 60, 256, 435),
+    "like-768": (768, 508, 253, 252, 256, 110),
+    "odd-512": (512, 323, 67, 65, 255, 5),
+}
+
+
+@pytest.mark.parametrize("geometry", list(F64_SHAPES))
+def test_dft_conv_f64_path_shapes_within_1e12(cuda, geometry):
+    """The f64 DMMA route at the paths' shapes: K2 and K3 within 1e-12 of the
+    largest value of the plain versions."""
+    pad, in_size, m, offset, out_size, k = F64_SHAPES[geometry]
+    grids, kernels = _conv_inputs(k, in_size, m, torch.float64, cuda, seed=14)
+    _check_dft_conv(grids, kernels, out_size, offset, pad, 1e-12)
+
+
+def test_dft_conv_f64_frame768_calls_bitwise_equal(cuda):
+    """One summation order per output element in f64 too: two calls at the
+    768 frame give the same bits."""
+    pad, in_size, m, offset, out_size, k = F64_SHAPES["bucket253-768"]
+    grids, kernels = _conv_inputs(k, in_size, m, torch.float64, cuda, seed=15)
+    runs = []
+    for _ in range(2):
+        ur, ui = dft_conv.dft_conv_spectrum(kernels, pad)
+        runs.append((ur, ui, dft_conv.dft_conv2d(grids, ur, ui, out_size, offset, pad)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
 def test_one_rank_nccl_bounded_sharded_matches_fused(cuda, tmp_path):
     """``sharded_triangle_densities`` with limits, periodic axes and like
     weights in a one-rank NCCL group against ``triangle_densities`` on the

@@ -346,3 +346,86 @@ def test_wgmma_truncating_over_the_full_depth_misses_1e5():
     want = (ur0, ui0, dft_conv.dft_conv2d_plain(g, ur0, ui0, 256, offset, pad))
     _, conv = _bar_errors(_wgmma_chain(g, k, 256, offset, pad, pad // 8), want)
     assert conv > 1e-5, conv
+
+
+# ---- the f64 kernels' paired stages, emulated in f64 ----
+# csrc/dft_conv.cu's f64 route: S1/C1 against [Fr | Fi'] of DFT columns
+# c < P/2 (Fi' holds Fr's column P/2 in column 0's zero slot), S2/C2 take
+# the columns c and P - c from one set of four real products, C2 writes C3's
+# operand with E's rows k and P - k paired ([S | i D], h x P a pair), and C3
+# and C4 multiply by the real rows of Bsplit ([Br[:, :h] | Bi[:, 1:P/2]]).
+
+
+def _f64_s1(x, planes, pad):
+    """S1/C1: T (K, h, n) from x (K, depth, n) as T^T = x^T [Fr | Fi']."""
+    half, depth = pad // 2, x.shape[-2]
+    xt = x.transpose(-1, -2)
+    re = xt @ planes[0][:half, :depth].T  # B[k][c] = plane[c][k]
+    im = xt @ planes[1][:half, :depth].T
+    tr = torch.cat([re, im[..., :1]], dim=-1)  # column 0's Fi' slot: the real DFT column P/2
+    ti = torch.cat([im[..., :1] * 0, im[..., 1:], im[..., :1] * 0], dim=-1)
+    return tr.transpose(-1, -2), ti.transpose(-1, -2)
+
+
+def _f64_conj(tr, ti, planes, pad):
+    """S2/C2: (T F[:depth, :]) (K, h, P) from four real products against [Fr | Fi'] of c < P/2."""
+    half, depth = pad // 2, tr.shape[-1]
+    bf, bi = planes[0][:half, :depth].T, planes[1][:half, :depth].T
+    a1, a3, a4, a2 = tr @ bf, tr @ bi, ti @ bf, ti @ bi
+    inner = torch.arange(half - 1, 0, -1)  # columns P - c for c = P/2 - 1 .. 1
+    hr = torch.cat([a1[..., :1], a1[..., 1:] - a2[..., 1:], a3[..., :1], (a1 + a2)[..., inner]], dim=-1)
+    hi = torch.cat([a4[..., :1], a3[..., 1:] + a4[..., 1:], a2[..., :1], (a4 - a3)[..., inner]], dim=-1)
+    return hr, hi
+
+
+def _f64_paired_chain(grids, kernels, out_size, offset, pad):
+    planes = dft_conv.f64_planes(pad, "cpu")
+    h = pad // 2 + 1
+    w = slice(offset, offset + out_size)
+    ur, ui = _mirror(*_f64_conj(*_f64_s1(kernels, planes, pad), planes, pad), pad)  # S1, S2
+    hr, hi = _f64_conj(*_f64_s1(grids, planes, pad), planes, pad)  # C1, C2
+    er, ei = hr * ur[..., :h, :] - hi * ui[..., :h, :], hr * ui[..., :h, :] + hi * ur[..., :h, :]
+    # C2's epilogue: row c of [S | i D] from a = E[k][c], b = conj(E[k][P - c]) = E[P - k][c]
+    cols = torch.arange(h)
+    ar, ai = er[..., :, :h].transpose(-1, -2), ei[..., :, :h].transpose(-1, -2)  # (K, c, k)
+    br, bi = er[..., :, (pad - cols) % pad].transpose(-1, -2), -ei[..., :, (pad - cols) % pad].transpose(-1, -2)
+    inner = (cols > 0) & (2 * cols < pad)
+    s_r, s_i = torch.where(inner, ar + br, ar), torch.where(inner, ai + bi, ai)
+    a3r = torch.cat([s_r, (bi - ai)[..., 1 : pad // 2]], dim=-1)  # i D = i (a - b) at column h + k - 1
+    a3i = torch.cat([s_i, (ar - br)[..., 1 : pad // 2]], dim=-1)
+    bsplit = planes[2][w].T  # (P, out_size)
+    t2r, t2i = a3r @ bsplit, a3i @ bsplit  # C3: T2^T (K, h, out_size)
+    fold = torch.where(inner, 2.0, 1.0).to(torch.float64)[:, None]
+    a4 = torch.cat([fold * t2r, -(fold * t2i)[..., 1 : pad // 2, :]], dim=-2).transpose(-1, -2)  # (K, out, P)
+    return ur, ui, a4 @ bsplit  # C4
+
+
+# (pad, m, input size, offset): bounded parity's 324-wide periodic extensions at
+# 512 (69^2 kernels, the slice at 2 winw = 68) and the 2-pair bucket at 768
+# (197^2 kernels, 452-wide extensions, the slice at 196)
+F64_PAIRED = {"ext324-512": (512, 69, 324, 68, 3), "bucket197-768": (768, 197, 452, 196, 2)}
+
+
+@pytest.mark.parametrize("case", list(F64_PAIRED))
+def test_f64_paired_stages_within_1e12_of_plain_and_jax(case):
+    """The f64 kernels' algebra: conjugate-pair columns, the Nyquist column in
+    column 0's slot, E's rows k and P - k paired into C3's operand, C3 and C4
+    against Bsplit; within 1e-12 of the largest value of the plain chain
+    and of the JAX package's f64 XLA chain (spectra and convolution)."""
+    pad, m, size, offset, k = F64_PAIRED[case]
+    rng = np.random.RandomState(17)
+    grids = rng.rand(k, size, size) * 50
+    kernels = rng.rand(k, m, m)
+    g, w = torch.from_numpy(grids), torch.from_numpy(kernels)
+    ur, ui, out = _f64_paired_chain(g, w, 256, offset, pad)
+    ur0, ui0 = dft_conv.dft_conv_spectrum_plain(w, pad)
+    out0 = dft_conv.dft_conv2d_plain(g, ur0, ui0, 256, offset, pad)
+    with jax.enable_x64(True):
+        j_ur, j_ui = jdft.dft_conv_spectrum_xla(jnp.asarray(kernels, jnp.float64), pad=pad, precision="f64")
+        j_out = jdft.dft_conv2d_xla(jnp.asarray(grids, jnp.float64), j_ur, j_ui, 256, offset, pad=pad, precision="f64")
+        j_ur, j_ui, j_out = (np.asarray(a, np.float64) for a in (j_ur, j_ui, j_out))
+    for want_u, want_out in (((ur0.numpy(), ui0.numpy()), out0.numpy()), ((j_ur, j_ui), j_out)):
+        scale = max(np.abs(want_u[0]).max(), np.abs(want_u[1]).max())
+        for got, want in zip((ur.numpy(), ui.numpy()), want_u):
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-12 * scale)
+        np.testing.assert_allclose(out.numpy(), want_out, rtol=0, atol=1e-12 * np.abs(want_out).max())
