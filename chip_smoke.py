@@ -412,6 +412,17 @@ def bound(nbytes, ops, rate):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# the design of the uint8 kernel's fixed-point route (fractional weights), as the kernel rows print it
+FIXED_DESIGN = "four blocks a pair, two-word 32-bit shared adds, a and w read where b meets the rows"
+
+
+def fixed_row_line(row, what):
+    """A fixed-point kernel row's line: the design, its time beside its bound."""
+    return (f"{row['name']} ({what}): design '{FIXED_DESIGN}': kernel {row['ms']:.3f} ms beside its bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}, {row['bound_ms'] / row['ms']:.1%}); plain "
+            f"{row['plain_ms']:.3f} ms; library {row['library_ms']}; launches {row['launches']}")
+
+
 def hist_bound(ix, weights, k, nbins):
     """K1/K4/K5: index rows and weights read once, f32 histograms written
     once; one add per sample and pair, at the FP32 rate (the published
@@ -1181,6 +1192,8 @@ def sharded_runs(group, samples, weights, batched, dft_conv, pair_hist, make_cha
     raw5 = pair_hist.pair_histograms_grouped(ix, w_dev, *plan, False, scale=scale, raw=True)
     ref5 = pair_hist.pair_histograms_grouped_plain(ix, w_dev, *plan, False, scale=scale, raw=True)
     check(raw5.dtype == torch.int64 and torch.equal(raw5, ref5), "K5 f32 raw sums bit-exact vs plain")
+    check(torch.equal(raw5, pair_hist.pair_histograms_grouped(ix, w_dev, *plan, False, scale=scale, raw=True)),
+          "K5 f32 raw sums: two calls bitwise equal")
     check(torch.equal(pair_hist.fixed_to_f32(raw5, scale), grouped[False]), "K5 f32 raw sums convert to the call's")
     del raw5, ref5
     b5f, by5f = bound(ix.numel() + 4 * w_dev.numel() + 8 * k * 256 * 256, k * ix.shape[1], FP32_FLOPS)
@@ -1191,8 +1204,7 @@ def sharded_runs(group, samples, weights, batched, dft_conv, pair_hist, make_cha
         plain_ms=cuda_ms(lambda: pair_hist.pair_histograms_grouped_plain(ix, w_dev, *plan, False, scale=scale,
                                                                          raw=True), 2),
     )
-    print(f"K5 f32-weight call (raw fixed point, group scale): {t5f:.3f} ms, {b5f / t5f:.1%} of its bound "
-          f"{b5f:.4f} ms ({by5f}); plain {result_f32['plain_ms']:.3f} ms; torch.bincount {library5:.3f} ms")
+    print(fixed_row_line(result_f32, "K5's f32-weight call, raw fixed point on the group's scale"))
 
     # 4 gloo ranks on the CPU against the one-rank run on the card
     base, cw = make_chain(40_000, 6, seed=19)
@@ -1391,6 +1403,8 @@ def group_like_rows(group, s_dev, like, ranges, n, launches, batched, pair_hist)
     check(raw.dtype == torch.int64 and torch.equal(raw, pair_hist.pair_histograms_plain(ix, like, pa, pb, scale=scale,
                                                                                         raw=True)),
           "K1 like, raw sums on the group's scale: bit-exact vs plain")
+    check(torch.equal(raw, pair_hist.pair_histograms(ix, like, pa, pb, scale=scale, raw=True)),
+          "K1 like, raw sums on the group's scale: two calls bitwise equal")
     converted = pair_hist.fixed_to_f32(raw, scale)
     check(torch.equal(converted, pair_hist._fixed_to_f32_plain(raw, scale)), "fixed_to_f32: bit-exact vs its twin")
     check(torch.equal(converted, pair_hist.pair_histograms(ix, like, pa, pb)),
@@ -1427,7 +1441,8 @@ def group_like_rows(group, s_dev, like, ranges, n, launches, batched, pair_hist)
             "library_ms": None,
         },
     ]
-    for r in rows:
+    print(fixed_row_line(rows[0], f"sharded like histograms, raw on the group's scale, 30 x 1M, {k} pairs"))
+    for r in rows[1:]:
         print(f"{r['name']} (sharded like histograms, 30 x 1M, {k} pairs): kernel {r['ms']:.3f} ms, "
               f"{r['bound_ms'] / r['ms']:.1%} of its bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
               f"{r['plain_ms']:.3f} ms, library {r['library_ms']}, launches {r['launches']}")
@@ -2091,6 +2106,7 @@ def bounded_phase(bounded, batched, dft_conv, pair_hist):
             fn.launches = 0
         hist.float_launches = hist.wide_launches = 0
         hist.wide_bins.clear()
+        hist.float_pairs.clear()
         dft_conv.dft_conv_spectrum.frames.clear()
         dft_conv.dft_conv2d.inputs.clear()
         dft_conv.dft_conv_spectrum.f64_frames.clear()
@@ -2098,7 +2114,8 @@ def bounded_phase(bounded, batched, dft_conv, pair_hist):
 
     def read():
         out = {fn.__name__: fn.launches for fn in counters}
-        out.update(float=hist.float_launches, wide=hist.wide_launches, wide_bins=dict(hist.wide_bins),
+        out.update(float=hist.float_launches, float_pairs=dict(hist.float_pairs), wide=hist.wide_launches,
+                   wide_bins=dict(hist.wide_bins),
                    spectrum_frames=dict(dft_conv.dft_conv_spectrum.frames),
                    conv_inputs={f"{pad}:{size}": n for (pad, size), n in dft_conv.dft_conv2d.inputs.items()},
                    spectrum_frames_f64=dict(dft_conv.dft_conv_spectrum.f64_frames),
@@ -2195,7 +2212,8 @@ def bounded_phase(bounded, batched, dft_conv, pair_hist):
             "route": "cuda",
             "source": "getdist_tpu_torch/csrc/pair_hist.cu",
             "replaces": "getdist_tpu/ops/pallas_kernels.py:309",
-            "launches": launches["float"],
+            # program B's call (the clamped rescue's has a row of its own)
+            "launches": launches["float_pairs"].get(k, 0),
             "max_abs_err": err_l,
             "ms": cuda_ms(lambda: hist(ix, lw, pa, pb, integer_weights=False), 10),
             "plain_ms": cuda_ms(lambda: pair_hist.pair_histograms_plain(ix, lw, pa, pb, integer_weights=False), 2),
@@ -2204,6 +2222,8 @@ def bounded_phase(bounded, batched, dft_conv, pair_hist):
             "library_ms": library_hist_ms(ix, lw, pa, pb, 256, 3),
         }
     ]
+    check(rows[0]["launches"] >= 1, f"K1 with f32 like weights on all {k} pairs in the meanlikes run")
+    print(fixed_row_line(rows[0], f"program B's like histograms, 30 x 1M, {k} pairs"))
     hists = hist(ix, pair_hist.narrow_weights(w_dev), pa, pb, integer_weights=True)
     kernels = batched._gauss_kernel_2d(d2["rx"], d2["ry"], d2["corr"], 30)
     per_t = d1["periodic"]
@@ -2252,12 +2272,44 @@ def bounded_phase(bounded, batched, dft_conv, pair_hist):
     like_ext = batched._extend_periodic(hist(ixg, lw, pag, pbg, integer_weights=False).double(), per_t[ka],
                                         per_t[kb], winw)
     rows += like_rows(kernels, like_ext, winw, pad, launches, "_clamped")
+    rows.append(rescue_like_row(ixg, lw, pag, pbg, launches, pair_hist))
     del kernels, ixg, like_ext
     del mc, st, d1, d2, t1, t2
     torch.cuda.empty_cache()
     report = bounded_cross_device(MCSamples)
     print(f"bounded entry cross-device 100k x 10 (cuda vs cpu), max abs diffs: {json.dumps(report)}")
     return rows
+
+
+def rescue_like_row(ix, lw, pa, pb, launches, pair_hist):
+    """The kernel row of the clamped rescue's K1 call with f32 like weights
+    (fixed point), on its own pairs' rows: bit-exact against the plain
+    version, two calls bitwise equal."""
+    import torch
+
+    k = pa.shape[0]
+    got = pair_hist.pair_histograms(ix, lw, pa, pb)
+    check(torch.equal(got, pair_hist.pair_histograms_plain(ix, lw, pa, pb)),
+          f"K1 like f32, the rescue's {k} pairs: bit-exact against the plain version")
+    check(torch.equal(got, pair_hist.pair_histograms(ix, lw, pa, pb)),
+          f"K1 like f32, the rescue's {k} pairs: two calls bitwise equal")
+    bound_ms, bound_by = hist_bound(ix, lw, k, 256)
+    row = {
+        "name": "pair_histograms_like_f32_rescue",
+        "route": "cuda",
+        "source": "getdist_tpu_torch/csrc/pair_hist.cu",
+        "replaces": "getdist_tpu/ops/pallas_kernels.py:309",
+        "launches": launches["float_pairs"].get(k, 0),
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: pair_hist.pair_histograms(ix, lw, pa, pb), 10),
+        "plain_ms": cuda_ms(lambda: pair_hist.pair_histograms_plain(ix, lw, pa, pb), 2),
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_hist_ms(ix, lw, pa, pb, 256, 3),
+    }
+    check(row["launches"] >= 1, f"K1 with f32 like weights on the rescue's {k} pairs in the meanlikes run")
+    print(fixed_row_line(row, f"the clamped rescue's like histograms, {tuple(ix.shape)} rows, {k} pairs"))
+    return row
 
 
 def parity_periodic_cross_device(MCSamples):

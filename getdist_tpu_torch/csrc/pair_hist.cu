@@ -28,7 +28,7 @@
 // Two blocks per pair (and sample chunk), each owning half of the pair's
 // rows: [0, R) or [R, nbins), R = ceil(nbins / 2), 128 KB of int32 at 256
 // bins, the most one block's shared memory holds; four blocks of a quarter
-// each with fixed-point (8-byte) bins.  Each block reads a, b and w of every
+// each with fixed-point (8-byte) bins (below).  Each block reads a, b and w of every
 // sample and adds those whose b lies in its rows.  What
 // bounds it: those reads, from L2 (each sample is read once per part: 2.6 GB
 // at 30 x 1M, 435 pairs with uint8 weights, 5.2 GB with f32 integer ones,
@@ -53,7 +53,42 @@
 //   Where the pairs' blocks would not fill the card (few pairs), each pair's
 //   samples are split over several chunks, which flush their nonzero bins
 //   with global atomics into a zeroed accumulator instead.
-// Two designs that halve those reads lost to this one on an H100, both as
+// Fractional weights (64-bit fixed point, 8-byte bins: 64 rows a block, so
+// four blocks a pair).  The 64-bit shared atomicAdd compiles to a
+// compare-and-swap loop (ATOMS.CAST.SPIN.64), which cost ~1.1 of the 3.0 ms
+// of K1's 435 like histograms at 30 x 1M on an H100; the four blocks' reads
+// of every sample (10.4 GB from L2) ~1.36 ms.  What bounds the route now:
+// those reads (without its adds it takes ~1.47 of ~1.71 ms), so:
+// - each add is two native 32-bit shared adds (add_fixed: the low word's,
+//   returning its old value, then the high word's with the low word's
+//   carry): the same sum mod 2^64, the same bits in any order;
+// - a block reads a and w of a 16-sample vector only where one of its b
+//   indices lies in the block's rows (a SIMD byte compare): the outer
+//   quarters of a peaked marginal skip most of theirs (-8%).
+// Three designs that read each sample once per pair lost to it, each as a
+// 4-CTA cluster a pair (CTA r owning the rows b % 4 == r, so that each gets
+// about a quarter of the samples), all with the same two-word adds and
+// bit-exact (ms at K1's 435 like histograms; this design 1.86 without its
+// skip in the same call).  Each is held back by what the shared memory
+// left beside 128 KB of bins (~96 KB) can buffer against the latency of the
+// cluster's handshakes:
+// - routing, 4.85: each CTA read a quarter of a step's samples from L2 and
+//   stored each, as a 14-bit bin key and its f32 weight, into its owner's
+//   queue with DSMEM stores, one cluster barrier a step (queues of ~1,000
+//   entries, 16K samples a step); 2.25 without the stores: narrow remote
+//   stores are slow;
+// - multicast, 2.70: a 4-stage ring of a, b and w, each stage filled in all
+//   four CTAs by bulk copies multicast over the cluster once every CTA
+//   freed it, each CTA scanning every staged sample; as slow without its
+//   adds: four 24 KB stages cannot cover a refill's round trip;
+// - push, 4.25: each CTA staged its quarter of a step (8K samples) as 6-byte
+//   entries in per-owner buckets and pushed each bucket with one bulk copy
+//   into the owner's receive buffer (shared::cta -> shared::cluster,
+//   completing on the owner's mbarrier), three stages and three receive
+//   buffers, the adds two steps behind; 3.78 without copies and adds, as
+//   fast with CTA-scope waits or without the async-proxy fence: the
+//   per-step handshakes, with two steps of slack, bound it.
+// Two designs that halve the integer route's reads lost to it on an H100, both as
 // a 2-CTA cluster per pair: one holding the whole histogram in distributed
 // shared memory, each CTA scanning half the samples and adding into its
 // peer's rows with red.shared::cluster (3x slower: remote adds are far
@@ -290,6 +325,18 @@ struct Weights16<uint8_t> {
   }
 };
 
+// A fixed-point addend into a shared bin as two native 32-bit adds (the
+// 64-bit shared add compiles to a compare-and-swap loop, ATOMS.CAST.SPIN.64):
+// the low word's, which returns the word's old value, then the high word's
+// with the low word's carry.  The same sum mod 2^64, so the same bits, in any
+// order.
+__device__ __forceinline__ void add_fixed(Fixed* bin, Fixed v) {
+  unsigned* word = reinterpret_cast<unsigned*>(bin);
+  const unsigned lo = static_cast<unsigned>(v);
+  const unsigned old = atomicAdd(word, lo);
+  atomicAdd(word + 1, static_cast<unsigned>(v >> 32) + (old + lo < old ? 1u : 0u));
+}
+
 // The block's adds: rows [row0, row0 + rows) of the histogram, in its tile.
 template <typename Acc, int kFixedBins>
 struct Adder {
@@ -306,9 +353,20 @@ struct Adder {
     const int row = b - row0;
     // at 256 bins a uint8 index is always in range
     if (static_cast<unsigned>(row) >= static_cast<unsigned>(rows) || (!kFixedBins && a >= bins)) return;
-    atomicAdd(&tile[row * bins + a], acc_of<Acc>(w, scale));
+    if constexpr (std::is_same<Acc, Fixed>::value) {
+      add_fixed(&tile[row * bins + a], acc_of<Acc>(w, scale));
+    } else {
+      atomicAdd(&tile[row * bins + a], acc_of<Acc>(w, scale));
+    }
   }
 };
+
+// true when one of the 16 b indices of bv lies in [row0, row0 + rows) (each
+// argument a byte, repeated in the word's four bytes)
+__device__ __forceinline__ bool any_row(const uint4& bv, uint32_t row0, uint32_t rows) {
+  return (__vcmpltu4(__vsub4(bv.x, row0), rows) | __vcmpltu4(__vsub4(bv.y, row0), rows) |
+          __vcmpltu4(__vsub4(bv.z, row0), rows) | __vcmpltu4(__vsub4(bv.w, row0), rows)) != 0;
+}
 
 template <typename Acc, typename W, int kFixedBins, bool kShifted>
 __device__ __forceinline__ void scan(const Adder<Acc, kFixedBins>& add, const Column& ca, const Column& cb,
@@ -317,6 +375,11 @@ __device__ __forceinline__ void scan(const Adder<Acc, kFixedBins>& add, const Co
   for (long long i = start + static_cast<long long>(kVec) * threadIdx.x; i < body_end;
        i += static_cast<long long>(kVec) * kThreads) {
     const uint4 bv = load16<kShifted>(cb, i);
+    if constexpr (sizeof(Acc) == 8) {
+      // a and w only where a b index lies in the block's rows: the outer
+      // quarters of a peaked marginal skip most vectors
+      if (!any_row(bv, add.row0 * 0x01010101u, add.rows * 0x01010101u)) continue;
+    }
     const uint4 av = load16<kShifted>(ca, i);
     Weights16<W> wv;
     wv.load(w, i);

@@ -23,8 +23,10 @@ own launch counter.
   them as f32 (no zero fill, no flush, no conversion pass); four blocks of
   a quarter each for fractional weights, which add in 64-bit fixed point
   (:func:`fixed_scale`: a multiple of 2^-62 of max |w| * N, then integer
-  adds: the same bits on every call and every route, where f32 atomics
-  would vary with the order). Each block reads a, b and w of every sample as 16-byte vectors;
+  adds, each as two native 32-bit shared adds with the low word's carry:
+  the same bits on every call and every route, where f32 atomics would
+  vary with the order), reading a and w only for the vectors whose b
+  indices meet their rows. Each block reads a, b and w of every sample as 16-byte vectors;
   callers that know their weights are integers pass them as uint8 where
   they fit (:func:`narrow_weights`), a quarter of the f32 stream. Few pairs take the
   split route (:func:`split_plan`). K1's rows (30 MB at 30 x 1M) stay in
@@ -428,13 +430,16 @@ def _launch(ix, weights, pair_a, pair_b, integer_weights, nbins, scale=None, raw
     return out, route
 
 
-def _count(entry, route, nbins, integer_weights):
+def _count(entry, route, nbins, integer_weights, k):
     """An entry's launch counters: ``launches`` (every launch),
     ``float_launches`` (those accumulating f32 weights, without
-    ``integer_weights``), ``wide_launches`` (the wide kernels') and
-    ``wide_bins`` (the wide kernels' by bin count)."""
+    ``integer_weights``; ``float_pairs`` counts them by pair count),
+    ``wide_launches`` (the wide kernels') and ``wide_bins`` (the wide
+    kernels' by bin count)."""
     entry.launches += int(route is not None)
-    entry.float_launches += int(route is not None and not integer_weights)
+    if route is not None and not integer_weights:
+        entry.float_launches += 1
+        entry.float_pairs[k] = entry.float_pairs.get(k, 0) + 1
     if route in ("bucket", "direct"):
         entry.wide_launches += 1
         entry.wide_bins[nbins] = entry.wide_bins.get(nbins, 0) + 1
@@ -456,13 +461,14 @@ def pair_histograms(ix, weights, pair_a, pair_b, integer_weights=False, nbins=NB
     :func:`pair_histograms_plain`; CUDA tensors launch
     ``csrc/pair_hist.cu``: the uint8 kernel for uint8 rows, the wide
     kernels (:func:`wide_plan`) for int16/int32 rows. ``launches`` counts
-    both, ``float_launches`` those with f32 weights, ``wide_launches`` the
-    wide kernels' and ``wide_bins`` theirs by bin count.
+    both, ``float_launches`` those with f32 weights (``float_pairs`` by pair
+    count), ``wide_launches`` the wide kernels' and ``wide_bins`` theirs by
+    bin count.
     """
     if ix.device.type == "cpu":
         return pair_histograms_plain(ix, weights, pair_a, pair_b, integer_weights, nbins, scale, raw)
     out, route = _launch(ix, weights, pair_a, pair_b, integer_weights, nbins, scale, raw)
-    _count(pair_histograms, route, nbins, integer_weights)
+    _count(pair_histograms, route, nbins, integer_weights, pair_a.shape[0])
     return out
 
 
@@ -473,7 +479,7 @@ def pair_histograms_dynamic(ix, weights, pair_a, pair_b, integer_weights=False, 
     if ix.device.type == "cpu":
         return pair_histograms_plain(ix, weights, pair_a, pair_b, integer_weights, nbins, scale, raw)
     out, route = _launch(ix, weights, pair_a, pair_b, integer_weights, nbins, scale, raw)
-    _count(pair_histograms_dynamic, route, nbins, integer_weights)
+    _count(pair_histograms_dynamic, route, nbins, integer_weights, pair_a.shape[0])
     return out
 
 
@@ -573,10 +579,12 @@ def pair_histograms_grouped(ix, weights, grp_a, grp_b, inv_perm, int8_weights=Fa
 
 pair_histograms.launches = 0
 pair_histograms.float_launches = 0
+pair_histograms.float_pairs = {}
 pair_histograms.wide_launches = 0
 pair_histograms.wide_bins = {}
 pair_histograms_dynamic.launches = 0
 pair_histograms_dynamic.float_launches = 0
+pair_histograms_dynamic.float_pairs = {}
 pair_histograms_dynamic.wide_launches = 0
 pair_histograms_dynamic.wide_bins = {}
 pair_histograms_grouped.launches = 0

@@ -6,6 +6,7 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
 
     python3 scripts/time_pair_hist_torch.py          # all of it
     python3 scripts/time_pair_hist_torch.py --wide   # the wide kernels only
+    python3 scripts/time_pair_hist_torch.py --fixed  # the fixed-point route only
 
 Two stacks of uint8 index rows from ``bench.make_chain(1_000_000, 30)``:
 
@@ -41,11 +42,29 @@ rows a slab's tile holds and with half and twice the rule's entries per bin
 block, and the host time per call of the rule's route. Copied with ``chip_smoke.py`` into an
 older tree whose ``pair_hist`` has no ``wide_plan``, ``--wide`` times that
 tree's kernel for int16 rows (f32 weights) on the same rows instead, so that
-two trees compare in one call. Imports nothing of JAX.
+two trees compare in one call.
+
+``--fixed`` times the route of fractional weights (64-bit fixed point) on
+the shapes its paths give it, from one meanlikes run of the public entry on
+``chip_smoke.bounded_chain(1M)``: the like histograms of all 435 pairs, the
+clamped rescue's 110 pairs, K5's grouped plan raw on the group's scale, the
+sharded K1 like route raw, and an 8-pair split-route call. Each is checked
+bit-exact against the plain version and twice against itself, then timed
+(CUDA events in two turns, and the profiler's device time) beside scratch
+builds of ``csrc/pair_hist.cu`` that replace its adds (timing only: no adds,
+the low words' adds alone, every vector's a and w read); it prints the
+atomic instructions of each build's fixed-point kernels (``cuobjdump
+-sass``). Copied into an older tree, it times that tree's kernel and its
+own split (reads only, convert without add, 32-bit adds, the two-word adds
+in that kernel) in the same way, so that two trees compare in one call.
+Imports nothing of JAX.
 """
 
+import ctypes
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -250,6 +269,203 @@ def time_wide(card):
     return ok
 
 
+# Scratch builds of csrc/pair_hist.cu for --fixed, timing only (never in
+# the package): the fixed-point adds replaced, in whichever form the tree
+# holds them (add_fixed's two 32-bit adds, or an older tree's inline 64-bit
+# atomicAdd in its Adder).
+_OLD_ADD = "atomicAdd(&tile[row * bins + a], acc_of<Acc>(w, scale));"
+_OLD_TARGET = "&tile[row * bins + a]"
+FIXED_VARIANTS = {
+    # no conversion and no add: the reads, the index arithmetic and the row test
+    "reads only": "if (__float_as_uint(static_cast<float>(w)) == 0xffffffffu) *({target}) = Acc(1);",
+    # the conversion of the weight without its add
+    "convert, no add": "{{ const Acc v_ = acc_of<Acc>(w, scale); if (v_ == static_cast<Acc>(-7)) *({target}) = v_; }}",
+    # one native 32-bit add of the addend's low word (wrong sums)
+    "32-bit adds": "atomicAdd(reinterpret_cast<unsigned*>({target}), static_cast<unsigned>(acc_of<Acc>(w, scale)));",
+    # exact: the 64-bit add as two native 32-bit adds, the low word's carry into the high one
+    "carry split": "{{ const Acc v_ = acc_of<Acc>(w, scale); if constexpr (sizeof(Acc) == 8) {{ "
+                   "unsigned* p_ = reinterpret_cast<unsigned*>({target}); const unsigned lo_ = static_cast<unsigned>(v_); "
+                   "const unsigned old_ = atomicAdd(p_, lo_); atomicAdd(p_ + 1, static_cast<unsigned>("
+                   "static_cast<unsigned long long>(v_) >> 32) + (old_ + lo_ < old_ ? 1u : 0u)); }} "
+                   "else {{ atomicAdd({target}, v_); }} }}",
+}
+_ADD_LO = "  const unsigned old = atomicAdd(word, lo);"
+_ADD_HI = "  atomicAdd(word + 1, static_cast<unsigned>(v >> 32) + (old + lo < old ? 1u : 0u));"
+_NO_HI = "  if (old == 0x7fffffffu && lo == 3u) *bin = 0;"
+NEW_VARIANTS = {
+    # the reads, the row tests and the conversions, without the adds
+    "no adds": [(_ADD_LO, "  const unsigned old = lo ^ static_cast<unsigned>(reinterpret_cast<uintptr_t>(word));"),
+                (_ADD_HI, _NO_HI)],
+    # the low words' native 32-bit adds alone (wrong sums)
+    "low words only": [(_ADD_HI, _NO_HI)],
+    # a and w read for every vector, as the parent did
+    "no skip": [("      if (!any_row(bv, add.row0 * 0x01010101u, add.rows * 0x01010101u)) continue;\n", "")],
+}
+
+
+def _variant_source(text, variant):
+    """The source with the fixed-point adds replaced for ``variant``, or None
+    when the tree has no such adds."""
+    if _ADD_LO not in text:
+        if _OLD_ADD in text and variant in FIXED_VARIANTS:
+            return text.replace(_OLD_ADD, FIXED_VARIANTS[variant].format(target=_OLD_TARGET))
+        return None
+    out = text
+    for old, new in NEW_VARIANTS.get(variant, [(None, None)]):
+        if old is None or old not in out:
+            return None
+        out = out.replace(old, new)
+    return out
+
+
+def variant_libraries():
+    """{variant: KernelLibrary} of the scratch builds (under the ignored
+    build directory, one nvcc each, in parallel)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from getdist_tpu_torch._compile import build_once
+
+    text = (_cuda.CSRC / "pair_hist.cu").read_text()
+    names = dict.fromkeys([*FIXED_VARIANTS, *NEW_VARIANTS])
+    sources = {}
+    for name in names:
+        src = _variant_source(text, name)
+        if src is not None:
+            path = _cuda.BUILD_DIR / "variants" / f"pair_hist_{name.replace(' ', '_').replace(',', '')}.cu"
+            path.parent.mkdir(parents=True, exist_ok=True)
+            path.write_text(src)
+            sources[name] = path
+
+    def build(item):
+        name, src = item
+
+        def steps(out, tag):
+            return [[[_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-o", str(out), str(src)]]], []
+
+        path, _, _ = build_once(f"variant_{src.stem}", [src], _cuda.NVCC_FLAGS, _cuda.BUILD_DIR / "variants", steps)
+        lib = ctypes.CDLL(str(path))
+        for fn, argtypes in _cuda._SIGNATURES.items():
+            if fn.startswith("pair_hist"):
+                getattr(lib, fn).argtypes = list(argtypes)
+                getattr(lib, fn).restype = ctypes.c_int
+        return name, _cuda.KernelLibrary(lib, path, 0.0, "")
+
+    with ThreadPoolExecutor(len(sources) or 1) as pool:
+        return dict(pool.map(build, sources.items()))
+
+
+def with_library(lib, fn):
+    """``fn`` run with the wrappers launching from ``lib``."""
+
+    def run():
+        saved = _cuda.library
+        _cuda.library = lambda: lib
+        try:
+            return fn()
+        finally:
+            _cuda.library = saved
+
+    return run
+
+
+def atomic_sass(path, mangled):
+    """{opcode: count} of the shared and global atomic instructions (ATOMS,
+    ATOM, RED and their compare-and-swap forms) in the SASS of each kernel
+    of the library at ``path`` whose mangled name holds ``mangled``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True, timeout=300).stdout
+    except (OSError, subprocess.TimeoutExpired) as err:
+        return {"cuobjdump failed": str(err)}
+    found, kernel = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            kernel = name if mangled in name else None
+            if kernel:
+                found[kernel] = {}
+        elif kernel:
+            m = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?((?:ATOMS|ATOMG|ATOM|RED|REDG|REDS|CAS)\S*)", line)
+            if m:
+                found[kernel][m.group(1)] = found[kernel].get(m.group(1), 0) + 1
+    return found
+
+
+def fixed_shapes():
+    """The fixed-point route's calls on their paths' inputs, from one
+    meanlikes run of the public entry on ``bounded_chain(1M)``: {name:
+    (call(), plain())}, each returning (K, nbins, nbins) f32 or raw int64."""
+    from chip_smoke import bounded_chain, entry_group_rows
+
+    samples, weights, loglikes, names, ranges = bounded_chain(1_000_000)
+    mc = MCSamples(samples=samples, weights=weights, loglikes=loglikes, names=names, ranges=ranges, device="cuda")
+    d1, _, pairs = mc.fastTriangleDensities(meanlikes=True)
+    st = mc._fast_chain_state()
+    s_dev, w_dev, lw = st["samples"], st["weights"], st["like_weights"]
+    binmin, binmax = d1["range"]
+    ix = batched._fine_indices(s_dev.T.contiguous(), binmin, (binmax - binmin) / 255, 256).to(torch.uint8)
+    pa = torch.tensor([a for a, _ in pairs], dtype=torch.int32, device="cuda")
+    pb = torch.tensor([b for _, b in pairs], dtype=torch.int32, device="cuda")
+    group = next(g for g in mc.fast_regrid_groups if g["bandwidths"] == "clamped")
+    ixg, pag, pbg, _ = entry_group_rows(s_dev, d1["range"], group, pair_hist, batched)
+    plan = [torch.from_numpy(x).cuda() for x in pair_hist.group_pairs(pairs)]
+    n = ix.shape[1]
+    like_scale = pair_hist.group_scale(lw, n)
+    w_scale = pair_hist.group_scale(w_dev, n)
+    hist, plain = pair_hist.pair_histograms, pair_hist.pair_histograms_plain
+    return {
+        f"K1 like f32, {len(pairs)} pairs": (lambda: hist(ix, lw, pa, pb), lambda: plain(ix, lw, pa, pb)),
+        f"K1 like f32, clamped rescue's {pag.shape[0]} pairs": (
+            lambda: hist(ixg, lw, pag, pbg), lambda: plain(ixg, lw, pag, pbg)),
+        "K5 f32, raw on the group's scale": (
+            lambda: pair_hist.pair_histograms_grouped(ix, w_dev, *plan, False, scale=w_scale, raw=True),
+            lambda: pair_hist.pair_histograms_grouped_plain(ix, w_dev, *plan, False, scale=w_scale, raw=True)),
+        "K1 like, group route (raw)": (
+            lambda: hist(ix, lw, pa, pb, scale=like_scale, raw=True),
+            lambda: plain(ix, lw, pa, pb, scale=like_scale, raw=True)),
+        "K1 like f32, 8 pairs (split route)": (
+            lambda: hist(ix, lw, pa[:8], pb[:8]), lambda: plain(ix, lw, pa[:8], pb[:8])),
+    }, (ix, lw, len(pairs))
+
+
+def device_ms_of(fn, reps=10):
+    """Mean device ms per call of ``fn`` under torch.profiler (every kernel,
+    memcpy and memset of the call)."""
+    return device_by_kernel(fn, reps)["total"] / 1e3
+
+
+def time_fixed(card):
+    """The fixed-point route on each of its paths' shapes (see
+    :func:`fixed_shapes`): bit-exact
+    against the plain version and two calls bitwise equal, then CUDA-event
+    times in turns of the tree's kernel and of the scratch builds
+    (:data:`NEW_VARIANTS`, or :data:`FIXED_VARIANTS` in an older tree), the
+    profiler's device time, and the atomic SASS of each build's fixed-point
+    kernels. True when every exact call is bit-exact."""
+    variants = variant_libraries()
+    for name, lib in [("tree", _cuda.library()), *variants.items()]:
+        print(f"SASS atomics, {name}: {json.dumps(atomic_sass(lib.path, 'pair_hist_uint8_kernelIy'))}")
+    shapes, (ix, lw, k) = fixed_shapes()
+    ok = True
+    for name, (call, plain) in shapes.items():
+        want = plain()
+        got = call()
+        exact = {"tree's kernel": torch.equal(got, want) and torch.equal(got, call())}
+        if "carry split" in variants:
+            exact["carry split"] = torch.equal(with_library(variants["carry split"], call)(), want)
+        ok = ok and all(exact.values())
+        runs = {"tree's kernel": call, **{v: with_library(lib, call) for v, lib in variants.items()}}
+        times = in_turns(runs)
+        dev = {key: round(device_ms_of(fn), 4) for key, fn in runs.items()}
+        print(f"{card}: fixed point, {name}: bit-exact and repeatable {json.dumps(exact)}; ms per call (CUDA "
+              f"events, two turns): {json.dumps({key: [round(x, 4) for x in v] for key, v in times.items()})}; "
+              f"device ms (profiler): {json.dumps(dev)}")
+        del want, got
+    b, by = hist_bound(ix, lw, k, 256)
+    print(f"bound of the {k}-pair call {b:.4f} ms ({by})")
+    return ok
+
+
 def main():
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -263,6 +479,8 @@ def main():
         print(f"ptxas: {line}")
     if "--wide" in sys.argv[1:]:
         return 0 if time_wide(card) else 1
+    if "--fixed" in sys.argv[1:]:
+        return 0 if time_fixed(card) else 1
 
     samples, weights = make_chain(1_000_000, 30)
     s_dev, w_dev = batched.prepare_chain(samples, weights, "cuda")

@@ -88,6 +88,96 @@ def test_fractional_weights_same_bits_on_both_routes(cuda, monkeypatch, nbins, w
     assert bool(((whole - want).abs() <= 1e-6 * want.abs() + 1e-9 * peak).all())
 
 
+def _fixed_weights(kind, n, seed):
+    rng = np.random.default_rng(seed)
+    w = {
+        "fractional": rng.random(n),
+        "negative": rng.normal(0.5, 1.0, n),
+        "many-decades": np.exp(-0.5 * rng.uniform(0, 140, n)),
+    }[kind]
+    return torch.from_numpy(w.astype(np.float32))
+
+
+def _fixed_rows(p, n, nbins, seed):
+    """uint8 rows for the fixed-point route: peaked (Gaussian) columns, whose
+    outer quarters skip most vectors, and flat ones that fill every
+    quarter; at fewer than 256 bins the indices from nbins up are dropped."""
+    rng = np.random.default_rng(seed)
+    peaked = np.clip(rng.standard_normal((p, n)) * nbins / 7 + nbins / 2, 0, 255)
+    flat = rng.integers(0, 256, (p, n))
+    return torch.from_numpy(np.where(np.arange(p)[:, None] % 3 == 2, flat, peaked).astype(np.uint8))
+
+
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("weights", ["fractional", "negative", "many-decades"])
+@pytest.mark.parametrize("k", [1, 8, 110])
+@pytest.mark.parametrize("nbins", [256, 200, 129])
+def test_fixed_point_route_bit_exact(cuda, nbins, k, weights, scaled):
+    """The uint8 kernel's fixed-point route (four blocks a pair, each add
+    two native 32-bit shared adds with the low word's carry, a and w read
+    only where a vector's b indices meet the block's rows): the raw int64
+    sums and the converted f32 sums bitwise equal to the plain version's,
+    and two calls bitwise equal. N = 300,003 puts the columns off 16-byte
+    boundaries; 1 and 8 pairs take the split route (global-atomic flush),
+    110 one chunk a pair; quarters of 200 and 129 bins do not divide
+    evenly. ``scaled``: a group's scale (a larger max |w|, three ranks'
+    samples), as the sharded paths pass it."""
+    p, n = 16, 300_003
+    ix = _fixed_rows(p, n, nbins, seed=nbins + k).to(cuda)
+    w = _fixed_weights(weights, n, seed=k).to(cuda)
+    pa, pb = (x[:k].contiguous() for x in _pairs(p, cuda))
+    scale = (1.5 * w.abs().max(), 3 * n) if scaled else None
+    raw = pair_hist.pair_histograms(ix, w, pa, pb, nbins=nbins, scale=scale, raw=True)
+    assert raw.dtype == torch.int64
+    assert torch.equal(raw, pair_hist.pair_histograms_plain(ix, w, pa, pb, nbins=nbins, scale=scale, raw=True))
+    assert torch.equal(raw, pair_hist.pair_histograms(ix, w, pa, pb, nbins=nbins, scale=scale, raw=True))
+    got = pair_hist.pair_histograms(ix, w, pa, pb, nbins=nbins, scale=scale)
+    assert torch.equal(got, pair_hist.pair_histograms_plain(ix, w, pa, pb, nbins=nbins, scale=scale))
+    assert torch.equal(got, pair_hist.pair_histograms(ix, w, pa, pb, nbins=nbins, scale=scale))
+    assert torch.equal(got, pair_hist.fixed_to_f32(raw, scale or pair_hist.group_scale(w, n)))
+
+
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("weights", ["fractional", "negative", "many-decades"])
+def test_fixed_point_route_k5_plan(cuda, weights, scaled):
+    """K5's plan (b-anchored groups of 8, short groups padded) on the
+    fixed-point route: raw and converted sums bitwise equal to the plain
+    version's and K1's on the same pairs, two calls bitwise equal."""
+    p, n = 13, 300_003
+    ix = _fixed_rows(p, n, 256, seed=5).to(cuda)
+    w = _fixed_weights(weights, n, seed=6).to(cuda)
+    pa, pb = _pairs(p, cuda)
+    plan = [torch.from_numpy(x).to(cuda) for x in pair_hist.group_pairs(list(zip(pa.tolist(), pb.tolist())))]
+    scale = (2.0 * w.abs().max(), 2 * n) if scaled else None
+    for raw in (True, False):
+        got = pair_hist.pair_histograms_grouped(ix, w, *plan, scale=scale, raw=raw)
+        assert torch.equal(got, pair_hist.pair_histograms_grouped_plain(ix, w, *plan, scale=scale, raw=raw))
+        assert torch.equal(got, pair_hist.pair_histograms_grouped(ix, w, *plan, scale=scale, raw=raw))
+        assert torch.equal(got, pair_hist.pair_histograms(ix, w, pa, pb, scale=scale, raw=raw))
+
+
+def test_fixed_point_refused_launch_raises(cuda):
+    """A launch the card refuses raises (no fallback to another kernel or
+    the plain version), and the card goes on: 65,536 pairs put the grid's
+    y dimension past its limit (the wrappers refuse more than 65,535 before
+    launching, so the entry point is called directly)."""
+    from getdist_tpu_torch.ops import _cuda
+
+    k, n, nbins = 65_536, 64, 16
+    ix = torch.zeros((2, n), dtype=torch.uint8, device=cuda)
+    w = torch.rand(n, device=cuda)
+    pa = torch.zeros(k, dtype=torch.int32, device=cuda)
+    pb = torch.ones(k, dtype=torch.int32, device=cuda)
+    wmax = w.abs().max().reshape(1)
+    out = torch.empty((k, nbins, nbins), dtype=torch.float32, device=cuda)
+    with pytest.raises(RuntimeError, match="pair_hist_uint8_launch failed with cudaError_t"):
+        _cuda.call("pair_hist_uint8_launch", cuda, ix.data_ptr(), 2, w.data_ptr(), 4, pa.data_ptr(), pb.data_ptr(),
+                   0, 0, n, k, nbins, 1, 0, wmax.data_ptr(), n, 0, 0, out.data_ptr())
+    torch.cuda.synchronize()
+    got = pair_hist.pair_histograms(ix, w, pa[:3].contiguous(), pb[:3].contiguous(), nbins=nbins)
+    assert torch.equal(got, pair_hist.pair_histograms_plain(ix, w, pa[:3], pb[:3], nbins=nbins))
+
+
 # K1's uint8 kernel: (P, N, nbins, route). "whole": the two blocks of a
 # pair each write their half of its f32 histogram; "split": few pairs, the
 # samples split over several chunks per pair (global-atomic flush). N odd

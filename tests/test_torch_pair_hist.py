@@ -374,3 +374,30 @@ def test_raw_block_sums_equal_one_call(nbins, index_dtype):
     np.testing.assert_array_equal(pair_hist.fixed_to_f32(total, scale).numpy(), whole.numpy())
     with pytest.raises(ValueError, match="fractional"):
         pair_hist.pair_histograms(ix_t, w_t, pa, pb, integer_weights=True, nbins=nbins, raw=True)
+
+
+def _timing_script():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "scripts" / "time_pair_hist_torch.py"
+    spec = importlib.util.spec_from_file_location("time_pair_hist_torch", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("variant", ["no adds", "low words only", "no skip"])
+def test_fixed_timing_variants_find_their_targets(variant):
+    """``scripts/time_pair_hist_torch.py --fixed`` times scratch copies of
+    ``csrc/pair_hist.cu`` with the fixed-point adds (or the row skip)
+    replaced: every replacement finds its text in the source and changes
+    it, and the integer route's adds are left as they are."""
+    script = _timing_script()
+    source = (pair_hist._cuda.CSRC / "pair_hist.cu").read_text()
+    changed = script._variant_source(source, variant)
+    assert changed is not None and changed != source
+    for old, _ in script.NEW_VARIANTS[variant]:
+        assert old in source and old not in changed
+    assert script._OLD_ADD in changed  # the int32 bins' add
+    assert script._variant_source(source, "reads only") is None  # an older tree's variants only
