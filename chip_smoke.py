@@ -161,7 +161,19 @@ CUDA kernels from ``getdist_tpu_torch/csrc``. Then three paths on
    (``run.updated.yaml`` and ``run.1.txt`` ... ``run.4.txt``, written by
    four processes while the parts above run) and loaded by
    ``loadMCSamples`` (PyYAML), bitwise phase 8's object (K1/K2/K3
-   launches and walls of each part, and the phase's wall).
+   launches and walls of each part, and the phase's wall);
+13. the last public pieces (``last_api_phase``): the native
+   ``bin_columns`` on the bench chain at 256 bins, bitwise numpy's
+   formula (both host walls); the module-level ``convolve1D`` /
+   ``convolve2D`` with ``GETDIST_TPU_TORCH_DEVICE_OPS=1`` on the card in
+   every mode, within 1e-12 of the largest value of the host route, and
+   unchanged by ``cache=``; the package config (all five keys) and a
+   ``ParamNames`` keyword round trip of 30 names in a subprocess with
+   ``GETDIST_TPU_TORCH_CONFIG`` set, importing no torch; and
+   ``ops.batched.fragile_signal``'s (K, 6) stack on the inputs of the 2D
+   optimizer call of the public entry on ``hard_chain(1M)`` (recorded in a
+   run bitwise the default run, K1/K2/K3 launches), consistent with the
+   optimizer's rho and fragile flags.
 
 K1, K4, K5 and the wide kernels are timed with the weights their paths
 pass (integer weights as uint8, ``pair_hist.narrow_weights``), each beside
@@ -194,7 +206,7 @@ FP32_FLOPS = 67e12
 TF32X3_FLOPS = 495e12 / 3
 FP64_FLOPS = 67e12
 
-PHASES = frozenset(range(1, 13))
+PHASES = frozenset(range(1, 14))
 # what a phase takes from an earlier one: phase 8's root, phase 9's host walls, phase 11's grids
 REQUIRES = {9: {8}, 10: {8}, 11: {8, 9}, 12: {8, 9, 11}}
 
@@ -724,8 +736,11 @@ def profile_slice(run):
 
 
 def profile_device_busy(run):
-    """(device busy ms, wall ms) of one call under torch.profiler: the sum
-    of CUDA kernel, memcpy and memset times, printed with the top kernels."""
+    """(device busy ms, wall ms, busy ms with the stage ranges' spans) of
+    one call under torch.profiler: the sum of CUDA kernel, memcpy and
+    memset times, without the device spans of the ``STAGE_PREFIXES``
+    ranges (they would count their kernels twice), printed with the top
+    kernels; the third value adds those spans back in."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -734,9 +749,10 @@ def profile_device_busy(run):
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms = sum(e.time_range.elapsed_us() for e in device_events(prof)) / 1e3
+    busy_ms = sum(e.time_range.elapsed_us() for e in device_events(prof, STAGE_PREFIXES)) / 1e3
+    with_ranges_ms = sum(e.time_range.elapsed_us() for e in device_events(prof)) / 1e3
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=12))
-    return busy_ms, wall_ms
+    return busy_ms, wall_ms, with_ranges_ms
 
 
 def fused_path(samples, weights, batched, dft_conv, pair_hist, make_chain):
@@ -891,9 +907,10 @@ def parity_path(samples, weights, batched, dft_conv, pair_hist):
     print(f"parity stages (s, warm run): {profile}")
     print(f"parity buckets: {json.dumps(mc.parity_buckets)}")
     mc, _ = fresh()
-    busy_ms, wall_ms = profile_device_busy(lambda: mc.fastParityDensities(device=True))
+    busy_ms, wall_ms, with_ranges_ms = profile_device_busy(lambda: mc.fastParityDensities(device=True))
     print(f"parity device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms wall under the profiler "
-          f"(idle share {1 - busy_ms / wall_ms:.3f})")
+          f"(idle share {1 - busy_ms / wall_ms:.3f}); with the stage ranges' device spans counted on top of their "
+          f"kernels, as before: {with_ranges_ms:.1f} ms (idle share {1 - with_ranges_ms / wall_ms:.3f})")
 
     # bin indices of all columns at 1M, against numpy's formula
     idx = list(range(p))
@@ -3637,6 +3654,189 @@ def interop_gui_phase(root, bounded, card, pair_hist, dft_conv, plot_grids):
         app_logic.RECENT_FILE = saved_recent
 
 
+# phase 13's subprocess: the package config and a ParamNames keyword round
+# trip, with GETDIST_TPU_TORCH_CONFIG set (argv: the names' lines)
+_CONFIG_SCRIPT = r"""
+import json, logging, sys, time
+t0 = time.perf_counter()
+import getdist_tpu_torch as g
+from getdist_tpu_torch.paramnames import ParamInfo, ParamNames
+
+
+class Keywords(dict):
+    def keyWord_int(self, key):
+        return int(self[key][0])
+
+    def keyWordAndComment(self, key):
+        return self[key]
+
+    def setKeyWord_int(self, key, value):
+        self[key] = (int(value), "")
+
+    def setKeyWord(self, key, value, comment):
+        self[key] = (value, comment)
+
+
+def fields(names):
+    return [[p.name, p.label, p.comment, p.isDerived] for p in names.names]
+
+
+names = ParamNames()
+names.names = [ParamInfo(line) for line in sys.argv[1:]]
+kw = Keywords()
+names.saveKeyWords(kw)
+back = ParamNames()
+count = back.loadFromKeyWords(kw)
+print(json.dumps({
+    "values": {k: getattr(g, k) for k in ("cache_dir", "default_plot_output", "default_grid_root",
+                                          "output_base_dir", "loglevel")},
+    "params": dict(g.get_config().params), "root_level": logging.getLogger().level,
+    "round_trip": fields(back) == fields(names), "count": count,
+    "escaped": not any(chr(92) in str(v[0]) for v in kw.values()),
+    "modules": sorted(m for m in ("torch", "jax", "getdist_tpu") if m in sys.modules),
+    "seconds": time.perf_counter() - t0,
+}))
+"""
+
+
+def last_api_phase(samples, card, pair_hist, dft_conv):
+    """Phase 13: the last public pieces of the port on the bench chain
+    (``samples``) and the hard chain: the native ``bin_columns``, the
+    module-level ``convolve1D`` / ``convolve2D`` with the device ops on the
+    card, the package config and a ``ParamNames`` keyword round trip in a
+    subprocess, and ``ops.batched.fragile_signal`` on the inputs of the
+    optimizer call of the public entry on ``hard_chain(1M)``."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from getdist_tpu_torch import _native
+    from getdist_tpu_torch import mcsamples as tmc
+
+    # bin_columns: (P, N) int32 bin indices, bitwise numpy's formula
+    nbins = 256
+    sd = samples.std(axis=0)
+    lo = samples.min(axis=0) + 0.05 * sd  # some values below range_min
+    dx = (samples.max(axis=0) - 0.05 * sd - lo) / (nbins - 1)  # some past the top edge
+    first_s, got = wall_s(lambda: _native.bin_columns(samples, lo, dx, nbins))
+    native_s = min(wall_s(lambda: _native.bin_columns(samples, lo, dx, nbins))[0] for _ in range(3))
+    numpy_s, want = wall_s(lambda: np.clip(((samples - lo) / dx).astype(int), 0, nbins - 1).T.astype(np.int32))
+    check(got.dtype == np.int32 and got.shape == want.shape, "bin_columns: (P, N) int32")
+    check(np.array_equal(got, want), "bin_columns: bitwise numpy's ((x - lo) / dx).astype(int), clipped")
+    check(int(got.min()) == 0 and int(got.max()) == nbins - 1, "bin_columns: values clipped at both edges")
+    print(f"phase 13, bin_columns on the bench chain {samples.shape[0]:,} x {samples.shape[1]} at {nbins} bins "
+          f"({card}): bitwise numpy's formula; host walls: native {native_s * 1e3:.1f} ms (min of 3; first call "
+          f"{first_s * 1e3:.1f} ms, the g++ build included when not cached), numpy {numpy_s * 1e3:.1f} ms")
+
+    # module-level convolutions: the device-ops route on the card against the host route
+    rng = np.random.default_rng(13)
+    inputs = {1: (rng.random(4096), np.exp(-0.5 * np.linspace(-4, 4, 801) ** 2)),
+              2: (rng.random((512, 512)), np.outer(np.hanning(129), np.exp(-0.5 * np.linspace(-3, 3, 97) ** 2)))}
+    modes = [(1, m) for m in ("same", "full", "valid", "periodic")] + [
+        (2, m) for m in ("same", "full", "valid", "periodic", "periodic_x", "periodic_y")]
+    saved = os.environ.pop("GETDIST_TPU_TORCH_DEVICE_OPS", None)
+    lines = []
+    try:
+        for dim, mode in modes:
+            x, y = inputs[dim]
+            fn = tmc.convolve1D if dim == 1 else tmc.convolve2D
+            os.environ.pop("GETDIST_TPU_TORCH_DEVICE_OPS", None)
+            host_s, host = min((wall_s(lambda: fn(x, y, mode)) for _ in range(3)), key=lambda r: r[0])
+            os.environ["GETDIST_TPU_TORCH_DEVICE_OPS"] = "1"
+            dev_s, dev = min((wall_s(lambda: fn(x, y, mode, device="cuda")) for _ in range(3)), key=lambda r: r[0])
+            cached = fn(x, y, mode, cache={}, cache_args=(0,), device="cuda")
+            err = float(np.max(np.abs(dev - host)) / np.max(np.abs(host)))
+            check(isinstance(dev, np.ndarray) and dev.dtype == np.float64 and dev.shape == host.shape,
+                  f"convolve{dim}D {mode}: a host f64 array of the host route's shape")
+            check(err <= 1e-12, f"convolve{dim}D {mode}: card within 1e-12 of the largest value ({err:.3g})")
+            check(np.array_equal(cached, dev), f"convolve{dim}D {mode}: cache= changes nothing")
+            lines.append(f"{dim}D {mode} {host.shape}: card {dev_s * 1e3:.2f} ms, host {host_s * 1e3:.2f} ms, "
+                         f"err {err:.2g}")
+    finally:
+        os.environ.pop("GETDIST_TPU_TORCH_DEVICE_OPS", None)
+        if saved is not None:
+            os.environ["GETDIST_TPU_TORCH_DEVICE_OPS"] = saved
+    print(f"phase 13, module-level convolve1D / convolve2D with GETDIST_TPU_TORCH_DEVICE_OPS=1 on the card against "
+          f"the host route, f64, error relative to the largest value, walls min of 3 ({card}): " + "; ".join(lines))
+
+    # the package config and a keyword round trip, in a process of their own
+    with tempfile.TemporaryDirectory(prefix="gdt_config_") as folder:
+        config = os.path.join(folder, "config.ini")
+        keys = {"cache_dir": os.path.join(folder, "cache"), "default_plot_output": "png",
+                "default_grid_root": os.path.join(folder, "grids"), "output_base_dir": os.path.join(folder, "out"),
+                "logging": "INFO"}
+        with open(config, "w") as handle:
+            handle.writelines(f"{k} = {v}\n" for k, v in keys.items())
+        lines = [f"p{i}{'*' if i >= 25 else ''}\t\\theta_{{{i}}}\t#column {i}" for i in range(samples.shape[1])]
+        env = dict(os.environ, GETDIST_TPU_TORCH_CONFIG=config, PYTHONPATH=ROOT)
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-c", _CONFIG_SCRIPT, *lines], env=env, cwd=folder,
+                             capture_output=True, text=True, timeout=120)
+        proc_s = time.perf_counter() - t0
+        check(out.returncode == 0, f"config subprocess: {out.stderr[-2000:]}")
+        got = json.loads(out.stdout.strip().splitlines()[-1])
+    want = {k: v for k, v in keys.items() if k != "logging"} | {"loglevel": keys["logging"]}
+    check(got["values"] == want, f"config: module values {got['values']}")
+    check(got["params"] == keys and got["root_level"] == 20, "config: get_config() and logging at INFO")
+    check(got["round_trip"] and got["count"] == len(lines) and got["escaped"], "ParamNames keyword round trip")
+    check(got["modules"] == [], f"config: the package imported {got['modules']}")
+    print(f"phase 13, package config and ParamNames keyword round trip of {len(lines)} names in a subprocess "
+          f"({card}): values {json.dumps(got['values'])}, logging applied, no torch or jax imported; "
+          f"import and round trip {got['seconds'] * 1e3:.1f} ms, process {proc_s:.2f} s")
+
+    # the fragile-signal diagnostics on the inputs of the hard chain's own optimizer call
+    from getdist_tpu_torch.ops import batched
+
+    counters = (pair_hist.pair_histograms, dft_conv.dft_conv_spectrum, dft_conv.dft_conv2d)
+    hs, hw = hard_chain(1_000_000)
+    mc = tmc.MCSamples(samples=hs, weights=hw, names=[f"h{i}" for i in range(hs.shape[1])], device="cuda")
+    plain_s, (_, plain, pairs) = wall_s(lambda: mc.fastTriangleDensities())
+    calls = []
+    optimizer = batched._kernel_bandwidth_2d
+
+    def recorded(*args):
+        out = optimizer(*args)
+        calls.append((args, out))
+        return out
+
+    batched._kernel_bandwidth_2d = recorded
+    try:
+        for fn in counters:
+            fn.launches = 0
+        rec_s, (_, rec, _) = wall_s(lambda: mc.fastTriangleDensities())
+        launches = {fn.__name__: fn.launches for fn in counters}
+    finally:
+        batched._kernel_bandwidth_2d = optimizer
+    k = len(pairs)
+    check(launches["pair_histograms"] >= 1 and launches["dft_conv_spectrum"] >= 1 and launches["dft_conv2d"] >= 2,
+          f"fragile signal: the entry launched K1, K2 and K3 ({launches})")
+    check(torch.equal(rec["P"], plain["P"]) and torch.equal(rec["diag"], plain["diag"]),
+          "fragile signal: the recorded entry's grids and diagnostics bitwise the default run's")
+    check(len(calls) >= 1 and len(calls[0][1][2]) == k, f"fragile signal: the program's optimizer call ({len(calls)})")
+    args, (_, _, rho, _, flags) = calls[0]
+    signal_ms = cuda_ms(lambda: batched.fragile_signal(*args), 5)
+    stack = batched.fragile_signal(*args)
+    check(tuple(stack.shape) == (k, 6) and bool(torch.isfinite(stack[:, [0, 3, 4, 5]]).all()),
+          f"fragile signal: a ({k}, 6) stack, finite rho and flags")
+    check(set(torch.unique(stack[:, 3:]).tolist()) <= {0.0, 1.0}, "fragile signal: flag rows 0 / 1")
+    check(torch.equal(torch.where(stack[:, 5] == 1, stack[:, 1], stack[:, 0]), rho),
+          "fragile signal: rho2 where taken, else rho, is the optimizer's rho bitwise")
+    check(bool((stack[flags, 3] == 1).all()), "fragile signal: the clamp binds on every pair flagged fragile")
+    stack = stack.cpu().numpy()
+    conv = stack[:, 4] == 1
+    span = lambda v: f"in [{v.min():.4f}, {v.max():.4f}]" if v.size else "none"  # noqa: E731
+    fragile = {tuple(p) for g in mc.fast_regrid_groups if g["bandwidths"] == "fragile" for p in g["pairs"]}
+    print(f"phase 13, fragile_signal on the inputs of the entry's optimizer call, hard chain 1,000,000 x 8 "
+          f"({card}): entry {plain_s * 1e3:.1f} ms, recorded entry {rec_s * 1e3:.1f} ms (first calls, bitwise the "
+          f"default run); launches {json.dumps(launches)}; fragile_signal {signal_ms:.3f} ms (mean of 5); stack "
+          f"({k}, 6): clamp bound {int(stack[:, 3].sum())}, free search converged {int(conv.sum())}, taken "
+          f"{int(stack[:, 5].sum())}, rho2 of the converged {span(stack[conv, 1])}, val2 / best of the converged "
+          f"{span(stack[conv, 2])}; pairs flagged fragile {int(flags.sum())}, rescued {len(fragile)}")
+    del mc, plain, rec, calls, args
+    torch.cuda.empty_cache()
+
+
 def _api_texts(root, ini, n_tabs):
     """(marge stats, like stats, the parameter tables by limit) of the
     analysis API on ``root`` loaded on the card with ``ini``."""
@@ -3653,7 +3853,7 @@ def selected_phases(argv):
     import argparse
 
     parser = argparse.ArgumentParser(description="Smoke run of getdist_tpu_torch on one CUDA card.")
-    parser.add_argument("--phases", help="comma-separated phase numbers 1-12 (default: every phase)")
+    parser.add_argument("--phases", help="comma-separated phase numbers 1-13 (default: every phase)")
     args = parser.parse_args(argv)
     if args.phases is None:
         return PHASES
@@ -3662,7 +3862,7 @@ def selected_phases(argv):
     except ValueError:
         parser.error(f"--phases takes comma-separated numbers, got {args.phases!r}")
     if not chosen or not chosen <= PHASES:
-        parser.error(f"--phases takes numbers 1-12, got {args.phases!r}")
+        parser.error(f"--phases takes numbers 1-13, got {args.phases!r}")
     for phase in sorted(chosen, reverse=True):
         chosen |= REQUIRES.get(phase, set())
     return frozenset(chosen)
@@ -3702,7 +3902,7 @@ def main(argv=()):
         print(f"phases {sorted(phases)} of {len(PHASES)}")
 
     samples = weights = bounded = None
-    if phases & {1, 2, 3, 4}:
+    if phases & {1, 2, 3, 4, 13}:
         t0 = time.perf_counter()
         samples, weights = make_chain(1_000_000, 30)
         print(f"chain 1,000,000 x 30 made in {time.perf_counter() - t0:.1f} s")
@@ -3729,6 +3929,8 @@ def main(argv=()):
         results += parity_bounded_phase(bounded, batched, dft_conv, pair_hist)
     if 8 in phases:
         files_phase(bounded, card, pair_hist, dft_conv, phases)
+    if 13 in phases:
+        last_api_phase(samples, card, pair_hist, dft_conv)
     for r in results:
         # a bound is a least time: no measured way of computing the function may beat it
         measured = [t for t in (r["ms"], r["plain_ms"], r["library_ms"]) if t is not None]

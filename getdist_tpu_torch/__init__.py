@@ -54,11 +54,15 @@ lives in ``$XDG_CACHE_HOME`` (else ``~/.cache``, ``%LOCALAPPDATA%`` on
 Windows) ``/getdist_tpu_torch_cache``, apart from the JAX package's, whose
 pickles would import it; ``$GETDIST_TPU_TORCH_CONFIG`` or a ``config.ini``
 beside this file may set another ``cache_dir``, ``default_plot_output``
-(the plot scripts' figure format, ``pdf`` by default) and
+(the plot scripts' figure format, ``pdf`` by default),
 ``default_grid_root`` (where a plotter with no ``chain_dir`` looks for
-roots). Importing the package imports neither the plots nor matplotlib.
+roots), ``output_base_dir`` and ``logging`` (a level given to
+:func:`set_logging` at import); :func:`get_config` returns the file as an
+``IniFile``. Importing the package imports neither torch, nor the plots,
+nor matplotlib.
 """
 
+import logging
 import os
 
 __version__ = "0.3.0"
@@ -88,6 +92,8 @@ _config_file = os.environ.get("GETDIST_TPU_TORCH_CONFIG") or os.path.join(os.pat
 cache_dir = _get_cache_dir()
 default_plot_output = "pdf"
 default_grid_root = None
+output_base_dir = None
+loglevel = None
 if os.path.exists(_config_file):
     from getdist_tpu_torch.inifile import IniFile
 
@@ -95,12 +101,34 @@ if os.path.exists(_config_file):
     cache_dir = _ini.string("cache_dir", "") or cache_dir
     default_plot_output = _ini.string("default_plot_output", default_plot_output)
     default_grid_root = _ini.string("default_grid_root", "") or None
+    output_base_dir = _ini.string("output_base_dir", "") or None
+    loglevel = _ini.string("logging", "") or None
+
+
+def set_logging(log_level):
+    """Configure package logging (reference getdist/__init__.py:20-23)."""
+    logging.basicConfig(level=log_level)
 
 
 def get_defaults_file(name="analysis_defaults.ini"):
     """Path of a packaged defaults ini (reference getdist/__init__.py:16-17)."""
     return os.path.join(os.path.dirname(os.path.abspath(__file__)), name)
 
+
+def get_config():
+    """The package config as an IniFile: ``$GETDIST_TPU_TORCH_CONFIG`` or the
+    packaged config.ini, empty if neither exists (reference
+    getdist/__init__.py:26-33)."""
+    from getdist_tpu_torch.inifile import IniFile
+
+    return IniFile(_config_file) if os.path.exists(_config_file) else IniFile()
+
+
+# legacy-compatibility flag carried by the reference (getdist/__init__.py:63)
+use_plot_data = False
+
+if loglevel:
+    set_logging(loglevel)
 
 default_getdist_settings = get_defaults_file()
 distparam_template = get_defaults_file("distparam_template.ini")

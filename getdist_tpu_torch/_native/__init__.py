@@ -1,11 +1,12 @@
 """Host C++ passes of the port, built with ``g++`` at first use and called
 through ``ctypes``.
 
-Two passes, each the port's own copy of one of ``getdist_tpu/_native``'s:
+Three passes, each the port's own copy of one of ``getdist_tpu/_native``'s:
 the multi-threaded chain text loader of ``loadMCSamples``
-(``fastloader.cpp``, :func:`load_chain_text`) and the exact f64 pair
-histograms of the host parity variant (``pairhist.cpp``,
-:func:`pair_histograms`). Each library is compiled with ``g++ -O3
+(``fastloader.cpp``, :func:`load_chain_text`), and in ``pairhist.cpp`` the
+exact f64 pair histograms of the host parity variant
+(:func:`pair_histograms`) and the column binning into int32 bin indices
+(:func:`bin_columns`). Each library is compiled with ``g++ -O3
 -std=c++17 -shared -fPIC -pthread`` on its first call into
 ``getdist_tpu_torch/_build``, keyed by a hash of the source and the
 flags, and nothing is built at import. A failed build, or a non-zero
@@ -23,7 +24,7 @@ import numpy as np
 
 from getdist_tpu_torch._compile import build_once
 
-__all__ = ["load_chain_text", "pair_histograms", "pair_histograms_plain"]
+__all__ = ["bin_columns", "load_chain_text", "pair_histograms", "pair_histograms_plain"]
 
 SOURCE = Path(__file__).resolve().parent / "pairhist.cpp"
 LOADER_SOURCE = Path(__file__).resolve().parent / "fastloader.cpp"
@@ -55,6 +56,11 @@ def library():
     lib.gdt_pair_hists.argtypes = [
         ctypes.POINTER(ctypes.c_int32), ctypes.c_int64, ctypes.c_int64, _F64P, _I64P, _I64P, ctypes.c_int64,
         ctypes.c_int64, _F64P, ctypes.c_int,
+    ]
+    lib.gdt_bin_columns.restype = ctypes.c_int
+    lib.gdt_bin_columns.argtypes = [
+        _F64P, ctypes.c_int64, ctypes.c_int64, _F64P, _F64P, ctypes.c_int64, ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int,
     ]
     return lib
 
@@ -123,6 +129,27 @@ def pair_histograms(ixs, weights, pairs, nbins):
     if rc != 0:
         raise RuntimeError(f"gdt_pair_hists failed with rc {rc} (P={p}, N={n}, K={k}, nbins={nbins})")
     return out.reshape(k, nbins, nbins)
+
+
+def bin_columns(samples, range_min, dx, nbins):
+    """(P, N) int32 bin indices of (N, P) f64 samples, the columns fanned
+    out across threads: bit for bit ``((x - range_min) / dx).astype(int)``
+    clipped to [0, nbins), column by column. A failed build or a non-zero
+    return code raises."""
+    samples = np.ascontiguousarray(samples, np.float64)
+    n, p = samples.shape
+    range_min = np.ascontiguousarray(range_min, np.float64)
+    dx = np.ascontiguousarray(dx, np.float64)
+    if range_min.shape != (p,) or dx.shape != (p,):
+        raise ValueError(f"need one range_min and dx per column: {range_min.shape}, {dx.shape} for {p} columns")
+    out = np.empty((p, n), np.int32)
+    rc = library().gdt_bin_columns(
+        samples.ctypes.data_as(_F64P), n, p, range_min.ctypes.data_as(_F64P), dx.ctypes.data_as(_F64P), nbins,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), _n_threads(),
+    )
+    if rc != 0:
+        raise RuntimeError(f"gdt_bin_columns failed with rc {rc} (N={n}, P={p}, nbins={nbins})")
+    return out
 
 
 def pair_histograms_plain(ixs, weights, pairs, nbins):

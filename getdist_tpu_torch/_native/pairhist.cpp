@@ -1,4 +1,5 @@
-// Multi-threaded exact pair histograms for the host parity variant.
+// Multi-threaded exact pair histograms for the host parity variant, and
+// the column binning that gives their bin indices.
 //
 // The reference computes each pair's 2D histogram with np.bincount over
 // flattened indices (getdist mcsamples.py:1821-1827); at 435 pairs x 1M
@@ -56,6 +57,45 @@ int gdt_pair_hists(const int32_t* ixs, int64_t n, int64_t p, const double* w,
     for (int t = 0; t < n_threads; ++t) {
         int64_t lo = t * per;
         int64_t hi = lo + per < k ? lo + per : k;
+        if (lo >= hi) break;
+        threads.emplace_back(work, lo, hi);
+    }
+    for (auto& th : threads) th.join();
+    return 0;
+}
+
+// samples: (n, p) f64 row-major; range_min, dx: (p,); out: (p, n) int32
+// bin indices, bit for bit numpy's ((x - lo) / dx).astype(int) clipped to
+// [0, nbins): a true division (a product by the reciprocal is 1 ulp off at
+// some bin edges) truncated toward zero, then clamped. The columns are
+// fanned out across threads. Returns 0, or 1 for a bad shape.
+int gdt_bin_columns(const double* samples, int64_t n, int64_t p, const double* range_min,
+                    const double* dx, int64_t nbins, int32_t* out, int n_threads) {
+    if (n < 0 || p <= 0 || nbins <= 0) return 1;
+    if (n_threads < 1) n_threads = 1;
+
+    auto work = [&](int64_t c_lo, int64_t c_hi) {
+        for (int64_t c = c_lo; c < c_hi; ++c) {
+            const double lo = range_min[c];
+            const double d = dx[c];
+            int32_t* row = out + c * n;
+            for (int64_t i = 0; i < n; ++i) {
+                int64_t b = (int64_t)((samples[i * p + c] - lo) / d);
+                b = b < 0 ? 0 : (b >= nbins ? nbins - 1 : b);
+                row[i] = (int32_t)b;
+            }
+        }
+    };
+
+    if (n_threads == 1 || p == 1) {
+        work(0, p);
+        return 0;
+    }
+    std::vector<std::thread> threads;
+    int64_t per = (p + n_threads - 1) / n_threads;
+    for (int t = 0; t < n_threads; ++t) {
+        int64_t lo = t * per;
+        int64_t hi = lo + per < p ? lo + per : p;
         if (lo >= hi) break;
         threads.emplace_back(work, lo, hi);
     }

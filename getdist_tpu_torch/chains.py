@@ -60,6 +60,11 @@ def _use_device_ops():
     return os.environ.get("GETDIST_TPU_TORCH_DEVICE_OPS") == "1"
 
 
+def _upload(values, device):
+    """A copy of a host array (its dtype kept) on ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(values)).to(resolve_device(device), copy=True)
+
+
 def _host(x):
     """A tensor's values as a numpy array (a readback from the device)."""
     return x.detach().cpu().numpy()
@@ -226,7 +231,7 @@ class WeightedSamples:
 
     def _upload(self, values):
         """A copy of a host array (its dtype kept) on the samples' device."""
-        return torch.from_numpy(np.ascontiguousarray(values)).to(resolve_device(self.device), copy=True)
+        return _upload(values, self.device)
 
     def _dev(self):
         """(samples, weights, loglikes) on the samples' device, kept until

@@ -292,6 +292,44 @@ class KernelOptimizer2D:
         implied = (2 * np.pi * self.N * curvature) ** (-1.0 / 3)
         return (t - implied) / implied
 
+    # the reference API's functionals, one order at a time
+    def psi(self, s, at):
+        """Even functional psi_s at squared bandwidth ``at``."""
+        return self._modes.psi(s[0], s[1], at)
+
+    def psi_odd(self, s, at):
+        """Odd functional psi_s at squared bandwidth ``at`` (needs
+        ``do_correlation``)."""
+        return self._power.psi(s[0], s[1], at)
+
+    def func2d(self, s, t):
+        """Recursive plug-in estimate of the even functional psi_s: levels
+        <= 4 derive their own stage bandwidth from their two children (the
+        arithmetic of ``_even_table``, computed by need instead of by
+        level)."""
+        level = int(s[0] + s[1])
+        if level > 4:
+            return self.psi(s, t)
+        children = self.func2d((s[0] + 1, s[1]), t) + self.func2d((s[0], s[1] + 1), t)
+        const = (1 + 0.5 ** (level + 1)) / 3
+        t_s = (-2 * const * _PHI_EVEN[s[0]] * _PHI_EVEN[s[1]] / self.N / children) ** (1.0 / (2 + level))
+        return self.psi(s, t_s)
+
+    def func2d_odd(self, s, t):
+        """Recursive plug-in estimate of the odd functional psi_s (the
+        arithmetic of ``_odd_table``); p00 is :meth:`get_h`'s, else psi_00
+        at t*."""
+        level = int(s[0] + s[1])
+        if level > 8:
+            return self.psi_odd(s, t)
+        children = self.func2d_odd((s[0] + 2, s[1]), t) + self.func2d_odd((s[0], s[1] + 2), t)
+        const = 8 * (1 - 2.0 ** (-level - 1)) / 3.0
+        p00 = getattr(self, "p00", None)
+        if p00 is None:
+            p00 = self._modes.psi(0, 0, self.t_star)
+        t_s = (const * p00 * _PHI_ODD[s[0]] * _PHI_ODD[s[1]] / self.N**2 / children**2) ** (1.0 / (3 + level))
+        return self.psi_odd(s, t_s)
+
     def AMISE(self, cov, corr=None):
         """Asymptotic MISE for bandwidths (wx, wy[, rho]) using the stored
         psi-functional table; raises if the bias form is not positive."""

@@ -82,6 +82,7 @@ from getdist_tpu_torch.chains import (
     ParamError,
     WeightedSampleError,
     _host,
+    _upload,
     _use_device_ops,
     chainFiles,
     last_modified,
@@ -114,6 +115,8 @@ __all__ = [
     "getRootFileName",
     "loadMCSamples",
     "MCSamplesFromCobaya",
+    "convolve1D",
+    "convolve2D",
 ]
 
 default_getdist_settings = getdist_tpu_torch.default_getdist_settings
@@ -135,6 +138,25 @@ class SettingError(MCSamplesError):
 
 class BandwidthError(MCSamplesError):
     """KDE bandwidth determination failure."""
+
+
+def convolve1D(x, y, mode, cache=None, cache_args=None, largest_size=0, device="cuda"):
+    """1D FFT convolution of host arrays: numpy, or with
+    ``GETDIST_TPU_TORCH_DEVICE_OPS=1`` ``torch.fft`` in f64 on ``device``.
+    ``cache`` / ``cache_args`` are accepted and ignored, as in the JAX
+    package."""
+    if _use_device_ops():
+        x, y = (_upload(np.asarray(v, float), device) for v in (x, y))
+        return _host(_convolve.convolve1D(x, y, mode, largest_size=largest_size))
+    return _convolve.convolve1D_host(x, y, mode, largest_size=largest_size)
+
+
+def convolve2D(x, y, mode, largest_size=0, cache=None, cache_args=None, device="cuda"):
+    """2D FFT convolution of host arrays, routed as :func:`convolve1D`."""
+    if _use_device_ops():
+        x, y = (_upload(np.asarray(v, float), device) for v in (x, y))
+        return _host(_convolve.convolve2D(x, y, mode, largest_size=largest_size))
+    return _convolve.convolve2D_host(x, y, mode, largest_size=largest_size)
 
 
 def loadMCSamples(file_root, ini=None, jobItem=None, no_cache=False, settings=None, chain_exclude=None,
@@ -680,20 +702,14 @@ class MCSamples(Chains):
         return flat.reshape((ysize, xsize))
 
     def _convolve1D(self, x, y, mode, largest_size=0):
-        """1D FFT convolution of the host densities: numpy, or with
-        ``GETDIST_TPU_TORCH_DEVICE_OPS=1`` ``torch.fft`` on ``self.device``."""
-        if _use_device_ops():
-            return _host(_convolve.convolve1D(self._upload(np.asarray(x, float)), self._upload(np.asarray(y, float)),
-                                              mode, largest_size=largest_size))
-        return _convolve.convolve1D_host(x, y, mode, largest_size=largest_size)
+        """1D FFT convolution of the host densities: :func:`convolve1D` on
+        ``self.device``."""
+        return convolve1D(x, y, mode, largest_size=largest_size, device=self.device)
 
     def _convolve2D(self, x, y, mode, largest_size=0):
-        """2D FFT convolution of the host densities, routed as
-        :meth:`_convolve1D`."""
-        if _use_device_ops():
-            return _host(_convolve.convolve2D(self._upload(np.asarray(x, float)), self._upload(np.asarray(y, float)),
-                                              mode, largest_size=largest_size))
-        return _convolve.convolve2D_host(x, y, mode, largest_size=largest_size)
+        """2D FFT convolution of the host densities: :func:`convolve2D` on
+        ``self.device``."""
+        return convolve2D(x, y, mode, largest_size=largest_size, device=self.device)
 
     # -- 1D densities ----------------------------------------------------------------------
 

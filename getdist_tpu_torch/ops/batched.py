@@ -44,6 +44,7 @@ __all__ = [
     "all_1d_densities",
     "all_2d_densities",
     "triangle_densities",
+    "fragile_signal",
 ]
 
 _ROOT_PI = math.sqrt(math.pi)
@@ -513,9 +514,12 @@ def _amise_minimize(p, neff, wx0, wy0, rho0, free_rho, iters=60):
     return wx, wy, rho, val, ok
 
 
-def _kernel_bandwidth_2d(hist, neff, sample_corr, do_correlation, fallback_t, power_override=None, use_override=None):
+def _kernel_bandwidth_2d(
+    hist, neff, sample_corr, do_correlation, fallback_t, power_override=None, use_override=None, signal=False,
+):
     """(wx, wy, rho, ok, fragile) per pair: the full 2D bandwidth-matrix
-    optimization, batched over the (K, F, F) histograms.
+    optimization, batched over the (K, F, F) histograms (with ``signal``,
+    :func:`fragile_signal`'s stack instead).
 
     t* by bisection on the 2D fixed point (``fallback_t`` replacing a failed
     or badly overshooting one), closed-form diagonal widths, then, where
@@ -607,10 +611,25 @@ def _kernel_bandwidth_2d(hist, neff, sample_corr, do_correlation, fallback_t, po
     edge_band = (val2 > best * 0.88) & (val2 < best * 0.92)
     good2 = ok2 & (val2 > 0) & (val2 <= best * 0.98) & ~edge_band
     fragile = do_correlation & clamp_bind & ~good2
+    if signal:
+        return torch.stack([rho, rho2, val2 / best] + [f.to(rho.dtype) for f in (clamp_bind, ok2, take2)], dim=1)
     wxc = torch.where(take2, wx2, wxc)
     wyc = torch.where(take2, wy2, wyc)
     rho = torch.where(take2, rho2, rho)
     return wxc, wyc, rho, ok, fragile
+
+
+def fragile_signal(hist, neff, sample_corr, do_correlation, fallback_t, power_override=None, use_override=None):
+    """(K, 6) diagnostics of the 2D optimizer's correlation searches on the
+    inputs of one optimizer call, the JAX package's
+    ``GETDIST_TPU_FRAGILE_SIGNAL=debug`` stack: rho after the search at the
+    sample correlation, the free search's rho2, its value over the
+    incumbent's, and as 0 / 1 whether the Cauchy-Schwarz clamp binds, the
+    free search converged and its result is taken. No path of the port
+    calls it; the optimizer's outputs do not depend on it."""
+    return _kernel_bandwidth_2d(
+        hist, neff, sample_corr, do_correlation, fallback_t, power_override, use_override, signal=True
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -20,7 +20,8 @@ package's:
   default: one grid of a few thousand bins, or one pair's grid of a few
   hundred squared.
 
-The fused program's batched 2D convolutions run through the CUDA DFT
+The dispatchers take ``cache`` / ``cache_args`` and ignore them, as the
+JAX package's do. The fused program's batched 2D convolutions run through the CUDA DFT
 kernels of :mod:`getdist_tpu_torch.ops.dft_conv` instead.
 """
 
@@ -153,7 +154,7 @@ def convolve2D_periodic(x, y, periodic_x=True, periodic_y=True):
     return res
 
 
-def convolve1D(x, y, mode, largest_size=0):
+def convolve1D(x, y, mode, largest_size=0, cache=None, cache_args=None):
     """1D convolution of tensors: circular for ``mode="periodic"``, else
     :func:`convolveFFT` in ``mode``."""
     if mode == "periodic":
@@ -161,7 +162,7 @@ def convolve1D(x, y, mode, largest_size=0):
     return convolveFFT(x, y, mode, largest_size=largest_size)
 
 
-def convolve2D(x, y, mode, largest_size=0):
+def convolve2D(x, y, mode, largest_size=0, cache=None, cache_args=None):
     """2D convolution of tensors: circular along the axes ``mode`` names
     periodic ("periodic" / "periodic_both", "periodic_x", "periodic_y"),
     else :func:`convolveFFTn` in ``mode``."""
@@ -257,7 +258,7 @@ def convolveGaussianTrunc(x, sigma, sigma_range=4.0, mode="same"):
 # -- host (numpy) twins ---------------------------------------------------------
 
 
-def convolve1D_host(x, y, mode, largest_size=0):
+def convolve1D_host(x, y, mode, largest_size=0, cache=None, cache_args=None):
     """1D convolution: circular for ``mode="periodic"``, else
     :func:`convolveFFT_host` in ``mode``."""
     if mode == "periodic":
@@ -334,7 +335,7 @@ def convolve2D_periodic_host(x, y, periodic_x=True, periodic_y=True):
     return res
 
 
-def convolve2D_host(x, y, mode, largest_size=0):
+def convolve2D_host(x, y, mode, largest_size=0, cache=None, cache_args=None):
     """2D convolution: circular along the axes ``mode`` names periodic
     ("periodic" / "periodic_both", "periodic_x", "periodic_y"), else
     :func:`convolveFFTn_host` in ``mode``."""

@@ -118,6 +118,14 @@ class ParamInfo:
             self.comment = comment.strip()
         return self
 
+    def setFromStringWithComment(self, items):
+        """Set from a ``(line, comment)`` pair; a ``"NULL"`` comment leaves
+        the comment as the line set it."""
+        line, comment = items[0], items[1]
+        self.setFromString(line)
+        if comment != "NULL":
+            self.comment = comment
+
     # -- identity --------------------------------------------------------------
 
     def setName(self, name):
@@ -378,3 +386,25 @@ class ParamNames(ParamList):
             self.names = [*entries(cobaya.is_sampled_param, False), *entries(cobaya.is_derived_param, True)]
         else:
             raise ValueError(f"ParamNames must load from .paramnames or .yaml/.yml, got {fileName}")
+
+    def loadFromKeyWords(self, keywordProvider):
+        """Append the names a keyword provider holds (``num_params_used``,
+        ``num_derived_params``, ``param_<i>`` with comments); returns their
+        count. ``!`` in a label reads back as ``\\``."""
+        n_used = keywordProvider.keyWord_int("num_params_used")
+        n_derived = keywordProvider.keyWord_int("num_derived_params")
+        total = n_used + n_derived
+        for i in range(1, total + 1):
+            entry = ParamInfo()
+            entry.setFromStringWithComment(keywordProvider.keyWordAndComment(f"param_{i}"))
+            self.names.append(entry)
+        return total
+
+    def saveKeyWords(self, keywordProvider):
+        """Write the names as keywords, the inverse of :meth:`loadFromKeyWords`
+        (``\\`` written as ``!``)."""
+        derived_count = self.numDerived()
+        keywordProvider.setKeyWord_int("num_params_used", len(self.names) - derived_count)
+        keywordProvider.setKeyWord_int("num_derived_params", derived_count)
+        for i, info in enumerate(self.names, start=1):
+            keywordProvider.setKeyWord(f"param_{i}", info.string(False).replace("\\", "!"), info.comment)
