@@ -76,7 +76,7 @@ import getdist_tpu_torch
 from getdist_tpu_torch import _native
 from getdist_tpu_torch import chains, cobaya_interface, covmat
 from getdist_tpu_torch import kde_bandwidth as kde
-from getdist_tpu_torch import types
+from getdist_tpu_torch import tracing, types
 from getdist_tpu_torch.chains import (
     Chains,
     ParamError,
@@ -346,39 +346,40 @@ class MCSamples(Chains):
         :param kwargs: paramNamesFile/names/labels/renames/ignore_rows/
             label/name_tag/sampler passed to the inherited classes
         """
-        self.device = resolve_device(device)
-        super().__init__(root, jobItem=jobItem, device=self.device, **kwargs)
-        self.version = pickle_version
-        self.markers, self.ini = {}, ini
-        self.batch_path = self.jobItem.batchPath if self.jobItem else ""
-        self._readRanges()
-        if ranges is not None:
-            self.setRanges(ranges)
-        for key, value in _BASE_ANALYSIS_SETTINGS.items():
-            setattr(self, key, value)
-        self.contours = np.array([0.68, 0.95])
-        self.likeStats, self.no_warning_params, self.density1D = None, [], {}
-        self.parity_profile, self.parity_buckets = {}, []
-        self.fast_profile, self.fast_regrid_groups = {}, []
-        self.plot_output = getdist_tpu_torch.default_plot_output
-        self.subplot_size_inch2 = self.subplot_size_inch
-        self.rootname = os.path.basename(root) if root else ""
-        if "ignore_rows" in kwargs:
-            settings = dict(settings or {})
-            settings["ignore_rows"] = kwargs["ignore_rows"]
-        self.ignore_rows = float(kwargs.get("ignore_rows") or 0)
-        if not np.isclose(self.ignore_rows, 0) and self.sampler == "nested":
-            raise ValueError("nested-sampler samples have no burn-in phase to remove")
-        self.updateSettings(ini=ini, settings=settings)
-        sidecar = root + ".properties.ini" if root else None
-        if sidecar and os.path.exists(sidecar):
-            self._adopt_properties_ini(root, kwargs)
-        else:
-            self._adopt_cobaya_properties(root, kwargs, temperature)
-        if self.ignore_frac or self.ignore_rows:
-            self.properties.params["burn_removed"] = True
-        if samples is not None:
-            self.readChains(samples, weights, loglikes)
+        with tracing.span("mc:init"):
+            self.device = resolve_device(device)
+            super().__init__(root, jobItem=jobItem, device=self.device, **kwargs)
+            self.version = pickle_version
+            self.markers, self.ini = {}, ini
+            self.batch_path = self.jobItem.batchPath if self.jobItem else ""
+            self._readRanges()
+            if ranges is not None:
+                self.setRanges(ranges)
+            for key, value in _BASE_ANALYSIS_SETTINGS.items():
+                setattr(self, key, value)
+            self.contours = np.array([0.68, 0.95])
+            self.likeStats, self.no_warning_params, self.density1D = None, [], {}
+            self.parity_profile, self.parity_buckets = {}, []
+            self.fast_profile, self.fast_regrid_groups = {}, []
+            self.plot_output = getdist_tpu_torch.default_plot_output
+            self.subplot_size_inch2 = self.subplot_size_inch
+            self.rootname = os.path.basename(root) if root else ""
+            if "ignore_rows" in kwargs:
+                settings = dict(settings or {})
+                settings["ignore_rows"] = kwargs["ignore_rows"]
+            self.ignore_rows = float(kwargs.get("ignore_rows") or 0)
+            if not np.isclose(self.ignore_rows, 0) and self.sampler == "nested":
+                raise ValueError("nested-sampler samples have no burn-in phase to remove")
+            self.updateSettings(ini=ini, settings=settings)
+            sidecar = root + ".properties.ini" if root else None
+            if sidecar and os.path.exists(sidecar):
+                self._adopt_properties_ini(root, kwargs)
+            else:
+                self._adopt_cobaya_properties(root, kwargs, temperature)
+            if self.ignore_frac or self.ignore_rows:
+                self.properties.params["burn_removed"] = True
+            if samples is not None:
+                self.readChains(samples, weights, loglikes)
 
     def _mark_burn_removed(self):
         self.ignore_frac = 0.0
@@ -435,19 +436,20 @@ class MCSamples(Chains):
     def readChains(self, files_or_samples, weights=None, loglikes=None):
         """Load samples (chain files or arrays), remove burn-in, delete
         fixed parameters, and combine into a single samples array."""
-        self.loadChains(self.root, files_or_samples, weights=weights, loglikes=loglikes)
-        grid_item = self.jobItem
-        grid_handled = grid_item is not None and hasattr(grid_item, "isImportanceJob") and (
-            grid_item.isImportanceJob or grid_item.isBurnRemoved()
-        )
-        if self.ignore_frac and not grid_handled:
-            self.removeBurnFraction(self.ignore_frac)
-            chains.print_load_line(f"Removed {self.ignore_frac} as burn in")
-        elif not int(self.ignore_rows):
-            chains.print_load_line("Removed no burn in")
-        self.deleteFixedParams()
-        if self.chains is not None:
-            self.makeSingle()
+        with tracing.span("mc:chains"):
+            self.loadChains(self.root, files_or_samples, weights=weights, loglikes=loglikes)
+            grid_item = self.jobItem
+            grid_handled = grid_item is not None and hasattr(grid_item, "isImportanceJob") and (
+                grid_item.isImportanceJob or grid_item.isBurnRemoved()
+            )
+            if self.ignore_frac and not grid_handled:
+                self.removeBurnFraction(self.ignore_frac)
+                chains.print_load_line(f"Removed {self.ignore_frac} as burn in")
+            elif not int(self.ignore_rows):
+                chains.print_load_line("Removed no burn in")
+            self.deleteFixedParams()
+            if self.chains is not None:
+                self.makeSingle()
         self.updateBaseStatistics()
         return self
 
@@ -546,8 +548,10 @@ class MCSamples(Chains):
         # the variances off its diagonal instead of a second O(N x p) pass
         self.means = None
         self.fullcov = None
-        self._setCov()
-        super().updateBaseStatistics()
+        with tracing.span("mc:cov"):
+            self._setCov()
+        with tracing.span("mc:base_stats"):
+            super().updateBaseStatistics()
         weight_ceiling = (self.mean_mult * self.numrows) / min(self.numrows // 2, 500)
         n_outliers = np.sum(self.weights > weight_ceiling)
         if n_outliers:
@@ -557,10 +561,12 @@ class MCSamples(Chains):
         self.density1D = dict()
         self._fused_cache = None
         self._param_range_cache = {}
-        self._initLimits(self.ini)
+        with tracing.span("mc:limits"):
+            self._initLimits(self.ini)
         for par in self.paramNames.names:
             par.N_eff_kde = None
-        self._setLikeStats()
+        with tracing.span("mc:like_stats"):
+            self._setLikeStats()
         return self
 
     def _setLikeStats(self):
@@ -2565,10 +2571,10 @@ class MCSamples(Chains):
           rescue (:meth:`_fast_rescue_clamped_pairs`).
 
         Stage times of the last call (host clock, seconds, in order; the
-        card is not synchronized for them) are kept in ``self.fast_profile``,
-        and each stage is a ``torch.profiler.record_function`` range named
-        ``fast:<stage>``. Its reruns are listed in
-        ``self.fast_regrid_groups``: one dict per rerun with its ``fine``
+        card is not synchronized for them) are kept in ``self.fast_profile``;
+        the call is the span ``fast:triangle`` and each stage a span
+        ``fast:<stage>`` inside it (:mod:`getdist_tpu_torch.tracing`).
+        Its reruns are listed in ``self.fast_regrid_groups``: one dict per rerun with its ``fine``
         grid, ``winw``, ``pairs`` (position tuples) and ``bandwidths`` ("program": the
         in-program optimizer at a corr-adaptive grid; "assist": host f64
         sheared; "fragile": host ``getAutoBandwidth2D``; "clamped": the
@@ -2596,28 +2602,29 @@ class MCSamples(Chains):
 
         profile = {}
         clock = [time.perf_counter()]
-        span = [None]
+        running = [None]
 
         def stage(label):
             """Close the running stage (if any) and open ``label`` (None: end)."""
             now = time.perf_counter()
-            if span[0] is not None:
-                profile[span[0][0]] = now - clock[0]
-                span[0][1].__exit__(None, None, None)
+            if running[0] is not None:
+                profile[running[0][0]] = now - clock[0]
+                running[0][1].__exit__(None, None, None)
             clock[0] = now
-            span[0] = None
+            running[0] = None
             if label is not None:
-                rf = torch.profiler.record_function(f"fast:{label}")
-                rf.__enter__()
-                span[0] = (label, rf)
+                sp = tracing.span("fast:" + label)
+                sp.__enter__()
+                running[0] = (label, sp)
 
         self.fast_regrid_groups = []
-        stage("chain_state")
-        try:
-            out = self._fast_triangle(idx, contours, meanlikes, stage, mesh)
-        finally:
-            stage(None)
-            self.fast_profile = profile
+        with tracing.span("fast:triangle"):
+            stage("chain_state")
+            try:
+                out = self._fast_triangle(idx, contours, meanlikes, stage, mesh)
+            finally:
+                stage(None)
+                self.fast_profile = profile
         return out
 
     def _fast_triangle(self, idx, contours, meanlikes, stage, mesh=None):

@@ -29,14 +29,12 @@ import math
 import numpy as np
 import torch
 
+from getdist_tpu_torch import tracing
 from getdist_tpu_torch.ops import collectives as coll
 from getdist_tpu_torch.ops._cuda import full_fp32_matmuls, resolve_device
 from getdist_tpu_torch.ops.dft_conv import dft_conv2d, dft_conv_spectrum, frame_for
 from getdist_tpu_torch.ops.fft import dct
 from getdist_tpu_torch.ops.pair_hist import fixed_to_f32, group_scale, narrow_rows, narrow_weights, pair_histograms
-
-# profiler ranges of the stages ("1d:...", "2d:..."); microseconds each while no profiler runs
-_stage = torch.profiler.record_function
 
 __all__ = [
     "prepare_chain",
@@ -194,7 +192,7 @@ def _lag_grid(n, max_lag=None, num=40):
     return tuple(int(k) for k in ks)
 
 
-@_stage("1d:neff")
+@tracing.span("1d:neff")
 def _neff_kde_batch(values, weights, sigmas, lags, group=None, n_samples=None):
     """Gaussian-KDE effective sample numbers for all parameters: corr_k
     pair sums on the lag grid with an uncorrelated far-lag baseline,
@@ -323,7 +321,7 @@ def _isj_log_gamma(h2_pi2, big_i, log_i, log_a2, neff):
     return lf
 
 
-@_stage("1d:isj_bandwidth")
+@tracing.span("1d:isj_bandwidth")
 def _isj_bandwidth_1d(bins, neff):
     """ISJ bandwidths (fractions of the bin range) of (R, nb) histograms by
     bisection on f(h) = h - (2 N sqrt(pi) gamma(h))^{-1/5}, bracketed by a
@@ -341,16 +339,18 @@ def _isj_bandwidth_1d(bins, neff):
         return h - torch.exp(-0.2 * (log_norm + lf))
 
     n_scale = neff ** (-1.0 / 5)
-    lo0 = 0.019 * n_scale
-    hi0 = 0.6
-    seeds = lo0[:, None] * (hi0 / lo0[:, None]) ** torch.linspace(0.0, 1.0, 16, dtype=dtype, device=device)[None, :]
-    rs = residual(seeds)
-    cross = (rs[:, :-1] < 0) & (rs[:, 1:] >= 0)
-    ok = torch.any(cross, dim=1)
-    first = torch.argmax(cross.to(torch.int32), dim=1, keepdim=True)
-    lo = seeds.gather(1, first)[:, 0]
-    hi = seeds.gather(1, first + 1)[:, 0]
-    lo, hi = _bisect(lambda h: residual(h[:, None])[:, 0], lo, hi, 1e-7 * n_scale)
+    with tracing.span("1d:isj_seeds"):
+        lo0 = 0.019 * n_scale
+        hi0 = 0.6
+        seeds = lo0[:, None] * (hi0 / lo0[:, None]) ** torch.linspace(0.0, 1.0, 16, dtype=dtype, device=device)[None, :]
+        rs = residual(seeds)
+        cross = (rs[:, :-1] < 0) & (rs[:, 1:] >= 0)
+        ok = torch.any(cross, dim=1)
+        first = torch.argmax(cross.to(torch.int32), dim=1, keepdim=True)
+        lo = seeds.gather(1, first)[:, 0]
+        hi = seeds.gather(1, first + 1)[:, 0]
+    with tracing.span("1d:isj_bisect"):
+        lo, hi = _bisect(lambda h: residual(h[:, None])[:, 0], lo, hi, 1e-7 * n_scale)
     return 0.5 * (lo + hi), ok
 
 
@@ -557,30 +557,32 @@ def _kernel_bandwidth_2d(
         implied = (2 * np.pi * neff * curvature) ** (-1.0 / 3)
         return (t - implied) / implied
 
-    lo = torch.full((k,), 1e-8, dtype=dtype, device=device)
-    hi = torch.full((k,), 0.1, dtype=dtype, device=device)
-    ok = (fixed_point(lo) < 0) & (fixed_point(hi) > 0)
-    lo, hi = _bisect(fixed_point, lo, hi, 1e-6)
-    t_star = 0.5 * (lo + hi)
-    # replace a failed bracket or a badly overshooting fixed point with the
-    # plug-in width
-    overshoot = (t_star > 0.01) & (t_star > 2 * fallback_t)
-    t_star = torch.where(ok & ~overshoot, t_star, fallback_t)
+    with tracing.span("2d:tstar"):
+        lo = torch.full((k,), 1e-8, dtype=dtype, device=device)
+        hi = torch.full((k,), 0.1, dtype=dtype, device=device)
+        ok = (fixed_point(lo) < 0) & (fixed_point(hi) > 0)
+        lo, hi = _bisect(fixed_point, lo, hi, 1e-6)
+        t_star = 0.5 * (lo + hi)
+        # replace a failed bracket or a badly overshooting fixed point with the
+        # plug-in width
+        overshoot = (t_star > 0.01) & (t_star > 2 * fallback_t)
+        t_star = torch.where(ok & ~overshoot, t_star, fallback_t)
 
-    table = _even_table_2d(psi_even_multi, neff, t_star)
-    pyy, pxx, pxy = table[(0, 2)], table[(2, 0)], table[(1, 1)]
-    cross = pxy + torch.sqrt(pxx * pyy)
-    denom = 4 * np.pi * neff * cross
-    wx = (pyy ** (3.0 / 4) / (denom * pxx ** (3.0 / 4))) ** (1.0 / 6)
-    wy = (pxx ** (3.0 / 4) / (denom * pyy ** (3.0 / 4))) ** (1.0 / 6)
-    ok = torch.isfinite(wx) & torch.isfinite(wy) & (wx > 0) & (wy > 0)
-    wx = torch.where(ok, wx, 0.05)
-    wy = torch.where(ok, wy, 0.05)
+    with tracing.span("2d:psi"):
+        table = _even_table_2d(psi_even_multi, neff, t_star)
+        pyy, pxx, pxy = table[(0, 2)], table[(2, 0)], table[(1, 1)]
+        cross = pxy + torch.sqrt(pxx * pyy)
+        denom = 4 * np.pi * neff * cross
+        wx = (pyy ** (3.0 / 4) / (denom * pxx ** (3.0 / 4))) ** (1.0 / 6)
+        wy = (pxx ** (3.0 / 4) / (denom * pyy ** (3.0 / 4))) ** (1.0 / 6)
+        ok = torch.isfinite(wx) & torch.isfinite(wy) & (wx > 0) & (wy > 0)
+        wx = torch.where(ok, wx, 0.05)
+        wy = torch.where(ok, wy, 0.05)
 
-    # odd functionals from the (possibly sheared) FFT power, clamped to the
-    # Cauchy-Schwarz bound |psi_31| <= sqrt(psi_40 psi_22); a binding clamp
-    # means the correlation search below runs blind in f32
-    odd = _odd_table_2d(power, freqs, neff, table[(0, 0)], t_star)
+        # odd functionals from the (possibly sheared) FFT power, clamped to the
+        # Cauchy-Schwarz bound |psi_31| <= sqrt(psi_40 psi_22); a binding clamp
+        # means the correlation search below runs blind in f32
+        odd = _odd_table_2d(power, freqs, neff, table[(0, 0)], t_star)
     bound_31 = torch.sqrt(pxx * pxy)
     bound_13 = torch.sqrt(pyy * pxy)
     clamp_bind = (torch.abs(odd[(3, 1)]) > bound_31) | (torch.abs(odd[(1, 3)]) > bound_13)
@@ -597,14 +599,16 @@ def _kernel_bandwidth_2d(
     # search 1: kernel correlation fixed at the sample correlation
     has_corr = torch.abs(sample_corr) > 1e-12
     shrink = torch.sqrt(1 - torch.abs(sample_corr))
-    wx1, wy1, rho1, val1, ok1 = _amise_minimize(p, neff, wx / shrink, wy / shrink, sample_corr, False)
+    with tracing.span("2d:amise_fixed"):
+        wx1, wy1, rho1, val1, ok1 = _amise_minimize(p, neff, wx / shrink, wy / shrink, sample_corr, False)
     take1 = do_correlation & has_corr & ok1 & (val1 < best)
     wxc = torch.where(take1, wx1, wx)
     wyc = torch.where(take1, wy1, wy)
     rho = torch.where(take1, rho1, rho)
     best = torch.where(take1, val1, best)
     # search 2: free correlation, accepted only on a clear (10%) win
-    wx2, wy2, rho2, val2, ok2 = _amise_minimize(p, neff, wxc, wyc, sample_corr, True)
+    with tracing.span("2d:amise_free"):
+        wx2, wy2, rho2, val2, ok2 = _amise_minimize(p, neff, wxc, wyc, sample_corr, True)
     take2 = do_correlation & ok2 & (val2 < best * 0.9)
     # FRAGILE: the search ran blind (clamp bound) and the free search failed,
     # made no progress, or sat in the band around the 10%-win threshold
@@ -731,7 +735,7 @@ def _gauss_kernel_2d(rx, ry, corr, winw, support=None):
     return win / torch.sum(win, dim=(1, 2), keepdim=True)
 
 
-@_stage("2d:contours")
+@tracing.span("2d:contours")
 def _contour_levels_batch(grids, contours, iters=40):
     """Water-level contour levels by bisection: t per (grid, contour) with
     sum(P[P > t]) = contour * total, edges half-weighted. Returns (K, C)."""
@@ -778,7 +782,7 @@ def _fine_indices(cols, lo, width, nbins):
     return torch.clamp((((cols - lo[:, None]) / width[:, None]) + 0.5).to(torch.int32), 0, nbins - 1)
 
 
-@_stage("1d:all")
+@tracing.span("1d:all")
 @full_fp32_matmuls()
 def all_1d_densities(
     samples,
@@ -1201,7 +1205,7 @@ def all_2d_densities(
     hists = None if hists_in is None else _tensor(hists_in, device, dtype)
     like_hists = None
     if hists is None or like_weights is not None:
-        with _stage("2d:histograms"):
+        with tracing.span("2d:histograms"):
             # uint8 rows up to 256 bins (K1's uint8 kernel), int16 past that
             # (its wide kernels)
             ix_all = narrow_rows(_fine_indices(cols, binmin, fine_width, fine_bins), fine_bins)
@@ -1405,7 +1409,7 @@ def all_2d_densities(
     return out
 
 
-@_stage("2d:bandwidths")
+@tracing.span("2d:bandwidths")
 def _optimized_bandwidths(
     cols, weights, pa, pb, hists, pair_neff, binmin, binmax, fine_width, fine_bins, sigma_range, max_corr,
     enable_shear, mult_bias_order, group=None, lim=None,
@@ -1447,9 +1451,10 @@ def _optimized_bandwidths(
         # convolution runs on the original grid
         xc = binmin[:, None] + fine_width[:, None] * torch.arange(fine_bins, dtype=dtype, device=device)[None, :]
         swap = lim_b
-        r0, r1, s_mats = _shear_plan_2d(cov[pa, pa], cov[pa, pb], cov[pb, pb], swap)
-        sub = torch.arange(k_all, device=device) if subset is None else torch.tensor(subset, device=device)
-        sh_p, sh_r1, sh_r2 = _sheared_power(hists[sub], xc[pa[sub]], xc[pb[sub]], r0[sub], r1[sub], swap[sub])
+        with tracing.span("2d:shear"):
+            r0, r1, s_mats = _shear_plan_2d(cov[pa, pa], cov[pa, pb], cov[pb, pb], swap)
+            sub = torch.arange(k_all, device=device) if subset is None else torch.tensor(subset, device=device)
+            sh_p, sh_r1, sh_r2 = _sheared_power(hists[sub], xc[pa[sub]], xc[pb[sub]], r0[sub], r1[sub], swap[sub])
         sh_power = torch.zeros_like(hists)
         sh_power[sub] = sh_p
         sh_range1 = range_a.clone()

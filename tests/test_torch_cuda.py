@@ -1389,3 +1389,27 @@ def test_gui_session_on_the_card(cuda, monkeypatch, tmp_path):
         want = api.get2DDensityGridData(a, b, num_plot_contours=2)
         assert np.array_equal(got.P, want.P) and np.array_equal(got.contours, want.contours)
     assert "device='cuda'" in session.script_for(app_logic.PlotSpec(plot_type="triangle", x_params=["x", "y"]))
+
+
+def test_span_holds_its_kernels_device_interval(cuda):
+    """The recorder's stamps and a CUDA trace's device events share a clock:
+    a kernel launched and synchronized inside a span ran inside its
+    recorded interval."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from getdist_tpu_torch import tracing
+
+    x = torch.randn(4096, 4096, device=cuda)
+    (x @ x).sum().item()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, tracing.recording() as spans:
+        with tracing.span("2d:probe"):
+            y = x @ x
+            torch.cuda.synchronize()
+    (span,) = [s for s in spans if s.name == "2d:probe"]
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA
+               and not e.name().startswith(("2d:", "Activity Buffer"))]
+    assert kernels and y.shape == x.shape
+    for e in kernels:
+        assert span.t0_ns <= e.start_ns() <= e.end_ns() <= span.t1_ns, (e.name(), e.start_ns() - span.t0_ns,
+                                                                         span.t1_ns - e.end_ns())
